@@ -1,0 +1,84 @@
+"""CLI with the same contract as the reference binary (Main.c:29-62) and as the
+JAX package's CLI (``cgx_tpu/cli.py``):
+
+    python -m cgx_tpu_torch.cli [-l minmatchlen] [-t fingerlen] [-s timefile] \
+        [--no-sample] [--device cuda|cpu] \
+        <source_corpus> <query_file> <target_corpus> <alignment_file> \
+        <lex_file> <out_dir>
+
+Writes one grammar file per query sentence: ``out_dir/grammar.<i>.{s,n}``
+(PrintResults.c:437-441).  The grammars hold the four block-derived rule
+families (ab, Xab, abX, XabX); the gappy families are not ported yet.
+``--device cuda`` (the default) runs the hand-written kernels and fails when
+no CUDA device is present; ``--device cpu`` runs their plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+from cgx_tpu_torch.config import DEFAULT_CONFIG
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="cgx_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("-l", dest="minmatchlen", type=int, default=1)
+    p.add_argument("-t", dest="fingerlen", type=int, default=10)
+    p.add_argument("-s", dest="timefile", default=None)
+    p.add_argument("--no-sample", action="store_true",
+                   help="disable occurrence sampling (grammar.<i>.n outputs)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="device of the index and the kernels (default cuda)")
+    p.add_argument("reffile")
+    p.add_argument("qryfile")
+    p.add_argument("reftargetfile")
+    p.add_argument("alignfile")
+    p.add_argument("lexfile")
+    p.add_argument("dest_dir")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if not (1 <= args.fingerlen <= 10):
+        print("finger length must be between 1 and 10", file=sys.stderr)
+        return 1
+    if args.minmatchlen != 1:
+        # In the reference -l only sizes preallocated buffers (ComTypes.h:39-40);
+        # it never changes which rules are extracted.
+        print(f"warning: -l {args.minmatchlen} accepted for CLI parity but has "
+              "no effect on output (buffer-sizing-only flag in the reference)",
+              file=sys.stderr)
+    for name in ("reffile", "qryfile", "reftargetfile", "alignfile", "lexfile"):
+        path = getattr(args, name)
+        if not os.path.exists(path):
+            print(f'Can not open {name} "{path}"', file=sys.stderr)
+            return 1
+    import torch
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(use --device cpu for the plain PyTorch path)")
+    cfg = dataclasses.replace(
+        DEFAULT_CONFIG, minmatchlen=args.minmatchlen, fingerlen=args.fingerlen,
+        is_sample=not args.no_sample)
+    t0 = time.perf_counter()
+    from cgx_tpu_torch.pipeline import run_pipeline_files
+    res = run_pipeline_files(args.reffile, args.qryfile, args.reftargetfile,
+                             args.alignfile, args.lexfile, args.dest_dir, cfg,
+                             device=args.device)
+    wall = time.perf_counter() - t0
+    print(f"total: {wall:.3f}s", file=sys.stderr)
+    if args.timefile:
+        # recordTime analog (Start.cu:392-469): one appended line per run
+        with open(args.timefile, "a", encoding="utf-8") as fh:
+            fh.write(f"wall: {wall:.6f}s , {res.timing.report()}\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,296 @@
+"""Pass 1 / pass 2 suffix-array search by seeded interval refinement.
+
+Port of the default pass-1/2 engine of ``cgx_tpu/search/passes.py``
+(``build_seed_tables``, ``seed_intervals``, ``drive_refinement``,
+``refine_passes``).  For a query token, the SA interval of its length-(L+1)
+prefix is a sub-interval of its length-L interval, and within that interval
+the (L+1)-th suffix tokens are sorted, so each depth needs two integer
+lower-bound searches over ``refstr[sa[M] + L]``.  Depths 0-2 are answered on
+the host from seed tables; the device ladder (kernel A1, ``refine_chunk``)
+runs the deeper levels for the lanes still alive.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cgx_tpu_torch.kernels import build as kb
+from cgx_tpu_torch.types import Pass1Result, Pass2Result
+from cgx_tpu_torch.utils import batching
+from cgx_tpu_torch.utils.views import take
+
+QPAD = 8  # guarded out-of-range query reads return -2 (never matches anything)
+
+# refinement depths per kernel launch: most lanes' intervals empty within a
+# few depths, so the first launch stays shallow; survivors run 16 at a time
+DEPTH_CHUNK = 4
+DEPTH_CHUNK_DEEP = 16
+DEPTH_LADDER_SWITCH = 6   # switch to deep chunks once depth >= this
+
+# trigram seed packing budget: 3 x 21-bit token ids per int64 key.  Corpora
+# whose id space (incl. the sentinel) exceeds this skip the depth-3 table and
+# start the device ladder at depth 2.
+SEED3_MAX_TOKEN = 1 << 21
+
+
+def pad_query_tokens(tokens: np.ndarray) -> np.ndarray:
+    return batching.pad_tokens(
+        np.concatenate([tokens.astype(np.int32),
+                        np.full(QPAD, -2, dtype=np.int32)]), np.int32(-2))
+
+
+def pad_refstr(refstr: np.ndarray, qry_max: int) -> np.ndarray:
+    """Pad so ``refsa[M] + longlen`` reads stay in-bounds (longlen <= qry_max)."""
+    return np.concatenate([refstr.astype(np.int32),
+                           np.zeros(qry_max + 16, dtype=np.int32)])
+
+
+def build_seed_tables(refstr_padded: np.ndarray, sa_np: np.ndarray):
+    """Host seed tables answering refinement depths 0-2: refstr[sa] is
+    nondecreasing, so depth-1 intervals are bucket boundaries (exclusive
+    bincount cumsum); packed (first << 32 | second) keys are globally sorted,
+    so depth-2 intervals are one vectorized searchsorted; packed 21-bit
+    trigram keys extend the same argument to depth 3 (id space permitting)."""
+    first = refstr_padded[sa_np].astype(np.int64)      # nondecreasing
+    second = refstr_padded[sa_np + 1].astype(np.int64)
+    seed_pk = (first << 32) | second                   # globally sorted
+    counts1 = np.bincount(first, minlength=int(first[-1]) + 2)
+    seed_hi1 = np.cumsum(counts1, dtype=np.int64)
+    seed_lo1 = seed_hi1 - counts1
+    seed_pk3 = None
+    if int(first[-1]) < SEED3_MAX_TOKEN:   # first[-1] = the sentinel (max id)
+        third = refstr_padded[sa_np + 2].astype(np.int64)
+        seed_pk3 = (first << 42) | (second << 21) | third
+    return seed_lo1, seed_hi1, seed_pk, seed_pk3
+
+
+def seed_intervals(seed_lo1, seed_hi1, seed_pk, seed_pk3, reflen,
+                   v0, v1, v2, sls):
+    """Depth-0/1/2 refinement intervals from the host seed tables, bit-equal
+    to what the device refinement would compute at those depths (an exhausted
+    lane collapses to [prev_lo, prev_lo)).  The depth-3 pair is (None, None)
+    when the trigram table is absent."""
+    nv = len(seed_lo1) - 1
+    ok0 = (v0 >= 0) & (v0 < nv)
+    v0c = np.clip(v0, 0, nv - 1)
+    # depth 0: token bucket; v0 < 0 -> [0, 0); v0 >= nv -> [reflen, reflen)
+    lo1 = np.where(ok0, seed_lo1[v0c], np.where(v0 < 0, 0, reflen))
+    hi1 = np.where(ok0, seed_hi1[v0c], np.where(v0 < 0, 0, reflen))
+    # depth 1: packed-key searchsorted; collapses to [lo1, lo1) when the lane
+    # is past the query end (sl < 2), the bucket is empty, or v1 is OOV
+    key = (v0c.astype(np.int64) << 32) | np.clip(v1, 0, None).astype(np.int64)
+    ext = ok0 & (sls >= 2) & (hi1 > lo1) & (v1 >= 0)
+    lo2 = np.where(ext, np.searchsorted(seed_pk, key, side="left"), lo1)
+    hi2 = np.where(ext, np.searchsorted(seed_pk, key, side="right"), lo1)
+    if seed_pk3 is None:
+        lo3 = hi3 = None
+    else:
+        key3 = (v0c.astype(np.int64) << 42) \
+            | (np.clip(v1, 0, None).astype(np.int64) << 21) \
+            | np.clip(v2, 0, None).astype(np.int64)
+        ext3 = ext & (sls >= 3) & (hi2 > lo2) & (v2 >= 0)
+        lo3 = np.where(ext3, np.searchsorted(seed_pk3, key3, side="left"),
+                       lo2).astype(np.int32)
+        hi3 = np.where(ext3, np.searchsorted(seed_pk3, key3, side="right"),
+                       lo2).astype(np.int32)
+    return (lo1.astype(np.int32), hi1.astype(np.int32),
+            lo2.astype(np.int32), hi2.astype(np.int32), lo3, hi3)
+
+
+def refine_chunk_plain(sa, refstr, qtok, toks, sls, lo, hi, d0: int,
+                       depths: int):
+    """Plain PyTorch version of kernel A1, vectorized over lanes like the JAX
+    ``vmap``: each lower-bound search iterates until every lane converged,
+    updating only the lanes still searching."""
+    def lower_bound(l, h, key, depth):
+        while True:
+            act = h > l
+            if not bool(act.any()):
+                return l
+            M = (l + h) >> 1
+            t = take(refstr, take(sa, M) + depth)
+            ge = t >= key
+            l = torch.where(act & ~ge, M + 1, l)
+            h = torch.where(act & ge, M, h)
+
+    ups, downs = [], []
+    for c in range(depths):
+        depth = d0 + c
+        qt = torch.where(depth < sls, take(qtok, toks + depth),
+                         torch.full_like(toks, -1))
+        nlo = lower_bound(lo, hi, qt, depth)
+        nhi = lower_bound(nlo, hi, qt + 1, depth)
+        ups.append(nlo)
+        downs.append(nhi - 1)
+        lo, hi = nlo, nhi
+    return (torch.stack(ups, dim=1), torch.stack(downs, dim=1), lo, hi)
+
+
+def refine_chunk(sa, refstr, qtok, toks, sls, lo, hi, d0: int, depths: int):
+    """Kernel A1 (``csrc/refine.cu``): ``depths`` refinement levels starting
+    at depth ``d0`` for every lane (query token ``toks[i]`` with remaining
+    length ``sls[i]`` and SA interval ``[lo[i], hi[i])``).  Returns
+    (ups, downs) int32 [n, depths] and the final (lo, hi) int32 [n].
+
+    Replaces ``_refine_chunk_local`` (cgx_tpu/search/passes.py:371).  On
+    CUDA tensors it launches the kernel; on CPU tensors it runs
+    ``refine_chunk_plain``."""
+    device = toks.device
+    if not kb.route("A1", device):
+        return refine_chunk_plain(sa, refstr, qtok, toks, sls, lo, hi, d0,
+                                  depths)
+    kb.check_inputs("A1", device, torch.int32, sa=sa, refstr=refstr,
+                    qtok=qtok, toks=toks, sls=sls, lo=lo, hi=hi)
+    n = toks.shape[0]
+    if not (sls.shape[0] == lo.shape[0] == hi.shape[0] == n):
+        raise ValueError("A1: lane arrays differ in length")
+    ups = torch.empty((n, depths), dtype=torch.int32, device=device)
+    downs = torch.empty_like(ups)
+    lo_out = torch.empty(n, dtype=torch.int32, device=device)
+    hi_out = torch.empty_like(lo_out)
+    if n:
+        lib = kb.library("refine")
+        kb.check("refine", lib.cgx_refine(
+            kb.ptr(sa), sa.shape[0], kb.ptr(refstr), refstr.shape[0],
+            kb.ptr(qtok), qtok.shape[0], kb.ptr(toks), kb.ptr(sls),
+            kb.ptr(lo), kb.ptr(hi), n, d0, depths, kb.ptr(ups),
+            kb.ptr(downs), kb.ptr(lo_out), kb.ptr(hi_out), kb.stream(device)))
+        kb.LAUNCHES["A1"] += 1
+    return ups, downs, lo_out, hi_out
+
+
+def pass2_work_items(p1: Pass1Result):
+    """Pass-2 work list (the host scan at SuffixArray.cu:1464-1474): per
+    token with longestmatch > 1, one item per match length 2..longestmatch.
+    Returns (connectoffset, toks, matches)."""
+    lm = p1.longestmatch.astype(np.int64)
+    cnt = np.maximum(lm - 1, 0)
+    ends = np.cumsum(cnt)
+    starts = ends - cnt
+    connectoffset = np.where(cnt > 0, starts, -1).astype(np.int32)
+    total = int(ends[-1]) if len(cnt) else 0
+    toks = np.repeat(np.arange(len(cnt), dtype=np.int32),
+                     cnt).astype(np.int32)
+    matches = (np.arange(total, dtype=np.int64)
+               - np.repeat(starts, cnt) + 2).astype(np.int32)
+    return connectoffset, toks, matches
+
+
+def drive_refinement(queries, reflen, seed, dispatch, stats: dict = None):
+    """Pass-1/2 driver over a refinement dispatcher.
+
+    ``seed``: (seed_lo1, seed_hi1, seed_pk, seed_pk3) host tables.
+    ``dispatch(toks, sls, lo, hi, depth, dchunk)`` runs ``dchunk`` levels for
+    the given alive lanes (int32 numpy) and returns numpy
+    (ups, downs [n, dchunk], lo, hi [n]).  ``stats`` (optional dict) receives
+    ``interval_words`` and ``max_depth``.  Returns (Pass1Result, Pass2Result)
+    with the search-path internals ``firstfindhit*`` reported as -1."""
+    n = queries.totaltokens
+    ends = np.array([queries.query_end(int(q)) for q in queries.tok_to_qry],
+                    dtype=np.int32)
+    toks = np.arange(n, dtype=np.int32)
+    sls = ends - toks
+    qtok_host = np.asarray(queries.padded_tokens())
+
+    # depths 0-2 answered on host (seed tables), ladder starts at depth 3
+    # (depth 2 when the corpus id space exceeds the trigram packing budget)
+    has3 = seed[3] is not None
+    if n:
+        lo1, hi1, lo2, hi2, lo3, hi3 = seed_intervals(
+            *seed, reflen, qtok_host[toks], qtok_host[toks + 1],
+            qtok_host[toks + 2], sls)
+    else:
+        lo1 = hi1 = lo2 = hi2 = lo3 = hi3 = np.zeros(0, np.int32)
+    # sparse per-chunk records (d0_1indexed, idx-or-None, ups, downs): each
+    # chunk stores intervals only for its alive lanes, so host memory is
+    # O(total intervals computed), not O(n x reached_depth)
+    records = [(1, None, lo1.reshape(-1, 1), (hi1 - 1).reshape(-1, 1)),
+               (2, None, lo2.reshape(-1, 1), (hi2 - 1).reshape(-1, 1))]
+    if has3:
+        records.append((3, None, lo3.reshape(-1, 1),
+                        (hi3 - 1).reshape(-1, 1)))
+        lo, hi = lo3.copy(), hi3.copy()
+        depth = 3
+    else:
+        lo, hi = lo2.copy(), hi2.copy()
+        depth = 2
+    # lanes with sl <= seeded depth are fully answered by the seed tables
+    alive = (hi > lo) & (sls > depth)
+    max_depth = int(sls.max()) if n else 0
+    while alive.any() and depth < max_depth:
+        dchunk = DEPTH_CHUNK if depth < DEPTH_LADDER_SWITCH \
+            else DEPTH_CHUNK_DEEP
+        idx = np.flatnonzero(alive)
+        ups, downs, lo2c, hi2c = dispatch(toks[idx], sls[idx], lo[idx],
+                                          hi[idx], depth, dchunk)
+        records.append((depth + 1, idx, ups, downs))
+        lo[idx] = lo2c
+        hi[idx] = hi2c
+        alive[idx] = hi2c > lo2c
+        depth += dchunk
+
+    if stats is not None:
+        stats["interval_words"] = sum(u.size + d.size
+                                      for _, _, u, d in records)
+        stats["max_depth"] = depth
+
+    # longestmatch: deepest depth with a non-empty interval.  Intervals are
+    # nested, so ascending overwrite per record yields the deepest hit.
+    lm = np.zeros(n, np.int32)
+    for d0, idx, ups, downs in records:
+        for c in range(ups.shape[1]):
+            hit = (ups[:, c] >= 0) & (downs[:, c] >= ups[:, c])
+            if idx is None:
+                lm = np.where(hit, np.int32(d0 + c), lm)
+            else:
+                lm[idx[hit]] = d0 + c
+    neg = np.full(n, -1, np.int32)
+    hit1 = (lm >= 1)
+    up1 = np.where(hit1, records[0][2][:, 0], -1).astype(np.int32)
+    down1 = np.where(hit1, records[0][3][:, 0], -1).astype(np.int32)
+    p1 = Pass1Result(up=up1, down=down1, firstfindhit=neg.copy(),
+                     firstfindhitL=neg.copy(), firstfindhitR=neg.copy(),
+                     longestmatch=lm)
+
+    connectoffset, toks2, matches = pass2_work_items(p1)
+    if len(toks2) == 0:
+        p2 = Pass2Result(connectoffset=connectoffset,
+                         up=np.empty(0, np.int32),
+                         down=np.empty(0, np.int32))
+    else:
+        # match length m consumes 1-indexed depth m; every item's token was
+        # alive in the chunk covering that depth, so the searchsorted
+        # position always lands on the token's own row
+        up2 = np.empty(len(toks2), np.int32)
+        down2 = np.empty(len(toks2), np.int32)
+        for d0, idx, ups, downs in records:
+            sel = (matches >= d0) & (matches < d0 + ups.shape[1])
+            it = np.flatnonzero(sel)
+            if not len(it):
+                continue
+            t2 = toks2[it]
+            c = matches[it] - d0
+            rows = t2 if idx is None else np.searchsorted(idx, t2)
+            up2[it] = ups[rows, c]
+            down2[it] = downs[rows, c]
+        p2 = Pass2Result(connectoffset=connectoffset, up=up2, down=down2)
+    return p1, p2
+
+
+def refine_passes(index, queries, stats: dict = None):
+    """Pass 1 + pass 2 on a ``TorchGrammarIndex``: the alive lanes of each
+    ladder step go to the index's device, kernel A1 runs there, and the
+    intervals come back to the host driver."""
+    qtok = index.query_tokens(queries)
+    dev = index.device
+
+    def dispatch(toks, sls, lo, hi, depth, dchunk):
+        out = refine_chunk(
+            index.sa, index.refstr_padded, qtok,
+            *(torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+              for a in (toks, sls, lo, hi)), depth, dchunk)
+        return tuple(t.cpu().numpy() for t in out)
+
+    return drive_refinement(queries, index.reflen, index.seed_host, dispatch,
+                            stats=stats)

@@ -1,0 +1,292 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (cgx_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one line each on stdout:
+
+1. card   -- the card's name and power limit (nvidia-smi) and torch's name;
+2. build  -- nvcc builds every kernel of the main path from csrc/;
+3. e2e    -- ``cgx_tpu_torch.pipeline.run_pipeline(..., device="cuda")`` on
+   the ``medium`` corpus (20k sentences, 32 queries; dense MaxLex tables, so
+   kernel A9) and the ``europarl`` corpus (1M sentences, 20k vocabulary, 64
+   queries; row-range tables, so A10), both made from seeds by the generators
+   in tools/.  Each run must launch its path's kernels (launch counts reset
+   just before it) and its grammar hash must equal the golden in
+   tests/golden_torch_hashes.json (the JAX package's grammar, filtered to the
+   block-derived rule families);
+4. kernels -- each kernel (A1, A6, A9, A10) against its plain PyTorch version
+   on the card, on the inputs of its largest launch in phase 3: the outputs
+   must be bit-equal (float32 compared by bit pattern); times of both.
+
+Then a JSON line with every kernel's numbers, and last the line
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
+The script imports neither JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(ROOT, "tests", "golden_torch_hashes.json")
+
+# kernel id -> (source in the repo, file:line of the JAX function it replaces:
+# _refine_chunk_local, _contig_batch, _accum_batch_dense, _accum_batch_range)
+KERNELS = {
+    "A1": ("cgx_tpu_torch/csrc/refine.cu", "cgx_tpu/search/passes.py:371"),
+    "A6": ("cgx_tpu_torch/csrc/contig.cu", "cgx_tpu/extract/device.py:382"),
+    "A9": ("cgx_tpu_torch/csrc/maxlex.cu", "cgx_tpu/features/maxlex.py:161"),
+    "A10": ("cgx_tpu_torch/csrc/maxlex.cu", "cgx_tpu/features/maxlex.py:216"),
+}
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _load_tool(name: str):
+    """A generator module from tools/, imported by its path."""
+    spec = importlib.util.spec_from_file_location(
+        f"_smoke_{name}", os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def make_corpus(size: str):
+    """(f, e, a, lex_tokens, queries) of a benchmark size, from its seeds."""
+    if size == "medium":
+        import random
+        mf = _load_tool("make_fixture")
+        rng = random.Random(20260817)
+        f_lines, e_lines, a_lines = mf.make_parallel_corpus(rng, 20000)
+        lex_lines = mf.make_lex_file(rng, f_lines, e_lines, a_lines)
+        q_lines = mf.make_queries(rng, f_lines, 32)
+        return f_lines, e_lines, a_lines, " ".join(lex_lines).split(), q_lines
+    if size == "europarl":
+        mb = _load_tool("make_bigcorpus")
+        f_text, e_text, a_lines, lex_tokens = mb.make_big_corpus(
+            1_000_000, vocab=20000, seed=20260817)
+        return f_text, e_text, a_lines, lex_tokens, mb.make_big_queries(
+            f_text, 64)
+    raise ValueError(size)
+
+
+def grammar_hash(per_query_lines) -> str:
+    h = hashlib.sha256()
+    for lines in per_query_lines:
+        for ln in lines:
+            h.update(ln.encode())
+            h.update(b"\n")
+        h.update(b"\x00")
+    return h.hexdigest()
+
+
+class Capture:
+    """Wraps the kernel wrappers the pipeline calls, keeping the arguments of
+    each kernel's largest launch (for phase 4)."""
+
+    def __init__(self):
+        from cgx_tpu_torch.extract import device as xdev
+        from cgx_tpu_torch.features import maxlex as ml
+        from cgx_tpu_torch.search import passes
+        self.sites = {"A1": (passes, "refine_chunk", 3),
+                      "A6": (xdev, "contig", 4),
+                      "A9": (ml, "accum_dense", 4),
+                      "A10": (ml, "accum_range", 7)}
+        self.calls = {}          # kernel -> (n, args)
+        self.originals = {k: getattr(m, f) for k, (m, f, _) in self.sites.items()}
+
+    def __enter__(self):
+        for k, (mod, fn, lane_arg) in self.sites.items():
+            real = self.originals[k]
+
+            def hook(*args, _k=k, _real=real, _i=lane_arg):
+                n = args[_i].shape[0]
+                if n > self.calls.get(_k, (-1, None))[0]:
+                    self.calls[_k] = (n, args)
+                return _real(*args)
+            setattr(mod, fn, hook)
+        return self
+
+    def __exit__(self, *exc):
+        for k, (mod, fn, _) in self.sites.items():
+            setattr(mod, fn, self.originals[k])
+
+
+def run_e2e(size: str, device: str, capture: Capture, golden: dict,
+            expect: tuple):
+    import torch
+    from cgx_tpu_torch.config import DEFAULT_CONFIG
+    from cgx_tpu_torch.kernels import build as kb
+    from cgx_tpu_torch.pipeline import run_pipeline
+    t0 = time.perf_counter()
+    data = make_corpus(size)
+    gen_s = time.perf_counter() - t0
+    kb.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = run_pipeline(*data, DEFAULT_CONFIG, device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kb.LAUNCHES[k] for k in KERNELS}
+    missing = [k for k in expect if launches[k] == 0]
+    if missing:
+        fail(f"{size}: kernels {missing} never launched on the main path "
+             f"(launches {launches})")
+    lines = res.per_query_lines
+    ok_shape = len(lines) == len(data[4]) and all(
+        ln.startswith("[X] ||| ") for q in lines for ln in q)
+    ghash = grammar_hash(lines)
+    want = golden[size]["sha256"]
+    print(json.dumps({
+        "phase": "e2e", "size": size, "device": device,
+        "corpus_gen_s": gen_s, "wall_s": wall,
+        "phases_s": res.timing.as_dict(),
+        "peak_mem_bytes": res.timing.peak_memory(),
+        "counters": res.counters, "launches": launches,
+        "grammar_sha256": ghash, "golden_ok": ghash == want}), flush=True)
+    if not ok_shape:
+        fail(f"{size}: malformed grammar lines")
+    if ghash != want:
+        fail(f"{size}: grammar hash {ghash[:16]} != golden {want[:16]}")
+    return launches
+
+
+def _time_ms(fn, device) -> float:
+    """Mean milliseconds per call on the device timeline (events around a
+    run of calls after one warm-up call)."""
+    import torch
+    fn()
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    reps = max(3, min(50, int(200.0 / max(start.elapsed_time(end), 1e-3))))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare_kernels(capture: Capture, device: str, launches: dict) -> list:
+    import torch
+    from cgx_tpu_torch.extract import device as xdev
+    from cgx_tpu_torch.features import maxlex as ml
+    from cgx_tpu_torch.search import passes
+    pairs = {"A1": (passes.refine_chunk, passes.refine_chunk_plain),
+             "A6": (xdev.contig, xdev.contig_plain),
+             "A9": (ml.accum_dense, ml.accum_dense_plain),
+             "A10": (ml.accum_range, ml.accum_range_plain)}
+    rows = []
+    for k, (kernel, plain) in pairs.items():
+        if k not in capture.calls:
+            fail(f"{k}: no launch captured on the main path")
+        n, args = capture.calls[k]
+
+        def outputs(fn):
+            out = fn(*args)
+            return list(out) if isinstance(out, (tuple, list)) else [out]
+        ko = outputs(kernel)
+        po = outputs(plain)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        err = 0.0
+        for a, b in zip(ko, po):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                fail(f"{k}: output {tuple(a.shape)}/{a.dtype} vs plain "
+                     f"{tuple(b.shape)}/{b.dtype}")
+            if a.dtype == torch.float32:
+                same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+                if not bool(torch.isfinite(a).all()):
+                    fail(f"{k}: non-finite features")
+            else:
+                same = torch.equal(a, b)
+            d = (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+            err = max(err, d)
+            if not same:
+                fail(f"{k}: kernel and plain version differ (max abs {d})")
+        ms = _time_ms(lambda: kernel(*args), device)
+        plain_ms = _time_ms(lambda: plain(*args), device)
+        src, replaces = KERNELS[k]
+        row = {"name": k, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches[k],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        print(json.dumps({"phase": "kernel", **row, "lanes": n,
+                          "bit_equal": True}), flush=True)
+        rows.append(row)
+    return rows
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
+    sys.path.insert(0, ROOT)
+    from cgx_tpu_torch.kernels import build as kb
+
+    # 1. card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    kind = torch.cuda.get_device_name(0)
+    print(json.dumps({"phase": "card", "torch_device": kind,
+                      "count": torch.cuda.device_count(),
+                      "torch": torch.__version__, "cuda": torch.version.cuda}),
+          flush=True)
+
+    # 2. build
+    build_s = kb.build()
+    ptxas = {}
+    for f in sorted(os.listdir(kb.BUILD_DIR)):
+        if f.endswith(".ptxas.txt"):
+            with open(os.path.join(kb.BUILD_DIR, f), encoding="utf-8") as fh:
+                ptxas[f] = [ln.strip() for ln in fh
+                            if "registers" in ln or "spill" in ln]
+    print(json.dumps({"phase": "build", "seconds": build_s,
+                      "ptxas": ptxas}), flush=True)
+
+    # 3. end to end (the launch counts of the main path)
+    with open(GOLDEN, encoding="utf-8") as fh:
+        golden = json.load(fh)
+    totals = {k: 0 for k in KERNELS}
+    with Capture() as cap:
+        for size, expect in (("medium", ("A1", "A6", "A9")),
+                             ("europarl", ("A1", "A6", "A10"))):
+            for k, v in run_e2e(size, "cuda", cap, golden, expect).items():
+                totals[k] += v
+
+    # 4. kernels against their plain versions at the main path's shapes
+    rows = compare_kernels(cap, "cuda", totals)
+
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "cgx_tpu"))
+    if leaked:
+        fail(f"the port imported {leaked[:5]}")
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,161 @@
+"""MaxLex in the port: kernels A9/A10's plain versions against the JAX
+``_accum_batch_dense`` / ``_accum_batch_range`` on random tables (probability
+1.0, i.e. the -0.0 case, missing pairs, NULL rows, duplicate pairs), and
+``compute_maxlex`` against the JAX package's host loop.  float32 results are
+compared by bit pattern."""
+
+import copy
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from cgx_tpu.config import ExtractorConfig as JaxConfig  # noqa: E402
+from cgx_tpu.features import maxlex as jml  # noqa: E402
+from cgx_tpu.index import container as jic  # noqa: E402
+from cgx_tpu.preproc import corpus as jcp  # noqa: E402
+from cgx_tpu.preproc import suffix_array as jsab  # noqa: E402
+from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
+from cgx_tpu_torch.extract import device as tdev  # noqa: E402
+from cgx_tpu_torch.extract.blocks import generate_blocks  # noqa: E402
+from cgx_tpu_torch.features import lexicon as tlx  # noqa: E402
+from cgx_tpu_torch.features import maxlex as tml  # noqa: E402
+from cgx_tpu_torch.index import container as tic  # noqa: E402
+from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
+from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
+from cgx_tpu_torch.search import passes as tpasses  # noqa: E402
+
+S, TV = 40, 50   # source / target vocabulary ids
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+def _random_lex(rng, n=600):
+    src = rng.integers(-1, S, n)
+    tgt = rng.integers(-1, TV, n)
+    src[:5] = -1                                     # NULL source rows
+    tgt[5:10] = -1                                   # NULL target rows
+    src[10:14], tgt[10:14] = src[20], tgt[20]        # duplicate pairs
+    probs = np.array([1.0, 0.5, 0.25, 0.05, 1e-6, 0.0], np.float32)
+    v1 = rng.choice(probs, n).astype(np.float32)
+    v2 = rng.choice(probs, n).astype(np.float32)
+    order = np.lexsort((tgt, src))
+    return types.SimpleNamespace(
+        lex_key=jic.pack_lex_key(src[order], tgt[order]),
+        lex_val1_host=v1[order], lex_val2_host=v2[order])
+
+
+def _random_tasks(rng, T=500, n_tgt=300):
+    nsrc = rng.integers(1, 6, T)
+    sp = rng.integers(-1, S + 3, (T, 5)).astype(np.int32)   # some unknown ids
+    sp[np.arange(5)[None, :] >= nsrc[:, None]] = -99
+    t0 = rng.integers(0, n_tgt + 4, T).astype(np.int32)      # reads past the end
+    tend = rng.integers(0, 15, T).astype(np.int32)
+
+    def gap():
+        gs = np.where(rng.random(T) < 0.4, -1, rng.integers(0, 8, T))
+        ge = np.where(gs < 0, -1, gs + rng.integers(0, 4, T))
+        return gs.astype(np.int32), ge.astype(np.int32)
+    g1, g11 = gap()
+    g2, g21 = gap()
+    tgt_str = rng.integers(-1, TV + 3, n_tgt).astype(np.int32)
+    return tgt_str, (sp, t0, tend, g1, g11, g2, g21)
+
+
+@pytest.mark.parametrize("mode", ["dense", "range"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_a9_a10_equal_jax(mode, seed, monkeypatch):
+    if mode == "range":    # the JAX size rule picks row ranges below the limit
+        monkeypatch.setattr(jml, "DEV_DENSE_LIMIT", 0)
+        monkeypatch.setattr(tml, "DEV_DENSE_LIMIT", 0)
+    rng = np.random.default_rng(seed)
+    lex = _random_lex(rng)
+    tgt_str, cols = _random_tasks(rng)
+    jmode, jtabs = jml._device_lex_tables(copy.copy(lex))
+    tix = types.SimpleNamespace(**vars(lex), device=torch.device("cpu"),
+                                maxlex_tables=None)
+    tmode, ttabs = tml.lex_tables(tix)
+    assert jmode == tmode == mode
+    jcols = [jnp.asarray(c) for c in cols]
+    tcols = [torch.from_numpy(c) for c in cols]
+    tt = torch.from_numpy(tgt_str)
+    if mode == "dense":
+        for jt, t in zip(jtabs, ttabs):
+            np.testing.assert_array_equal(_bits(t.numpy()), _bits(jt))
+        want = jml._accum_batch_dense(*jtabs, jnp.asarray(tgt_str),
+                                      jnp.float32(99.0), *jcols)
+        got = tml.accum_dense(*ttabs, tt, 99.0, *tcols)
+    else:
+        *jarr, steps = jtabs
+        *tarr, tsteps = ttabs
+        assert steps == tsteps
+        for jt, t in zip(jarr, tarr):
+            np.testing.assert_array_equal(
+                t.numpy().view(np.int32), np.asarray(jt).view(np.int32))
+        want = jml._accum_batch_range(*jarr, jnp.asarray(tgt_str),
+                                      jnp.float32(99.0), *jcols, steps=steps)
+        got = tml.accum_range(*tarr, tt, 99.0, *tcols, tsteps)
+    for w, g in zip(want, got):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(w))
+    # the -0.0 canonicalisation leaves no negative zero in any feature, and
+    # the probes found table entries (features that are not all maxscore)
+    egf = got[1].numpy()
+    assert not np.signbit(got[0].numpy()).any()
+    assert ((egf > 0) & (egf % np.float32(99.0) != 0)).any()
+
+
+def _toy_tasks(toy_fixture):
+    """The three lexicon families' MaxLex tasks on the toy corpus (contiguous
+    extraction in the port, on the CPU)."""
+    rd = tcp.read_lines
+    d = toy_fixture
+    f, e, a = rd(str(d / "corpus.f")), rd(str(d / "corpus.e")), rd(str(d / "corpus.a"))
+    lex_t, q = tcp.read_tokens(str(d / "lex.txt")), rd(str(d / "query.f"))
+    cfg = ExtractorConfig()
+    src, tgt = tcp.load_source_corpus(f), tcp.load_target_corpus(e)
+    sa = tsab.build_index(src.str_)
+    tidx = tic.build_index(src, tgt, sa, tcp.load_alignment_fast(a, src, tgt),
+                           tcp.load_lex_table(lex_t, src.vocab, tgt.vocab),
+                           cfg, "cpu")
+    qs = tcp.load_queries(q, src.vocab)
+    blocks = generate_blocks(sa, qs, *tpasses.refine_passes(tidx, qs))
+    contig, r1, r2 = tdev.extract_contiguous(tidx, blocks, cfg)
+    from cgx_tpu_torch.pipeline import _empty_search_structures
+    s1, e1, og, pc, s2, e2 = _empty_search_structures()
+    one = tlx.fast_create_lexicon_onegap(r1, src, tgt, blocks, s1, e1, og, pc,
+                                         len(r1.gappy_index), cfg)
+    two = tlx.fast_create_lexicon_twogap(r2, src, tgt, blocks, s1, e1, s2, e2,
+                                         og, pc, len(r2.gappy_index),
+                                         len(r2.gappy_index), cfg)
+    con = tlx.fast_create_lexicon_contig(contig, src, tgt, blocks, cfg)
+    jsrc, jtgt = jcp.load_source_corpus(f), jcp.load_target_corpus(e)
+    jidx = jic.build_index(jsrc, jtgt, jsab.build_index(jsrc.str_),
+                           jcp.load_alignment_fast(a, jsrc, jtgt),
+                           jcp.load_lex_table(lex_t, jsrc.vocab, jtgt.vocab),
+                           JaxConfig())
+    return tidx, jidx, one, two, con
+
+
+@pytest.mark.parametrize("limit", [None, 0])
+def test_compute_maxlex_equals_jax_host_loop(toy_fixture, monkeypatch, limit):
+    """Dense tables (A9) and, with the size limit forced to 0, row-range
+    tables (A10) -- both bit-equal to the JAX package's host backend."""
+    if limit is not None:
+        monkeypatch.setattr(tml, "DEV_DENSE_LIMIT", limit)
+    tidx, jidx, one, two, con = _toy_tasks(toy_fixture)
+    tasks = {"onegap": one[1], "twogap": two[1], "contig": con[1]}
+    rules_t = [copy.deepcopy(x[0]) for x in (one, two, con)]
+    rules_j = [copy.deepcopy(x[0]) for x in (one, two, con)]
+    tml.compute_maxlex(tasks, tidx, *rules_t, ExtractorConfig())
+    jml.compute_maxlex_tpu(tasks, jidx, *rules_j, JaxConfig(), use_device=False)
+    assert tidx.maxlex_tables[0] == ("dense" if limit is None else "range")
+    for rt, rj in zip(rules_t, rules_j):
+        assert len(rt) > 0
+        np.testing.assert_array_equal(_bits(rt.max_lex_fge), _bits(rj.max_lex_fge))
+        np.testing.assert_array_equal(_bits(rt.max_lex_egf), _bits(rj.max_lex_egf))
