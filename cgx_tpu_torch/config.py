@@ -63,4 +63,18 @@ class ExtractorConfig:
             raise ValueError("max_rule_span_pattern must be <= max_rule_span")
 
 
+class CapacityError(RuntimeError):
+    """A stage's work set exceeded its configured capacity ceiling."""
+
+
+def check_capacity(stage: str, count: int, cap: int) -> None:
+    """Validates a stage's exact work count against its ``cap_*`` field (the
+    reference overran its preallocations silently, ComTypes.h:54-60)."""
+    if count > cap:
+        raise CapacityError(
+            f"stage '{stage}' produced {count} work items, exceeding the "
+            f"configured capacity {cap}; raise the matching cap_* field in "
+            f"ExtractorConfig if this corpus/query load is intended")
+
+
 DEFAULT_CONFIG = ExtractorConfig()

@@ -44,6 +44,7 @@ class TorchGrammarIndex:
     # device MaxLex probe tables, built on first use (features.maxlex)
     maxlex_tables: tuple = dataclasses.field(default=None, repr=False)
     _qtok: tuple = dataclasses.field(default=None, repr=False)
+    _pcrows: tuple = dataclasses.field(default=None, repr=False)
 
     def query_tokens(self, queries: QuerySet) -> torch.Tensor:
         """``queries.padded_tokens()`` on this index's device, cached for the
@@ -53,6 +54,20 @@ class TorchGrammarIndex:
             return self._qtok[1]
         t = torch.from_numpy(queries.padded_tokens()).to(self.device)
         self._qtok = (weakref.ref(queries), t)
+        return t
+
+    def precomp_rows(self, pc) -> torch.Tensor:
+        """int32 [max(n, 1), 2] (start, len) of a Precomp's ``n`` occurrence
+        rows on this index's device (kernel A3 reads them), cached for the
+        most recent Precomp like ``query_tokens``."""
+        if self._pcrows is not None and self._pcrows[0]() is pc:
+            return self._pcrows[1]
+        n = len(pc.onegap_start)
+        host = np.zeros((max(n, 1), 2), np.int32)
+        host[:n, 0] = pc.onegap_start
+        host[:n, 1] = pc.onegap_length
+        t = torch.from_numpy(host).to(self.device)
+        self._pcrows = (weakref.ref(pc), t)
         return t
 
 

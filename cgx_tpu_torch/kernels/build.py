@@ -9,8 +9,9 @@ exception.  Nothing here runs at import time: the CPU tests import every
 module of the package on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts launches per kernel id (the ids of the JAX package's
-device kernels: A1, A6, A9, A10).  A wrapper adds one right after it
-launched its kernel, and nowhere else.
+device kernels: A1, A2f and A2b for A2's forward and backward scans, A3,
+A4, A6, A7, A9, A10).  A wrapper adds one right after it launched its
+kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -43,8 +44,20 @@ SIGNATURES = {
         "cgx_refine": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                        _P, _P, _P, _P, _P],
     },
+    "gapcheck": {
+        "cgx_gap_check": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
+    },
+    "scan": {
+        "cgx_scan": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
+                     _I, _P, _P],
+        "cgx_pcs": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P],
+    },
     "contig": {
         "cgx_contig": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
+                       _P, _P],
+    },
+    "onegap": {
+        "cgx_onegap": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                        _P, _P],
     },
     "maxlex": {
@@ -157,6 +170,12 @@ def check_inputs(kernel: str, device: torch.device, dtype: torch.dtype,
                              f"expected {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{kernel}: {arg} is not contiguous")
+
+
+def check_count(kernel: str, n: int) -> None:
+    """The C entry points take item counts as int32."""
+    if not 0 <= n < 2**31:
+        raise ValueError(f"{kernel}: {n} items do not fit in int32")
 
 
 def route(kernel: str, device: torch.device) -> bool:

@@ -1,13 +1,21 @@
 """The extractor's main path on one PyTorch device.
 
 Port of ``cgx_tpu/pipeline.py`` (``build_artifact``, ``run_pipeline``,
-``run_pipeline_files`` and the front/back stage split), for the block-derived
-half of the grammar: pass 1/2 (kernel A1), contiguous blocks, contiguous
-extraction (kernel A6: the ab, Xab, abX and XabX families), the lexicon,
-MaxLex (kernel A9 or A10) and the writer.  The gappy families (aXb, XaXb,
-aXbX, aXbXc) are not extracted yet: their rule sets are empty, and every
-query's lines are exactly the JAX package's lines for the four block-derived
-families, in the same order.
+``run_pipeline_files`` and the front/back stage split) for every rule family
+but the two-gap aXbXc:
+
+* build: corpus loading and the suffix array (host), the index on the
+  device, the frequent-pair precompute (kernel A4);
+* pass 1/2 (kernel A1) and the one-gap enumeration (host);
+* lookup1 (kernels A2 and A3);
+* contiguous blocks and extraction (kernel A6: ab, Xab, abX, XabX) and
+  one-gap extraction (kernel A7: aXb, XaXb, aXbX);
+* the lexicon (host), MaxLex (kernel A9 or A10) and the writer (host).
+
+The two-gap structures are empty (no lookup2, no two-gap extraction), so
+every query's lines are exactly the JAX package's lines without the aXbXc
+lines, in the same order: the writer emits each query's aXbXc lines after
+all of its other gappy lines, and no other line depends on them.
 """
 
 from __future__ import annotations
@@ -18,7 +26,8 @@ import sys
 import numpy as np
 import torch
 
-from cgx_tpu_torch.config import DEFAULT_CONFIG, ExtractorConfig
+from cgx_tpu_torch.config import (DEFAULT_CONFIG, ExtractorConfig,
+                                  check_capacity)
 from cgx_tpu_torch.extract import device as xdev
 from cgx_tpu_torch.extract.blocks import generate_blocks
 from cgx_tpu_torch.features import lexicon as lx
@@ -27,9 +36,10 @@ from cgx_tpu_torch.grammar import writer as gw
 from cgx_tpu_torch.index import container as ic
 from cgx_tpu_torch.preproc import corpus as cp
 from cgx_tpu_torch.preproc import suffix_array as sab
-from cgx_tpu_torch.search import passes
-from cgx_tpu_torch.types import (GapOnSA, OneGapEnum, OneGapSearch, Precomp,
-                                 TwoGapEnum, TwoGapSearch)
+from cgx_tpu_torch.search import enumerate_fast as ef
+from cgx_tpu_torch.search import lookup, passes
+from cgx_tpu_torch.search import precompute as pcx
+from cgx_tpu_torch.types import GapRules, Precomp, TwoGapEnum, TwoGapSearch
 from cgx_tpu_torch.utils.timing import PhaseTimer
 
 
@@ -41,6 +51,7 @@ class Artifact:
     align: cp.Alignment
     lex: cp.LexTable
     sa: sab.SAIndex
+    precomp: Precomp
 
 
 @dataclasses.dataclass
@@ -69,18 +80,21 @@ def build_artifact(f_lines, e_lines, a_lines, lex_tokens,
         sa = sab.build_index(source.str_)
     with t.phase("qrysin"):
         index = ic.build_index(source, target, sa, align, lex, cfg, device)
-    return Artifact(source, target, align, lex, sa), index, t
+    with t.phase("precompute"):
+        pc = pcx.precompute(index, source, sa, cfg)
+    return Artifact(source, target, align, lex, sa, pc), index, t
 
 
 def run_pipeline(f_lines, e_lines, a_lines, lex_tokens, q_lines,
                  cfg: ExtractorConfig = DEFAULT_CONFIG,
                  timing: PhaseTimer = None, device="cuda") -> PipelineResult:
-    """Runs the block-derived half of the main path with every device stage
+    """Runs the main path (every family but aXbXc) with every device stage
     on ``device`` ("cuda": the hand-written kernels; "cpu": their plain
     PyTorch versions)."""
     art, index, t = build_artifact(f_lines, e_lines, a_lines, lex_tokens, cfg,
                                    timing, device)
-    ctx = dict(index=index, source=art.source, target=art.target, sa=art.sa)
+    ctx = dict(index=index, source=art.source, target=art.target, sa=art.sa,
+               pc=art.precomp)
     with t.phase("qrysload"):
         queries = cp.load_queries(q_lines, art.source.vocab)
     front = _front_stages(ctx, queries, cfg, t)
@@ -89,50 +103,62 @@ def run_pipeline(f_lines, e_lines, a_lines, lex_tokens, q_lines,
                           counters=counters, timing=t)
 
 
+def _concat_gaprules(a: GapRules, b: GapRules) -> GapRules:
+    return GapRules(*[np.concatenate([getattr(a, f.name), getattr(b, f.name)])
+                      for f in dataclasses.fields(GapRules)])
+
+
 def _front_stages(ctx, queries, cfg, t):
-    """Device-driven half: pass 1/2, blocks, contiguous extraction."""
-    index = ctx["index"]
+    """Device-driven half: pass 1/2, the one-gap enumeration, lookup1,
+    blocks, contiguous and one-gap extraction."""
+    index, pc = ctx["index"], ctx["pc"]
     with t.phase("kernel"):
         p1, p2 = passes.refine_passes(index, queries)
+    with t.phase("enumeration"):
+        enum1, search1 = ef.fast_sort_and_dedup_onegap(
+            ef.fast_one_gap_enumeration(queries, p1, cfg), queries)
+        check_capacity("onegap_enum", len(enum1.number), cfg.cap_onegap_enum)
+    with t.phase("lookup1"):
+        onegap_sa = lookup.one_gap_lookup(index, queries, p1, p2, search1, pc,
+                                          cfg)
+        check_capacity("onegap_sa", len(onegap_sa.position),
+                       cfg.cap_onegap_sa)
     with t.phase("extractin"):
         blocks = generate_blocks(ctx["sa"], queries, p1, p2)
     with t.phase("extractkernel"):
         contig, og_blocks, tg_blocks = xdev.extract_contiguous(index, blocks,
                                                                cfg)
-    # the gappy families are empty, so the one-gap rules are Xab/abX alone and
-    # the two-gap rules XabX alone
-    return dict(p1=p1, p2=p2, blocks=blocks, contig=contig, rules1=og_blocks,
-                rules2=tg_blocks, sep_onegap=len(og_blocks.gappy_index),
+        og_seeds, tg_onegap = xdev.extract_onegap(index, search1, onegap_sa,
+                                                  pc, cfg)
+    # the two-gap seeds (aXbXc) are empty, so the two-gap rules are XabX,
+    # then XaXb/aXbX
+    return dict(p1=p1, p2=p2, enum1=enum1, search1=search1,
+                onegap_sa=onegap_sa, blocks=blocks, contig=contig,
+                rules1=_concat_gaprules(og_blocks, og_seeds),
+                rules2=_concat_gaprules(tg_blocks, tg_onegap),
+                sep_onegap=len(og_blocks.gappy_index),
                 sep1=len(tg_blocks.gappy_index),
                 sep2=len(tg_blocks.gappy_index))
 
 
-def _empty_search_structures():
-    """The gappy half's search results with no patterns: (search1, enum1,
-    onegap_sa, pc, search2, enum2)."""
+def _empty_twogap(qryscount: int):
+    """The two-gap search structures with no patterns: (search2, enum2)."""
     z = np.empty(0, np.int32)
-    search1 = OneGapSearch(qrystart=z, qrystart_len=z, qryend_len=z, gap=z,
-                           position=z, start_on_salist=z, end_on_salist=z,
-                           query_with_id=[])
-    enum1 = OneGapEnum(qrystart=z, qrystart_len=z, qryend_len=z, gap=z,
-                       pattern=np.empty((0, 5), np.int32), number=z)
-    onegap_sa = GapOnSA(position=z, str_position=z, length=z, length2=z)
-    pc = Precomp(frequent_list=z, tok_start=z, tok_len=z, index_start=z,
-                 index_end=z, onegap_start=z, onegap_length=z,
-                 feature_missing=z)
     search2 = TwoGapSearch(blockid=z, position=z, qryend_len=z, gap2=z,
                            start_on_salist=z, end_on_salist=z,
-                           query_with_id=[])
+                           query_with_id=[[] for _ in range(qryscount)])
     enum2 = TwoGapEnum(blockid=z, gap2=z, qryend_len=z,
                        pattern=np.empty((0, 1), np.int32), number=z)
-    return search1, enum1, onegap_sa, pc, search2, enum2
+    return search2, enum2
 
 
 def _back_stages(ctx, queries, fr, cfg, t):
     """Host half plus MaxLex: lexicon build, MaxLex, rule formatting."""
-    source, target, index = ctx["source"], ctx["target"], ctx["index"]
-    blocks = fr["blocks"]
-    search1, enum1, onegap_sa, pc, search2, enum2 = _empty_search_structures()
+    source, target, index, pc = (ctx["source"], ctx["target"], ctx["index"],
+                                 ctx["pc"])
+    blocks, search1, enum1 = fr["blocks"], fr["search1"], fr["enum1"]
+    onegap_sa = fr["onegap_sa"]
+    search2, enum2 = _empty_twogap(queries.qryscount)
     with t.phase("lexicon"):
         rules_one, tasks_one = lx.fast_create_lexicon_onegap(
             fr["rules1"], source, target, blocks, search1, enum1, onegap_sa,
@@ -148,23 +174,26 @@ def _back_stages(ctx, queries, fr, cfg, t):
             index, rules_one, rules_two, rules_contig, cfg)
     with t.phase("printout"):
         G = len(blocks.start)
-        D1 = D2 = 0
+        D1 = len(search1.qrystart)
+        D2 = 0
         ud_contig = lx.updown_index(rules_contig, G)
         ud_one = lx.updown_index(rules_one, 2 * G + D1)
         ud_two = lx.updown_index(rules_two, G + D2 + 2 * D1)
         fmt_contig = gw.format_lines(rules_contig)
         fmt_one = gw.format_lines(rules_one)
         fmt_two = gw.format_lines(rules_two)
-        no_gappy = [[] for _ in range(queries.qryscount)]
         per_query_lines = [
             gw.grammar_lines_for_query(
-                q, blocks.qry_global, no_gappy, no_gappy, ud_contig, ud_one,
-                ud_two, fmt_contig, fmt_one, fmt_two, G, D1, D2)
+                q, blocks.qry_global, search1.query_with_id,
+                search2.query_with_id, ud_contig, ud_one, ud_two, fmt_contig,
+                fmt_one, fmt_two, G, D1, D2)
             for q in range(queries.qryscount)
         ]
     counters = dict(
-        blocks=G, pass1_tokens=queries.totaltokens,
+        blocks=G, distinct_onegap=D1, precomp_rows=pc.count,
+        pass1_tokens=queries.totaltokens,
         pass2_items=len(fr["p2"].up),
+        onegap_sa=len(onegap_sa.position),
         contig_pairs=len(fr["contig"].blocknumber),
         onegap_rules=len(fr["rules1"].gappy_index),
         twogap_rules=len(fr["rules2"].gappy_index),

@@ -1,0 +1,458 @@
+"""lookup1: the SA occurrences of every distinct one-gap pattern aXb.
+
+Port of the one-gap part of ``cgx_tpu/search/lookup.py``
+(``one_gap_lookup_tpu``, ``_fill_salist``) and of the replicated engine's
+item expansion (``cgx_tpu/engine.py``: ``_offsets``, ``expand_hits``,
+``scan_expanded``, ``pcs_expanded``).  Each pattern takes one of three
+routes, chosen on the host from its SA intervals and the precomputed
+frequent pairs exactly as the JAX package does:
+
+* ``pc_ref``: a one-token a and b whose pair is precomputed -- one reference
+  row to the precomp cell, no device work;
+* ``pc_seed``: a longer pattern whose (last a, first b) pair is precomputed
+  and rarer than both phrases -- kernel A3 (``pcs``) verifies each
+  precomputed occurrence of the pair;
+* scan: kernel A2 (``scan``) scans the 16 gap moves from every occurrence of
+  the rarer phrase, forward from a or backward from b, with the target-side
+  gap check fused in (``do_gap=True``; the JAX package's two-phase variant
+  gives the same rows by construction and is not ported).
+
+Both kernels expand their item axis on the device from a per-pattern table
+(``pattab``) and the exclusive count prefix (``offs``), and launch once over
+all items.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cgx_tpu_torch.config import ExtractorConfig
+from cgx_tpu_torch.kernels import build as kb
+from cgx_tpu_torch.types import GapOnSA, OneGapSearch, Precomp
+from cgx_tpu_torch.utils.views import take
+
+MMOV = 16  # move-axis width; real moves are bounded by max_rule_span - 2
+
+
+def _mask_hits(mask, nbits=MMOV):
+    """(item, move) indices of the set bits of a packed per-item bitmask."""
+    m = np.ascontiguousarray(np.asarray(mask).view(np.uint32))
+    bits = np.unpackbits(m.view(np.uint8).reshape(len(m), 4),
+                         axis=1, bitorder="little")[:, :nbits]
+    return np.nonzero(bits)
+
+
+def _offsets(counts) -> np.ndarray:
+    """Exclusive prefix [D+1] of per-pattern item counts."""
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+
+
+def expand_hits(hit_idx, counts, ids=None):
+    """Map flat item indices back to (pattern, tx) using the count prefix.
+    ``ids`` optionally maps local pattern index -> caller pattern id."""
+    cum = np.cumsum(counts)
+    pi = np.searchsorted(cum, hit_idx, side="right")
+    tx = hit_idx - (cum[pi] - counts[pi])
+    pat = ids[pi] if ids is not None else pi
+    return pat, tx, pi
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions: every per-item quantity carries a leading item axis.
+# ---------------------------------------------------------------------------
+
+def pack_moves(ok: torch.Tensor) -> torch.Tensor:
+    """[N, MMOV] bool -> int32 [N] bitmask (bit m = move m)."""
+    moves = torch.arange(ok.shape[1], dtype=torch.int32, device=ok.device)
+    return (ok.to(torch.int32) << moves).sum(dim=1, dtype=torch.int32)
+
+
+def _pack_bits32(ok: torch.Tensor) -> torch.Tensor:
+    """bool [N] -> int32 [ceil(N / 32)] holding uint32 words, bit k of word w
+    = item 32 w + k."""
+    n = ok.shape[0]
+    pad = torch.zeros(-n % 32, dtype=torch.bool, device=ok.device)
+    b = torch.cat([ok, pad]).view(-1, 32).to(torch.int64)
+    w = (b << torch.arange(32, device=ok.device)).sum(dim=1)
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
+def gap_check_grow(rlp, lr_tar, fixed, base_off: int, mrs: int,
+                   grow_right: bool):
+    """Plain version of the fused gap check (``_gap_check_grow``,
+    csrc/gapcheck.cuh) -> bool [N, MMOV]: move m's span is
+    [fixed, fixed + base_off + m] (grow_right) or
+    [fixed - base_off - m, fixed]."""
+    dev = fixed.device
+    moves = torch.arange(MMOV, dtype=torch.int32, device=dev)
+    w = torch.arange(mrs, dtype=torch.int32, device=dev)
+    ks = fixed[:, None] + w if grow_right else fixed[:, None] - w
+    t = take(rlp, ks)
+    L = (t >> 24) & 0xFF
+    R = (t >> 16) & 0xFF
+    unal = (L == 255) | (R == 255) | (ks < 0)
+    minL_pref = torch.cummin(torch.where(unal, 256, L), dim=1).values
+    maxR_pref = torch.cummax(torch.where(unal, -1, R), dim=1).values
+    span = base_off + moves
+    off = span.clamp(0, mrs - 1).long()
+    minL = minL_pref[:, off]
+    maxR = maxR_pref[:, off]
+    fail0 = unal[:, :1] | unal[:, off] | (span < 0) | (span > mrs - 1)
+    start_tok = fixed if grow_right else fixed - base_off
+    tempind = start_tok - ((take(rlp, start_tok) >> 8) & 0xFF) - 1
+    stb = torch.where(tempind == -1, 0, take(rlp, tempind))
+    ok1 = ~fail0 & (minL <= maxR) & (maxR - minL < mrs)
+    ts = minL + stb[:, None]
+    te = maxR + stb[:, None]
+    # every valid target span lies in 16 positions from the smallest start
+    anchor = torch.where(ok1, ts, 2**30).amin(dim=1)
+    anchor = torch.where(anchor == 2**30, 0, anchor)
+    win = anchor[:, None] + moves
+    w2 = take(lr_tar, win)
+    L2 = w2 >> 8
+    R2 = w2 & 255
+    al2 = (L2 != 255) & (R2 != 255)
+    m2 = (win[:, None, :] >= ts[:, :, None]) \
+        & (win[:, None, :] <= te[:, :, None]) & al2[:, None, :]
+    bmin = torch.where(m2, L2[:, None, :], 256).amin(dim=2)
+    bmax = torch.where(m2, R2[:, None, :], -1).amax(dim=2)
+    f = fixed[:, None]
+    src_start = f if grow_right else f - span
+    src_end = f + span if grow_right else f
+    s = (tempind + 1)[:, None]
+    return ok1 & (s + bmin == src_start) & (s + bmax == src_end)
+
+
+def _expand(pattab, offs, n: int):
+    """Item j -> (pattern row of pattab, tx): the last pattern p with
+    offs[p] <= j, clamped to [0, D - 1] (``_cumsum_expand``)."""
+    j = torch.arange(n, dtype=torch.int32, device=offs.device)
+    p = (torch.searchsorted(offs, j, right=True) - 1).clamp(
+        0, pattab.shape[0] - 1)
+    return pattab[p], j - offs[p]
+
+
+def scan_plain(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int,
+               mgs: int, fwd: bool):
+    """Plain PyTorch version of kernel A2 -> int32 [n] move masks."""
+    dev = offs.device
+    f, tx = _expand(pattab, offs, n)
+    gostart = take(sa, f[:, 0] + tx)
+    sl, el = f[:, 1], f[:, 2]
+    ks = torch.arange(MMOV + 2, dtype=torch.int32, device=dev)
+    if fwd:
+        gap0_bad = take(refstr, gostart + sl) < 2
+        win = take(refstr, (gostart + sl + mgs)[:, None] + ks)
+        side, other = el, sl            # b is compared, a bounds the span
+        gc = gap_check_grow(rlp, lr_tar, gostart + sl, mgs - 1, mrs, True)
+    else:
+        gap0_bad = take(refstr, (gostart - 1).clamp(min=0)) < 2
+        pos = (gostart - 1 - mgs)[:, None] - ks
+        win = torch.where(pos < 0, -1, take(refstr, pos))
+        side, other = sl, el
+        gc = gap_check_grow(rlp, lr_tar, gostart - 1, mgs - 1, mrs, False)
+    moves = ks[:MMOV]
+    temp = win[:, :MMOV]
+    bad = temp < 2
+    is_w = temp == f[:, 3:4]
+    verify_ok = torch.ones_like(bad)
+    verify_kill = torch.zeros_like(bad)
+    for k in (1, 2):
+        need = (side > k)[:, None]
+        in_span = other[:, None] + mgs + moves + 1 + k <= mrs
+        bo = win[:, k:MMOV + k]
+        match = bo == f[:, 3 + k:4 + k]
+        cmp_here = is_w & need & verify_ok & in_span
+        verify_ok = verify_ok & (~need | (in_span & match))
+        verify_kill = verify_kill | (cmp_here & ~match & (bo < 2))
+    # reach[m]: every earlier move survived (exclusive prefix AND)
+    alive = torch.cumprod((~bad & ~verify_kill).to(torch.int32), dim=1) == 1
+    reach = torch.cat([torch.ones_like(alive[:, :1]), alive[:, :-1]], dim=1)
+    span_ok = (sl + mgs + el)[:, None] + moves <= mrs
+    cand = reach & span_ok & ~gap0_bad[:, None] & ~bad & is_w & verify_ok
+    return pack_moves(cand & gc)
+
+
+def pcs_plain(refstr, pcrows, pattab, offs, n: int, mrs: int):
+    """Plain PyTorch version of kernel A3 -> int32 [ceil(n / 32)] packed ok
+    bits."""
+    f, tx = _expand(pattab, offs, n)
+    pr = take(pcrows, f[:, 0] + tx)
+    pstart, plen = pr[:, 0], pr[:, 1]
+    sl, el = f[:, 1], f[:, 2]
+    ok = plen + 1 + sl - 1 + el - 1 <= mrs
+    for k in (1, 2):                     # prefix: backoff 1..sl-1
+        p = pstart - k
+        good = (p >= 0) & (take(refstr, p.clamp(min=0)) == f[:, 2 + k])
+        ok = ok & (~(sl > k) | good)
+    for k in (2, 3):                     # suffix: forward 2..el
+        good = take(refstr, pstart + plen + k - 1) == f[:, 3 + k]
+        ok = ok & (~(el >= k) | good)
+    return _pack_bits32(ok)
+
+
+def _check_items(kernel, pattab, offs, n):
+    if pattab.dim() != 2 or pattab.shape[1] != 8 or pattab.shape[0] < 1:
+        raise ValueError(f"{kernel}: pattab must be int32 [D >= 1, 8]")
+    if offs.shape[0] != pattab.shape[0] + 1:
+        raise ValueError(f"{kernel}: offs must have D + 1 entries")
+    kb.check_count(kernel, n)
+
+
+def scan(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int, mgs: int,
+         fwd: bool):
+    """Kernel A2 (``csrc/scan.cu``, ``cgx_scan``): for each of the ``n``
+    items of the patterns in ``pattab`` (int32 [D, 8]: SA-range lo, sl, el
+    and the three compared query tokens) with count prefix ``offs`` (int32
+    [D + 1]), the int32 mask of the gap moves whose scan and gap check pass.
+
+    Replaces ``_scan_batch_exp`` (cgx_tpu/search/lookup.py:337).  On CUDA
+    tensors it launches the kernel; on CPU tensors it runs ``scan_plain``."""
+    device = offs.device
+    if not kb.route("A2", device):
+        return scan_plain(refstr, rlp, lr_tar, sa, pattab, offs, n, mrs, mgs,
+                          fwd)
+    kb.check_inputs("A2", device, torch.int32, refstr=refstr, rlp=rlp,
+                    lr_tar=lr_tar, sa=sa, pattab=pattab, offs=offs)
+    _check_items("A2", pattab, offs, n)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    if n:
+        lib = kb.library("scan")
+        kb.check("scan", lib.cgx_scan(
+            kb.ptr(refstr), refstr.shape[0], kb.ptr(rlp), rlp.shape[0],
+            kb.ptr(lr_tar), lr_tar.shape[0], kb.ptr(sa), sa.shape[0],
+            kb.ptr(pattab), kb.ptr(offs), pattab.shape[0], n, mrs, mgs,
+            int(fwd), kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES["A2f" if fwd else "A2b"] += 1
+    return out
+
+
+def pcs(refstr, pcrows, pattab, offs, n: int, mrs: int):
+    """Kernel A3 (``csrc/scan.cu``, ``cgx_pcs``): for each of the ``n``
+    items (the precomputed occurrences ``pcrows`` (int32 [m, 2]: start, len)
+    of each pattern's frequent pair, from row ``pattab[p, 0]`` on), whether
+    the pattern's remaining a prefix and b suffix match; bits packed 32 per
+    int32 word.
+
+    Replaces ``_pcs_batch_exp`` (cgx_tpu/search/lookup.py:315).  On CUDA
+    tensors it launches the kernel; on CPU tensors it runs ``pcs_plain``."""
+    device = offs.device
+    if not kb.route("A3", device):
+        return pcs_plain(refstr, pcrows, pattab, offs, n, mrs)
+    kb.check_inputs("A3", device, torch.int32, refstr=refstr, pcrows=pcrows,
+                    pattab=pattab, offs=offs)
+    _check_items("A3", pattab, offs, n)
+    if pcrows.dim() != 2 or pcrows.shape[1] != 2 or pcrows.shape[0] < 1:
+        raise ValueError("A3: pcrows must be int32 [m >= 1, 2]")
+    out = torch.empty((n + 31) // 32, dtype=torch.int32, device=device)
+    if n:
+        lib = kb.library("scan")
+        kb.check("scan", lib.cgx_pcs(
+            kb.ptr(refstr), refstr.shape[0], kb.ptr(pcrows), pcrows.shape[0],
+            kb.ptr(pattab), kb.ptr(offs), pattab.shape[0], n, mrs,
+            kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES["A3"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Host orchestration
+# ---------------------------------------------------------------------------
+
+def _pattern_tables(index, counts, cols):
+    """(pattab, offs, n) on the index's device for per-pattern item counts
+    and up to 8 int32 field columns."""
+    offs = _offsets(counts)
+    pattab = np.zeros((len(counts), 8), np.int32)
+    for c, v in enumerate(cols):
+        pattab[:, c] = v
+    kb.check_count("lookup1", int(offs[-1]))   # before the int32 cast
+    dev = index.device
+    return (torch.from_numpy(pattab).to(dev),
+            torch.from_numpy(offs.astype(np.int32)).to(dev), int(offs[-1]))
+
+
+def _scan_masks(index, qtok, fwd, lo, counts, sl, el, side, cfg):
+    """A2 over the patterns' SA ranges -> numpy int32 [sum(counts)] masks."""
+    if fwd:
+        toks = (qtok[side], qtok[side + 1], qtok[side + 2])
+    else:
+        toks = (qtok[side + sl - 1], qtok[side + np.maximum(sl - 2, 0)],
+                qtok[side + np.maximum(sl - 3, 0)])
+    pattab, offs, n = _pattern_tables(index, counts, (lo, sl, el) + toks)
+    return scan(index.refstr_padded, index.rlp, index.lr_tar, index.sa,
+                pattab, offs, n, cfg.max_rule_span, cfg.min_gap_size,
+                fwd).cpu().numpy()
+
+
+def _pcs_ok(index, qtok, pc, base, counts, sl, el, tok, stok, cfg):
+    """A3 over the precomputed occurrences -> numpy bool [sum(counts)]."""
+    pattab, offs, n = _pattern_tables(index, counts, (
+        base, sl, el, qtok[tok + np.maximum(sl - 2, 0)],
+        qtok[tok + np.maximum(sl - 3, 0)], qtok[stok + 1], qtok[stok + 2]))
+    words = pcs(index.refstr_padded, index.precomp_rows(pc), pattab, offs, n,
+                cfg.max_rule_span).cpu().numpy()
+    return np.unpackbits(words.view(np.uint8),
+                         bitorder="little")[:n].astype(bool)
+
+
+def one_gap_lookup(index, queries, p1, p2, search: OneGapSearch, pc: Precomp,
+                   cfg: ExtractorConfig) -> GapOnSA:
+    """The occurrences of every distinct one-gap pattern, as rows
+    (pattern, corpus start, length) sorted by (pattern, start, length);
+    fills ``search.start_on_salist``/``end_on_salist``.  A precomp reference
+    row has length 0 and the precomp cell as its start."""
+    mrs, mgs = cfg.max_rule_span, cfg.min_gap_size
+    qtok = np.asarray(queries.tokens)
+    qpad = np.asarray(queries.padded_tokens()).astype(np.int64)
+    sl_all = search.qrystart_len.astype(np.int64)
+    el_all = search.qryend_len.astype(np.int64)
+    tok_all = search.qrystart.astype(np.int64)
+    stok_all = tok_all + search.gap.astype(np.int64) + sl_all
+
+    # precomp cell per pattern (existPrecomputation)
+    a_last = qtok[tok_all + sl_all - 1]
+    b_first = qtok[stok_all]
+    ia = np.searchsorted(pc.frequent_list, a_last)
+    ib = np.searchsorted(pc.frequent_list, b_first)
+    P = pc.P
+    ok_a = (ia < P) & (pc.frequent_list[np.minimum(ia, P - 1)] == a_last)
+    ok_b = (ib < P) & (pc.frequent_list[np.minimum(ib, P - 1)] == b_first)
+    pci = np.where(ok_a & ok_b, ia * P + ib, -1)
+
+    # SA ranges of the a and b phrases
+    p2_up = p2.up if len(p2.up) else np.zeros(1, np.int32)
+    p2_down = p2.down if len(p2.down) else np.zeros(1, np.int32)
+
+    def rng(tk, ln):
+        u = np.where(ln == 1, p1.up[tk], 0)
+        d = np.where(ln == 1, p1.down[tk], 0)
+        cc = np.where(ln > 1, p2.connectoffset[tk] + ln - 2, 0)
+        u = np.where(ln == 1, u, p2_up[cc])
+        d = np.where(ln == 1, d, p2_down[cc])
+        return u.astype(np.int64), d.astype(np.int64)
+
+    r1u, r1d = rng(tok_all, sl_all)
+    r2u, r2d = rng(stok_all, el_all)
+    dis1 = r1d - r1u
+    dis2 = r2d - r2u
+    use_fwd = dis1 <= dis2
+    has_pc = pci != -1
+    pc_dis = np.where(has_pc,
+                      pc.index_end[np.maximum(pci, 0)]
+                      - pc.index_start[np.maximum(pci, 0)], -1)
+    pc_ref = has_pc & (sl_all == 1) & (el_all == 1) & (pc_dis >= 0)
+    pc_seed = has_pc & ~pc_ref
+
+    # cell-vs-interval routing: a pc_seed pattern whose rarer phrase has
+    # fewer occurrences than its pair's cell takes the scan instead (the
+    # scan covers every legal gap and checks the same target span, so the
+    # rows are the same); a pattern whose phrase does not occur has no hits
+    lm64 = p1.longestmatch.astype(np.int64)
+
+    def phrase_valid(tk, ln):
+        return np.where(ln == 1, p1.up[tk] >= 0, ln <= lm64[tk])
+
+    phrase_ok = phrase_valid(tok_all, sl_all) \
+        & phrase_valid(stok_all, el_all) & (dis1 >= 0) & (dis2 >= 0)
+    routed = pc_seed & (~phrase_ok
+                        | (np.minimum(dis1, dis2) + 1 < pc_dis + 1))
+    pc_seed = pc_seed & ~routed
+    scan_member = ~has_pc | (routed & phrase_ok)
+
+    rows_parts = []
+    # 1) precomp references: one row per pattern
+    ref_ids = np.flatnonzero(pc_ref)
+    if len(ref_ids):
+        rows_parts.append(np.stack([
+            ref_ids, pci[ref_ids], np.zeros(len(ref_ids), dtype=np.int64)],
+            axis=1))
+
+    # 2) precomp-seed verification (A3).  Jobs with equal kernel inputs
+    # (cell, sl, el, the four compared tokens) run once; their hits go to
+    # every member pattern.
+    seed_ids = np.flatnonzero(pc_seed)
+    if len(seed_ids):
+        s64, e64 = sl_all[seed_ids], el_all[seed_ids]
+        t64, st64 = tok_all[seed_ids], stok_all[seed_ids]
+        key = np.stack([pci[seed_ids], s64, e64,
+                        qpad[t64 + np.maximum(s64 - 2, 0)],
+                        qpad[t64 + np.maximum(s64 - 3, 0)],
+                        qpad[st64 + 1], qpad[st64 + 2]], axis=1)
+        _, rep_ix, inv = np.unique(key, axis=0, return_index=True,
+                                   return_inverse=True)
+        inv = inv.reshape(-1)
+        reps = seed_ids[rep_ix]
+        counts_s = (pc_dis[reps] + 1).clip(min=0)
+        ok = _pcs_ok(index, qpad, pc, pc.index_start[pci[reps]], counts_s,
+                     sl_all[reps], el_all[reps], tok_all[reps],
+                     stok_all[reps], cfg)
+        hit = np.flatnonzero(ok)
+        if len(hit):
+            rgrp, tx, _ = expand_hits(hit, counts_s)
+            hit_counts = np.bincount(rgrp, minlength=len(reps))
+            gstart = np.concatenate([[0], np.cumsum(hit_counts)])[:-1]
+            order = np.argsort(inv, kind="stable")
+            members = seed_ids[order]
+            mcounts = hit_counts[inv[order]]
+            pat = np.repeat(members, mcounts)
+            if len(pat):
+                moffs = np.concatenate([[0], np.cumsum(mcounts)])[:-1]
+                idx = (np.repeat(gstart[inv[order]], mcounts)
+                       + np.arange(int(mcounts.sum()))
+                       - np.repeat(moffs, mcounts))
+                row = pc.index_start[pci[pat]] + tx[idx]
+                spos = pc.onegap_start[row].astype(np.int64) - sl_all[pat] + 1
+                length = pc.onegap_length[row].astype(np.int64) \
+                    + sl_all[pat] - 1 + el_all[pat] - 1
+                rows_parts.append(np.stack([pat, spos, length], axis=1))
+
+    # 3) forward and backward scans (A2) from the rarer phrase
+    for fwd in (True, False):
+        ids = np.flatnonzero(scan_member & (use_fwd == fwd))
+        if not len(ids):
+            continue
+        lo = np.where(fwd, r1u, r2u)[ids]
+        counts = (np.where(fwd, dis1, dis2)[ids] + 1).clip(min=0)
+        side = (stok_all if fwd else tok_all)[ids]
+        mask = _scan_masks(index, qpad, fwd, lo, counts, sl_all[ids],
+                           el_all[ids], side, cfg)
+        ii, mm = _mask_hits(mask)
+        if not len(ii):
+            continue
+        pat, tx, pi = expand_hits(ii, counts, ids)
+        gostart = sa_values(index, lo[pi] + tx)
+        if fwd:
+            length = sl_all[pat] + mgs + mm + el_all[pat] - 1
+            rows_parts.append(np.stack([pat, gostart, length], axis=1))
+        else:
+            spos = gostart - 1 - mgs - mm - sl_all[pat] + 1
+            length = el_all[pat] + mgs + mm + sl_all[pat] - 1
+            rows_parts.append(np.stack([pat, spos, length], axis=1))
+
+    if rows_parts:
+        rows = np.concatenate(rows_parts, axis=0)
+        rows = rows[np.lexsort((rows[:, 2], rows[:, 1], rows[:, 0]))]
+    else:
+        rows = np.empty((0, 3), dtype=np.int64)
+    out = GapOnSA(position=rows[:, 0].astype(np.int32),
+                  str_position=rows[:, 1].astype(np.int32),
+                  length=rows[:, 2].astype(np.int32),
+                  length2=np.zeros(len(rows), dtype=np.int32))
+    _fill_salist(search.start_on_salist, search.end_on_salist, out.position)
+    return out
+
+
+def sa_values(index, rows) -> np.ndarray:
+    """``sa[rows]`` read from the index's device copy -> int64 numpy."""
+    r = torch.from_numpy(np.asarray(rows, np.int64)).to(index.device)
+    return index.sa[r].cpu().numpy().astype(np.int64)
+
+
+def _fill_salist(start_arr, end_arr, positions):
+    if len(positions):
+        uniq, first, counts = np.unique(positions, return_index=True,
+                                        return_counts=True)
+        start_arr[uniq] = first.astype(np.int32)
+        end_arr[uniq] = (first + counts - 1).astype(np.int32)

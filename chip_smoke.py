@@ -6,18 +6,22 @@
 Phases, one line each on stdout:
 
 1. card   -- the card's name and power limit (nvidia-smi) and torch's name;
-2. build  -- nvcc builds every kernel of the main path from csrc/;
+2. build  -- nvcc builds every kernel of the main path from csrc/, one
+   process per source, all at once;
 3. e2e    -- ``cgx_tpu_torch.pipeline.run_pipeline(..., device="cuda")`` on
    the ``medium`` corpus (20k sentences, 32 queries; dense MaxLex tables, so
    kernel A9) and the ``europarl`` corpus (1M sentences, 20k vocabulary, 64
    queries; row-range tables, so A10), both made from seeds by the generators
    in tools/.  Each run must launch its path's kernels (launch counts reset
-   just before it) and its grammar hash must equal the golden in
-   tests/golden_torch_hashes.json (the JAX package's grammar, filtered to the
-   block-derived rule families);
-4. kernels -- each kernel (A1, A6, A9, A10) against its plain PyTorch version
-   on the card, on the inputs of its largest launch in phase 3: the outputs
-   must be bit-equal (float32 compared by bit pattern); times of both.
+   just before it: A1, A4, A2 forward and backward, A3, A6, A7 and A9 or
+   A10), its counters must equal the JAX package's and its grammar hash the
+   golden in tests/golden_torch_hashes.json (the JAX package's grammar
+   without the two-gap aXbXc lines, the family the port does not extract
+   yet);
+4. kernels -- each kernel against its plain PyTorch version on the card, on
+   the inputs of its largest launch in phase 3 (A2 once per direction): the
+   outputs must be bit-equal (float32 compared by bit pattern); times of
+   both.
 
 Then a JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -38,13 +42,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden_torch_hashes.json")
 
 # kernel id -> (source in the repo, file:line of the JAX function it replaces:
-# _refine_chunk_local, _contig_batch, _accum_batch_dense, _accum_batch_range)
+# _refine_chunk_local, _gc_batch, _scan_batch_exp (forward, backward),
+# _pcs_batch_exp, _contig_batch, _onegap_batch, _accum_batch_dense,
+# _accum_batch_range)
 KERNELS = {
     "A1": ("cgx_tpu_torch/csrc/refine.cu", "cgx_tpu/search/passes.py:371"),
+    "A4": ("cgx_tpu_torch/csrc/gapcheck.cu",
+           "cgx_tpu/search/precompute.py:38"),
+    "A2f": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:337"),
+    "A2b": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:337"),
+    "A3": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:315"),
     "A6": ("cgx_tpu_torch/csrc/contig.cu", "cgx_tpu/extract/device.py:382"),
+    "A7": ("cgx_tpu_torch/csrc/onegap.cu", "cgx_tpu/extract/device.py:616"),
     "A9": ("cgx_tpu_torch/csrc/maxlex.cu", "cgx_tpu/features/maxlex.py:161"),
     "A10": ("cgx_tpu_torch/csrc/maxlex.cu", "cgx_tpu/features/maxlex.py:216"),
 }
+# the kernels every end-to-end run must launch, besides its MaxLex kernel
+PATH_KERNELS = ("A1", "A4", "A2f", "A2b", "A3", "A6", "A7")
 
 
 def fail(msg: str):
@@ -97,29 +111,38 @@ class Capture:
     def __init__(self):
         from cgx_tpu_torch.extract import device as xdev
         from cgx_tpu_torch.features import maxlex as ml
-        from cgx_tpu_torch.search import passes
-        self.sites = {"A1": (passes, "refine_chunk", 3),
-                      "A6": (xdev, "contig", 4),
-                      "A9": (ml, "accum_dense", 4),
-                      "A10": (ml, "accum_range", 7)}
+        from cgx_tpu_torch.search import lookup, passes
+        from cgx_tpu_torch.search import precompute as pcx
+        # wrapper -> (kernel id of a call, item count of a call)
+        self.sites = {
+            (passes, "refine_chunk"): (lambda a: "A1", lambda a: a[3].shape[0]),
+            (pcx, "gap_check"): (lambda a: "A4", lambda a: a[2].shape[0]),
+            (lookup, "scan"): (lambda a: "A2f" if a[9] else "A2b",
+                               lambda a: a[6]),
+            (lookup, "pcs"): (lambda a: "A3", lambda a: a[4]),
+            (xdev, "contig"): (lambda a: "A6", lambda a: a[4].shape[0]),
+            (xdev, "onegap"): (lambda a: "A7", lambda a: a[3].shape[0]),
+            (ml, "accum_dense"): (lambda a: "A9", lambda a: a[4].shape[0]),
+            (ml, "accum_range"): (lambda a: "A10", lambda a: a[7].shape[0]),
+        }
         self.calls = {}          # kernel -> (n, args)
-        self.originals = {k: getattr(m, f) for k, (m, f, _) in self.sites.items()}
+        self.originals = {site: getattr(*site) for site in self.sites}
 
     def __enter__(self):
-        for k, (mod, fn, lane_arg) in self.sites.items():
-            real = self.originals[k]
+        for site, (kernel_of, count_of) in self.sites.items():
+            real = self.originals[site]
 
-            def hook(*args, _k=k, _real=real, _i=lane_arg):
-                n = args[_i].shape[0]
-                if n > self.calls.get(_k, (-1, None))[0]:
-                    self.calls[_k] = (n, args)
+            def hook(*args, _real=real, _k=kernel_of, _n=count_of):
+                k, n = _k(args), _n(args)
+                if n > self.calls.get(k, (-1, None))[0]:
+                    self.calls[k] = (n, args)
                 return _real(*args)
-            setattr(mod, fn, hook)
+            setattr(*site, hook)
         return self
 
     def __exit__(self, *exc):
-        for k, (mod, fn, _) in self.sites.items():
-            setattr(mod, fn, self.originals[k])
+        for site, real in self.originals.items():
+            setattr(*site, real)
 
 
 def run_e2e(size: str, device: str, capture: Capture, golden: dict,
@@ -146,18 +169,26 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     ok_shape = len(lines) == len(data[4]) and all(
         ln.startswith("[X] ||| ") for q in lines for ln in q)
     ghash = grammar_hash(lines)
-    want = golden[size]["sha256"]
+    want = golden[size]
+    counters_off = {k: (res.counters[k], v) for k, v in want.items()
+                    if k in res.counters and res.counters[k] != v}
+    lines_ok = res.counters["total_lines"] == want["lines"]
     print(json.dumps({
         "phase": "e2e", "size": size, "device": device,
         "corpus_gen_s": gen_s, "wall_s": wall,
         "phases_s": res.timing.as_dict(),
         "peak_mem_bytes": res.timing.peak_memory(),
         "counters": res.counters, "launches": launches,
-        "grammar_sha256": ghash, "golden_ok": ghash == want}), flush=True)
+        "grammar_sha256": ghash, "golden_ok": ghash == want["sha256"]}),
+        flush=True)
     if not ok_shape:
         fail(f"{size}: malformed grammar lines")
-    if ghash != want:
-        fail(f"{size}: grammar hash {ghash[:16]} != golden {want[:16]}")
+    if counters_off or not lines_ok:
+        fail(f"{size}: counters (port, JAX) differ: {counters_off}, lines "
+             f"{res.counters['total_lines']} vs {want['lines']}")
+    if ghash != want["sha256"]:
+        fail(f"{size}: grammar hash {ghash[:16]} != golden "
+             f"{want['sha256'][:16]}")
     return launches
 
 
@@ -189,9 +220,15 @@ def compare_kernels(capture: Capture, device: str, launches: dict) -> list:
     import torch
     from cgx_tpu_torch.extract import device as xdev
     from cgx_tpu_torch.features import maxlex as ml
-    from cgx_tpu_torch.search import passes
+    from cgx_tpu_torch.search import lookup, passes
+    from cgx_tpu_torch.search import precompute as pcx
     pairs = {"A1": (passes.refine_chunk, passes.refine_chunk_plain),
+             "A4": (pcx.gap_check, pcx.gap_check_plain),
+             "A2f": (lookup.scan, lookup.scan_plain),
+             "A2b": (lookup.scan, lookup.scan_plain),
+             "A3": (lookup.pcs, lookup.pcs_plain),
              "A6": (xdev.contig, xdev.contig_plain),
+             "A7": (xdev.onegap, xdev.onegap_plain),
              "A9": (ml.accum_dense, ml.accum_dense_plain),
              "A10": (ml.accum_range, ml.accum_range_plain)}
     rows = []
@@ -270,8 +307,8 @@ def main():
         golden = json.load(fh)
     totals = {k: 0 for k in KERNELS}
     with Capture() as cap:
-        for size, expect in (("medium", ("A1", "A6", "A9")),
-                             ("europarl", ("A1", "A6", "A10"))):
+        for size, expect in (("medium", PATH_KERNELS + ("A9",)),
+                             ("europarl", PATH_KERNELS + ("A10",))):
             for k, v in run_e2e(size, "cuda", cap, golden, expect).items():
                 totals[k] += v
 

@@ -16,8 +16,24 @@ from cgx_tpu.preproc import corpus as jcp  # noqa: E402
 from cgx_tpu.types import GapRules  # noqa: E402
 from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
 from cgx_tpu_torch.features import lexicon as tlx  # noqa: E402
-from cgx_tpu_torch.pipeline import _empty_search_structures  # noqa: E402
-from cgx_tpu_torch.types import Blocks  # noqa: E402
+from cgx_tpu_torch.pipeline import _empty_twogap  # noqa: E402
+from cgx_tpu_torch.types import (Blocks, GapOnSA, OneGapEnum,  # noqa: E402
+                                 OneGapSearch, Precomp)
+
+
+def _no_gappy_structures():
+    """The gappy search structures of a query set with no gappy patterns:
+    (search1, enum1, onegap_sa, pc, search2, enum2)."""
+    z = np.empty(0, np.int32)
+    search1 = OneGapSearch(qrystart=z, qrystart_len=z, qryend_len=z, gap=z,
+                           position=z, start_on_salist=z, end_on_salist=z,
+                           query_with_id=[])
+    enum1 = OneGapEnum(qrystart=z, qrystart_len=z, qryend_len=z, gap=z,
+                       pattern=np.empty((0, 5), np.int32), number=z)
+    pc = Precomp(frequent_list=z, tok_start=z, tok_len=z, index_start=z,
+                 index_end=z, onegap_start=z, onegap_length=z,
+                 feature_missing=z)
+    return (search1, enum1, GapOnSA(z, z, z, z), pc) + _empty_twogap(0)
 
 
 def _head(rules: GapRules, n: int) -> GapRules:
@@ -57,7 +73,7 @@ def test_lexicon_with_empty_gappy_structures(toy_fixture):
     r2 = _head(fr["rules2"], fr["sep1"])
     src, tgt, blocks = art.source, art.target, fr["blocks"]
     cfg = ExtractorConfig()
-    s1, e1, og, pc, s2, e2 = _empty_search_structures()
+    s1, e1, og, pc, s2, e2 = _no_gappy_structures()
 
     want1 = jlx.fast_create_lexicon_onegap(
         r1, src, tgt, blocks, fr["search1"], fr["enum1"], fr["onegap_sa"],
@@ -76,7 +92,7 @@ def test_lexicon_with_empty_gappy_structures(toy_fixture):
 
 
 def test_empty_families_give_empty_tables():
-    s1, e1, og, pc, s2, e2 = _empty_search_structures()
+    s1, e1, og, pc, s2, e2 = _no_gappy_structures()
     z = GapRules(*(np.empty(0, np.int32) for _ in range(7)))
     e = np.empty(0, np.int32)
     blocks = Blocks(start=e, end=e, matchlen=e, string_start=e, qry_global=[])

@@ -20,6 +20,9 @@ from cgx_tpu.preproc import corpus as jcp  # noqa: E402
 from cgx_tpu.preproc import suffix_array as jsab  # noqa: E402
 from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
 from cgx_tpu_torch.extract import device as tdev  # noqa: E402
+from cgx_tpu_torch.pipeline import _empty_twogap  # noqa: E402
+from cgx_tpu_torch.types import (GapOnSA, OneGapEnum,  # noqa: E402
+                                 OneGapSearch, Precomp)
 from cgx_tpu_torch.extract.blocks import generate_blocks  # noqa: E402
 from cgx_tpu_torch.features import lexicon as tlx  # noqa: E402
 from cgx_tpu_torch.features import maxlex as tml  # noqa: E402
@@ -110,6 +113,21 @@ def test_plain_a9_a10_equal_jax(mode, seed, monkeypatch):
     assert ((egf > 0) & (egf % np.float32(99.0) != 0)).any()
 
 
+def _no_gappy_structures():
+    """The gappy search structures of a query set with no gappy patterns:
+    (search1, enum1, onegap_sa, pc, search2, enum2)."""
+    z = np.empty(0, np.int32)
+    search1 = OneGapSearch(qrystart=z, qrystart_len=z, qryend_len=z, gap=z,
+                           position=z, start_on_salist=z, end_on_salist=z,
+                           query_with_id=[])
+    enum1 = OneGapEnum(qrystart=z, qrystart_len=z, qryend_len=z, gap=z,
+                       pattern=np.empty((0, 5), np.int32), number=z)
+    pc = Precomp(frequent_list=z, tok_start=z, tok_len=z, index_start=z,
+                 index_end=z, onegap_start=z, onegap_length=z,
+                 feature_missing=z)
+    return (search1, enum1, GapOnSA(z, z, z, z), pc) + _empty_twogap(0)
+
+
 def _toy_tasks(toy_fixture):
     """The three lexicon families' MaxLex tasks on the toy corpus (contiguous
     extraction in the port, on the CPU)."""
@@ -126,8 +144,7 @@ def _toy_tasks(toy_fixture):
     qs = tcp.load_queries(q, src.vocab)
     blocks = generate_blocks(sa, qs, *tpasses.refine_passes(tidx, qs))
     contig, r1, r2 = tdev.extract_contiguous(tidx, blocks, cfg)
-    from cgx_tpu_torch.pipeline import _empty_search_structures
-    s1, e1, og, pc, s2, e2 = _empty_search_structures()
+    s1, e1, og, pc, s2, e2 = _no_gappy_structures()
     one = tlx.fast_create_lexicon_onegap(r1, src, tgt, blocks, s1, e1, og, pc,
                                          len(r1.gappy_index), cfg)
     two = tlx.fast_create_lexicon_twogap(r2, src, tgt, blocks, s1, e1, s2, e2,

@@ -1,6 +1,6 @@
-"""End to end: the port's grammars equal the JAX package's grammars filtered to
-the block-derived rule families (ab, Xab, abX, XabX), byte for byte and in
-order; the CLI writes them; the port imports without JAX."""
+"""End to end: the port's grammars equal the JAX package's grammars without the
+two-gap family aXbXc, byte for byte and in order; the CLI writes them; the
+port imports without JAX."""
 
 import pathlib
 import subprocess
@@ -20,13 +20,12 @@ from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
 ROOT = pathlib.Path(__file__).parent.parent
 
 
-def block_derived(line: str) -> bool:
-    """False for the gappy families: a [X,k] source token with a terminal on
-    both sides (aXb, XaXb, aXbX, aXbXc)."""
+def not_axbxc(line: str) -> bool:
+    """False for the two-gap family aXbXc: a source side with exactly two
+    [X,k] tokens whose first and last tokens are terminals."""
     src = line.split(" ||| ")[1].split()
-    return not any(src[k].startswith("[X,") and not src[k - 1].startswith("[X,")
-                   and not src[k + 1].startswith("[X,")
-                   for k in range(1, len(src) - 1))
+    nts = [w.startswith("[X,") for w in src]
+    return not (sum(nts) == 2 and not nts[0] and not nts[-1])
 
 
 def _inputs(name, request):
@@ -45,13 +44,13 @@ def _inputs(name, request):
 _JAX_LINES = {}
 
 
-def jax_block_lines(name, sample, request):
-    """The JAX package's per-query lines, filtered (cached per module)."""
+def jax_lines(name, sample, request):
+    """The JAX package's per-query lines without aXbXc (cached per module)."""
     key = (name, sample)
     if key not in _JAX_LINES:
         res = jpl.run_pipeline(*_inputs(name, request),
-                               JaxConfig(precompute_count=20, is_sample=sample))
-        _JAX_LINES[key] = [[ln for ln in q if block_derived(ln)]
+                               JaxConfig(is_sample=sample))
+        _JAX_LINES[key] = [[ln for ln in q if not_axbxc(ln)]
                            for q in res.per_query_lines]
     return _JAX_LINES[key]
 
@@ -59,7 +58,9 @@ def jax_block_lines(name, sample, request):
 @pytest.mark.parametrize("name,sample", [("toy", True), ("toy", False),
                                          ("real", True), ("hard", True)])
 def test_pipeline_equals_jax_block_lines(name, sample, request):
-    want = jax_block_lines(name, sample, request)
+    """The name is kept from when the port wrote the block-derived families
+    alone; it now covers every family but aXbXc."""
+    want = jax_lines(name, sample, request)
     got = tpl.run_pipeline(*_inputs(name, request),
                            ExtractorConfig(is_sample=sample), device="cpu")
     assert len(got.per_query_lines) == len(want)
@@ -84,7 +85,7 @@ def test_cli_writes_block_grammars(toy_fixture, tmp_path, request, sample):
     rc = cli.main(_cli_args(toy_fixture, tmp_path / "g",
                             extra + ["-s", str(timefile)]))
     assert rc == 0
-    want = jax_block_lines("toy", sample, request)
+    want = jax_lines("toy", sample, request)
     suffix = "s" if sample else "n"
     files = sorted((tmp_path / "g").glob("grammar.*"))
     assert len(files) == len(want)
@@ -114,7 +115,8 @@ def test_cli_cuda_without_a_card_raises(toy_fixture, tmp_path, monkeypatch):
 
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
-            "import cgx_tpu_torch.pipeline, cgx_tpu_torch.cli; "
+            "import cgx_tpu_torch.pipeline, cgx_tpu_torch.cli, "
+            "cgx_tpu_torch.search.precompute, cgx_tpu_torch.search.lookup; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'cgx_tpu') "
             "and sys.modules[m] is not None); "
