@@ -7,9 +7,9 @@ JAX package's CLI (``cgx_tpu/cli.py``):
         <lex_file> <out_dir>
 
 Writes one grammar file per query sentence: ``out_dir/grammar.<i>.{s,n}``
-(PrintResults.c:437-441).  The grammars hold every rule family but the
-two-gap aXbXc, which is not ported yet: ab, Xab, abX, XabX, aXb, XaXb and
-aXbX, each line as the JAX package writes it.
+(PrintResults.c:437-441).  The grammars hold every rule family (ab, Xab,
+abX, XabX, aXb, XaXb, aXbX and aXbXc), each line as the JAX package writes
+it.
 ``--device cuda`` (the default) runs the hand-written kernels and fails when
 no CUDA device is present; ``--device cpu`` runs their plain PyTorch versions.
 """

@@ -1,4 +1,4 @@
-// lookup1's device kernels, one thread per work item:
+// lookup1's and lookup2's device kernels, one thread per work item:
 //
 // A2 (cgx_scan): the forward/backward aXb occurrence scan.  Replaces
 //   cgx_tpu/search/lookup.py:_scan_batch_exp (lookup.py:337-353) with
@@ -12,13 +12,22 @@
 //   lookup.py:_pcs_batch_exp (:315) with _pcs_item (:203): the span budget,
 //   up to 2 prefix and 2 suffix tokens per precomputed occurrence.  The ok
 //   bits leave packed 32 per word; one warp ballot writes each word.
+// A5 (cgx_two): lookup2's scan for a second gap.  Replaces
+//   lookup.py:_two_batch_exp (:662-680) with _two_item (:615-639): from an
+//   aXb occurrence (start, len), read from the precomputed rows or the
+//   one-gap rows as the pattern's pcmode flag says, the 16 moves right of
+//   the core and the fused gap check anchored one token past it.  The word
+//   holds the uint32 bits cand | (gc << 16); the c token is resolved on the
+//   host.
 //
 // Bound on the H100: A2 reads per item one offs search (log2 D words), one
 // pattab row, one SA word, an 18-word corpus window and the gap check's ~33
 // words, all scattered (occurrences of a pattern are SA-ordered, not corpus-
-// ordered); A3 reads ~8 words.  Both are latency-bound gathers with a few
-// hundred integer ops per item at most; the design keeps every per-item
-// array in registers and launches once over the whole item axis.
+// ordered); A3 reads ~8 words; A5 one offs search, one pattab row, one
+// occurrence row, a 17-word corpus window and the gap check.  All are
+// latency-bound gathers with a few hundred integer ops per item at most; the
+// design keeps every per-item array in registers and launches once over the
+// whole item axis.
 #include "gapcheck.cuh"
 
 namespace {
@@ -133,6 +142,37 @@ __global__ void pcs_kernel(const int* __restrict__ refstr, int ref_len,
     if ((threadIdx.x & 31) == 0 && j < n) out[j >> 5] = (int)word;
 }
 
+__global__ void two_kernel(const int* __restrict__ refstr, int ref_len,
+                           const int* __restrict__ rlp, int rlp_len,
+                           const int* __restrict__ lr_tar, int lr_len,
+                           const int* __restrict__ ogrows, int og_rows,
+                           const int* __restrict__ pcrows, int pc_rows,
+                           const int* __restrict__ pattab,
+                           const int* __restrict__ offs, int D, int n,
+                           int mrs, int mgs, int* __restrict__ out) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n) return;
+    const int p = find_pattern(offs, D, j);
+    const int row = pattab[2 * p] + j - offs[p];
+    // the unselected table is never read, and the selected read is clamped
+    const int* r = pattab[2 * p + 1] > 0 ? pcrows + 2 * clampi(row, pc_rows)
+                                         : ogrows + 2 * clampi(row, og_rows);
+    const int pstart = r[0], plen = r[1];
+    const int gostart = pstart + plen;
+    const bool gap0_bad = refstr[clampi(gostart + mgs, ref_len)] < 2;
+    unsigned cand = 0;
+    bool reach = true;               // AND of survive over the earlier moves
+    for (int m = 0; m < MMOV; ++m) {
+        const bool bad = refstr[clampi(gostart + 1 + mgs + m, ref_len)] < 2;
+        const bool span_kill = plen + 1 + mgs + m + 1 > mrs;
+        if (reach && !gap0_bad && !span_kill && !bad) cand |= 1u << m;
+        reach = reach && !bad && !span_kill;
+    }
+    const unsigned gc = gap_check_grow(rlp, rlp_len, lr_tar, lr_len,
+                                       gostart + 1, mgs - 1, mrs, true);
+    out[j] = (int)(cand | (gc << 16));
+}
+
 }  // namespace
 
 // A2.  pattab int32 [D, 8] = (SA-range lo, sl, el, three compared query
@@ -162,5 +202,22 @@ CGX_EXPORT int cgx_pcs(const int* refstr, int ref_len, const int* pcrows,
     const int threads = 128;
     pcs_kernel<<<cgx_grid(n, threads), threads, 0, (cudaStream_t)stream>>>(
         refstr, ref_len, pcrows, m_rows, pattab, offs, D, n, mrs, out);
+    return (int)cudaGetLastError();
+}
+
+// A5.  pattab int32 [D, 2] = (occurrence-row base, pcmode); ogrows and pcrows
+// int32 [m, 2] = (start, len) of the one-gap and the precomputed
+// occurrences.  out: int32 [n], the uint32 bits cand | (gc << 16) per item.
+CGX_EXPORT int cgx_two(const int* refstr, int ref_len, const int* rlp,
+                       int rlp_len, const int* lr_tar, int lr_len,
+                       const int* ogrows, int og_rows, const int* pcrows,
+                       int pc_rows, const int* pattab, const int* offs, int D,
+                       int n, int mrs, int mgs, int* out, void* stream) {
+    if (mrs < 1 || mrs > MMOV || D < 1 || og_rows < 1 || pc_rows < 1)
+        return (int)cudaErrorInvalidValue;
+    const int threads = 128;
+    two_kernel<<<cgx_grid(n, threads), threads, 0, (cudaStream_t)stream>>>(
+        refstr, ref_len, rlp, rlp_len, lr_tar, lr_len, ogrows, og_rows, pcrows,
+        pc_rows, pattab, offs, D, n, mrs, mgs, out);
     return (int)cudaGetLastError();
 }

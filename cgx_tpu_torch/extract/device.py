@@ -3,13 +3,15 @@
 * contiguous blocks (extractConsistentPairs_Gappy, ExtractPair.cu:1055-1795):
   ab + Xab/abX/XabX, kernel A6 (``contig``, ``csrc/contig.cu``);
 * one-gap patterns (extractConsistentPairs_OneGap, ExtractPair.cu:351-889):
-  aXb + XaXb/aXbX, kernel A7 (``onegap``, ``csrc/onegap.cu``).
+  aXb + XaXb/aXbX, kernel A7 (``onegap``, ``csrc/onegap.cu``);
+* two-gap patterns (extractConsistentPairs_TwoGap, ExtractPair.cu:891-1053):
+  aXbXc, kernel A8 (``twogap``, ``csrc/twogap.cu``).
 
-Port of the contiguous and one-gap parts of ``cgx_tpu/extract/device.py``:
-the host orchestration (``extract_contiguous``, ``extract_onegap``, the
+Port of ``cgx_tpu/extract/device.py``: the host orchestration
+(``extract_contiguous``, ``extract_onegap``, ``extract_twogap``, the
 compaction into ``GapRules``, ``unpack_family``) and each kernel's plain
-PyTorch version (``contig_plain``, ``onegap_plain``), a lane-vectorized
-transcription of the JAX item function.  Sampling happens on the host when
+PyTorch version (``contig_plain``, ``onegap_plain``, ``twogap_plain``), a
+lane-vectorized transcription of the JAX item function.  Sampling happens on the host when
 the occurrence lists are built (``extract.blocks.occurrence_lists``).
 """
 
@@ -22,7 +24,7 @@ from cgx_tpu_torch.config import ExtractorConfig
 from cgx_tpu_torch.extract.blocks import occurrence_lists
 from cgx_tpu_torch.kernels import build as kb
 from cgx_tpu_torch.types import (Blocks, ContigRules, GapOnSA, GapRules,
-                                 OneGapSearch, Precomp)
+                                 OneGapSearch, Precomp, TwoGapSearch)
 from cgx_tpu_torch.utils.views import take
 
 IMAX = 14   # max growth distance: lm + i <= max_rule_span with lm >= 1
@@ -635,3 +637,86 @@ def _finish_onegap(out, ids, D1):
         (r_v, r_ts, r_te, r_og1s, r_og1e, r_g2s, r_g2e, D1 + ids),      # aXbX
     ])
     return rules1, rules2
+
+
+# ---------------------------------------------------------------------------
+# Two-gap extraction (extractConsistentPairs_TwoGap, ExtractPair.cu:891-1053)
+# ---------------------------------------------------------------------------
+
+def _gap_span(rlp, start, ender):
+    """Target span of the source gap [start, ender] (at most CWID wide),
+    anchored at its own first token's sentence."""
+    ks = start[:, None] + torch.arange(CWID, dtype=torch.int32,
+                                       device=start.device)
+    L, R, al = _rlp_lr(rlp, ks)
+    inside = (ks <= ender[:, None]) & al
+    _, stb = _sent_anchor(rlp, start)
+    return (torch.where(inside, L, 256).amin(dim=1) + stb,
+            torch.where(inside, R, -1).amax(dim=1) + stb)
+
+
+def twogap_plain(refstr, rlp, lr_tar, cs, first_end, second_end, sl, el, cl,
+                 mrs: int):
+    """Plain PyTorch version of kernel A8 -> int32 [2, N]."""
+    g1s, g1e = _gap_span(rlp, cs + sl, cs + first_end - el)
+    g2s, g2e = _gap_span(rlp, cs + first_end + 1, cs + second_end - cl)
+    code, ts, te = check_boundary(rlp, lr_tar, cs, cs + second_end, mrs)
+    return torch.stack(_pack(code == 1, ts, te, g1s, g1e, g2s, g2e))
+
+
+def twogap(refstr, rlp, lr_tar, cs, first_end, second_end, sl, el, cl,
+           mrs: int):
+    """Kernel A8 (``csrc/twogap.cu``): for each sampled aXbXc occurrence
+    (corpus start ``cs[i]``, end offsets ``first_end[i]`` of b and
+    ``second_end[i]`` of c, lengths ``sl[i]``, ``el[i]``, ``cl[i]`` of a, b
+    and c) the aXbXc emission as int32 [2, n] rows (ts, packed with both
+    gaps).
+
+    Replaces ``_twogap_batch`` (cgx_tpu/extract/device.py:744).  On CUDA
+    tensors it launches the kernel; on CPU tensors it runs
+    ``twogap_plain``."""
+    device = cs.device
+    if not kb.route("A8", device):
+        return twogap_plain(refstr, rlp, lr_tar, cs, first_end, second_end,
+                            sl, el, cl, mrs)
+    kb.check_inputs("A8", device, torch.int32, refstr=refstr, rlp=rlp,
+                    lr_tar=lr_tar, cs=cs, first_end=first_end,
+                    second_end=second_end, sl=sl, el=el, cl=cl)
+    n = cs.shape[0]
+    if not (first_end.shape[0] == second_end.shape[0] == sl.shape[0]
+            == el.shape[0] == cl.shape[0] == n):
+        raise ValueError("A8: item arrays differ in length")
+    kb.check_count("A8", n)
+    out = torch.empty((2, n), dtype=torch.int32, device=device)
+    if n:
+        lib = kb.library("twogap")
+        kb.check("twogap", lib.cgx_twogap(
+            kb.ptr(refstr), refstr.shape[0], kb.ptr(rlp), rlp.shape[0],
+            kb.ptr(lr_tar), lr_tar.shape[0], kb.ptr(cs), kb.ptr(first_end),
+            kb.ptr(second_end), kb.ptr(sl), kb.ptr(el), kb.ptr(cl), n, mrs,
+            kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES["A8"] += 1
+    return out
+
+
+def extract_twogap(index, search1: OneGapSearch, search2: TwoGapSearch,
+                   twogap_sa: GapOnSA, cfg: ExtractorConfig) -> GapRules:
+    """Host orchestration for extractConsistentPairs_TwoGap: sampled
+    occurrence list -> kernel A8 on the index's device -> compaction.
+    Returns the aXbXc GapRules."""
+    ids, tx = occurrence_lists(search2.start_on_salist, search2.end_on_salist,
+                               cfg.sampler_twogap, cfg.is_sample)
+    if len(ids) == 0:
+        return _empty_gaprules()
+    ids = np.asarray(ids, dtype=np.int64)
+    row = search2.start_on_salist.astype(np.int64)[ids] + tx
+    one_ids = search2.blockid.astype(np.int64)[ids]
+    cols = (twogap_sa.str_position[row], twogap_sa.length[row],
+            twogap_sa.length2[row], search1.qrystart_len[one_ids],
+            search1.qryend_len[one_ids], search2.qryend_len[ids])
+    dev = index.device
+    out = twogap(index.refstr_padded, index.rlp, index.lr_tar,
+                 *(torch.from_numpy(np.asarray(c, np.int32)).to(dev)
+                   for c in cols), cfg.max_rule_span)
+    ts, pk = out.cpu().numpy()
+    return _gaprules([unpack_family(ts, pk, two_gaps=True) + (ids,)])

@@ -3,7 +3,9 @@
 Port of ``GrammarIndex`` (cgx_tpu/index/container.py:25-147).  The arrays the
 kernels read (token string, suffix array, RLP words, packed target alignment
 spans, target string) are int32 tensors placed once on one device and reused
-by every stage.  The padding is the JAX package's, word for word: the kernels
+by every stage; the interval-LCP tree, which only the LCP passes read, goes
+to the device at their first call.  The padding is the JAX package's, word
+for word: the kernels
 clamp every read to ``len - 1`` of these arrays exactly as the JAX gathers
 do, so a different padding would change what a clamped read returns.
 """
@@ -24,8 +26,8 @@ from cgx_tpu_torch.search import passes
 from cgx_tpu_torch.utils.batching import pad_tokens
 
 # the GrammarIndex fields a TorchGrammarIndex is made from (``from_jax_arrays``)
-ARRAY_FIELDS = ("refstr_padded", "sa", "rlp", "lr_tar", "tgt_str", "lex_key",
-                "lex_val1", "lex_val2")
+ARRAY_FIELDS = ("refstr_padded", "sa", "lcpleft", "lcpright", "rlp", "lr_tar",
+                "tgt_str", "lex_key", "lex_val1", "lex_val2")
 
 
 @dataclasses.dataclass
@@ -41,10 +43,15 @@ class TorchGrammarIndex:
     lex_val1_host: np.ndarray      # float32 P(s|t), host
     lex_val2_host: np.ndarray      # float32 P(t|s), host
     seed_host: tuple               # passes.build_seed_tables: depths 0-2
+    # the interval-LCP tree, int32 [pow2 >= reflen] padded with 0, kept on
+    # the host: only the LCP passes read it (``lcp_tables``)
+    lcpleft_host: np.ndarray = dataclasses.field(default=None, repr=False)
+    lcpright_host: np.ndarray = dataclasses.field(default=None, repr=False)
     # device MaxLex probe tables, built on first use (features.maxlex)
     maxlex_tables: tuple = dataclasses.field(default=None, repr=False)
     _qtok: tuple = dataclasses.field(default=None, repr=False)
     _pcrows: tuple = dataclasses.field(default=None, repr=False)
+    _lcp: tuple = dataclasses.field(default=None, repr=False)
 
     def query_tokens(self, queries: QuerySet) -> torch.Tensor:
         """``queries.padded_tokens()`` on this index's device, cached for the
@@ -69,6 +76,14 @@ class TorchGrammarIndex:
         t = torch.from_numpy(host).to(self.device)
         self._pcrows = (weakref.ref(pc), t)
         return t
+
+    def lcp_tables(self) -> tuple:
+        """(lcpleft, lcpright) on this index's device, uploaded on the first
+        call and kept: the default pass-1/2 path never places them."""
+        if self._lcp is None:
+            self._lcp = tuple(torch.from_numpy(a).to(self.device)
+                              for a in (self.lcpleft_host, self.lcpright_host))
+        return self._lcp
 
 
 def pack_lex_key(src: np.ndarray, tgt: np.ndarray) -> np.ndarray:
@@ -102,6 +117,8 @@ def build_index(source: SourceCorpus, target: TargetCorpus, sa: SAIndex,
         reflen=np.int64(source.toklen),
         refstr_padded=pad_tokens(refstr_padded, np.int32(0)),
         sa=pad_tokens(np.asarray(sa.sa, np.int32), np.int32(0)),
+        lcpleft=pad_tokens(np.asarray(sa.lcpleft, np.int32), np.int32(0)),
+        lcpright=pad_tokens(np.asarray(sa.lcpright, np.int32), np.int32(0)),
         rlp=pad_tokens(rlp_padded, np.uint32(0xFFFF0000)),
         lr_tar=(l_tar << 8) | r_tar,
         tgt_str=np.asarray(target.str_, np.int32),
@@ -131,5 +148,7 @@ def from_jax_arrays(arrays: dict, device) -> TorchGrammarIndex:
         lex_val1_host=np.asarray(arrays["lex_val1"], np.float32),
         lex_val2_host=np.asarray(arrays["lex_val2"], np.float32),
         seed_host=passes.build_seed_tables(refstr,
-                                           sa[:reflen].astype(np.int64)))
+                                           sa[:reflen].astype(np.int64)),
+        lcpleft_host=np.array(arrays["lcpleft"], np.int32),
+        lcpright_host=np.array(arrays["lcpright"], np.int32))
 

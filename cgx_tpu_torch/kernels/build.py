@@ -10,7 +10,7 @@ module of the package on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts launches per kernel id (the ids of the JAX package's
 device kernels: A1, A2f and A2b for A2's forward and backward scans, A3,
-A4, A6, A7, A9, A10).  A wrapper adds one right after it launched its
+A4, A5, A6, A7, A8, A9, A10, and B1p1 and B1p2 for B1's two passes).  A wrapper adds one right after it launched its
 kernel, and nowhere else.
 """
 
@@ -44,6 +44,12 @@ SIGNATURES = {
         "cgx_refine": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
                        _P, _P, _P, _P, _P],
     },
+    "lcp": {
+        "cgx_pass1": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P,
+                      _P],
+        "cgx_pass2": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P, _P,
+                      _I, _P, _P],
+    },
     "gapcheck": {
         "cgx_gap_check": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
     },
@@ -51,6 +57,8 @@ SIGNATURES = {
         "cgx_scan": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                      _I, _P, _P],
         "cgx_pcs": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P],
+        "cgx_two": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I,
+                    _I, _I, _P, _P],
     },
     "contig": {
         "cgx_contig": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
@@ -58,6 +66,10 @@ SIGNATURES = {
     },
     "onegap": {
         "cgx_onegap": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                       _P, _P],
+    },
+    "twogap": {
+        "cgx_twogap": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                        _P, _P],
     },
     "maxlex": {

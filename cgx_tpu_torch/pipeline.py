@@ -1,21 +1,21 @@
 """The extractor's main path on one PyTorch device.
 
 Port of ``cgx_tpu/pipeline.py`` (``build_artifact``, ``run_pipeline``,
-``run_pipeline_files`` and the front/back stage split) for every rule family
-but the two-gap aXbXc:
+``run_pipeline_files`` and the front/back stage split) for every rule
+family:
 
 * build: corpus loading and the suffix array (host), the index on the
   device, the frequent-pair precompute (kernel A4);
-* pass 1/2 (kernel A1) and the one-gap enumeration (host);
-* lookup1 (kernels A2 and A3);
-* contiguous blocks and extraction (kernel A6: ab, Xab, abX, XabX) and
-  one-gap extraction (kernel A7: aXb, XaXb, aXbX);
+* pass 1/2: the interval refinement (kernel A1), or with
+  ``lcp_passes=True`` the LCP-accelerated search (kernel B1, in two passes);
+* the one-gap enumeration (host) and lookup1 (kernels A2 and A3);
+* the two-gap enumeration (host) and lookup2 (kernel A5);
+* contiguous blocks and extraction (kernel A6: ab, Xab, abX, XabX), one-gap
+  extraction (kernel A7: aXb, XaXb, aXbX) and two-gap extraction (kernel
+  A8: aXbXc);
 * the lexicon (host), MaxLex (kernel A9 or A10) and the writer (host).
 
-The two-gap structures are empty (no lookup2, no two-gap extraction), so
-every query's lines are exactly the JAX package's lines without the aXbXc
-lines, in the same order: the writer emits each query's aXbXc lines after
-all of its other gappy lines, and no other line depends on them.
+Every query's lines equal the JAX package's, byte for byte and in order.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from cgx_tpu_torch.preproc import suffix_array as sab
 from cgx_tpu_torch.search import enumerate_fast as ef
 from cgx_tpu_torch.search import lookup, passes
 from cgx_tpu_torch.search import precompute as pcx
-from cgx_tpu_torch.types import GapRules, Precomp, TwoGapEnum, TwoGapSearch
+from cgx_tpu_torch.types import GapRules, Precomp
 from cgx_tpu_torch.utils.timing import PhaseTimer
 
 
@@ -60,6 +60,7 @@ class PipelineResult:
     per_query_lines: list
     counters: dict
     timing: PhaseTimer
+    index: ic.TorchGrammarIndex = None   # the device index the run searched
 
 
 def build_artifact(f_lines, e_lines, a_lines, lex_tokens,
@@ -87,20 +88,23 @@ def build_artifact(f_lines, e_lines, a_lines, lex_tokens,
 
 def run_pipeline(f_lines, e_lines, a_lines, lex_tokens, q_lines,
                  cfg: ExtractorConfig = DEFAULT_CONFIG,
-                 timing: PhaseTimer = None, device="cuda") -> PipelineResult:
-    """Runs the main path (every family but aXbXc) with every device stage
-    on ``device`` ("cuda": the hand-written kernels; "cpu": their plain
-    PyTorch versions)."""
+                 timing: PhaseTimer = None, device="cuda",
+                 lcp_passes: bool = False) -> PipelineResult:
+    """Runs the main path with every device stage on ``device`` ("cuda": the
+    hand-written kernels; "cpu": their plain PyTorch versions).
+    ``lcp_passes`` runs pass 1/2 as the LCP-accelerated search (kernel B1)
+    instead of the interval refinement (kernel A1); the grammar is the
+    same."""
     art, index, t = build_artifact(f_lines, e_lines, a_lines, lex_tokens, cfg,
                                    timing, device)
     ctx = dict(index=index, source=art.source, target=art.target, sa=art.sa,
                pc=art.precomp)
     with t.phase("qrysload"):
         queries = cp.load_queries(q_lines, art.source.vocab)
-    front = _front_stages(ctx, queries, cfg, t)
+    front = _front_stages(ctx, queries, cfg, t, lcp_passes)
     per_query_lines, counters = _back_stages(ctx, queries, front, cfg, t)
     return PipelineResult(queries=queries, per_query_lines=per_query_lines,
-                          counters=counters, timing=t)
+                          counters=counters, timing=t, index=index)
 
 
 def _concat_gaprules(a: GapRules, b: GapRules) -> GapRules:
@@ -108,12 +112,18 @@ def _concat_gaprules(a: GapRules, b: GapRules) -> GapRules:
                       for f in dataclasses.fields(GapRules)])
 
 
-def _front_stages(ctx, queries, cfg, t):
-    """Device-driven half: pass 1/2, the one-gap enumeration, lookup1,
-    blocks, contiguous and one-gap extraction."""
-    index, pc = ctx["index"], ctx["pc"]
-    with t.phase("kernel"):
-        p1, p2 = passes.refine_passes(index, queries)
+def _front_stages(ctx, queries, cfg, t, lcp_passes=False):
+    """Device-driven half: pass 1/2, the enumerations, lookup1 and lookup2,
+    blocks and the extraction of every family."""
+    index, pc, source = ctx["index"], ctx["pc"], ctx["source"]
+    if lcp_passes:
+        with t.phase("kernel"):
+            p1 = passes.pass1_lcp(index, queries)
+        with t.phase("kernel2"):
+            p2 = passes.pass2_lcp(index, queries, p1)
+    else:
+        with t.phase("kernel"):
+            p1, p2 = passes.refine_passes(index, queries)
     with t.phase("enumeration"):
         enum1, search1 = ef.fast_sort_and_dedup_onegap(
             ef.fast_one_gap_enumeration(queries, p1, cfg), queries)
@@ -123,33 +133,36 @@ def _front_stages(ctx, queries, cfg, t):
                                           cfg)
         check_capacity("onegap_sa", len(onegap_sa.position),
                        cfg.cap_onegap_sa)
+    with t.phase("enumeration"):
+        enum2, search2 = ef.fast_sort_and_dedup_twogap(
+            ef.fast_two_gap_enumeration(queries, p1, enum1, search1, cfg),
+            queries)
+        check_capacity("twogap_enum", len(enum2.number), cfg.cap_twogap_enum)
+    with t.phase("lookup2"):
+        twogap_sa = lookup.two_gap_lookup(index, queries, search1, onegap_sa,
+                                          search2, pc, cfg,
+                                          np.asarray(source.str_))
+        check_capacity("twogap_sa", len(twogap_sa.position),
+                       cfg.cap_twogap_sa)
     with t.phase("extractin"):
         blocks = generate_blocks(ctx["sa"], queries, p1, p2)
     with t.phase("extractkernel"):
         contig, og_blocks, tg_blocks = xdev.extract_contiguous(index, blocks,
                                                                cfg)
+        tg_seeds = xdev.extract_twogap(index, search1, search2, twogap_sa,
+                                       cfg)
         og_seeds, tg_onegap = xdev.extract_onegap(index, search1, onegap_sa,
                                                   pc, cfg)
-    # the two-gap seeds (aXbXc) are empty, so the two-gap rules are XabX,
-    # then XaXb/aXbX
+    # the two-gap rules are XabX, then aXbXc, then XaXb/aXbX
+    sep1 = len(tg_blocks.gappy_index)
     return dict(p1=p1, p2=p2, enum1=enum1, search1=search1,
-                onegap_sa=onegap_sa, blocks=blocks, contig=contig,
+                onegap_sa=onegap_sa, enum2=enum2, search2=search2,
+                twogap_sa=twogap_sa, blocks=blocks, contig=contig,
                 rules1=_concat_gaprules(og_blocks, og_seeds),
-                rules2=_concat_gaprules(tg_blocks, tg_onegap),
+                rules2=_concat_gaprules(_concat_gaprules(tg_blocks, tg_seeds),
+                                        tg_onegap),
                 sep_onegap=len(og_blocks.gappy_index),
-                sep1=len(tg_blocks.gappy_index),
-                sep2=len(tg_blocks.gappy_index))
-
-
-def _empty_twogap(qryscount: int):
-    """The two-gap search structures with no patterns: (search2, enum2)."""
-    z = np.empty(0, np.int32)
-    search2 = TwoGapSearch(blockid=z, position=z, qryend_len=z, gap2=z,
-                           start_on_salist=z, end_on_salist=z,
-                           query_with_id=[[] for _ in range(qryscount)])
-    enum2 = TwoGapEnum(blockid=z, gap2=z, qryend_len=z,
-                       pattern=np.empty((0, 1), np.int32), number=z)
-    return search2, enum2
+                sep1=sep1, sep2=sep1 + len(tg_seeds.gappy_index))
 
 
 def _back_stages(ctx, queries, fr, cfg, t):
@@ -157,8 +170,8 @@ def _back_stages(ctx, queries, fr, cfg, t):
     source, target, index, pc = (ctx["source"], ctx["target"], ctx["index"],
                                  ctx["pc"])
     blocks, search1, enum1 = fr["blocks"], fr["search1"], fr["enum1"]
+    search2, enum2 = fr["search2"], fr["enum2"]
     onegap_sa = fr["onegap_sa"]
-    search2, enum2 = _empty_twogap(queries.qryscount)
     with t.phase("lexicon"):
         rules_one, tasks_one = lx.fast_create_lexicon_onegap(
             fr["rules1"], source, target, blocks, search1, enum1, onegap_sa,
@@ -175,7 +188,7 @@ def _back_stages(ctx, queries, fr, cfg, t):
     with t.phase("printout"):
         G = len(blocks.start)
         D1 = len(search1.qrystart)
-        D2 = 0
+        D2 = len(search2.blockid)
         ud_contig = lx.updown_index(rules_contig, G)
         ud_one = lx.updown_index(rules_one, 2 * G + D1)
         ud_two = lx.updown_index(rules_two, G + D2 + 2 * D1)
@@ -190,10 +203,11 @@ def _back_stages(ctx, queries, fr, cfg, t):
             for q in range(queries.qryscount)
         ]
     counters = dict(
-        blocks=G, distinct_onegap=D1, precomp_rows=pc.count,
-        pass1_tokens=queries.totaltokens,
+        blocks=G, distinct_onegap=D1, distinct_twogap=D2,
+        precomp_rows=pc.count, pass1_tokens=queries.totaltokens,
         pass2_items=len(fr["p2"].up),
         onegap_sa=len(onegap_sa.position),
+        twogap_sa=len(fr["twogap_sa"].position),
         contig_pairs=len(fr["contig"].blocknumber),
         onegap_rules=len(fr["rules1"].gappy_index),
         twogap_rules=len(fr["rules2"].gappy_index),
@@ -203,14 +217,15 @@ def _back_stages(ctx, queries, fr, cfg, t):
 
 
 def run_pipeline_files(reffile, qryfile, tarfile, alignfile, lexfile, dest_dir,
-                       cfg: ExtractorConfig = DEFAULT_CONFIG, device="cuda"):
+                       cfg: ExtractorConfig = DEFAULT_CONFIG, device="cuda",
+                       lcp_passes: bool = False):
     with open(reffile, encoding="utf-8") as fh:
         f_text = fh.read()
     with open(tarfile, encoding="utf-8") as fh:
         e_text = fh.read()
     res = run_pipeline(f_text, e_text, cp.read_lines(alignfile),
                        cp.read_tokens(lexfile), cp.read_lines(qryfile), cfg,
-                       device=device)
+                       device=device, lcp_passes=lcp_passes)
     gw.write_grammars(dest_dir, res.queries.qryscount, cfg.is_sample,
                       res.per_query_lines)
     print(res.timing.report(), file=sys.stderr)

@@ -1,8 +1,8 @@
 """Build/load the native host library (ctypes).
 
-The C++ source is the JAX package's ``cgx_tpu/preproc/native/sa_native.cpp``,
-compiled by path with ``g++`` into ``build/cgx_tpu_torch/`` at the repository
-root; the port keeps no copy of it and writes nothing into the JAX package.
+The C++ source is the port's own ``native/sa_native.cpp`` beside this module
+(a copy of the JAX package's), compiled with ``g++`` at first use into
+``build/cgx_tpu_torch/`` at the repository root.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ import numpy as np
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-_SRC = os.path.join(_ROOT, "cgx_tpu", "preproc", "native", "sa_native.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native",
+                    "sa_native.cpp")
 BUILD_DIR = os.path.join(_ROOT, "build", "cgx_tpu_torch")
 _SO = os.path.join(BUILD_DIR, "libcgx_native.so")
 _lock = threading.Lock()

@@ -5,8 +5,8 @@ midpoint-interval LCP tree, ``SuffixArray.c:51-193``).  Because the extended tok
 string ends in a unique sentinel (max_id + 1) the suffix array is unique, so *any*
 correct construction matches the reference's DC3 output exactly.  We provide:
 
-* a fast C++ backend (``cgx_tpu/preproc/native/sa_native.cpp``, built by
-  ``native_build`` and loaded via ctypes) doing SA-IS + Kasai
+* a fast C++ backend (``cgx_tpu_torch/preproc/native/sa_native.cpp``, built
+  by ``native_build`` and loaded via ctypes) doing SA-IS + Kasai
   + the interval tree in native code — used when the shared library is built;
 * a NumPy fallback (rank-doubling via ``np.lexsort`` for the SA; linear-time Kasai).
 

@@ -1,11 +1,14 @@
-"""lookup1: the SA occurrences of every distinct one-gap pattern aXb.
+"""lookup1 and lookup2: the occurrences of every distinct one-gap pattern aXb
+and two-gap pattern aXbXc.
 
-Port of the one-gap part of ``cgx_tpu/search/lookup.py``
-(``one_gap_lookup_tpu``, ``_fill_salist``) and of the replicated engine's
-item expansion (``cgx_tpu/engine.py``: ``_offsets``, ``expand_hits``,
-``scan_expanded``, ``pcs_expanded``).  Each pattern takes one of three
-routes, chosen on the host from its SA intervals and the precomputed
-frequent pairs exactly as the JAX package does:
+Port of ``cgx_tpu/search/lookup.py`` (``one_gap_lookup_tpu``,
+``two_gap_lookup_tpu``, ``_fill_salist``) and of the replicated engine's item
+expansion (``cgx_tpu/engine.py``: ``_offsets``, ``expand_hits``,
+``scan_expanded``, ``pcs_expanded``, ``two_expanded``).
+
+lookup1: each one-gap pattern takes one of three routes, chosen on the host
+from its SA intervals and the precomputed frequent pairs exactly as the JAX
+package does:
 
 * ``pc_ref``: a one-token a and b whose pair is precomputed -- one reference
   row to the precomp cell, no device work;
@@ -17,7 +20,12 @@ frequent pairs exactly as the JAX package does:
   gap check fused in (``do_gap=True``; the JAX package's two-phase variant
   gives the same rows by construction and is not ported).
 
-Both kernels expand their item axis on the device from a per-pattern table
+lookup2: kernel A5 (``two``) scans right from every occurrence of every
+distinct one-gap pattern (precomputed cells expanded) for the second gap,
+with the gap check fused in; the c token of each hit is resolved on the host
+against the two-gap patterns that extend the core.
+
+The kernels expand their item axis on the device from a per-pattern table
 (``pattab``) and the exclusive count prefix (``offs``), and launch once over
 all items.
 """
@@ -29,7 +37,7 @@ import torch
 
 from cgx_tpu_torch.config import ExtractorConfig
 from cgx_tpu_torch.kernels import build as kb
-from cgx_tpu_torch.types import GapOnSA, OneGapSearch, Precomp
+from cgx_tpu_torch.types import GapOnSA, OneGapSearch, Precomp, TwoGapSearch
 from cgx_tpu_torch.utils.views import take
 
 MMOV = 16  # move-axis width; real moves are bounded by max_rule_span - 2
@@ -174,6 +182,32 @@ def scan_plain(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int,
     return pack_moves(cand & gc)
 
 
+def two_plain(refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, n: int,
+              mrs: int, mgs: int):
+    """Plain PyTorch version of kernel A5 -> int32 [n] words holding the
+    uint32 bits ``cand | (gc << 16)``."""
+    dev = offs.device
+    f, tx = _expand(pattab, offs, n)
+    row = f[:, 0] + tx
+    # both reads are clamped; the pcmode flag selects one
+    sel = torch.where((f[:, 1] > 0)[:, None], take(pcrows, row),
+                      take(ogrows, row))
+    pstart, plen = sel[:, 0], sel[:, 1]
+    gostart = pstart + plen
+    moves = torch.arange(MMOV, dtype=torch.int32, device=dev)
+    gap0_bad = take(refstr, gostart + mgs) < 2
+    temp = take(refstr, (gostart + 1 + mgs)[:, None] + moves)
+    span_kill = (plen + 1 + mgs + 1)[:, None] + moves > mrs
+    bad = temp < 2
+    # reach[m]: every earlier move survived (exclusive prefix AND)
+    alive = torch.cumprod((~bad & ~span_kill).to(torch.int32), dim=1) == 1
+    reach = torch.cat([torch.ones_like(alive[:, :1]), alive[:, :-1]], dim=1)
+    cand = reach & ~gap0_bad[:, None] & ~span_kill & ~bad
+    gc = gap_check_grow(rlp, lr_tar, gostart + 1, mgs - 1, mrs, True)
+    w = pack_moves(cand).long() | (pack_moves(gc).long() << 16)
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
 def pcs_plain(refstr, pcrows, pattab, offs, n: int, mrs: int):
     """Plain PyTorch version of kernel A3 -> int32 [ceil(n / 32)] packed ok
     bits."""
@@ -192,9 +226,9 @@ def pcs_plain(refstr, pcrows, pattab, offs, n: int, mrs: int):
     return _pack_bits32(ok)
 
 
-def _check_items(kernel, pattab, offs, n):
-    if pattab.dim() != 2 or pattab.shape[1] != 8 or pattab.shape[0] < 1:
-        raise ValueError(f"{kernel}: pattab must be int32 [D >= 1, 8]")
+def _check_items(kernel, pattab, offs, n, width=8):
+    if pattab.dim() != 2 or pattab.shape[1] != width or pattab.shape[0] < 1:
+        raise ValueError(f"{kernel}: pattab must be int32 [D >= 1, {width}]")
     if offs.shape[0] != pattab.shape[0] + 1:
         raise ValueError(f"{kernel}: offs must have D + 1 entries")
     kb.check_count(kernel, n)
@@ -243,8 +277,7 @@ def pcs(refstr, pcrows, pattab, offs, n: int, mrs: int):
     kb.check_inputs("A3", device, torch.int32, refstr=refstr, pcrows=pcrows,
                     pattab=pattab, offs=offs)
     _check_items("A3", pattab, offs, n)
-    if pcrows.dim() != 2 or pcrows.shape[1] != 2 or pcrows.shape[0] < 1:
-        raise ValueError("A3: pcrows must be int32 [m >= 1, 2]")
+    _check_rows("A3", pcrows=pcrows)
     out = torch.empty((n + 31) // 32, dtype=torch.int32, device=device)
     if n:
         lib = kb.library("scan")
@@ -256,18 +289,56 @@ def pcs(refstr, pcrows, pattab, offs, n: int, mrs: int):
     return out
 
 
+def _check_rows(kernel, **rows):
+    for name, t in rows.items():
+        if t.dim() != 2 or t.shape[1] != 2 or t.shape[0] < 1:
+            raise ValueError(f"{kernel}: {name} must be int32 [m >= 1, 2]")
+
+
+def two(refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, n: int, mrs: int,
+        mgs: int):
+    """Kernel A5 (``csrc/scan.cu``, ``cgx_two``): for each of the ``n``
+    items (occurrence row ``pattab[p, 0] + tx`` of pattern p, read from the
+    precomputed rows ``pcrows`` when ``pattab[p, 1]`` is set, else from the
+    one-gap rows ``ogrows``, both int32 [m, 2] (start, len)), the scan for a
+    second gap right of the aXb core and its fused gap check, as one int32
+    word holding the uint32 bits ``cand | (gc << 16)``.
+
+    Replaces ``_two_batch_exp`` (cgx_tpu/search/lookup.py:662).  On CUDA
+    tensors it launches the kernel; on CPU tensors it runs ``two_plain``."""
+    device = offs.device
+    if not kb.route("A5", device):
+        return two_plain(refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, n,
+                         mrs, mgs)
+    kb.check_inputs("A5", device, torch.int32, refstr=refstr, rlp=rlp,
+                    lr_tar=lr_tar, ogrows=ogrows, pcrows=pcrows,
+                    pattab=pattab, offs=offs)
+    _check_items("A5", pattab, offs, n, width=2)
+    _check_rows("A5", ogrows=ogrows, pcrows=pcrows)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    if n:
+        lib = kb.library("scan")
+        kb.check("scan", lib.cgx_two(
+            kb.ptr(refstr), refstr.shape[0], kb.ptr(rlp), rlp.shape[0],
+            kb.ptr(lr_tar), lr_tar.shape[0], kb.ptr(ogrows), ogrows.shape[0],
+            kb.ptr(pcrows), pcrows.shape[0], kb.ptr(pattab), kb.ptr(offs),
+            pattab.shape[0], n, mrs, mgs, kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES["A5"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Host orchestration
 # ---------------------------------------------------------------------------
 
-def _pattern_tables(index, counts, cols):
+def _pattern_tables(index, counts, cols, width=8):
     """(pattab, offs, n) on the index's device for per-pattern item counts
-    and up to 8 int32 field columns."""
+    and up to ``width`` int32 field columns."""
     offs = _offsets(counts)
-    pattab = np.zeros((len(counts), 8), np.int32)
+    pattab = np.zeros((len(counts), width), np.int32)
     for c, v in enumerate(cols):
         pattab[:, c] = v
-    kb.check_count("lookup1", int(offs[-1]))   # before the int32 cast
+    kb.check_count("lookup", int(offs[-1]))   # before the int32 cast
     dev = index.device
     return (torch.from_numpy(pattab).to(dev),
             torch.from_numpy(offs.astype(np.int32)).to(dev), int(offs[-1]))
@@ -441,6 +512,105 @@ def one_gap_lookup(index, queries, p1, p2, search: OneGapSearch, pc: Precomp,
                   length=rows[:, 2].astype(np.int32),
                   length2=np.zeros(len(rows), dtype=np.int32))
     _fill_salist(search.start_on_salist, search.end_on_salist, out.position)
+    return out
+
+
+def _rows_on(index, start, length) -> torch.Tensor:
+    """int32 [max(n, 1), 2] (start, len) rows on the index's device."""
+    host = np.zeros((max(len(start), 1), 2), np.int32)
+    host[:len(start), 0] = start
+    host[:len(length), 1] = length
+    return torch.from_numpy(host).to(index.device)
+
+
+def two_gap_items(search1: OneGapSearch, onegap_sa: GapOnSA, pc: Precomp):
+    """Kernel A5's per-pattern table over the distinct one-gap patterns:
+    (first occurrence row, item count, pcmode), int64/bool numpy [D].  A
+    pattern whose lookup1 result is one precomp reference row (pcmode)
+    reads its cell's precomputed occurrences, every other pattern its own
+    lookup1 rows."""
+    lo0 = search1.start_on_salist.astype(np.int64)
+    hi0 = search1.end_on_salist.astype(np.int64)
+    has = lo0 >= 0
+    loc = np.clip(lo0, 0, max(len(onegap_sa.length) - 1, 0))
+    if len(onegap_sa.length):
+        pcmode = has & (hi0 == lo0) & (onegap_sa.length[loc] == 0)
+        pci_t = onegap_sa.str_position[loc].astype(np.int64)
+    else:
+        pcmode = np.zeros_like(has)
+        pci_t = np.zeros_like(lo0)
+    pcic = np.clip(pci_t, 0, len(pc.index_start) - 1)
+    lo = np.where(pcmode, pc.index_start[pcic], lo0)
+    hi = np.where(pcmode, pc.index_end[pcic], hi0)
+    return lo, np.where(has & (hi >= lo), hi - lo + 1, 0), pcmode
+
+
+def two_gap_lookup(index, queries, search1: OneGapSearch, onegap_sa: GapOnSA,
+                   search2: TwoGapSearch, pc: Precomp, cfg: ExtractorConfig,
+                   refstr_host: np.ndarray) -> GapOnSA:
+    """The occurrences of every distinct two-gap pattern, as rows (pattern,
+    corpus start, b's end offset, c's end offset) sorted by all four; fills
+    ``search2.start_on_salist``/``end_on_salist``.
+
+    Every distinct one-gap pattern's occurrences (precomputed cells
+    expanded, unsampled) are scanned once by kernel A5; the c token of each
+    hit is read from ``refstr_host`` (the host copy of the source token
+    string) and matched against the (one-gap pattern, c token) pairs of the
+    two-gap patterns."""
+    D2 = len(search2.blockid)
+    mgs = cfg.min_gap_size
+    empty = GapOnSA(*(np.empty(0, np.int32) for _ in range(4)))
+    lo, counts, pcmode = two_gap_items(search1, onegap_sa, pc)
+    if D2 == 0 or counts.sum() == 0:
+        return empty
+    pattab, offs, n = _pattern_tables(index, counts, (lo, pcmode), width=2)
+    words = two(index.refstr_padded, index.rlp, index.lr_tar,
+                _rows_on(index, onegap_sa.str_position, onegap_sa.length),
+                index.precomp_rows(pc), pattab, offs, n, cfg.max_rule_span,
+                mgs).cpu().numpy().view(np.uint32)
+    cand_mask = (words & 0xFFFF).astype(np.int32)
+    gc_mask = ((words >> 16) & 0xFFFF).astype(np.int64)
+    # sorted (oneId, c-token) -> twoId table; distinct patterns are unique
+    # pairs
+    ctok = np.asarray(queries.tokens)[search2.gap2].astype(np.int64)
+    keys = (search2.blockid.astype(np.int64) << 32) | ctok
+    korder = np.argsort(keys, kind="stable")
+    keys_sorted = keys[korder]
+    ii, mm = _mask_hits(cand_mask)
+    if not len(ii):
+        return empty
+    # occurrence fields and the scanned c token, recomputed at the hits only
+    pat, tx, _ = expand_hits(ii, counts)
+    row = lo[pat] + tx
+    pcm_i = pcmode[pat]
+    og_sp = onegap_sa.str_position if len(onegap_sa.str_position) \
+        else np.zeros(1, np.int32)
+    og_ln = onegap_sa.length if len(onegap_sa.length) \
+        else np.zeros(1, np.int32)
+    pc_sp = pc.onegap_start if len(pc.onegap_start) else np.zeros(1, np.int32)
+    pc_ln = pc.onegap_length if len(pc.onegap_length) \
+        else np.zeros(1, np.int32)
+    css = np.where(pcm_i, pc_sp[np.clip(row, 0, len(pc_sp) - 1)],
+                   og_sp[np.clip(row, 0, len(og_sp) - 1)]).astype(np.int64)
+    fes = np.where(pcm_i, pc_ln[np.clip(row, 0, len(pc_ln) - 1)],
+                   og_ln[np.clip(row, 0, len(og_ln) - 1)]).astype(np.int64)
+    pos = css + fes + 1 + mgs + mm
+    temp_hit = refstr_host[np.minimum(pos, len(refstr_host) - 1)]
+    want = (pat.astype(np.int64) << 32) | temp_hit.astype(np.int64)
+    ki = np.searchsorted(keys_sorted, want)
+    found = (ki < len(keys_sorted)) & \
+        (keys_sorted[np.minimum(ki, len(keys_sorted) - 1)] == want)
+    hit = found & (((gc_mask[ii] >> mm) & 1) == 1)
+    two_id = korder[np.minimum(ki, len(korder) - 1)][hit]
+    length2 = fes + 1 + mgs + mm
+    rows = np.stack([two_id, css[hit], fes[hit],
+                     length2[hit].astype(np.int64)], axis=1)
+    rows = rows[np.lexsort((rows[:, 3], rows[:, 2], rows[:, 1], rows[:, 0]))]
+    out = GapOnSA(position=rows[:, 0].astype(np.int32),
+                  str_position=rows[:, 1].astype(np.int32),
+                  length=rows[:, 2].astype(np.int32),
+                  length2=rows[:, 3].astype(np.int32))
+    _fill_salist(search2.start_on_salist, search2.end_on_salist, out.position)
     return out
 
 

@@ -1,13 +1,27 @@
-"""Pass 1 / pass 2 suffix-array search by seeded interval refinement.
+"""Pass 1 / pass 2 suffix-array search.
 
-Port of the default pass-1/2 engine of ``cgx_tpu/search/passes.py``
-(``build_seed_tables``, ``seed_intervals``, ``drive_refinement``,
-``refine_passes``).  For a query token, the SA interval of its length-(L+1)
-prefix is a sub-interval of its length-L interval, and within that interval
-the (L+1)-th suffix tokens are sorted, so each depth needs two integer
-lower-bound searches over ``refstr[sa[M] + L]``.  Depths 0-2 are answered on
-the host from seed tables; the device ladder (kernel A1, ``refine_chunk``)
-runs the deeper levels for the lanes still alive.
+Port of ``cgx_tpu/search/passes.py``'s two single-device engines:
+
+* the default, seeded interval refinement (``build_seed_tables``,
+  ``seed_intervals``, ``drive_refinement``, ``refine_passes``).  For a query
+  token, the SA interval of its length-(L+1) prefix is a sub-interval of its
+  length-L interval, and within that interval the (L+1)-th suffix tokens are
+  sorted, so each depth needs two integer lower-bound searches over
+  ``refstr[sa[M] + L]``.  Depths 0-2 are answered on the host from seed
+  tables; the device ladder (kernel A1, ``refine_chunk``) runs the deeper
+  levels for the lanes still alive;
+* the LCP-accelerated binary search (``pass1_lcp``, ``pass2_lcp``, kernel
+  B1), a transcription of suffixArrayFindLwRwKernelTwoWayTDI (pass 1,
+  SuffixArray.cu:402-767) and suffixArrayFindConnectionTwoWayTDI (pass 2,
+  SuffixArray.cu:109-400) over the interval-LCP tree ``lcpleft/lcpright``:
+  one lane per query token (pass 1) or per (token, match length) item
+  (pass 2).  Its up/down/longestmatch equal the refinement's; pass 1 also
+  returns the search's ``firstfindhit*`` window, which seeds pass 2.
+
+The reference's SA-end boundary probe (COMP1, SuffixArray.cu:484-514) is
+omitted: the corpus ends in a unique sentinel larger than every vocab id, so
+``SA[reflen-1]`` is the sentinel suffix and the probe never matches
+(``index.container.build_index`` checks that invariant).
 """
 
 from __future__ import annotations
@@ -16,7 +30,7 @@ import numpy as np
 import torch
 
 from cgx_tpu_torch.kernels import build as kb
-from cgx_tpu_torch.types import Pass1Result, Pass2Result
+from cgx_tpu_torch.types import SEP, Pass1Result, Pass2Result
 from cgx_tpu_torch.utils import batching
 from cgx_tpu_torch.utils.views import take
 
@@ -160,6 +174,288 @@ def refine_chunk(sa, refstr, qtok, toks, sls, lo, hi, d0: int, depths: int):
     return ups, downs, lo_out, hi_out
 
 
+# ---------------------------------------------------------------------------
+# LCP-accelerated pass 1 / pass 2 (kernel B1)
+# ---------------------------------------------------------------------------
+# Plain versions: every lane of the JAX vmap is one row, and each JAX
+# while_loop is a Python loop that runs until no lane is active, updating
+# only the active lanes.
+
+PASS2_SUFFIXLEN = 2 ** 30   # pass 2 never stops at the end of the suffix
+
+
+def _skip_at(lcpleft, lcpright, other, M, direct):
+    """LCP(M, M') via the midpoint tree (SuffixArray.cu:536-541, 614-619):
+    ``other`` is L (left flavour) or R (right flavour); ``direct`` is
+    lcpleft[M] (left) or lcpright[M] (right), used when |other - M| == 1."""
+    ht = (other + M) >> 1
+    tree = torch.minimum(take(lcpleft, ht), take(lcpright, ht))
+    return torch.where((other - M).abs() == 1, direct, tree)
+
+
+def _bound_walk(lcpleft, lcpright, ffh, ffl, ffr, match, go_up: bool):
+    """Final up/down bound walk (SuffixArray.cu:714-763): narrow from the
+    firstfindhit window to the outermost SA index whose skip >= match."""
+    L = (ffl if go_up else ffh).clone()
+    R = (ffh if go_up else ffr).clone()
+    longest = ffh.clone()
+    valid = ffh >= 0
+    while True:
+        act = valid & (R - L > 1)
+        if not bool(act.any()):
+            return longest
+        M = (L + R) >> 1
+        if go_up:
+            skip = _skip_at(lcpleft, lcpright, R, M, take(lcpright, M))
+        else:
+            skip = _skip_at(lcpleft, lcpright, L, M, take(lcpleft, M))
+        tk = act & (skip >= match)
+        nt = act & ~(skip >= match)
+        longest = torch.where(tk, M, longest)
+        if go_up:
+            R = torch.where(tk, M, R)
+            L = torch.where(nt, M, L)
+        else:
+            L = torch.where(tk, M, L)
+            R = torch.where(nt, M, R)
+
+
+def _lcp_search(refstr, sa, lcpleft, lcpright, qtok, tok, suffixlen, L, R,
+                require_match, pin):
+    """The LCP binary search for every lane until it narrows to adjacent
+    bounds or finds its answer (``_search_body`` under the JAX while_loop).
+    Pass 1: ``require_match`` None (record firstfindhit on the first matched
+    token, never break on it; break at the end of the suffix), ``pin`` None.
+    Pass 2: ``require_match`` int32 [n] (record and break once that many
+    tokens match), ``pin`` (LL, MM, RR): the first midpoint is MM while
+    (L, R) == (LL, RR).  Returns (longlen, ffh, ffl, ffr)."""
+    pass1 = require_match is None
+    neg = torch.full_like(tok, -1)
+    zero = torch.zeros_like(tok)
+    Llcp, Rlcp, longlen, temp = zero, zero, zero, neg
+    ffh, ffl, ffr = neg, neg, neg
+    # pass 1: a query token outside the vocabulary has no match
+    found = take(qtok, tok) == -1
+    if not pass1:
+        found = torch.zeros_like(found)
+    while True:
+        active = (R - L > 1) & ~found
+        if not bool(active.any()):
+            return longlen, ffh, ffl, ffr
+        M = (L + R) >> 1
+        if pin is not None:
+            LL, MM, RR = pin
+            M = torch.where((L == LL) & (R == RR) & (MM >= 0), MM, M)
+        use_l = Llcp >= Rlcp
+        ll0 = torch.where(use_l, Llcp, Rlcp)
+        skip = torch.where(
+            use_l, _skip_at(lcpleft, lcpright, L, M, take(lcpleft, M)),
+            _skip_at(lcpleft, lcpright, R, M, take(lcpright, M)))
+        lt = ll0 < skip
+        gt = ll0 > skip
+        eq = ~lt & ~gt
+        # eq-case character comparison (SuffixArray.cu:550-611)
+        sref = take(sa, M) + ll0
+        a = take(qtok, tok + ll0)
+        b = take(refstr, sref)
+        pre_break = (a == -1) | (pass1 & (ll0 >= suffixlen))
+        enter = active & eq & ~pre_break & (a != -1) & (b != SEP)
+        tp = torch.where(enter, a - b, temp)
+        ll = ll0
+        fh, fl, fr = ffh, ffl, ffr
+        ifound = torch.zeros_like(enter)
+        while True:
+            act = enter & (a != -1) & (b != SEP) & (tp == 0) & ~ifound
+            if not bool(act.any()):
+                break
+            ll = torch.where(act, ll + 1, ll)
+            sref = torch.where(act, sref + 1, sref)
+            if pass1:
+                rec = act & (fh == -1)
+                brk = act & (ll >= suffixlen)
+            else:
+                rec = act & (fh == -1) & (ll >= require_match)
+                brk = rec
+            fh = torch.where(rec, M, fh)
+            fl = torch.where(rec, L, fl)
+            fr = torch.where(rec, R, fr)
+            step = act & ~brk
+            a = torch.where(step, take(qtok, tok + torch.minimum(
+                ll, suffixlen + QPAD - 1)), a)
+            b = torch.where(step, take(refstr, sref), b)
+            a_end = step & (a == -1)
+            ifound = ifound | brk | a_end
+            upd = step & ~a_end & (a != -1) & (b != SEP)
+            tp = torch.where(upd, a - b, tp)
+        found_eq = eq & (pre_break | ifound)
+        # post-compare branch (SuffixArray.cu:598-610) for eq lanes that did
+        # not break
+        post = eq & ~found_eq
+        a_neg = post & (a == -1)
+        b_sep = post & ~a_neg & (b == SEP)
+        t_pos = post & ~a_neg & ~b_sep & (tp > 0)
+        t_neg = post & ~a_neg & ~b_sep & ~t_pos
+        go_left = active & ((lt & use_l) | (gt & ~use_l) | b_sep | t_pos
+                            | a_neg)
+        go_right = active & ((lt & ~use_l) | (gt & use_l) | t_neg | a_neg)
+        nLlcp = torch.where(gt & ~use_l, skip,
+                            torch.where(b_sep | t_pos, ll, Llcp))
+        nRlcp = torch.where(gt & use_l, skip, torch.where(t_neg, ll, Rlcp))
+        L = torch.where(go_left, M, L)
+        R = torch.where(go_right, M, R)
+        Llcp = torch.where(active, nLlcp, Llcp)
+        Rlcp = torch.where(active, nRlcp, Rlcp)
+        longlen = torch.where(active, torch.where(eq, ll, ll0), longlen)
+        temp = torch.where(active, tp, temp)
+        ffh = torch.where(active, fh, ffh)
+        ffl = torch.where(active, fl, ffl)
+        ffr = torch.where(active, fr, ffr)
+        found = found | (active & found_eq)
+
+
+def pass1_plain(refstr, sa, lcpleft, lcpright, qtok, toks, suffixlens,
+                reflen: int):
+    """Plain PyTorch version of kernel B1's pass 1 -> six int32 [T]
+    (longestmatch, up, down, firstfindhit, firstfindhitL, firstfindhitR)."""
+    oov = take(qtok, toks) == -1
+    longlen, ffh, ffl, ffr = _lcp_search(
+        refstr, sa, lcpleft, lcpright, qtok, toks, suffixlens,
+        torch.zeros_like(toks), torch.full_like(toks, reflen - 1), None, None)
+    hit = ~oov & (ffh != -1) & (longlen > 0)
+    neg = torch.full_like(toks, -1)
+    ffh_s = torch.where(hit, ffh, neg)
+    up = _bound_walk(lcpleft, lcpright, ffh_s, ffl, ffr, 1, True)
+    down = _bound_walk(lcpleft, lcpright, ffh_s, ffl, ffr, 1, False)
+    lm = torch.where(oov | (longlen <= 0), 0, longlen)
+    return (lm, torch.where(hit, up, neg), torch.where(hit, down, neg),
+            torch.where(hit, ffh, neg), torch.where(hit, ffl, neg),
+            torch.where(hit, ffr, neg))
+
+
+def pass2_plain(refstr, sa, lcpleft, lcpright, qtok, toks, matches, LLs, MMs,
+                RRs):
+    """Plain PyTorch version of kernel B1's pass 2 -> (up, down) int32 [I]."""
+    _, ffh, ffl, ffr = _lcp_search(
+        refstr, sa, lcpleft, lcpright, qtok, toks,
+        torch.full_like(toks, PASS2_SUFFIXLEN), LLs, RRs, matches,
+        (LLs, MMs, RRs))
+    neg = torch.full_like(toks, -1)
+    up = _bound_walk(lcpleft, lcpright, ffh, ffl, ffr, matches, True)
+    down = _bound_walk(lcpleft, lcpright, ffh, ffl, ffr, matches, False)
+    ok = ffh != -1
+    return torch.where(ok, up, neg), torch.where(ok, down, neg)
+
+
+def _check_lanes(kernel, n, *cols):
+    if any(c.dim() != 1 or c.shape[0] != n for c in cols):
+        raise ValueError(f"{kernel}: lane arrays differ in length")
+    kb.check_count(kernel, n)
+
+
+def pass1(refstr, sa, lcpleft, lcpright, qtok, toks, suffixlens, reflen: int):
+    """Kernel B1, pass 1 (``csrc/lcp.cu``, ``cgx_pass1``): the LCP binary
+    search of query token ``toks[i]`` (``suffixlens[i]`` tokens to its
+    query's end) over the first ``reflen`` suffixes.  Returns six int32 [T]
+    (longestmatch, up, down, firstfindhit, firstfindhitL, firstfindhitR).
+
+    Replaces ``_pass1_batch`` (cgx_tpu/search/passes.py:221).  On CUDA
+    tensors it launches the kernel; on CPU tensors it runs
+    ``pass1_plain``."""
+    device = toks.device
+    if not kb.route("B1p1", device):
+        return pass1_plain(refstr, sa, lcpleft, lcpright, qtok, toks,
+                           suffixlens, reflen)
+    kb.check_inputs("B1p1", device, torch.int32, refstr=refstr, sa=sa,
+                    lcpleft=lcpleft, lcpright=lcpright, qtok=qtok, toks=toks,
+                    suffixlens=suffixlens)
+    n = toks.shape[0]
+    _check_lanes("B1p1", n, suffixlens)
+    out = torch.empty((6, n), dtype=torch.int32, device=device)
+    if n:
+        lib = kb.library("lcp")
+        kb.check("lcp", lib.cgx_pass1(
+            kb.ptr(refstr), refstr.shape[0], kb.ptr(sa), sa.shape[0],
+            kb.ptr(lcpleft), kb.ptr(lcpright), lcpleft.shape[0], kb.ptr(qtok),
+            qtok.shape[0], kb.ptr(toks), kb.ptr(suffixlens), n, reflen,
+            kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES["B1p1"] += 1
+    return tuple(out)
+
+
+def pass2(refstr, sa, lcpleft, lcpright, qtok, toks, matches, LLs, MMs, RRs):
+    """Kernel B1, pass 2 (``csrc/lcp.cu``, ``cgx_pass2``): for each item
+    (query token ``toks[i]``, match length ``matches[i]``, pass 1's
+    firstfindhit window ``LLs[i] <= MMs[i] <= RRs[i]``) the SA range of the
+    token's length-``matches[i]`` prefix.  Returns (up, down) int32 [I].
+
+    Replaces ``_pass2_batch`` (cgx_tpu/search/passes.py:229).  On CUDA
+    tensors it launches the kernel; on CPU tensors it runs
+    ``pass2_plain``."""
+    device = toks.device
+    if not kb.route("B1p2", device):
+        return pass2_plain(refstr, sa, lcpleft, lcpright, qtok, toks, matches,
+                           LLs, MMs, RRs)
+    kb.check_inputs("B1p2", device, torch.int32, refstr=refstr, sa=sa,
+                    lcpleft=lcpleft, lcpright=lcpright, qtok=qtok, toks=toks,
+                    matches=matches, LLs=LLs, MMs=MMs, RRs=RRs)
+    n = toks.shape[0]
+    _check_lanes("B1p2", n, matches, LLs, MMs, RRs)
+    out = torch.empty((2, n), dtype=torch.int32, device=device)
+    if n:
+        lib = kb.library("lcp")
+        kb.check("lcp", lib.cgx_pass2(
+            kb.ptr(refstr), refstr.shape[0], kb.ptr(sa), sa.shape[0],
+            kb.ptr(lcpleft), kb.ptr(lcpright), lcpleft.shape[0], kb.ptr(qtok),
+            qtok.shape[0], kb.ptr(toks), kb.ptr(matches), kb.ptr(LLs),
+            kb.ptr(MMs), kb.ptr(RRs), n, kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES["B1p2"] += 1
+    return tuple(out)
+
+
+def _suffix_lens(queries) -> np.ndarray:
+    """Per query token, the tokens from it to its query's end."""
+    ends = np.array([queries.query_end(int(q)) for q in queries.tok_to_qry],
+                    dtype=np.int32)
+    return ends - np.arange(queries.totaltokens, dtype=np.int32)
+
+
+def _on(dev, *arrays):
+    """int32 copies of numpy arrays on ``dev``."""
+    return [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+            for a in arrays]
+
+
+def pass1_lcp(index, queries) -> Pass1Result:
+    """Pass 1 by the LCP search on a ``TorchGrammarIndex`` (kernel B1p1 on
+    the index's device)."""
+    n = queries.totaltokens
+    lcpleft, lcpright = index.lcp_tables()
+    toks, sls = _on(index.device, np.arange(n, dtype=np.int32),
+                    _suffix_lens(queries))
+    lm, up, down, ffh, ffl, ffr = (
+        t.cpu().numpy() for t in pass1(
+            index.refstr_padded, index.sa, lcpleft, lcpright,
+            index.query_tokens(queries), toks, sls, index.reflen))
+    return Pass1Result(up=up, down=down, firstfindhit=ffh, firstfindhitL=ffl,
+                       firstfindhitR=ffr, longestmatch=lm)
+
+
+def pass2_lcp(index, queries, p1: Pass1Result) -> Pass2Result:
+    """Pass 2 by the LCP search (kernel B1p2), one item per (token, match
+    length 2..longestmatch), seeded with pass 1's firstfindhit window."""
+    connectoffset, toks, matches = pass2_work_items(p1)
+    if len(toks) == 0:
+        return Pass2Result(connectoffset=connectoffset,
+                           up=np.empty(0, np.int32), down=np.empty(0, np.int32))
+    lcpleft, lcpright = index.lcp_tables()
+    up, down = (t.cpu().numpy() for t in pass2(
+        index.refstr_padded, index.sa, lcpleft, lcpright,
+        index.query_tokens(queries),
+        *_on(index.device, toks, matches, p1.firstfindhitL[toks],
+             p1.firstfindhit[toks], p1.firstfindhitR[toks])))
+    return Pass2Result(connectoffset=connectoffset, up=up, down=down)
+
+
 def pass2_work_items(p1: Pass1Result):
     """Pass-2 work list (the host scan at SuffixArray.cu:1464-1474): per
     token with longestmatch > 1, one item per match length 2..longestmatch.
@@ -187,10 +483,8 @@ def drive_refinement(queries, reflen, seed, dispatch, stats: dict = None):
     ``interval_words`` and ``max_depth``.  Returns (Pass1Result, Pass2Result)
     with the search-path internals ``firstfindhit*`` reported as -1."""
     n = queries.totaltokens
-    ends = np.array([queries.query_end(int(q)) for q in queries.tok_to_qry],
-                    dtype=np.int32)
     toks = np.arange(n, dtype=np.int32)
-    sls = ends - toks
+    sls = _suffix_lens(queries)
     qtok_host = np.asarray(queries.padded_tokens())
 
     # depths 0-2 answered on host (seed tables), ladder starts at depth 3
@@ -286,10 +580,8 @@ def refine_passes(index, queries, stats: dict = None):
     dev = index.device
 
     def dispatch(toks, sls, lo, hi, depth, dchunk):
-        out = refine_chunk(
-            index.sa, index.refstr_padded, qtok,
-            *(torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
-              for a in (toks, sls, lo, hi)), depth, dchunk)
+        out = refine_chunk(index.sa, index.refstr_padded, qtok,
+                           *_on(dev, toks, sls, lo, hi), depth, dchunk)
         return tuple(t.cpu().numpy() for t in out)
 
     return drive_refinement(queries, index.reflen, index.seed_host, dispatch,

@@ -11,6 +11,8 @@ import dataclasses
 
 import numpy as np
 
+SEP = 1  # sentence separator token id
+
 
 @dataclasses.dataclass
 class Pass1Result:

@@ -12,16 +12,21 @@ Phases, one line each on stdout:
    the ``medium`` corpus (20k sentences, 32 queries; dense MaxLex tables, so
    kernel A9) and the ``europarl`` corpus (1M sentences, 20k vocabulary, 64
    queries; row-range tables, so A10), both made from seeds by the generators
-   in tools/.  Each run must launch its path's kernels (launch counts reset
-   just before it: A1, A4, A2 forward and backward, A3, A6, A7 and A9 or
-   A10), its counters must equal the JAX package's and its grammar hash the
-   golden in tests/golden_torch_hashes.json (the JAX package's grammar
-   without the two-gap aXbXc lines, the family the port does not extract
-   yet);
+   in tools/, then medium again with ``lcp_passes=True``.  Each run must
+   launch its path's kernels (launch counts reset just before it: A1 or B1's
+   two passes, A4, A2 forward and backward, A3, A5, A6, A7, A8 and A9 or
+   A10; the LCP run must not launch A1), its counters must equal the JAX
+   package's and its grammar hash the golden in
+   tests/golden_torch_hashes.json (the JAX package's full grammar).  On
+   europarl's index and queries both LCP passes must then give the
+   refinement's up, down and longestmatch;
 4. kernels -- each kernel against its plain PyTorch version on the card, on
-   the inputs of its largest launch in phase 3 (A2 once per direction): the
-   outputs must be bit-equal (float32 compared by bit pattern); times of
-   both.
+   the inputs of its largest launch in phase 3 (A2 once per direction, B1
+   once per pass): the outputs must be bit-equal (float32 compared by bit
+   pattern); times of both, and the least time the card could take for the
+   same work (``bound_ms``: the larger of the bytes over the memory rate and
+   the integer operations over the peak rate, counted per item from the
+   kernel's loops, see ``WORK``), and the time of one launch on one item.
 
 Then a JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -43,8 +48,9 @@ GOLDEN = os.path.join(ROOT, "tests", "golden_torch_hashes.json")
 
 # kernel id -> (source in the repo, file:line of the JAX function it replaces:
 # _refine_chunk_local, _gc_batch, _scan_batch_exp (forward, backward),
-# _pcs_batch_exp, _contig_batch, _onegap_batch, _accum_batch_dense,
-# _accum_batch_range)
+# _pcs_batch_exp, _two_batch_exp, _contig_batch, _onegap_batch,
+# _twogap_batch, _accum_batch_dense, _accum_batch_range, _pass1_batch,
+# _pass2_batch)
 KERNELS = {
     "A1": ("cgx_tpu_torch/csrc/refine.cu", "cgx_tpu/search/passes.py:371"),
     "A4": ("cgx_tpu_torch/csrc/gapcheck.cu",
@@ -52,13 +58,44 @@ KERNELS = {
     "A2f": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:337"),
     "A2b": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:337"),
     "A3": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:315"),
+    "A5": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:662"),
     "A6": ("cgx_tpu_torch/csrc/contig.cu", "cgx_tpu/extract/device.py:382"),
     "A7": ("cgx_tpu_torch/csrc/onegap.cu", "cgx_tpu/extract/device.py:616"),
+    "A8": ("cgx_tpu_torch/csrc/twogap.cu", "cgx_tpu/extract/device.py:744"),
     "A9": ("cgx_tpu_torch/csrc/maxlex.cu", "cgx_tpu/features/maxlex.py:161"),
     "A10": ("cgx_tpu_torch/csrc/maxlex.cu", "cgx_tpu/features/maxlex.py:216"),
+    "B1p1": ("cgx_tpu_torch/csrc/lcp.cu", "cgx_tpu/search/passes.py:221"),
+    "B1p2": ("cgx_tpu_torch/csrc/lcp.cu", "cgx_tpu/search/passes.py:229"),
 }
-# the kernels every end-to-end run must launch, besides its MaxLex kernel
-PATH_KERNELS = ("A1", "A4", "A2f", "A2b", "A3", "A6", "A7")
+# the kernels every end-to-end run must launch, besides its pass-1/2 and
+# MaxLex kernels
+PATH_KERNELS = ("A4", "A2f", "A2b", "A3", "A5", "A6", "A7", "A8")
+
+# The least time the card could take for a kernel's work: the larger of the
+# bytes it must move over the memory rate and its integer operations over the
+# peak rate (one H100 SXM: 3.35 TB/s, and 67 T/s, the data sheet's rate
+# outside the tensor cores).  Per kernel id: (words read per item from the
+# item-axis inputs, words gathered per item from the index, words written
+# per item, integer operations per item), each counted once from the
+# kernel's loops (the csrc notes); the per-pattern tables are counted once
+# whole.  The searches' gathers depend on the data and are counted from
+# this run's inputs in ``work``.
+MEM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+WORK = {
+    "A4": (1, 33, 1, 1700),      # mrs + 2 RLP words, 16 lr_tar words
+    "A2f": (0, 52, 1, 2000),     # SA word, 18 corpus words, the gap check
+    "A2b": (0, 52, 1, 2000),
+    "A3": (0, 6, 1 / 32, 40),    # one occurrence row, 4 corpus words
+    "A5": (0, 52, 1, 1850),      # occurrence row, 17 corpus words, gap check
+    "A6": (2, 101, 8, 3000),     # SA word, RLP and target windows
+    "A7": (4, 100, 6, 2000),
+    "A8": (6, 70, 2, 300),       # 3 x 16 RLP, 16 lr_tar, 3 sentence anchors
+    "A9": (11, 48, 2, 200),      # 16 target tokens, 2 x 16 table probes
+    "A10": (11, 48, 2, 200),
+}
+# argument positions of the per-pattern table and count prefix
+TABLE_ARGS = {"A2f": (4, 5), "A2b": (4, 5), "A3": (2, 3), "A5": (5, 6)}
 
 
 def fail(msg: str):
@@ -106,7 +143,8 @@ def grammar_hash(per_query_lines) -> str:
 
 class Capture:
     """Wraps the kernel wrappers the pipeline calls, keeping the arguments of
-    each kernel's largest launch (for phase 4)."""
+    each kernel's largest launch (for phase 4) and the items per kernel
+    since ``items`` was last cleared."""
 
     def __init__(self):
         from cgx_tpu_torch.extract import device as xdev
@@ -120,12 +158,17 @@ class Capture:
             (lookup, "scan"): (lambda a: "A2f" if a[9] else "A2b",
                                lambda a: a[6]),
             (lookup, "pcs"): (lambda a: "A3", lambda a: a[4]),
+            (lookup, "two"): (lambda a: "A5", lambda a: a[7]),
             (xdev, "contig"): (lambda a: "A6", lambda a: a[4].shape[0]),
             (xdev, "onegap"): (lambda a: "A7", lambda a: a[3].shape[0]),
+            (xdev, "twogap"): (lambda a: "A8", lambda a: a[3].shape[0]),
             (ml, "accum_dense"): (lambda a: "A9", lambda a: a[4].shape[0]),
             (ml, "accum_range"): (lambda a: "A10", lambda a: a[7].shape[0]),
+            (passes, "pass1"): (lambda a: "B1p1", lambda a: a[5].shape[0]),
+            (passes, "pass2"): (lambda a: "B1p2", lambda a: a[5].shape[0]),
         }
         self.calls = {}          # kernel -> (n, args)
+        self.items = {}          # kernel -> items
         self.originals = {site: getattr(*site) for site in self.sites}
 
     def __enter__(self):
@@ -134,6 +177,7 @@ class Capture:
 
             def hook(*args, _real=real, _k=kernel_of, _n=count_of):
                 k, n = _k(args), _n(args)
+                self.items[k] = self.items.get(k, 0) + n
                 if n > self.calls.get(k, (-1, None))[0]:
                     self.calls[k] = (n, args)
                 return _real(*args)
@@ -145,18 +189,26 @@ class Capture:
             setattr(*site, real)
 
 
+_CORPORA = {}
+
+
 def run_e2e(size: str, device: str, capture: Capture, golden: dict,
-            expect: tuple):
+            expect: tuple, lcp_passes: bool = False, forbid: tuple = ()):
+    """One end-to-end run -> (its launch counts, its PipelineResult)."""
     import torch
     from cgx_tpu_torch.config import DEFAULT_CONFIG
     from cgx_tpu_torch.kernels import build as kb
     from cgx_tpu_torch.pipeline import run_pipeline
     t0 = time.perf_counter()
-    data = make_corpus(size)
+    if size not in _CORPORA:
+        _CORPORA[size] = make_corpus(size)
+    data = _CORPORA[size]
     gen_s = time.perf_counter() - t0
     kb.LAUNCHES.clear()
+    capture.items.clear()
     t0 = time.perf_counter()
-    res = run_pipeline(*data, DEFAULT_CONFIG, device=device)
+    res = run_pipeline(*data, DEFAULT_CONFIG, device=device,
+                       lcp_passes=lcp_passes)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -164,6 +216,10 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     missing = [k for k in expect if launches[k] == 0]
     if missing:
         fail(f"{size}: kernels {missing} never launched on the main path "
+             f"(launches {launches})")
+    stray = [k for k in forbid if launches[k] != 0]
+    if stray:
+        fail(f"{size}: kernels {stray} launched on a path without them "
              f"(launches {launches})")
     lines = res.per_query_lines
     ok_shape = len(lines) == len(data[4]) and all(
@@ -175,10 +231,12 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     lines_ok = res.counters["total_lines"] == want["lines"]
     print(json.dumps({
         "phase": "e2e", "size": size, "device": device,
+        "lcp_passes": lcp_passes,
         "corpus_gen_s": gen_s, "wall_s": wall,
         "phases_s": res.timing.as_dict(),
         "peak_mem_bytes": res.timing.peak_memory(),
         "counters": res.counters, "launches": launches,
+        "items": dict(capture.items),
         "grammar_sha256": ghash, "golden_ok": ghash == want["sha256"]}),
         flush=True)
     if not ok_shape:
@@ -189,7 +247,33 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     if ghash != want["sha256"]:
         fail(f"{size}: grammar hash {ghash[:16]} != golden "
              f"{want['sha256'][:16]}")
-    return launches
+    return launches, res
+
+
+def check_lcp_passes(res):
+    """Both LCP passes on a run's index and queries give the refinement's
+    up, down and longestmatch (pass 2: every range)."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.search import passes
+    t0 = time.perf_counter()
+    r1, r2 = passes.refine_passes(res.index, res.queries)
+    t1 = time.perf_counter()
+    l1 = passes.pass1_lcp(res.index, res.queries)
+    l2 = passes.pass2_lcp(res.index, res.queries, l1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    off = [f for f in ("up", "down", "longestmatch")
+           if not np.array_equal(getattr(l1, f), getattr(r1, f))]
+    off += [f"pass2.{f}" for f in ("connectoffset", "up", "down")
+            if not np.array_equal(getattr(l2, f), getattr(r2, f))]
+    print(json.dumps({
+        "phase": "lcp_passes", "reflen": res.index.reflen,
+        "pass1_tokens": len(l1.up), "pass2_items": len(l2.up),
+        "refine_s": t1 - t0, "lcp_s": t2 - t1, "equal": not off}),
+        flush=True)
+    if off:
+        fail(f"LCP passes differ from the refinement in {off}")
 
 
 def _time_ms(fn, device) -> float:
@@ -216,6 +300,36 @@ def _time_ms(fn, device) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _log2(x):
+    """ceil(log2(x + 1)) per element of an int tensor: bisection steps."""
+    import torch
+    return torch.ceil(torch.log2(x.double().clamp(min=0) + 1))
+
+
+def work(k: str, n: int, args) -> tuple:
+    """(bytes, integer operations) that kernel ``k`` must move and do on
+    the inputs of one launch over ``n`` items (see ``WORK``)."""
+    if k == "A1":          # per depth a query token, two bisections
+        depths = args[8]
+        steps = 2 * _log2(args[6] - args[5])
+        gathered = float((depths + 2 * steps).sum())
+        nbytes = 4 * (n * (4 + 2 * depths + 2) + gathered)
+        return nbytes, 8 * gathered
+    if k in ("B1p1", "B1p2"):   # ~5 words per search step, both walks
+        if k == "B1p1":
+            steps = _log2(args[0].new_full((n,), args[7]))
+            io = 2 + 6
+        else:
+            steps = _log2(args[9] - args[7])
+            io = 5 + 2
+        gathered = float((5 * steps + 2 * 2 * steps).sum())
+        return 4 * (n * io + gathered), 10 * gathered
+    w_in, w_gather, w_out, ops = WORK[k]
+    tables = sum(args[i].numel() for i in TABLE_ARGS.get(k, ()))
+    nbytes = 4 * (n * (w_in + w_gather + w_out) + tables)
+    return nbytes, n * ops
+
+
 def compare_kernels(capture: Capture, device: str, launches: dict) -> list:
     import torch
     from cgx_tpu_torch.extract import device as xdev
@@ -227,10 +341,14 @@ def compare_kernels(capture: Capture, device: str, launches: dict) -> list:
              "A2f": (lookup.scan, lookup.scan_plain),
              "A2b": (lookup.scan, lookup.scan_plain),
              "A3": (lookup.pcs, lookup.pcs_plain),
+             "A5": (lookup.two, lookup.two_plain),
              "A6": (xdev.contig, xdev.contig_plain),
              "A7": (xdev.onegap, xdev.onegap_plain),
+             "A8": (xdev.twogap, xdev.twogap_plain),
              "A9": (ml.accum_dense, ml.accum_dense_plain),
-             "A10": (ml.accum_range, ml.accum_range_plain)}
+             "A10": (ml.accum_range, ml.accum_range_plain),
+             "B1p1": (passes.pass1, passes.pass1_plain),
+             "B1p2": (passes.pass2, passes.pass2_plain)}
     rows = []
     for k, (kernel, plain) in pairs.items():
         if k not in capture.calls:
@@ -262,13 +380,32 @@ def compare_kernels(capture: Capture, device: str, launches: dict) -> list:
         ms = _time_ms(lambda: kernel(*args), device)
         plain_ms = _time_ms(lambda: plain(*args), device)
         src, replaces = KERNELS[k]
+        nbytes, ops = work(k, n, args)
+        bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
+        ops_ms = ops / OPS_PER_S * 1e3
         row = {"name": k, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches[k],
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "library_ms": None}
         print(json.dumps({"phase": "kernel", **row, "lanes": n,
-                          "bit_equal": True}), flush=True)
+                          "bytes": nbytes, "ops": ops, "bit_equal": True}),
+              flush=True)
         rows.append(row)
     return rows
+
+
+def launch_floor(capture: Capture, device: str):
+    """The time of one launch that does almost no work: A8 (plain C entry,
+    ctypes) on the first item of its captured inputs, the floor under every
+    kernel time above."""
+    from cgx_tpu_torch.extract import device as xdev
+    args = list(capture.calls["A8"][1])
+    args[3:9] = [a[:1].contiguous() for a in args[3:9]]
+    ms = _time_ms(lambda: xdev.twogap(*args), device)
+    print(json.dumps({"phase": "launch_floor", "kernel": "A8", "items": 1,
+                      "ms": ms}), flush=True)
 
 
 def main():
@@ -307,13 +444,21 @@ def main():
         golden = json.load(fh)
     totals = {k: 0 for k in KERNELS}
     with Capture() as cap:
-        for size, expect in (("medium", PATH_KERNELS + ("A9",)),
-                             ("europarl", PATH_KERNELS + ("A10",))):
-            for k, v in run_e2e(size, "cuda", cap, golden, expect).items():
+        for size, lcp, expect, forbid in (
+                ("medium", False, ("A1", "A9"), ("B1p1", "B1p2")),
+                ("europarl", False, ("A1", "A10"), ("B1p1", "B1p2")),
+                ("medium", True, ("B1p1", "B1p2", "A9"), ("A1",))):
+            launches, res = run_e2e(size, "cuda", cap, golden,
+                                    PATH_KERNELS + expect, lcp, forbid)
+            for k, v in launches.items():
                 totals[k] += v
+            if size == "europarl":
+                check_lcp_passes(res)
+            del res
 
     # 4. kernels against their plain versions at the main path's shapes
     rows = compare_kernels(cap, "cuda", totals)
+    launch_floor(cap, "cuda")
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "cgx_tpu"))

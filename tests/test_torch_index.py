@@ -55,6 +55,17 @@ def _assert_same(ti, gi):
                                   gi.lex_val1_host.view(np.int32))
     np.testing.assert_array_equal(ti.lex_val2_host.view(np.int32),
                                   gi.lex_val2_host.view(np.int32))
+    # the interval-LCP tree stays on the host until the LCP passes ask
+    for name in ("lcpleft", "lcpright"):
+        got = getattr(ti, f"{name}_host")
+        assert got.dtype == np.int32, name
+        np.testing.assert_array_equal(got, np.asarray(getattr(gi, name)),
+                                      err_msg=name)
+    assert ti._lcp is None
+    for t, name in zip(ti.lcp_tables(), ("lcpleft", "lcpright")):
+        assert t.device == ti.device and t.dtype == torch.int32
+        np.testing.assert_array_equal(t.numpy(), np.asarray(getattr(gi, name)))
+    assert ti.lcp_tables()[0] is ti.lcp_tables()[0]
     for a, b in zip(ti.seed_host, gi.seed_host):
         if b is None:
             assert a is None

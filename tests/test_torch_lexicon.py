@@ -16,9 +16,9 @@ from cgx_tpu.preproc import corpus as jcp  # noqa: E402
 from cgx_tpu.types import GapRules  # noqa: E402
 from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
 from cgx_tpu_torch.features import lexicon as tlx  # noqa: E402
-from cgx_tpu_torch.pipeline import _empty_twogap  # noqa: E402
 from cgx_tpu_torch.types import (Blocks, GapOnSA, OneGapEnum,  # noqa: E402
-                                 OneGapSearch, Precomp)
+                                 OneGapSearch, Precomp, TwoGapEnum,
+                                 TwoGapSearch)
 
 
 def _no_gappy_structures():
@@ -33,7 +33,12 @@ def _no_gappy_structures():
     pc = Precomp(frequent_list=z, tok_start=z, tok_len=z, index_start=z,
                  index_end=z, onegap_start=z, onegap_length=z,
                  feature_missing=z)
-    return (search1, enum1, GapOnSA(z, z, z, z), pc) + _empty_twogap(0)
+    search2 = TwoGapSearch(blockid=z, position=z, qryend_len=z, gap2=z,
+                           start_on_salist=z, end_on_salist=z,
+                           query_with_id=[])
+    enum2 = TwoGapEnum(blockid=z, gap2=z, qryend_len=z,
+                       pattern=np.empty((0, 1), np.int32), number=z)
+    return (search1, enum1, GapOnSA(z, z, z, z), pc, search2, enum2)
 
 
 def _head(rules: GapRules, n: int) -> GapRules:

@@ -1,6 +1,7 @@
 """Pass 1 / pass 2 in the port: kernel A1's plain version against the JAX
-``_refine_chunk_local``, and ``refine_passes`` against the JAX package's, bit
-for bit."""
+``_refine_chunk_local``, ``refine_passes`` against the JAX package's, kernel
+B1's plain passes against ``_pass1_batch``/``_pass2_batch``, and the LCP
+passes against the refinement, bit for bit."""
 
 import dataclasses
 import pathlib
@@ -25,6 +26,12 @@ from cgx_tpu_torch.search import passes as tpasses  # noqa: E402
 
 
 def _inputs(name, request):
+    if name == "adversarial":     # the corpus of test_passes_tpu.py
+        sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
+        from tools.make_bigcorpus import make_big_queries, make_hard_corpus
+        f, e, a, lex_t = make_hard_corpus(200, vocab=120, seed=7)
+        return (f.split("\n"), e.split("\n"), a, lex_t,
+                make_big_queries(f, 8, seed=5) + ["zzz-oov qqq-oov"])
     if name == "hard":
         sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
         from tools.make_bigcorpus import make_big_queries, make_hard_corpus
@@ -92,3 +99,67 @@ def test_refine_passes_equal_jax(corpus, request):
                                           getattr(want, f.name),
                                           err_msg=f.name)
     assert int(t1.longestmatch.max()) >= 3 and stats["max_depth"] >= 4
+
+
+def _fields_equal(got, want, names=None):
+    for f in dataclasses.fields(want):
+        if names is None or f.name in names:
+            np.testing.assert_array_equal(getattr(got, f.name),
+                                          getattr(want, f.name),
+                                          err_msg=f.name)
+
+
+@pytest.mark.parametrize("corpus", ["toy", "adversarial"])
+def test_plain_b1_equals_pass_batches(corpus, request):
+    """Pass 1 on every query token and pass 2 on every work item, through
+    the wrappers (plain versions on the CPU) and through pass1_lcp /
+    pass2_lcp, against the JAX batches and pass1_tpu / pass2_tpu."""
+    jidx, jqs, tidx, tqs = _worlds(*_inputs(corpus, request))
+    n = jqs.totaltokens
+    sls = tpasses._suffix_lens(tqs)
+    toks = np.arange(n, dtype=np.int32)
+    want1 = jpasses._pass1_batch(
+        jidx.refstr_padded, jidx.sa, jidx.lcpleft, jidx.lcpright,
+        jqs.device_tokens(), jnp.asarray(toks), jnp.asarray(sls),
+        jnp.int32(jidx.reflen))
+    lcpl, lcpr = tidx.lcp_tables()
+    got1 = tpasses.pass1(tidx.refstr_padded, tidx.sa, lcpl, lcpr,
+                         tidx.query_tokens(tqs), torch.from_numpy(toks),
+                         torch.from_numpy(sls), tidx.reflen)
+    assert len(got1) == 6
+    for g, w in zip(got1, want1):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    j1 = jpasses.pass1_tpu(jidx, jqs)
+    t1 = tpasses.pass1_lcp(tidx, tqs)
+    _fields_equal(t1, j1)
+    assert (t1.firstfindhit >= 0).any() and (t1.longestmatch == 0).any()
+
+    _, it_toks, it_match = tpasses.pass2_work_items(t1)
+    cols = [it_toks, it_match, t1.firstfindhitL[it_toks],
+            t1.firstfindhit[it_toks], t1.firstfindhitR[it_toks]]
+    want2 = jpasses._pass2_batch(
+        jidx.refstr_padded, jidx.sa, jidx.lcpleft, jidx.lcpright,
+        jqs.device_tokens(), *(jnp.asarray(c) for c in cols))
+    got2 = tpasses.pass2(tidx.refstr_padded, tidx.sa, lcpl, lcpr,
+                         tidx.query_tokens(tqs),
+                         *(torch.from_numpy(np.ascontiguousarray(c))
+                           for c in cols))
+    for g, w in zip(got2, want2):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    _fields_equal(tpasses.pass2_lcp(tidx, tqs, t1),
+                  jpasses.pass2_tpu(jidx, jqs, j1))
+    assert len(it_toks) > 0
+
+
+@pytest.mark.parametrize("corpus", ["toy", "real", "hard", "adversarial"])
+def test_lcp_passes_equal_refinement(corpus, request):
+    """The LCP search and the interval refinement agree on everything the
+    later stages read: up, down, longestmatch and pass 2's ranges."""
+    _, _, tidx, tqs = _worlds(*_inputs(corpus, request))
+    r1, r2 = tpasses.refine_passes(tidx, tqs)
+    l1 = tpasses.pass1_lcp(tidx, tqs)
+    l2 = tpasses.pass2_lcp(tidx, tqs, l1)
+    _fields_equal(l1, r1, ("up", "down", "longestmatch"))
+    _fields_equal(l2, r2)
+    assert int(l1.longestmatch.max()) >= 3
