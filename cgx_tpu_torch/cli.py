@@ -2,7 +2,7 @@
 JAX package's CLI (``cgx_tpu/cli.py``):
 
     python -m cgx_tpu_torch.cli [-l minmatchlen] [-t fingerlen] [-s timefile] \
-        [--no-sample] [--device cuda|cpu] \
+        [--no-sample] [--device cuda|cpu] [--sa-shards N] \
         <source_corpus> <query_file> <target_corpus> <alignment_file> \
         <lex_file> <out_dir>
 
@@ -12,6 +12,8 @@ abX, XabX, aXb, XaXb, aXbX and aXbXc), each line as the JAX package writes
 it.
 ``--device cuda`` (the default) runs the hand-written kernels and fails when
 no CUDA device is present; ``--device cpu`` runs their plain PyTorch versions.
+``--sa-shards N`` (N > 0) runs the sharded index of N shards, all on that
+device; the grammars are the same.
 """
 
 from __future__ import annotations
@@ -25,6 +27,21 @@ import time
 from cgx_tpu_torch.config import DEFAULT_CONFIG
 
 
+def _shards_arg(v: str) -> int:
+    if v == "auto":
+        raise argparse.ArgumentTypeError(
+            "'auto' sizes the index against the device budget "
+            "(utils/budget.py), which is not ported yet (see ROADMAP queue "
+            "A); give a shard count")
+    try:
+        n = int(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"not a shard count: {v!r}")
+    if n < 0:
+        raise argparse.ArgumentTypeError(f"shard count {n} < 0")
+    return n
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="cgx_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
@@ -35,6 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="disable occurrence sampling (grammar.<i>.n outputs)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device of the index and the kernels (default cuda)")
+    p.add_argument("--sa-shards", type=_shards_arg, default=0, metavar="N",
+                   help="sharded-index mode: split every O(corpus) device "
+                        "array into N shards, all on --device (0: the "
+                        "replicated index)")
     p.add_argument("reffile")
     p.add_argument("qryfile")
     p.add_argument("reftargetfile")
@@ -71,7 +92,7 @@ def main(argv=None) -> int:
     from cgx_tpu_torch.pipeline import run_pipeline_files
     res = run_pipeline_files(args.reffile, args.qryfile, args.reftargetfile,
                              args.alignfile, args.lexfile, args.dest_dir, cfg,
-                             device=args.device)
+                             device=args.device, sa_shards=args.sa_shards)
     wall = time.perf_counter() - t0
     print(f"total: {wall:.3f}s", file=sys.stderr)
     if args.timefile:

@@ -19,6 +19,30 @@ __device__ __forceinline__ int clip(int x, int lo, int hi) {
     return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// A local slice of a global array, addressed by global indices: the CUDA form
+// of cgx_tpu/utils/views.py:OffsetView.  `arr[0]` is global element `off`;
+// the slice holds `len` words of a `glen`-word array.  `at(i)` clamps
+// `i - off` into the slice, as the JAX view does for a read the kernel body
+// leaves unbounded; `atg(i)` first clamps `i` into the global array, as the
+// body's explicit `jnp.clip(i, 0, arr.shape[0] - 1)` does (shape[0] is the
+// global length under a view), and then into the slice.  With off 0 and
+// glen == len (the replicated index) both reduce to arr[clampi(i, len)].
+struct View {
+    const int* arr;
+    int len, off, glen;
+
+    __device__ __forceinline__ int at(int i) const {
+        return arr[clampi(i - off, len)];
+    }
+    __device__ __forceinline__ int atg(int i) const {
+        return at(clampi(i, glen));
+    }
+};
+
+static inline View identity_view(const int* arr, int len) {
+    return View{arr, len, 0, len};
+}
+
 static inline unsigned cgx_grid(int n, int threads) {
     return (unsigned)((n + threads - 1) / threads);
 }

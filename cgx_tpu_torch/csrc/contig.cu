@@ -9,7 +9,12 @@
 // the factorised XabX whole-span table (computed on the fly from the four
 // IMAX part-vectors instead of stored 14 x 14) and the outer/inner growth
 // loops with the same flag updates in the same order.  Every read of
-// refstr/rlp/lr_tar clamps to the padded length like the JAX gathers.
+// refstr/rlp/lr_tar goes through a view with the JAX bounds
+// (extract_common.cuh).
+//
+// B3c (cgx_contig_pos) runs the same item body on occurrences given by
+// corpus position, on one shard's slices: it replaces
+// cgx_tpu/extract/device.py:_contig_batch_pos (device.py:391-396).
 //
 // Bound on the H100: per item ~100 scattered 4-byte reads (RLP words and
 // target spans around the occurrence) and a few hundred integer ops over
@@ -20,14 +25,10 @@
 
 namespace {
 
-__global__ void contig_kernel(Arrays a, const int* __restrict__ sa, int sa_len,
-                              const int* __restrict__ sa_pos,
-                              const int* __restrict__ lms, int n, int mrs,
-                              int msym, int* __restrict__ out) {
-    int item = blockIdx.x * blockDim.x + threadIdx.x;
-    if (item >= n) return;
-    const int cs = sa[clampi(sa_pos[item], sa_len)];
-    const int lm = lms[item];
+// _extract_contig_item for the occurrence at corpus position cs with block
+// length lm; writes column `item` of out [8, n]
+__device__ void contig_item(const Arrays& a, int cs, int lm, int n, int mrs,
+                            int msym, int item, int* __restrict__ out) {
     const int ender = cs + lm - 1;
     int sentstart, stb;
     sent_anchor(a, cs, sentstart, stb);
@@ -202,6 +203,24 @@ __global__ void contig_kernel(Arrays a, const int* __restrict__ sa, int sa_len,
     pack(xabx, true, out, 6, n, item);
 }
 
+__global__ void contig_kernel(Arrays a, const int* __restrict__ sa, int sa_len,
+                              const int* __restrict__ sa_pos,
+                              const int* __restrict__ lms, int n, int mrs,
+                              int msym, int* __restrict__ out) {
+    const int item = blockIdx.x * blockDim.x + threadIdx.x;
+    if (item >= n) return;
+    contig_item(a, sa[clampi(sa_pos[item], sa_len)], lms[item], n, mrs, msym,
+                item, out);
+}
+
+__global__ void contig_pos_kernel(Arrays a, const int* __restrict__ cs,
+                                  const int* __restrict__ lms, int n, int mrs,
+                                  int msym, int* __restrict__ out) {
+    const int item = blockIdx.x * blockDim.x + threadIdx.x;
+    if (item >= n) return;
+    contig_item(a, cs[item], lms[item], n, mrs, msym, item, out);
+}
+
 }  // namespace
 
 // out: int32 [8, n] = (ts, packed) of the ab, Xab, abX and XabX families
@@ -211,9 +230,30 @@ CGX_EXPORT int cgx_contig(const int* refstr, int ref_len, const int* sa,
                           const int* lm, int n, int mrs, int msym, int* out,
                           void* stream) {
     if (mrs < 1 || mrs - 1 > HMAX) return (int)cudaErrorInvalidValue;
-    const Arrays a = {refstr, ref_len, rlp, rlp_len, lr_tar, lr_len};
+    const Arrays a = {identity_view(refstr, ref_len),
+                      identity_view(rlp, rlp_len),
+                      identity_view(lr_tar, lr_len)};
     const int threads = 128;
     contig_kernel<<<cgx_grid(n, threads), threads, 0, (cudaStream_t)stream>>>(
         a, sa, sa_len, sa_pos, lm, n, mrs, msym, out);
+    return (int)cudaGetLastError();
+}
+
+// B3c: as A6 for occurrences given by corpus position `cs` (resolved from
+// the rank-sharded SA by B2g), on views (words, local length, global
+// offset, global length) of one shard's slices.  out: int32 [8, n].
+CGX_EXPORT int cgx_contig_pos(const int* ref, int ref_len, int ref_off,
+                              int ref_glen, const int* rlp, int rlp_len,
+                              int rlp_off, int rlp_glen, const int* lr_tar,
+                              int lr_len, int lr_off, int lr_glen,
+                              const int* cs, const int* lm, int n, int mrs,
+                              int msym, int* out, void* stream) {
+    if (mrs < 1 || mrs - 1 > HMAX) return (int)cudaErrorInvalidValue;
+    const Arrays a = {View{ref, ref_len, ref_off, ref_glen},
+                      View{rlp, rlp_len, rlp_off, rlp_glen},
+                      View{lr_tar, lr_len, lr_off, lr_glen}};
+    const int threads = 128;
+    contig_pos_kernel<<<cgx_grid(n, threads), threads, 0,
+                        (cudaStream_t)stream>>>(a, cs, lm, n, mrs, msym, out);
     return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
-// Device functions shared by the extraction kernels A6 (contig.cu) and A7
-// (onegap.cu): the per-item helpers of cgx_tpu/extract/device.py, one thread
-// per item.  Every read of refstr/rlp/lr_tar clamps to the padded length like
-// the JAX gathers.
+// Device functions shared by the extraction kernels A6 (contig.cu), A7
+// (onegap.cu) and A8 (twogap.cu): the per-item helpers of
+// cgx_tpu/extract/device.py, one thread per item.  Every JAX read of
+// refstr/rlp/lr_tar here is bounded explicitly by jnp.clip against the
+// array's (global) length, so every read is View::atg (common.cuh): the
+// replicated index passes identity views, the sharded one a shard's slices.
 #pragma once
 
 #include "common.cuh"
@@ -13,9 +15,9 @@
 namespace {
 
 struct Arrays {
-    const int* refstr; int ref_len;
-    const int* rlp; int rlp_len;       // uint32 RLP words stored as int32
-    const int* lr_tar; int lr_len;     // (L << 8) | R per target token
+    View refstr;
+    View rlp;        // uint32 RLP words stored as int32
+    View lr_tar;     // (L << 8) | R per target token
 };
 
 // (L, R, aligned) from an RLP word; positions before the corpus start read
@@ -23,7 +25,7 @@ struct Arrays {
 __device__ __forceinline__ void rlp_lr(const Arrays& a, int pos, int& L, int& R,
                                        bool& al) {
     if (pos < 0) { L = 255; R = 255; al = false; return; }
-    unsigned t = (unsigned)a.rlp[clampi(pos, a.rlp_len)];
+    unsigned t = (unsigned)a.rlp.atg(pos);
     L = (int)((t >> 24) & 0xFF);
     R = (int)((t >> 16) & 0xFF);
     al = (L != 255) && (R != 255);
@@ -32,10 +34,10 @@ __device__ __forceinline__ void rlp_lr(const Arrays& a, int pos, int& L, int& R,
 // sentence anchor of a span's first token (_sent_anchor)
 __device__ __forceinline__ void sent_anchor(const Arrays& a, int pos,
                                             int& sentstart, int& stb) {
-    unsigned t = (unsigned)a.rlp[clampi(pos, a.rlp_len)];
+    unsigned t = (unsigned)a.rlp.atg(pos);
     int p = (int)((t >> 8) & 0xFF);
     int tempind = pos - p - 1;
-    stb = tempind == -1 ? 0 : a.rlp[clampi(tempind, a.rlp_len)];
+    stb = tempind == -1 ? 0 : a.rlp.atg(tempind);
     sentstart = tempind + 1;
 }
 
@@ -46,7 +48,7 @@ __device__ __forceinline__ bool consistent(const Arrays& a, int ts, int te,
     int bmin = 256, bmax = -1;
     for (int k = 0; k < CWID; ++k) {
         if (ts + k > te) break;
-        int w = a.lr_tar[clampi(ts + k, a.lr_len)];
+        int w = a.lr_tar.atg(ts + k);
         int L = w >> 8, R = w & 255;
         if (L != 255 && R != 255) { bmin = min(bmin, L); bmax = max(bmax, R); }
     }
@@ -90,12 +92,12 @@ struct Window { int fwdL[HMAX + 1], bwdL[HMAX + 1], fwdR[HMAX + 1], bwdR[HMAX + 
 __device__ void window(const Arrays& a, int anchor, int H, Window& w) {
     int mnF = 256, mxF = -1, mnB = 256, mxB = -1;
     for (int k = 0; k <= H; ++k) {
-        int wf = a.lr_tar[clampi(anchor + k, a.lr_len)];
+        int wf = a.lr_tar.atg(anchor + k);
         int Lf = wf >> 8, Rf = wf & 255;
         if (Lf != 255 && Rf != 255) { mnF = min(mnF, Lf); mxF = max(mxF, Rf); }
         w.fwdL[k] = mnF;
         w.fwdR[k] = mxF;
-        int wb = a.lr_tar[clampi(anchor - k, a.lr_len)];
+        int wb = a.lr_tar.atg(anchor - k);
         int Lb = wb >> 8, Rb = wb & 255;
         if (Lb != 255 && Rb != 255) { mnB = min(mnB, Lb); mxB = max(mxB, Rb); }
         w.bwdL[k] = mnB;
@@ -126,7 +128,7 @@ __device__ void grow_side(const Arrays& a, bool left, int cs, int ender,
     int mn = 255, mx = 0;
     for (int k = 0; k < IMAX; ++k) {
         int pos = base + step * (k + 1);
-        s.tok[k] = pos < 0 ? -1 : a.refstr[clampi(pos, a.ref_len)];
+        s.tok[k] = pos < 0 ? -1 : a.refstr.atg(pos);
         int L, R;
         bool al;
         rlp_lr(a, pos, L, R, al);

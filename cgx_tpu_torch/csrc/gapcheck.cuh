@@ -8,6 +8,9 @@
 // valid target span lies in one 16-wide lr_tar window anchored at the
 // smallest valid target start, so the back-projection is one window load
 // plus a 16 x 16 masked min/max.  Bit m of the result is move m's check.
+// Every read is bounded explicitly against the global length, as in JAX
+// (View::atg), so the same body runs on the replicated arrays and on a
+// shard's slices.
 #pragma once
 
 #include "common.cuh"
@@ -17,8 +20,7 @@
 namespace {
 
 __device__ __forceinline__ unsigned gap_check_grow(
-        const int* __restrict__ rlp, int rlp_len,
-        const int* __restrict__ lr_tar, int lr_len, int fixed, int base_off,
+        const View& rlp, const View& lr_tar, int fixed, int base_off,
         int mrs, bool grow_right) {
     // prefix min(L)/max(R) over the RLP window; ks < 0 reads as unaligned
     int minLp[MMOV], maxRp[MMOV];
@@ -26,7 +28,7 @@ __device__ __forceinline__ unsigned gap_check_grow(
     int mn = 256, mx = -1;
     for (int w = 0; w < mrs; ++w) {
         const int ks = grow_right ? fixed + w : fixed - w;
-        const unsigned t = (unsigned)rlp[clampi(ks, rlp_len)];
+        const unsigned t = (unsigned)rlp.atg(ks);
         const int L = (int)((t >> 24) & 0xFF), R = (int)((t >> 16) & 0xFF);
         const bool un = L == 255 || R == 255 || ks < 0;
         if (!un) { mn = min(mn, L); mx = max(mx, R); }
@@ -37,9 +39,9 @@ __device__ __forceinline__ unsigned gap_check_grow(
     // sentence anchor at the spans' start token (the innermost one growing
     // left); stb is the RLP word reinterpreted as int32
     const int start_tok = grow_right ? fixed : fixed - base_off;
-    const unsigned t0 = (unsigned)rlp[clampi(start_tok, rlp_len)];
+    const unsigned t0 = (unsigned)rlp.atg(start_tok);
     const int tempind = start_tok - (int)((t0 >> 8) & 0xFF) - 1;
-    const int stb = tempind == -1 ? 0 : rlp[clampi(tempind, rlp_len)];
+    const int stb = tempind == -1 ? 0 : rlp.atg(tempind);
 
     int ts[MMOV], te[MMOV];
     bool ok1[MMOV];
@@ -59,7 +61,7 @@ __device__ __forceinline__ unsigned gap_check_grow(
     int L2[MMOV], R2[MMOV];
     bool al2[MMOV];
     for (int k = 0; k < MMOV; ++k) {
-        const int w = lr_tar[clampi(anchor + k, lr_len)];
+        const int w = lr_tar.atg(anchor + k);
         L2[k] = w >> 8;
         R2[k] = w & 255;
         al2[k] = L2[k] != 255 && R2[k] != 255;

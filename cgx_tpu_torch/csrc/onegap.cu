@@ -8,6 +8,8 @@
 // the first gap's target span, checkBoundary (codes 0-4), the two side
 // arrays and the anchored window prefixes (extract_common.cuh, shared with
 // A6), then the outer growth loop with the same kill rules in the same order.
+// The arrays come as views (common.cuh), so the sharded index runs the same
+// kernel on each shard's slices, as JAX passes `offs` to _onegap_batch.
 //
 // Bound on the H100: like A6, ~100 scattered 4-byte reads per item and a few
 // hundred integer ops over per-thread arrays held in local memory; one item
@@ -129,14 +131,20 @@ __global__ void onegap_kernel(Arrays a, const int* __restrict__ css,
 
 }  // namespace
 
+// Views: (words, local length, global offset, global length) of refstr,
+// RLP and lr_tar: the whole arrays, or one shard's slices.
 // out: int32 [6, n] = (ts, packed) of the aXb, XaXb and aXbX families
-CGX_EXPORT int cgx_onegap(const int* refstr, int ref_len, const int* rlp,
-                          int rlp_len, const int* lr_tar, int lr_len,
+CGX_EXPORT int cgx_onegap(const int* ref, int ref_len, int ref_off,
+                          int ref_glen, const int* rlp, int rlp_len,
+                          int rlp_off, int rlp_glen, const int* lr_tar,
+                          int lr_len, int lr_off, int lr_glen,
                           const int* cs, const int* first_end, const int* sl,
                           const int* el, int n, int mrs, int msym, int* out,
                           void* stream) {
     if (mrs < 1 || mrs - 1 > HMAX) return (int)cudaErrorInvalidValue;
-    const Arrays a = {refstr, ref_len, rlp, rlp_len, lr_tar, lr_len};
+    const Arrays a = {View{ref, ref_len, ref_off, ref_glen},
+                      View{rlp, rlp_len, rlp_off, rlp_glen},
+                      View{lr_tar, lr_len, lr_off, lr_glen}};
     const int threads = 128;
     onegap_kernel<<<cgx_grid(n, threads), threads, 0, (cudaStream_t)stream>>>(
         a, cs, first_end, sl, el, n, mrs, msym, out);

@@ -19,15 +19,29 @@
 //   the core and the fused gap check anchored one token past it.  The word
 //   holds the uint32 bits cand | (gc << 16); the c token is resolved on the
 //   host.
+// B3 (the sharded index's per-item forms of the same bodies, one item per
+//   input row, on views of one shard's slices; common.cuh):
+//   cgx_fwd_items / cgx_bwd_items (B3f / B3b) replace lookup.py:_fwd_batch
+//   (:237) and _bwd_batch (:246), with the compared query tokens gathered
+//   here from the padded query tokens as _qtok_fwd / _qtok_bwd do (:224-233);
+//   cgx_pcs_items (B3p) replaces _pcs_batch (:255); cgx_two_items (B3t)
+//   replaces _two_batch (:643) and returns cand and gc as two words.
+//
+// Every body reads the corpus through views with the JAX bounds: a read the
+// JAX body bounds explicitly (jnp.minimum / jnp.maximum / jnp.clip against
+// the global length) is bounded so first, and every read is then clamped
+// into the local slice (View::at).  The replicated entry points pass
+// identity views, where both are the old clamp.
 //
 // Bound on the H100: A2 reads per item one offs search (log2 D words), one
 // pattab row, one SA word, an 18-word corpus window and the gap check's ~33
 // words, all scattered (occurrences of a pattern are SA-ordered, not corpus-
 // ordered); A3 reads ~8 words; A5 one offs search, one pattab row, one
-// occurrence row, a 17-word corpus window and the gap check.  All are
-// latency-bound gathers with a few hundred integer ops per item at most; the
-// design keeps every per-item array in registers and launches once over the
-// whole item axis.
+// occurrence row, a 17-word corpus window and the gap check; B3 reads its
+// item columns instead of the table and the SA.  All are latency-bound
+// gathers with a few hundred integer ops per item at most; the design keeps
+// every per-item array in registers and launches once over the whole item
+// axis.
 #include "gapcheck.cuh"
 
 namespace {
@@ -43,22 +57,13 @@ __device__ __forceinline__ int find_pattern(const int* __restrict__ offs,
     return min(lo, D - 1);
 }
 
-__global__ void scan_kernel(const int* __restrict__ refstr, int ref_len,
-                            const int* __restrict__ rlp, int rlp_len,
-                            const int* __restrict__ lr_tar, int lr_len,
-                            const int* __restrict__ sa, int sa_len,
-                            const int* __restrict__ pattab,
-                            const int* __restrict__ offs, int D, int n,
-                            int mrs, int mgs, bool fwd,
-                            int* __restrict__ out) {
-    const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n) return;
-    const int p = find_pattern(offs, D, j);
-    const int* f = pattab + 8 * p;
-    const int tx = j - offs[p];
-    const int gostart = sa[clip(f[0] + tx, 0, sa_len - 1)];
-    const int sl = f[1], el = f[2];
-    const int want0 = f[3], want1 = f[4], want2 = f[5];
+// _fwd_item / _bwd_item: the move mask of one occurrence at `gostart`
+// (a's start forward, b's start backward); want0..2 are the compared query
+// tokens (b's first three forward, a's last three reversed backward).
+__device__ unsigned scan_item(const View& ref, const View& rlp,
+                              const View& lr_tar, int gostart, int sl, int el,
+                              int want0, int want1, int want2, int mrs,
+                              int mgs, bool fwd) {
     // the compared side's length: b's (el) forward, a's (sl) backward
     const int side_len = fwd ? el : sl;
     const int other_len = fwd ? sl : el;
@@ -66,21 +71,21 @@ __global__ void scan_kernel(const int* __restrict__ refstr, int ref_len,
     bool gap0_bad;
     int win[MMOV + 2];
     if (fwd) {
-        gap0_bad = refstr[clampi(gostart + sl, ref_len)] < 2;
+        // refstr[gostart + sl] and refstr[jnp.minimum(wpos, glen - 1)]
+        gap0_bad = ref.at(gostart + sl) < 2;
         for (int k = 0; k < MMOV + 2; ++k)
-            win[k] = refstr[clampi(gostart + sl + mgs + k, ref_len)];
+            win[k] = ref.at(min(gostart + sl + mgs + k, ref.glen - 1));
     } else {
-        gap0_bad = refstr[clampi(max(gostart - 1, 0), ref_len)] < 2;
+        // refstr[jnp.maximum(gostart - 1, 0)]; the window reads at >= 0
+        gap0_bad = ref.at(max(gostart - 1, 0)) < 2;
         for (int k = 0; k < MMOV + 2; ++k) {
             const int pos = gostart - 1 - mgs - k;
-            win[k] = pos < 0 ? -1 : refstr[clampi(pos, ref_len)];
+            win[k] = pos < 0 ? -1 : ref.at(pos);
         }
     }
-    const unsigned gc = fwd
-        ? gap_check_grow(rlp, rlp_len, lr_tar, lr_len, gostart + sl, mgs - 1,
-                         mrs, true)
-        : gap_check_grow(rlp, rlp_len, lr_tar, lr_len, gostart - 1, mgs - 1,
-                         mrs, false);
+    const unsigned gc = gap_check_grow(rlp, lr_tar,
+                                       fwd ? gostart + sl : gostart - 1,
+                                       mgs - 1, mrs, fwd);
 
     unsigned mask = 0;
     bool reach = true;               // AND of survive over the earlier moves
@@ -105,12 +110,72 @@ __global__ void scan_kernel(const int* __restrict__ refstr, int ref_len,
         if (cand && ((gc >> m) & 1u)) mask |= 1u << m;
         reach = reach && !bad && !verify_kill;
     }
-    out[j] = (int)mask;
+    return mask;
 }
 
-__global__ void pcs_kernel(const int* __restrict__ refstr, int ref_len,
-                           const int* __restrict__ pcrows, int m_rows,
-                           const int* __restrict__ pattab,
+// _pcs_item: one precomputed occurrence (pstart, plen) against the span
+// budget, up to 2 prefix tokens (pa1, pa2) and 2 suffix tokens (pb2, pb3)
+__device__ bool pcs_item(const View& ref, int pstart, int plen, int sl,
+                         int el, int pa1, int pa2, int pb2, int pb3,
+                         int mrs) {
+    bool ok = plen + 1 + sl - 1 + el - 1 <= mrs;
+    // prefix: backoff k = 1, 2 (sl <= 3); refstr[jnp.maximum(p, 0)]
+    for (int k = 1; k <= 2; ++k) {
+        const int p0 = pstart - k;
+        const bool good = p0 >= 0 && ref.at(max(p0, 0)) == (k == 1 ? pa1 : pa2);
+        if (sl > k) ok = ok && good;
+    }
+    // suffix: forward k = 2, 3 (el <= 3); refstr[pstart + plen + k - 1]
+    for (int k = 2; k <= 3; ++k) {
+        const bool good = ref.at(pstart + plen + k - 1) == (k == 2 ? pb2 : pb3);
+        if (el >= k) ok = ok && good;
+    }
+    return ok;
+}
+
+// _two_item: the 16 moves right of an aXb core (pstart, plen) and the fused
+// gap check anchored one token past it
+__device__ void two_item(const View& ref, const View& rlp, const View& lr_tar,
+                         int pstart, int plen, int mrs, int mgs,
+                         unsigned& cand, unsigned& gc) {
+    const int gostart = pstart + plen;
+    // refstr[gostart + mgs] and refstr[jnp.minimum(pos, glen - 1)]
+    const bool gap0_bad = ref.at(gostart + mgs) < 2;
+    cand = 0;
+    bool reach = true;               // AND of survive over the earlier moves
+    for (int m = 0; m < MMOV; ++m) {
+        const bool bad = ref.at(min(gostart + 1 + mgs + m, ref.glen - 1)) < 2;
+        const bool span_kill = plen + 1 + mgs + m + 1 > mrs;
+        if (reach && !gap0_bad && !span_kill && !bad) cand |= 1u << m;
+        reach = reach && !bad && !span_kill;
+    }
+    gc = gap_check_grow(rlp, lr_tar, gostart + 1, mgs - 1, mrs, true);
+}
+
+__device__ __forceinline__ int qt(const int* __restrict__ qtok, int q_len,
+                                  int i) {
+    return qtok[clampi(i, q_len)];
+}
+
+// ---- replicated index, items expanded from the per-pattern table
+
+__global__ void scan_kernel(View ref, View rlp, View lr_tar,
+                            const int* __restrict__ sa, int sa_len,
+                            const int* __restrict__ pattab,
+                            const int* __restrict__ offs, int D, int n,
+                            int mrs, int mgs, bool fwd,
+                            int* __restrict__ out) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n) return;
+    const int p = find_pattern(offs, D, j);
+    const int* f = pattab + 8 * p;
+    const int gostart = sa[clip(f[0] + j - offs[p], 0, sa_len - 1)];
+    out[j] = (int)scan_item(ref, rlp, lr_tar, gostart, f[1], f[2], f[3], f[4],
+                            f[5], mrs, mgs, fwd);
+}
+
+__global__ void pcs_kernel(View ref, const int* __restrict__ pcrows,
+                           int m_rows, const int* __restrict__ pattab,
                            const int* __restrict__ offs, int D, int n,
                            int mrs, int* __restrict__ out) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -119,22 +184,8 @@ __global__ void pcs_kernel(const int* __restrict__ refstr, int ref_len,
         const int p = find_pattern(offs, D, j);
         const int* f = pattab + 8 * p;
         const int row = clip(f[0] + j - offs[p], 0, m_rows - 1);
-        const int pstart = pcrows[2 * row], plen = pcrows[2 * row + 1];
-        const int sl = f[1], el = f[2];
-        ok = plen + 1 + sl - 1 + el - 1 <= mrs;
-        // prefix: backoff k = 1, 2 (sl <= 3)
-        for (int k = 1; k <= 2; ++k) {
-            const int p0 = pstart - k;
-            const bool good = p0 >= 0
-                && refstr[clampi(max(p0, 0), ref_len)] == f[2 + k];
-            if (sl > k) ok = ok && good;
-        }
-        // suffix: forward k = 2, 3 (el <= 3)
-        for (int k = 2; k <= 3; ++k) {
-            const bool good =
-                refstr[clampi(pstart + plen + k - 1, ref_len)] == f[3 + k];
-            if (el >= k) ok = ok && good;
-        }
+        ok = pcs_item(ref, pcrows[2 * row], pcrows[2 * row + 1], f[1], f[2],
+                      f[3], f[4], f[5], f[6], mrs);
     }
     // bit (j % 32) of word j / 32; blockDim is a multiple of 32, so lane
     // (threadIdx.x & 31) == j % 32
@@ -142,9 +193,7 @@ __global__ void pcs_kernel(const int* __restrict__ refstr, int ref_len,
     if ((threadIdx.x & 31) == 0 && j < n) out[j >> 5] = (int)word;
 }
 
-__global__ void two_kernel(const int* __restrict__ refstr, int ref_len,
-                           const int* __restrict__ rlp, int rlp_len,
-                           const int* __restrict__ lr_tar, int lr_len,
+__global__ void two_kernel(View ref, View rlp, View lr_tar,
                            const int* __restrict__ ogrows, int og_rows,
                            const int* __restrict__ pcrows, int pc_rows,
                            const int* __restrict__ pattab,
@@ -157,20 +206,62 @@ __global__ void two_kernel(const int* __restrict__ refstr, int ref_len,
     // the unselected table is never read, and the selected read is clamped
     const int* r = pattab[2 * p + 1] > 0 ? pcrows + 2 * clampi(row, pc_rows)
                                          : ogrows + 2 * clampi(row, og_rows);
-    const int pstart = r[0], plen = r[1];
-    const int gostart = pstart + plen;
-    const bool gap0_bad = refstr[clampi(gostart + mgs, ref_len)] < 2;
-    unsigned cand = 0;
-    bool reach = true;               // AND of survive over the earlier moves
-    for (int m = 0; m < MMOV; ++m) {
-        const bool bad = refstr[clampi(gostart + 1 + mgs + m, ref_len)] < 2;
-        const bool span_kill = plen + 1 + mgs + m + 1 > mrs;
-        if (reach && !gap0_bad && !span_kill && !bad) cand |= 1u << m;
-        reach = reach && !bad && !span_kill;
-    }
-    const unsigned gc = gap_check_grow(rlp, rlp_len, lr_tar, lr_len,
-                                       gostart + 1, mgs - 1, mrs, true);
+    unsigned cand, gc;
+    two_item(ref, rlp, lr_tar, r[0], r[1], mrs, mgs, cand, gc);
     out[j] = (int)(cand | (gc << 16));
+}
+
+// ---- B3: one item per input row, on views of a shard's slices
+
+__global__ void scan_items_kernel(View ref, View rlp, View lr_tar,
+                                  const int* __restrict__ qtok, int q_len,
+                                  const int* __restrict__ gostart,
+                                  const int* __restrict__ sl,
+                                  const int* __restrict__ el,
+                                  const int* __restrict__ qpos, int n,
+                                  int mrs, int mgs, bool fwd,
+                                  int* __restrict__ out) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n) return;
+    const int s = sl[j], t = qpos[j];
+    // _qtok_fwd (b's first three) / _qtok_bwd (a's last three, reversed)
+    const int w0 = fwd ? qt(qtok, q_len, t) : qt(qtok, q_len, t + s - 1);
+    const int w1 = fwd ? qt(qtok, q_len, t + 1)
+                       : qt(qtok, q_len, t + max(s - 2, 0));
+    const int w2 = fwd ? qt(qtok, q_len, t + 2)
+                       : qt(qtok, q_len, t + max(s - 3, 0));
+    out[j] = (int)scan_item(ref, rlp, lr_tar, gostart[j], s, el[j], w0, w1,
+                            w2, mrs, mgs, fwd);
+}
+
+__global__ void pcs_items_kernel(View ref, const int* __restrict__ qtok,
+                                 int q_len, const int* __restrict__ pstart,
+                                 const int* __restrict__ plen,
+                                 const int* __restrict__ sl,
+                                 const int* __restrict__ el,
+                                 const int* __restrict__ tok,
+                                 const int* __restrict__ stok, int n, int mrs,
+                                 int* __restrict__ out) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n) return;
+    const int s = sl[j], t = tok[j], st = stok[j];
+    out[j] = (int)pcs_item(ref, pstart[j], plen[j], s, el[j],
+                           qt(qtok, q_len, t + max(s - 2, 0)),
+                           qt(qtok, q_len, t + max(s - 3, 0)),
+                           qt(qtok, q_len, st + 1), qt(qtok, q_len, st + 2),
+                           mrs);
+}
+
+__global__ void two_items_kernel(View ref, View rlp, View lr_tar,
+                                 const int* __restrict__ pstart,
+                                 const int* __restrict__ plen, int n, int mrs,
+                                 int mgs, int* __restrict__ out) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n) return;
+    unsigned cand, gc;
+    two_item(ref, rlp, lr_tar, pstart[j], plen[j], mrs, mgs, cand, gc);
+    out[j] = (int)cand;
+    out[n + j] = (int)gc;
 }
 
 }  // namespace
@@ -187,8 +278,9 @@ CGX_EXPORT int cgx_scan(const int* refstr, int ref_len, const int* rlp,
     if (mrs < 1 || mrs > MMOV || D < 1) return (int)cudaErrorInvalidValue;
     const int threads = 128;
     scan_kernel<<<cgx_grid(n, threads), threads, 0, (cudaStream_t)stream>>>(
-        refstr, ref_len, rlp, rlp_len, lr_tar, lr_len, sa, sa_len, pattab,
-        offs, D, n, mrs, mgs, fwd != 0, out);
+        identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
+        identity_view(lr_tar, lr_len), sa, sa_len, pattab, offs, D, n, mrs,
+        mgs, fwd != 0, out);
     return (int)cudaGetLastError();
 }
 
@@ -201,7 +293,8 @@ CGX_EXPORT int cgx_pcs(const int* refstr, int ref_len, const int* pcrows,
     if (m_rows < 1 || D < 1) return (int)cudaErrorInvalidValue;
     const int threads = 128;
     pcs_kernel<<<cgx_grid(n, threads), threads, 0, (cudaStream_t)stream>>>(
-        refstr, ref_len, pcrows, m_rows, pattab, offs, D, n, mrs, out);
+        identity_view(refstr, ref_len), pcrows, m_rows, pattab, offs, D, n,
+        mrs, out);
     return (int)cudaGetLastError();
 }
 
@@ -217,7 +310,90 @@ CGX_EXPORT int cgx_two(const int* refstr, int ref_len, const int* rlp,
         return (int)cudaErrorInvalidValue;
     const int threads = 128;
     two_kernel<<<cgx_grid(n, threads), threads, 0, (cudaStream_t)stream>>>(
-        refstr, ref_len, rlp, rlp_len, lr_tar, lr_len, ogrows, og_rows, pcrows,
-        pc_rows, pattab, offs, D, n, mrs, mgs, out);
+        identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
+        identity_view(lr_tar, lr_len), ogrows, og_rows, pcrows, pc_rows,
+        pattab, offs, D, n, mrs, mgs, out);
+    return (int)cudaGetLastError();
+}
+
+// B3f / B3b.  Views: (words, local length, global offset, global length) of
+// refstr, RLP and lr_tar.  Per item: the occurrence `gostart`, sl, el and
+// the query position `qpos` (b's first token forward, a's first backward)
+// into the padded query tokens `qtok`.  out: int32 [n] move masks.
+static int scan_items(const int* ref, int ref_len, int ref_off, int ref_glen,
+                      const int* rlp, int rlp_len, int rlp_off, int rlp_glen,
+                      const int* lr_tar, int lr_len, int lr_off, int lr_glen,
+                      const int* qtok, int q_len, const int* gostart,
+                      const int* sl, const int* el, const int* qpos, int n,
+                      int mrs, int mgs, bool fwd, int* out, void* stream) {
+    if (mrs < 1 || mrs > MMOV || q_len < 1) return (int)cudaErrorInvalidValue;
+    const int threads = 128;
+    scan_items_kernel<<<cgx_grid(n, threads), threads, 0,
+                        (cudaStream_t)stream>>>(
+        View{ref, ref_len, ref_off, ref_glen},
+        View{rlp, rlp_len, rlp_off, rlp_glen},
+        View{lr_tar, lr_len, lr_off, lr_glen}, qtok, q_len, gostart, sl, el,
+        qpos, n, mrs, mgs, fwd, out);
+    return (int)cudaGetLastError();
+}
+
+CGX_EXPORT int cgx_fwd_items(const int* ref, int ref_len, int ref_off,
+                             int ref_glen, const int* rlp, int rlp_len,
+                             int rlp_off, int rlp_glen, const int* lr_tar,
+                             int lr_len, int lr_off, int lr_glen,
+                             const int* qtok, int q_len, const int* gostart,
+                             const int* sl, const int* el, const int* stok,
+                             int n, int mrs, int mgs, int* out, void* stream) {
+    return scan_items(ref, ref_len, ref_off, ref_glen, rlp, rlp_len, rlp_off,
+                      rlp_glen, lr_tar, lr_len, lr_off, lr_glen, qtok, q_len,
+                      gostart, sl, el, stok, n, mrs, mgs, true, out, stream);
+}
+
+CGX_EXPORT int cgx_bwd_items(const int* ref, int ref_len, int ref_off,
+                             int ref_glen, const int* rlp, int rlp_len,
+                             int rlp_off, int rlp_glen, const int* lr_tar,
+                             int lr_len, int lr_off, int lr_glen,
+                             const int* qtok, int q_len, const int* gostart,
+                             const int* sl, const int* el, const int* tok,
+                             int n, int mrs, int mgs, int* out, void* stream) {
+    return scan_items(ref, ref_len, ref_off, ref_glen, rlp, rlp_len, rlp_off,
+                      rlp_glen, lr_tar, lr_len, lr_off, lr_glen, qtok, q_len,
+                      gostart, sl, el, tok, n, mrs, mgs, false, out, stream);
+}
+
+// B3p.  Per item: the precomputed occurrence (pstart, plen), sl, el and the
+// query positions tok (a's start) and stok (b's start).  out: int32 [n], 1
+// where the occurrence verifies.
+CGX_EXPORT int cgx_pcs_items(const int* ref, int ref_len, int ref_off,
+                             int ref_glen, const int* qtok, int q_len,
+                             const int* pstart, const int* plen,
+                             const int* sl, const int* el, const int* tok,
+                             const int* stok, int n, int mrs, int* out,
+                             void* stream) {
+    if (q_len < 1) return (int)cudaErrorInvalidValue;
+    const int threads = 128;
+    pcs_items_kernel<<<cgx_grid(n, threads), threads, 0,
+                       (cudaStream_t)stream>>>(
+        View{ref, ref_len, ref_off, ref_glen}, qtok, q_len, pstart, plen, sl,
+        el, tok, stok, n, mrs, out);
+    return (int)cudaGetLastError();
+}
+
+// B3t.  Per item: an aXb occurrence (pstart, plen).  out: int32 [2, n], the
+// candidate masks, then the gap-check masks.
+CGX_EXPORT int cgx_two_items(const int* ref, int ref_len, int ref_off,
+                             int ref_glen, const int* rlp, int rlp_len,
+                             int rlp_off, int rlp_glen, const int* lr_tar,
+                             int lr_len, int lr_off, int lr_glen,
+                             const int* pstart, const int* plen, int n,
+                             int mrs, int mgs, int* out, void* stream) {
+    if (mrs < 1 || mrs > MMOV) return (int)cudaErrorInvalidValue;
+    const int threads = 128;
+    two_items_kernel<<<cgx_grid(n, threads), threads, 0,
+                       (cudaStream_t)stream>>>(
+        View{ref, ref_len, ref_off, ref_glen},
+        View{rlp, rlp_len, rlp_off, rlp_glen},
+        View{lr_tar, lr_len, lr_off, lr_glen}, pstart, plen, n, mrs, mgs,
+        out);
     return (int)cudaGetLastError();
 }

@@ -8,6 +8,8 @@
 // (the JAX gapspan), then checkBoundary over [cs, cs + second_end] gives the
 // rule's validity and target span (extract_common.cuh, shared with A6 and
 // A7).  The JAX item's unused anchor at cs + sl is not computed.
+// The arrays come as views (common.cuh), so the sharded index runs the same
+// kernel on each shard's slices, as JAX passes `offs` to _twogap_batch.
 //
 // Bound on the H100: per item 6 input words, ~50 scattered 4-byte reads
 // (two 16-word RLP windows, checkBoundary's 16 RLP and up to 16 lr_tar
@@ -52,15 +54,21 @@ __global__ void twogap_kernel(Arrays a, const int* __restrict__ css,
 
 }  // namespace
 
+// Views: (words, local length, global offset, global length) of refstr,
+// RLP and lr_tar: the whole arrays, or one shard's slices.
 // out: int32 [2, n] = (ts, packed) of the aXbXc family, both gaps packed
-CGX_EXPORT int cgx_twogap(const int* refstr, int ref_len, const int* rlp,
-                          int rlp_len, const int* lr_tar, int lr_len,
+CGX_EXPORT int cgx_twogap(const int* ref, int ref_len, int ref_off,
+                          int ref_glen, const int* rlp, int rlp_len,
+                          int rlp_off, int rlp_glen, const int* lr_tar,
+                          int lr_len, int lr_off, int lr_glen,
                           const int* cs, const int* first_end,
                           const int* second_end, const int* sl, const int* el,
                           const int* cl, int n, int mrs, int* out,
                           void* stream) {
     if (mrs < 1 || mrs - 1 > HMAX) return (int)cudaErrorInvalidValue;
-    const Arrays a = {refstr, ref_len, rlp, rlp_len, lr_tar, lr_len};
+    const Arrays a = {View{ref, ref_len, ref_off, ref_glen},
+                      View{rlp, rlp_len, rlp_off, rlp_glen},
+                      View{lr_tar, lr_len, lr_off, lr_glen}};
     const int threads = 128;
     twogap_kernel<<<cgx_grid(n, threads), threads, 0, (cudaStream_t)stream>>>(
         a, cs, first_end, second_end, sl, el, cl, n, mrs, out);

@@ -13,11 +13,14 @@ LONGESTCHSOURCE = 5  # max block matchlen (ExtractPair.cu:16, GenerateBlocks :28
 
 
 def generate_blocks(sa: SAIndex, queries: QuerySet, p1: Pass1Result,
-                    p2: Pass2Result) -> Blocks:
+                    p2: Pass2Result, sa_values=None) -> Blocks:
     """Vectorized: one work item per (token, matchlen) candidate in the
     reference's traversal order (query asc, token asc, len 1 then 2..5), dedup
     by (up, down, len) key with first-appearance ids, per-query id lists by
-    first encounter — identical observable output to the sequential loop."""
+    first encounter — identical observable output to the sequential loop.
+
+    ``sa_values``: rank -> SA-value resolver; defaults to the host SA copy
+    (the sharded index passes its distributed gather, kernel B2g)."""
     lm = p1.longestmatch.astype(np.int64)
     c1 = (lm > 0).astype(np.int64)
     c2 = np.maximum(np.minimum(lm, LONGESTCHSOURCE) - 1, 0)
@@ -57,7 +60,10 @@ def generate_blocks(sa: SAIndex, queries: QuerySet, p1: Pass1Result,
     gids_sorted = gid[pfirst[order2]]
     counts_q = np.bincount(qv[pfirst], minlength=queries.qryscount)
     parts = np.split(gids_sorted, np.cumsum(counts_q)[:-1])
-    string_start = np.asarray(sa.sa)[up[first_o]]
+    if sa_values is None:
+        string_start = np.asarray(sa.sa)[up[first_o]]
+    else:
+        string_start = np.asarray(sa_values(up[first_o]))
     return Blocks(
         start=up[first_o].astype(np.int32),
         end=down[first_o].astype(np.int32),

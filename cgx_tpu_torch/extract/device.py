@@ -1,7 +1,8 @@
 """Rule extraction per sampled occurrence:
 
 * contiguous blocks (extractConsistentPairs_Gappy, ExtractPair.cu:1055-1795):
-  ab + Xab/abX/XabX, kernel A6 (``contig``, ``csrc/contig.cu``);
+  ab + Xab/abX/XabX, kernel A6 (``contig``, ``csrc/contig.cu``), or on the
+  sharded index B3c (``contig_pos``: occurrences by corpus position);
 * one-gap patterns (extractConsistentPairs_OneGap, ExtractPair.cu:351-889):
   aXb + XaXb/aXbX, kernel A7 (``onegap``, ``csrc/onegap.cu``);
 * two-gap patterns (extractConsistentPairs_TwoGap, ExtractPair.cu:891-1053):
@@ -141,9 +142,15 @@ def _put(rule, emit, vals):
 
 def contig_plain(refstr, sa, rlp, lr_tar, sa_pos, lm, mrs: int, msym: int):
     """Plain PyTorch version of kernel A6 -> int32 [8, N]."""
-    dev = sa_pos.device
+    return contig_pos_plain(refstr, rlp, lr_tar, take(sa, sa_pos), lm, mrs,
+                            msym)
+
+
+def contig_pos_plain(refstr, rlp, lr_tar, cs, lm, mrs: int, msym: int):
+    """Plain PyTorch version of kernel B3c (``_extract_contig_item`` for
+    occurrences at corpus positions ``cs``) -> int32 [8, N]."""
+    dev = cs.device
     i32 = torch.int32
-    cs = take(sa, sa_pos)
     ender = cs + lm - 1
     sentstart, stb = _sent_anchor(rlp, cs)
 
@@ -325,15 +332,42 @@ def contig(refstr, sa, rlp, lr_tar, sa_pos, lm, mrs: int, msym: int):
     return out
 
 
+def contig_pos(refstr, rlp, lr_tar, cs, lm, mrs: int, msym: int):
+    """Kernel B3c (``csrc/contig.cu``, ``cgx_contig_pos``): A6 for sampled
+    occurrences given by corpus position ``cs[i]`` (resolved from the
+    rank-sharded SA), on ``OffsetView``s of one shard's slices (or whole
+    arrays) -> int32 [8, n].
+
+    Replaces ``_contig_batch_pos`` (cgx_tpu/extract/device.py:391).  On CUDA
+    tensors it launches the kernel; on CPU tensors it runs
+    ``contig_pos_plain``."""
+    device = cs.device
+    if not kb.route("B3c", device):
+        return contig_pos_plain(refstr, rlp, lr_tar, cs, lm, mrs, msym)
+    kb.check_inputs("B3c", device, torch.int32, refstr=refstr, rlp=rlp,
+                    lr_tar=lr_tar, cs=cs, lm=lm)
+    n = cs.shape[0]
+    if lm.shape[0] != n:
+        raise ValueError("B3c: cs and lm differ in length")
+    kb.check_count("B3c", n)
+    out = torch.empty((8, n), dtype=torch.int32, device=device)
+    if n:
+        lib = kb.library("contig")
+        kb.check("contig", lib.cgx_contig_pos(
+            *kb.view(refstr), *kb.view(rlp), *kb.view(lr_tar), kb.ptr(cs),
+            kb.ptr(lm), n, mrs, msym, kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES["B3c"] += 1
+    return out
+
+
 def _empty_gaprules() -> GapRules:
     return GapRules(*(np.empty(0, np.int32) for _ in range(7)))
 
 
-def extract_contiguous(index, blocks: Blocks, cfg: ExtractorConfig):
+def extract_contiguous(engine, blocks: Blocks, cfg: ExtractorConfig):
     """Host orchestration for extractConsistentPairs_Gappy: sampled
-    occurrence list -> kernel A6 on the index's device -> canonical
-    compaction + stable id sort.  Returns (ContigRules, Xab/abX GapRules,
-    XabX GapRules)."""
+    occurrence list -> the contiguous extraction on ``engine``
+    (``cgx_tpu_torch.engine``) -> canonical compaction + stable id sort.  Returns (ContigRules, Xab/abX GapRules, XabX GapRules)."""
     G = len(blocks.start)
     lo = np.where(blocks.matchlen >= 1, blocks.start, 0)
     hi = np.where(blocks.matchlen >= 1, blocks.end, -1)
@@ -343,12 +377,8 @@ def extract_contiguous(index, blocks: Blocks, cfg: ExtractorConfig):
                 _empty_gaprules(), _empty_gaprules())
     sa_pos = blocks.start.astype(np.int64)[bnums] + tx
     lms = blocks.matchlen.astype(np.int64)[bnums]
-    dev = index.device
-    out = contig(index.refstr_padded, index.sa, index.rlp, index.lr_tar,
-                 torch.from_numpy(sa_pos.astype(np.int32)).to(dev),
-                 torch.from_numpy(lms.astype(np.int32)).to(dev),
-                 cfg.max_rule_span, cfg.max_rule_symbols)
-    return _finish_contig(tuple(out.cpu().numpy()), bnums, G)
+    out = engine.contig(sa_pos, lms)
+    return _finish_contig(out, bnums, G)
 
 
 def _gaprules(parts) -> GapRules:
@@ -541,7 +571,8 @@ def onegap(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs: int, msym: int):
     """Kernel A7 (``csrc/onegap.cu``): for each sampled aXb occurrence
     (corpus start ``cs[i]``, span end offset ``first_end[i]``, a and b
     lengths ``sl[i]``, ``el[i]``) the aXb, XaXb and aXbX emissions as int32
-    [6, n] rows (ts, packed) per family.
+    [6, n] rows (ts, packed) per family.  ``refstr``, ``rlp`` and ``lr_tar``
+    are the whole arrays or ``OffsetView``s of one shard's slices.
 
     Replaces ``_onegap_batch`` (cgx_tpu/extract/device.py:616).  On CUDA
     tensors it launches the kernel; on CPU tensors it runs
@@ -560,11 +591,11 @@ def onegap(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs: int, msym: int):
     if n:
         lib = kb.library("onegap")
         kb.check("onegap", lib.cgx_onegap(
-            kb.ptr(refstr), refstr.shape[0], kb.ptr(rlp), rlp.shape[0],
-            kb.ptr(lr_tar), lr_tar.shape[0], kb.ptr(cs), kb.ptr(first_end),
+            *kb.view(refstr), *kb.view(rlp), *kb.view(lr_tar), kb.ptr(cs),
+            kb.ptr(first_end),
             kb.ptr(sl), kb.ptr(el), n, mrs, msym, kb.ptr(out),
             kb.stream(device)))
-        kb.LAUNCHES["A7"] += 1
+        kb.LAUNCHES[kb.launch_id("A7", rlp)] += 1
     return out
 
 
@@ -602,24 +633,19 @@ def _onegap_occurrences(search1, onegap_sa, pc, sampler, is_sample):
     return ids, css.astype(np.int64), fes.astype(np.int64)
 
 
-def extract_onegap(index, search1: OneGapSearch, onegap_sa: GapOnSA,
+def extract_onegap(engine, search1: OneGapSearch, onegap_sa: GapOnSA,
                    pc: Precomp, cfg: ExtractorConfig):
     """Host orchestration for extractConsistentPairs_OneGap: sampled
-    occurrence list -> kernel A7 on the index's device -> compaction.
-    Returns (aXb GapRules, XaXb/aXbX GapRules)."""
+    occurrence list -> kernel A7 on ``engine`` -> compaction.  Returns (aXb GapRules, XaXb/aXbX GapRules)."""
     D1 = len(search1.qrystart)
     ids, css, fes = _onegap_occurrences(search1, onegap_sa, pc,
                                         cfg.sampler_onegap, cfg.is_sample)
     if len(ids) == 0:
         return _empty_gaprules(), _empty_gaprules()
     ids = np.asarray(ids, dtype=np.int64)
-    cols = (css, fes, search1.qrystart_len[ids], search1.qryend_len[ids])
-    dev = index.device
-    out = onegap(index.refstr_padded, index.rlp, index.lr_tar,
-                 *(torch.from_numpy(np.asarray(c, np.int32)).to(dev)
-                   for c in cols),
-                 cfg.max_rule_span, cfg.max_rule_symbols)
-    return _finish_onegap(tuple(out.cpu().numpy()), ids, D1)
+    out = engine.onegap(
+        css, fes, search1.qrystart_len[ids], search1.qryend_len[ids])
+    return _finish_onegap(out, ids, D1)
 
 
 def _finish_onegap(out, ids, D1):
@@ -670,7 +696,7 @@ def twogap(refstr, rlp, lr_tar, cs, first_end, second_end, sl, el, cl,
     (corpus start ``cs[i]``, end offsets ``first_end[i]`` of b and
     ``second_end[i]`` of c, lengths ``sl[i]``, ``el[i]``, ``cl[i]`` of a, b
     and c) the aXbXc emission as int32 [2, n] rows (ts, packed with both
-    gaps).
+    gaps).  The arrays are whole or ``OffsetView``s, as for ``onegap``.
 
     Replaces ``_twogap_batch`` (cgx_tpu/extract/device.py:744).  On CUDA
     tensors it launches the kernel; on CPU tensors it runs
@@ -691,19 +717,18 @@ def twogap(refstr, rlp, lr_tar, cs, first_end, second_end, sl, el, cl,
     if n:
         lib = kb.library("twogap")
         kb.check("twogap", lib.cgx_twogap(
-            kb.ptr(refstr), refstr.shape[0], kb.ptr(rlp), rlp.shape[0],
-            kb.ptr(lr_tar), lr_tar.shape[0], kb.ptr(cs), kb.ptr(first_end),
+            *kb.view(refstr), *kb.view(rlp), *kb.view(lr_tar), kb.ptr(cs),
+            kb.ptr(first_end),
             kb.ptr(second_end), kb.ptr(sl), kb.ptr(el), kb.ptr(cl), n, mrs,
             kb.ptr(out), kb.stream(device)))
-        kb.LAUNCHES["A8"] += 1
+        kb.LAUNCHES[kb.launch_id("A8", rlp)] += 1
     return out
 
 
-def extract_twogap(index, search1: OneGapSearch, search2: TwoGapSearch,
+def extract_twogap(engine, search1: OneGapSearch, search2: TwoGapSearch,
                    twogap_sa: GapOnSA, cfg: ExtractorConfig) -> GapRules:
     """Host orchestration for extractConsistentPairs_TwoGap: sampled
-    occurrence list -> kernel A8 on the index's device -> compaction.
-    Returns the aXbXc GapRules."""
+    occurrence list -> kernel A8 on ``engine`` -> compaction.  Returns the aXbXc GapRules."""
     ids, tx = occurrence_lists(search2.start_on_salist, search2.end_on_salist,
                                cfg.sampler_twogap, cfg.is_sample)
     if len(ids) == 0:
@@ -711,12 +736,8 @@ def extract_twogap(index, search1: OneGapSearch, search2: TwoGapSearch,
     ids = np.asarray(ids, dtype=np.int64)
     row = search2.start_on_salist.astype(np.int64)[ids] + tx
     one_ids = search2.blockid.astype(np.int64)[ids]
-    cols = (twogap_sa.str_position[row], twogap_sa.length[row],
-            twogap_sa.length2[row], search1.qrystart_len[one_ids],
-            search1.qryend_len[one_ids], search2.qryend_len[ids])
-    dev = index.device
-    out = twogap(index.refstr_padded, index.rlp, index.lr_tar,
-                 *(torch.from_numpy(np.asarray(c, np.int32)).to(dev)
-                   for c in cols), cfg.max_rule_span)
-    ts, pk = out.cpu().numpy()
+    ts, pk = engine.twogap(
+        twogap_sa.str_position[row], twogap_sa.length[row],
+        twogap_sa.length2[row], search1.qrystart_len[one_ids],
+        search1.qryend_len[one_ids], search2.qryend_len[ids])
     return _gaprules([unpack_family(ts, pk, two_gaps=True) + (ids,)])

@@ -16,6 +16,12 @@ Table layout by the JAX package's size rule (``DEV_DENSE_LIMIT``):
 
 On CUDA the kernels always run; on the CPU their plain PyTorch versions do,
 bit-equal to the JAX package's host loop (maxlex.py:382-399).
+
+The sharded index scores on the host backend instead (copied from the JAX
+package: ``_lookup``, the sorted-key half of ``_probe_bests_host`` and the
+sequential float32 loop, maxlex.py:48-130, 365-399), as the JAX package
+does for that layout, so that no O(corpus) array is replicated on the
+device: ``compute_maxlex`` takes it when it is given a ``HostLexIndex``.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from cgx_tpu_torch.config import ExtractorConfig
+from cgx_tpu_torch.index.container import HostLexIndex, pack_lex_key
 from cgx_tpu_torch.kernels import build as kb
 from cgx_tpu_torch.utils.views import take
 
@@ -257,15 +264,101 @@ def accum_range(rs, re, lt, lnv1, lnv2, tgt_str, maxscore: float, sp, t0,
     return fge, egf
 
 
+# ---------------------------------------------------------------------------
+# Host backend (the sharded index's)
+# ---------------------------------------------------------------------------
+
+def _lookup(lex_key, lex_val, keys):
+    """Batched searchLexFile: value at key or 0.0 (ExtractPair.cu:2108-2142)."""
+    i = np.searchsorted(lex_key, keys)
+    ic = np.minimum(i, len(lex_key) - 1)
+    found = (i < len(lex_key)) & (lex_key[ic] == keys)
+    return np.where(found, lex_val[ic], np.float32(0)).astype(np.float32)
+
+
+def _probe_bests_host(lex_key, lex_val1, lex_val2, src_pat, ttok, tmask,
+                      any_t):
+    """(fge_best [T, SRCW], egf_best [T, TPOSW]) on the host by batched
+    ``np.searchsorted`` over the packed keys (the first table row wins on
+    duplicate pairs)."""
+    sp = src_pat.astype(np.int64)
+    tt = ttok.astype(np.int64)
+    keys = pack_lex_key(sp[:, :, None], tt[:, None, :])         # [T, 5, 16]
+    v2 = _lookup(lex_key, lex_val2, keys)                       # P(t|s) side
+    v1 = _lookup(lex_key, lex_val1, keys)                       # P(s|t) side
+    v2null = _lookup(lex_key, lex_val2, pack_lex_key(sp, np.full_like(sp, -1)))
+    v1null = _lookup(lex_key, lex_val1, pack_lex_key(np.full_like(tt, -1), tt))
+    fge_best = np.max(np.where(tmask[:, None, :], v2, np.float32(0)), axis=2)
+    fge_best = np.where(any_t[:, None], np.maximum(fge_best, v2null), fge_best)
+    src_valid = src_pat >= -1  # padded entries are -99
+    egf_best = np.max(np.where(src_valid[:, :, None], v1, np.float32(0)),
+                      axis=1)
+    egf_best = np.maximum(egf_best, v1null)
+    return fge_best, egf_best
+
+
+def maxlex_host(index: HostLexIndex, cfg: ExtractorConfig, src_pat, t0, tend,
+                g1, g11, g2, g21):
+    """The host backend: the probes on numpy and the reference's sequential
+    float32 ``-log10`` accumulation -> (fge, egf) float32 [T]."""
+    src_pat = np.asarray(src_pat)
+    t0, tend, g1, g11, g2, g21 = (np.asarray(a, np.int64)
+                                  for a in (t0, tend, g1, g11, g2, g21))
+    T = len(t0)
+    nsrc = (src_pat != -99).sum(axis=1).astype(np.int64)
+    pos = t0[:, None] + np.arange(TPOSW, dtype=np.int64)[None, :]
+    inside = pos <= (t0 + tend)[:, None]
+    out1 = (g1 < 0)[:, None] | (pos < (t0 + g1)[:, None]) | \
+        (pos > (t0 + g11)[:, None])
+    out2 = (g2 < 0)[:, None] | (pos < (t0 + g2)[:, None]) | \
+        (pos > (t0 + g21)[:, None])
+    tmask = inside & out1 & out2
+    any_t = tmask.any(axis=1)
+    tgt_str = index.tgt_str_host
+    ttok = tgt_str[np.clip(pos, 0, len(tgt_str) - 1)].astype(np.int64)
+    fge_best, egf_best = _probe_bests_host(
+        index.lex_key, index.lex_val1_host, index.lex_val2_host, src_pat,
+        ttok, tmask, any_t)
+
+    maxscore = np.float32(cfg.max_score)
+    fge = np.zeros(T, dtype=np.float32)
+    with np.errstate(divide="ignore"):
+        for j in range(SRCW):
+            m = j < nsrc
+            best = fge_best[:, j]
+            term = np.where(best > 0,
+                            (-np.log10(np.where(best > 0, best, 1.0))
+                             ).astype(np.float32), maxscore)
+            fge = np.where(m, (fge + term).astype(np.float32), fge)
+        egf = np.zeros(T, dtype=np.float32)
+        for p in range(TPOSW):
+            m = tmask[:, p]
+            best = egf_best[:, p]
+            term = np.where(best > 0,
+                            (-np.log10(np.where(best > 0, best, 1.0))
+                             ).astype(np.float32), maxscore)
+            egf = np.where(m, (egf + term).astype(np.float32), egf)
+    return fge, egf
+
+
 def compute_maxlex(task_arrays: dict, index, rules_one, rules_two,
                    rules_contig, cfg: ExtractorConfig):
-    """Scores the families' TaskArrays on the index's device and scatters the
-    features into the rules (row d of a family's TaskArrays is its distinct
-    rule d)."""
+    """Scores the families' TaskArrays and scatters the features into the
+    rules (row d of a family's TaskArrays is its distinct rule d): on the
+    index's device (A9 / A10) for a ``TorchGrammarIndex``, on the host for a
+    ``HostLexIndex`` (the sharded index's)."""
     by_kind = {"onegap": rules_one, "twogap": rules_two, "contig": rules_contig}
     kinds = [k for k in ("onegap", "twogap", "contig")
              if len(task_arrays[k].t0)]
     if not kinds:
+        return
+    if isinstance(index, HostLexIndex):
+        fge, egf = maxlex_host(
+            index, cfg, np.concatenate([task_arrays[k].src_pat
+                                        for k in kinds]),
+            *(np.concatenate([getattr(task_arrays[k], f) for k in kinds])
+              for f in ("t0", "tend", "g1", "g11", "g2", "g21")))
+        _scatter(by_kind, kinds, fge, egf)
         return
     dev = index.device
     sp = torch.from_numpy(np.ascontiguousarray(np.concatenate(
@@ -280,8 +373,10 @@ def compute_maxlex(task_arrays: dict, index, rules_one, rules_two,
         rs, re, lt, lnv1, lnv2, steps = tabs
         fge, egf = accum_range(rs, re, lt, lnv1, lnv2, index.tgt_str,
                                cfg.max_score, sp, *cols, steps)
-    fge = fge.cpu().numpy()
-    egf = egf.cpu().numpy()
+    _scatter(by_kind, kinds, fge.cpu().numpy(), egf.cpu().numpy())
+
+
+def _scatter(by_kind, kinds, fge, egf):
     off = 0
     for k in kinds:
         rules = by_kind[k]

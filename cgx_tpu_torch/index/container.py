@@ -86,6 +86,26 @@ class TorchGrammarIndex:
         return self._lcp
 
 
+@dataclasses.dataclass
+class HostLexIndex:
+    """The host-side slice of the index that MaxLex reads on its host
+    backend (JAX ``cgx_tpu/index/container.py:72-91``): the sharded index
+    scores there, so that no O(corpus) array is replicated on the device."""
+
+    tgt_str_host: np.ndarray
+    lex_key: np.ndarray
+    lex_val1_host: np.ndarray
+    lex_val2_host: np.ndarray
+
+
+def build_host_lex_index(target: TargetCorpus, lex: LexTable) -> HostLexIndex:
+    return HostLexIndex(
+        tgt_str_host=np.asarray(target.str_),
+        lex_key=pack_lex_key(lex.keys_src, lex.keys_tgt),
+        lex_val1_host=np.asarray(lex.val1, dtype=np.float32),
+        lex_val2_host=np.asarray(lex.val2, dtype=np.float32))
+
+
 def pack_lex_key(src: np.ndarray, tgt: np.ndarray) -> np.ndarray:
     """Order-preserving packing of (src, tgt) int32 pairs into sortable int64
     (lexFileCompare, ExtractPair.cu:28-35); the +2**31 bias keeps the -1 NULL

@@ -10,8 +10,12 @@ module of the package on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts launches per kernel id (the ids of the JAX package's
 device kernels: A1, A2f and A2b for A2's forward and backward scans, A3,
-A4, A5, A6, A7, A8, A9, A10, and B1p1 and B1p2 for B1's two passes).  A wrapper adds one right after it launched its
-kernel, and nowhere else.
+A4, A5, A6, A7, A8, A9, A10, B1p1 and B1p2 for B1's two passes, and the
+sharded index's B2r and B2g (refinement, SA gather) and B3f, B3b, B3p, B3t
+and B3c (the per-item scans, verification, second-gap scan and contiguous
+extraction)); A4, A7 and A8 count as A4v, A7v and A8v when they read a
+shard's ``OffsetView``s (``launch_id``).  A wrapper adds one right after it
+launched its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_V = [_P, _I, _I, _I]   # a view: words, local length, global offset, length
 # C entry points per source file: name -> argtypes (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 SIGNATURES = {
@@ -51,7 +56,7 @@ SIGNATURES = {
                       _I, _P, _P],
     },
     "gapcheck": {
-        "cgx_gap_check": [_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P],
+        "cgx_gap_check": _V + _V + [_P, _I, _I, _I, _I, _P, _P],
     },
     "scan": {
         "cgx_scan": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
@@ -59,18 +64,30 @@ SIGNATURES = {
         "cgx_pcs": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P],
         "cgx_two": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I,
                     _I, _I, _P, _P],
+        "cgx_fwd_items": _V * 3 + [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P,
+                                   _P],
+        "cgx_bwd_items": _V * 3 + [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P,
+                                   _P],
+        "cgx_pcs_items": _V + [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                               _P],
+        "cgx_two_items": _V * 3 + [_P, _P, _I, _I, _I, _P, _P],
     },
     "contig": {
         "cgx_contig": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
                        _P, _P],
+        "cgx_contig_pos": _V * 3 + [_P, _P, _I, _I, _I, _P, _P],
     },
     "onegap": {
-        "cgx_onegap": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I,
-                       _P, _P],
+        "cgx_onegap": _V * 3 + [_P, _P, _P, _P, _I, _I, _I, _P, _P],
     },
     "twogap": {
-        "cgx_twogap": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                       _P, _P],
+        "cgx_twogap": _V * 3 + [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    },
+    "sharded": {
+        "cgx_refine_sharded": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
+                               _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                               _P],
+        "cgx_gather_sa_sharded": [_P, _P, _I, _I, _I, _P, _I, _P, _P],
     },
     "maxlex": {
         "cgx_maxlex_dense": [_P, _P, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P,
@@ -157,6 +174,20 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def view(v) -> tuple:
+    """A kernel's view arguments (words, local length, global offset, global
+    length) of an ``OffsetView`` or of a whole tensor (an identity view)."""
+    if isinstance(v, torch.Tensor):
+        return ptr(v), v.shape[0], 0, v.shape[0]
+    return ptr(v.arr), v.arr.shape[0], int(v.off), int(v.glen)
+
+
+def launch_id(kernel: str, v) -> str:
+    """The launch id of ``kernel`` reading the corpus through ``v``:
+    ``kernel + "v"`` on a shard's ``OffsetView``, else ``kernel``."""
+    return kernel if isinstance(v, torch.Tensor) else kernel + "v"
+
+
 def stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
@@ -171,9 +202,10 @@ def check(lib_name: str, rc: int) -> None:
 
 def check_inputs(kernel: str, device: torch.device, dtype: torch.dtype,
                  **tensors) -> None:
-    """Every tensor a kernel reads must be contiguous, on ``device`` and of
-    the dtype its C signature declares."""
+    """Every tensor a kernel reads (or the slice under a view) must be
+    contiguous, on ``device`` and of the dtype its C signature declares."""
     for arg, t in tensors.items():
+        t = getattr(t, "arr", t)
         if t.device != device:
             raise ValueError(f"{kernel}: {arg} is on {t.device}, "
                              f"expected {device}")

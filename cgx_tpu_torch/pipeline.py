@@ -15,12 +15,21 @@ family:
   A8: aXbXc);
 * the lexicon (host), MaxLex (kernel A9 or A10) and the writer (host).
 
+With ``sa_shards=S > 0`` the index is the sharded one
+(``parallel.sharded``: the rank-sharded SA, the token-sharded corpus and
+the target slices, all S shards on the one device): pass 1/2 runs on kernel
+B2r, SA values come from B2g, the scans and extractions run owner-computes
+on kernels B3f, B3b, B3p, B3t, B3c and A4, A7, A8 on the shards' views, and
+MaxLex scores on the host (a ``HostLexIndex``), as the JAX package's
+sharded path does.
+
 Every query's lines equal the JAX package's, byte for byte and in order.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import operator
 import sys
 
 import numpy as np
@@ -28,12 +37,14 @@ import torch
 
 from cgx_tpu_torch.config import (DEFAULT_CONFIG, ExtractorConfig,
                                   check_capacity)
+from cgx_tpu_torch.engine import ReplicatedEngine
 from cgx_tpu_torch.extract import device as xdev
 from cgx_tpu_torch.extract.blocks import generate_blocks
 from cgx_tpu_torch.features import lexicon as lx
 from cgx_tpu_torch.features import maxlex as ml
 from cgx_tpu_torch.grammar import writer as gw
 from cgx_tpu_torch.index import container as ic
+from cgx_tpu_torch.parallel import sharded as shx
 from cgx_tpu_torch.preproc import corpus as cp
 from cgx_tpu_torch.preproc import suffix_array as sab
 from cgx_tpu_torch.search import enumerate_fast as ef
@@ -60,14 +71,42 @@ class PipelineResult:
     per_query_lines: list
     counters: dict
     timing: PhaseTimer
-    index: ic.TorchGrammarIndex = None   # the device index the run searched
+    # the device index the run searched: a TorchGrammarIndex, or the
+    # ShardedGrammarIndex with sa_shards > 0
+    index: object = None
+
+
+def make_engine(index, cfg: ExtractorConfig):
+    """The dispatch engine of an index layout (``cgx_tpu_torch.engine``)."""
+    if isinstance(index, shx.ShardedGrammarIndex):
+        return shx.ShardedEngine(index, cfg)
+    return ReplicatedEngine(index, cfg)
+
+
+def _check_shards(sa_shards, lcp_passes=False) -> int:
+    if sa_shards == "auto":
+        raise ValueError("sa_shards='auto' sizes the index against the device "
+                         "budget (utils/budget.py), which is not ported yet: "
+                         "see ROADMAP queue A; give a shard count")
+    sa_shards = operator.index(sa_shards)
+    if sa_shards < 0:
+        raise ValueError(f"sa_shards must be >= 0, not {sa_shards}")
+    if lcp_passes and sa_shards:
+        raise ValueError("lcp_passes needs the replicated index: the sharded "
+                         "index keeps no LCP tree on the device")
+    return sa_shards
 
 
 def build_artifact(f_lines, e_lines, a_lines, lex_tokens,
                    cfg: ExtractorConfig = DEFAULT_CONFIG,
-                   timing: PhaseTimer = None, device="cuda"):
-    """Corpus preprocessing -> (Artifact, TorchGrammarIndex on ``device``,
-    timing).  Texts given as one string take the native tokenizer."""
+                   timing: PhaseTimer = None, device="cuda",
+                   sa_shards: int = 0):
+    """Corpus preprocessing -> (Artifact, index on ``device``, timing).
+    Texts given as one string take the native tokenizer.  The index is a
+    TorchGrammarIndex, or with ``sa_shards > 0`` a ShardedGrammarIndex of
+    that many shards, whose build places no replicated O(corpus) array on
+    the device: its precompute gap checks run owner-computes."""
+    sa_shards = _check_shards(sa_shards)
     device = torch.device(device)
     t = timing or PhaseTimer(device)
     with t.phase("refsin"):
@@ -80,25 +119,39 @@ def build_artifact(f_lines, e_lines, a_lines, lex_tokens,
     with t.phase("suffixarray"):
         sa = sab.build_index(source.str_)
     with t.phase("qrysin"):
-        index = ic.build_index(source, target, sa, align, lex, cfg, device)
+        if sa_shards:
+            index = shx.build_sharded_index(source, target, sa, align, cfg,
+                                            sa_shards, device)
+        else:
+            index = ic.build_index(source, target, sa, align, lex, cfg,
+                                   device)
     with t.phase("precompute"):
-        pc = pcx.precompute(index, source, sa, cfg)
+        pc = pcx.precompute(make_engine(index, cfg), source, sa, cfg)
     return Artifact(source, target, align, lex, sa, pc), index, t
 
 
 def run_pipeline(f_lines, e_lines, a_lines, lex_tokens, q_lines,
                  cfg: ExtractorConfig = DEFAULT_CONFIG,
                  timing: PhaseTimer = None, device="cuda",
-                 lcp_passes: bool = False) -> PipelineResult:
+                 lcp_passes: bool = False,
+                 sa_shards: int = 0) -> PipelineResult:
     """Runs the main path with every device stage on ``device`` ("cuda": the
     hand-written kernels; "cpu": their plain PyTorch versions).
     ``lcp_passes`` runs pass 1/2 as the LCP-accelerated search (kernel B1)
-    instead of the interval refinement (kernel A1); the grammar is the
-    same."""
+    instead of the interval refinement (kernel A1); ``sa_shards > 0`` runs
+    the sharded index of that many shards (all on ``device``).  The grammar
+    is the same in every case; ``lcp_passes`` with ``sa_shards`` is
+    refused."""
+    sa_shards = _check_shards(sa_shards, lcp_passes)
     art, index, t = build_artifact(f_lines, e_lines, a_lines, lex_tokens, cfg,
-                                   timing, device)
+                                   timing, device, sa_shards)
     ctx = dict(index=index, source=art.source, target=art.target, sa=art.sa,
-               pc=art.precomp)
+               pc=art.precomp, engine=make_engine(index, cfg),
+               lex_index=index, sa_values=None)
+    if sa_shards:
+        with t.phase("qrysin"):
+            ctx["lex_index"] = ic.build_host_lex_index(art.target, art.lex)
+        ctx["sa_values"] = ctx["engine"].sa_values
     with t.phase("qrysload"):
         queries = cp.load_queries(q_lines, art.source.vocab)
     front = _front_stages(ctx, queries, cfg, t, lcp_passes)
@@ -116,7 +169,11 @@ def _front_stages(ctx, queries, cfg, t, lcp_passes=False):
     """Device-driven half: pass 1/2, the enumerations, lookup1 and lookup2,
     blocks and the extraction of every family."""
     index, pc, source = ctx["index"], ctx["pc"], ctx["source"]
-    if lcp_passes:
+    engine = ctx["engine"]
+    if isinstance(index, shx.ShardedGrammarIndex):
+        with t.phase("kernel"):
+            p1, p2 = shx.sharded_passes(index, queries)
+    elif lcp_passes:
         with t.phase("kernel"):
             p1 = passes.pass1_lcp(index, queries)
         with t.phase("kernel2"):
@@ -129,8 +186,8 @@ def _front_stages(ctx, queries, cfg, t, lcp_passes=False):
             ef.fast_one_gap_enumeration(queries, p1, cfg), queries)
         check_capacity("onegap_enum", len(enum1.number), cfg.cap_onegap_enum)
     with t.phase("lookup1"):
-        onegap_sa = lookup.one_gap_lookup(index, queries, p1, p2, search1, pc,
-                                          cfg)
+        onegap_sa = lookup.one_gap_lookup(engine, queries, p1, p2, search1,
+                                          pc, cfg)
         check_capacity("onegap_sa", len(onegap_sa.position),
                        cfg.cap_onegap_sa)
     with t.phase("enumeration"):
@@ -139,19 +196,20 @@ def _front_stages(ctx, queries, cfg, t, lcp_passes=False):
             queries)
         check_capacity("twogap_enum", len(enum2.number), cfg.cap_twogap_enum)
     with t.phase("lookup2"):
-        twogap_sa = lookup.two_gap_lookup(index, queries, search1, onegap_sa,
+        twogap_sa = lookup.two_gap_lookup(engine, queries, search1, onegap_sa,
                                           search2, pc, cfg,
                                           np.asarray(source.str_))
         check_capacity("twogap_sa", len(twogap_sa.position),
                        cfg.cap_twogap_sa)
     with t.phase("extractin"):
-        blocks = generate_blocks(ctx["sa"], queries, p1, p2)
+        blocks = generate_blocks(ctx["sa"], queries, p1, p2,
+                                 sa_values=ctx["sa_values"])
     with t.phase("extractkernel"):
-        contig, og_blocks, tg_blocks = xdev.extract_contiguous(index, blocks,
-                                                               cfg)
-        tg_seeds = xdev.extract_twogap(index, search1, search2, twogap_sa,
+        contig, og_blocks, tg_blocks = xdev.extract_contiguous(
+            engine, blocks, cfg)
+        tg_seeds = xdev.extract_twogap(engine, search1, search2, twogap_sa,
                                        cfg)
-        og_seeds, tg_onegap = xdev.extract_onegap(index, search1, onegap_sa,
+        og_seeds, tg_onegap = xdev.extract_onegap(engine, search1, onegap_sa,
                                                   pc, cfg)
     # the two-gap rules are XabX, then aXbXc, then XaXb/aXbX
     sep1 = len(tg_blocks.gappy_index)
@@ -167,8 +225,7 @@ def _front_stages(ctx, queries, cfg, t, lcp_passes=False):
 
 def _back_stages(ctx, queries, fr, cfg, t):
     """Host half plus MaxLex: lexicon build, MaxLex, rule formatting."""
-    source, target, index, pc = (ctx["source"], ctx["target"], ctx["index"],
-                                 ctx["pc"])
+    source, target, pc = ctx["source"], ctx["target"], ctx["pc"]
     blocks, search1, enum1 = fr["blocks"], fr["search1"], fr["enum1"]
     search2, enum2 = fr["search2"], fr["enum2"]
     onegap_sa = fr["onegap_sa"]
@@ -184,7 +241,7 @@ def _back_stages(ctx, queries, fr, cfg, t):
     with t.phase("maxlex"):
         ml.compute_maxlex(
             {"onegap": tasks_one, "twogap": tasks_two, "contig": tasks_contig},
-            index, rules_one, rules_two, rules_contig, cfg)
+            ctx["lex_index"], rules_one, rules_two, rules_contig, cfg)
     with t.phase("printout"):
         G = len(blocks.start)
         D1 = len(search1.qrystart)
@@ -218,14 +275,15 @@ def _back_stages(ctx, queries, fr, cfg, t):
 
 def run_pipeline_files(reffile, qryfile, tarfile, alignfile, lexfile, dest_dir,
                        cfg: ExtractorConfig = DEFAULT_CONFIG, device="cuda",
-                       lcp_passes: bool = False):
+                       lcp_passes: bool = False, sa_shards: int = 0):
     with open(reffile, encoding="utf-8") as fh:
         f_text = fh.read()
     with open(tarfile, encoding="utf-8") as fh:
         e_text = fh.read()
     res = run_pipeline(f_text, e_text, cp.read_lines(alignfile),
                        cp.read_tokens(lexfile), cp.read_lines(qryfile), cfg,
-                       device=device, lcp_passes=lcp_passes)
+                       device=device, lcp_passes=lcp_passes,
+                       sa_shards=sa_shards)
     gw.write_grammars(dest_dir, res.queries.qryscount, cfg.is_sample,
                       res.per_query_lines)
     print(res.timing.report(), file=sys.stderr)

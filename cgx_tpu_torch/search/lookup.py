@@ -27,7 +27,10 @@ against the two-gap patterns that extend the core.
 
 The kernels expand their item axis on the device from a per-pattern table
 (``pattab``) and the exclusive count prefix (``offs``), and launch once over
-all items.
+all items.  The sharded index runs the same item bodies per item on one
+shard's views (kernels B3f, B3b, B3p and B3t: ``fwd_items``, ``bwd_items``,
+``pcs_items``, ``two_items``).  The orchestrators reach either through an
+engine (``cgx_tpu_torch.engine``).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import torch
 from cgx_tpu_torch.config import ExtractorConfig
 from cgx_tpu_torch.kernels import build as kb
 from cgx_tpu_torch.types import GapOnSA, OneGapSearch, Precomp, TwoGapSearch
-from cgx_tpu_torch.utils.views import take
+from cgx_tpu_torch.utils.views import as_view, take
 
 MMOV = 16  # move-axis width; real moves are bounded by max_rule_span - 2
 
@@ -141,36 +144,39 @@ def _expand(pattab, offs, n: int):
     return pattab[p], j - offs[p]
 
 
-def scan_plain(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int,
+def _scan_body(refstr, rlp, lr_tar, gostart, sl, el, want, mrs: int,
                mgs: int, fwd: bool):
-    """Plain PyTorch version of kernel A2 -> int32 [n] move masks."""
-    dev = offs.device
-    f, tx = _expand(pattab, offs, n)
-    gostart = take(sa, f[:, 0] + tx)
-    sl, el = f[:, 1], f[:, 2]
+    """``_fwd_item`` / ``_bwd_item`` over N items -> bool [N, MMOV] of the
+    moves whose scan and gap check pass; ``want`` holds the three compared
+    query tokens per item ([N, 3]).  The corpus reads keep the JAX bounds:
+    ``ref[i]`` where the JAX body leaves ``i`` unbounded, ``take`` or an
+    explicit clamp where it bounds it (utils/views.py)."""
+    ref = as_view(refstr)
+    dev = gostart.device
     ks = torch.arange(MMOV + 2, dtype=torch.int32, device=dev)
     if fwd:
-        gap0_bad = take(refstr, gostart + sl) < 2
-        win = take(refstr, (gostart + sl + mgs)[:, None] + ks)
+        gap0_bad = ref[gostart + sl] < 2
+        win = ref[((gostart + sl + mgs)[:, None] + ks).clamp(
+            max=ref.shape[0] - 1)]
         side, other = el, sl            # b is compared, a bounds the span
         gc = gap_check_grow(rlp, lr_tar, gostart + sl, mgs - 1, mrs, True)
     else:
-        gap0_bad = take(refstr, (gostart - 1).clamp(min=0)) < 2
+        gap0_bad = ref[(gostart - 1).clamp(min=0)] < 2
         pos = (gostart - 1 - mgs)[:, None] - ks
-        win = torch.where(pos < 0, -1, take(refstr, pos))
+        win = torch.where(pos < 0, -1, ref[pos.clamp(min=0)])
         side, other = sl, el
         gc = gap_check_grow(rlp, lr_tar, gostart - 1, mgs - 1, mrs, False)
     moves = ks[:MMOV]
     temp = win[:, :MMOV]
     bad = temp < 2
-    is_w = temp == f[:, 3:4]
+    is_w = temp == want[:, 0:1]
     verify_ok = torch.ones_like(bad)
     verify_kill = torch.zeros_like(bad)
     for k in (1, 2):
         need = (side > k)[:, None]
         in_span = other[:, None] + mgs + moves + 1 + k <= mrs
         bo = win[:, k:MMOV + k]
-        match = bo == f[:, 3 + k:4 + k]
+        match = bo == want[:, k:k + 1]
         cmp_here = is_w & need & verify_ok & in_span
         verify_ok = verify_ok & (~need | (in_span & match))
         verify_kill = verify_kill | (cmp_here & ~match & (bo < 2))
@@ -179,31 +185,58 @@ def scan_plain(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int,
     reach = torch.cat([torch.ones_like(alive[:, :1]), alive[:, :-1]], dim=1)
     span_ok = (sl + mgs + el)[:, None] + moves <= mrs
     cand = reach & span_ok & ~gap0_bad[:, None] & ~bad & is_w & verify_ok
-    return pack_moves(cand & gc)
+    return cand & gc
 
 
-def two_plain(refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, n: int,
-              mrs: int, mgs: int):
-    """Plain PyTorch version of kernel A5 -> int32 [n] words holding the
-    uint32 bits ``cand | (gc << 16)``."""
-    dev = offs.device
-    f, tx = _expand(pattab, offs, n)
-    row = f[:, 0] + tx
-    # both reads are clamped; the pcmode flag selects one
-    sel = torch.where((f[:, 1] > 0)[:, None], take(pcrows, row),
-                      take(ogrows, row))
-    pstart, plen = sel[:, 0], sel[:, 1]
+def _pcs_body(refstr, pstart, plen, sl, el, pa1, pa2, pb2, pb3, mrs: int):
+    """``_pcs_item`` over N precomputed occurrences -> bool [N]."""
+    ref = as_view(refstr)
+    ok = plen + 1 + sl - 1 + el - 1 <= mrs
+    for k, want in ((1, pa1), (2, pa2)):     # prefix: backoff 1..sl-1
+        p = pstart - k
+        good = (p >= 0) & (ref[p.clamp(min=0)] == want)
+        ok = ok & (~(sl > k) | good)
+    for k, want in ((2, pb2), (3, pb3)):     # suffix: forward 2..el
+        good = ref[pstart + plen + k - 1] == want
+        ok = ok & (~(el >= k) | good)
+    return ok
+
+
+def _two_body(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int):
+    """``_two_item`` over N aXb occurrences -> (cand, gc) bool [N, MMOV]."""
+    ref = as_view(refstr)
     gostart = pstart + plen
-    moves = torch.arange(MMOV, dtype=torch.int32, device=dev)
-    gap0_bad = take(refstr, gostart + mgs) < 2
-    temp = take(refstr, (gostart + 1 + mgs)[:, None] + moves)
+    moves = torch.arange(MMOV, dtype=torch.int32, device=pstart.device)
+    gap0_bad = ref[gostart + mgs] < 2
+    temp = ref[((gostart + 1 + mgs)[:, None] + moves).clamp(
+        max=ref.shape[0] - 1)]
     span_kill = (plen + 1 + mgs + 1)[:, None] + moves > mrs
     bad = temp < 2
     # reach[m]: every earlier move survived (exclusive prefix AND)
     alive = torch.cumprod((~bad & ~span_kill).to(torch.int32), dim=1) == 1
     reach = torch.cat([torch.ones_like(alive[:, :1]), alive[:, :-1]], dim=1)
     cand = reach & ~gap0_bad[:, None] & ~span_kill & ~bad
-    gc = gap_check_grow(rlp, lr_tar, gostart + 1, mgs - 1, mrs, True)
+    return cand, gap_check_grow(rlp, lr_tar, gostart + 1, mgs - 1, mrs, True)
+
+
+def scan_plain(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int,
+               mgs: int, fwd: bool):
+    """Plain PyTorch version of kernel A2 -> int32 [n] move masks."""
+    f, tx = _expand(pattab, offs, n)
+    return pack_moves(_scan_body(refstr, rlp, lr_tar, take(sa, f[:, 0] + tx),
+                                 f[:, 1], f[:, 2], f[:, 3:6], mrs, mgs, fwd))
+
+
+def two_plain(refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, n: int,
+              mrs: int, mgs: int):
+    """Plain PyTorch version of kernel A5 -> int32 [n] words holding the
+    uint32 bits ``cand | (gc << 16)``."""
+    f, tx = _expand(pattab, offs, n)
+    row = f[:, 0] + tx
+    # both reads are clamped; the pcmode flag selects one
+    sel = torch.where((f[:, 1] > 0)[:, None], take(pcrows, row),
+                      take(ogrows, row))
+    cand, gc = _two_body(refstr, rlp, lr_tar, sel[:, 0], sel[:, 1], mrs, mgs)
     w = pack_moves(cand).long() | (pack_moves(gc).long() << 16)
     return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
 
@@ -213,17 +246,45 @@ def pcs_plain(refstr, pcrows, pattab, offs, n: int, mrs: int):
     bits."""
     f, tx = _expand(pattab, offs, n)
     pr = take(pcrows, f[:, 0] + tx)
-    pstart, plen = pr[:, 0], pr[:, 1]
-    sl, el = f[:, 1], f[:, 2]
-    ok = plen + 1 + sl - 1 + el - 1 <= mrs
-    for k in (1, 2):                     # prefix: backoff 1..sl-1
-        p = pstart - k
-        good = (p >= 0) & (take(refstr, p.clamp(min=0)) == f[:, 2 + k])
-        ok = ok & (~(sl > k) | good)
-    for k in (2, 3):                     # suffix: forward 2..el
-        good = take(refstr, pstart + plen + k - 1) == f[:, 3 + k]
-        ok = ok & (~(el >= k) | good)
-    return _pack_bits32(ok)
+    return _pack_bits32(_pcs_body(refstr, pr[:, 0], pr[:, 1], f[:, 1],
+                                  f[:, 2], f[:, 3], f[:, 4], f[:, 5], f[:, 6],
+                                  mrs))
+
+
+def _scan_want(qtok, qpos, sl, fwd: bool):
+    """The compared query tokens of the per-item scans, gathered with the
+    JAX clamp (``_qtok_fwd`` / ``_qtok_bwd``) -> [N, 3]."""
+    if fwd:
+        idx = [qpos, qpos + 1, qpos + 2]
+    else:
+        idx = [qpos + sl - 1, qpos + (sl - 2).clamp(min=0),
+               qpos + (sl - 3).clamp(min=0)]
+    return torch.stack([take(qtok, i) for i in idx], dim=1)
+
+
+def scan_items_plain(refstr, rlp, lr_tar, qtok, gostart, sl, el, qpos,
+                     mrs: int, mgs: int, fwd: bool):
+    """Plain PyTorch version of kernels B3f (``fwd``, ``qpos`` = b's start)
+    and B3b (``qpos`` = a's start) -> int32 [n] move masks."""
+    return pack_moves(_scan_body(refstr, rlp, lr_tar, gostart, sl, el,
+                                 _scan_want(qtok, qpos, sl, fwd), mrs, mgs,
+                                 fwd))
+
+
+def pcs_items_plain(refstr, qtok, pstart, plen, sl, el, tok, stok, mrs: int):
+    """Plain PyTorch version of kernel B3p -> int32 [n] ok flags."""
+    return _pcs_body(refstr, pstart, plen, sl, el,
+                     take(qtok, tok + (sl - 2).clamp(min=0)),
+                     take(qtok, tok + (sl - 3).clamp(min=0)),
+                     take(qtok, stok + 1), take(qtok, stok + 2),
+                     mrs).to(torch.int32)
+
+
+def two_items_plain(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int):
+    """Plain PyTorch version of kernel B3t -> int32 [2, n]: the candidate
+    masks, then the gap-check masks."""
+    cand, gc = _two_body(refstr, rlp, lr_tar, pstart, plen, mrs, mgs)
+    return torch.stack([pack_moves(cand), pack_moves(gc)])
 
 
 def _check_items(kernel, pattab, offs, n, width=8):
@@ -327,54 +388,121 @@ def two(refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, n: int, mrs: int,
     return out
 
 
+def _check_cols(kernel, n, *cols):
+    if any(c.dim() != 1 or c.shape[0] != n for c in cols):
+        raise ValueError(f"{kernel}: item arrays differ in length")
+    kb.check_count(kernel, n)
+
+
+def _scan_items(kernel, fn, refstr, rlp, lr_tar, qtok, gostart, sl, el, qpos,
+                mrs, mgs, fwd):
+    device = gostart.device
+    if not kb.route(kernel, device):
+        return scan_items_plain(refstr, rlp, lr_tar, qtok, gostart, sl, el,
+                                qpos, mrs, mgs, fwd)
+    kb.check_inputs(kernel, device, torch.int32, refstr=refstr, rlp=rlp,
+                    lr_tar=lr_tar, qtok=qtok, gostart=gostart, sl=sl, el=el,
+                    qpos=qpos)
+    n = gostart.shape[0]
+    _check_cols(kernel, n, sl, el, qpos)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    if n:
+        lib = kb.library("scan")
+        kb.check("scan", getattr(lib, fn)(
+            *kb.view(refstr), *kb.view(rlp), *kb.view(lr_tar), kb.ptr(qtok),
+            qtok.shape[0], kb.ptr(gostart), kb.ptr(sl), kb.ptr(el),
+            kb.ptr(qpos), n, mrs, mgs, kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES[kernel] += 1
+    return out
+
+
+def fwd_items(refstr, rlp, lr_tar, qtok, gostart, sl, el, stok, mrs: int,
+              mgs: int):
+    """Kernel B3f (``csrc/scan.cu``, ``cgx_fwd_items``): the forward scan of
+    A2 for explicit items (occurrence ``gostart[i]`` of a, lengths ``sl[i]``,
+    ``el[i]``, b's query position ``stok[i]`` into the padded query tokens
+    ``qtok``) on views of one shard's slices -> int32 [n] move masks.
+
+    Replaces ``_fwd_batch`` (cgx_tpu/search/lookup.py:237).  On CUDA tensors
+    it launches the kernel; on CPU tensors it runs ``scan_items_plain``."""
+    return _scan_items("B3f", "cgx_fwd_items", refstr, rlp, lr_tar, qtok,
+                       gostart, sl, el, stok, mrs, mgs, True)
+
+
+def bwd_items(refstr, rlp, lr_tar, qtok, gostart, sl, el, tok, mrs: int,
+              mgs: int):
+    """Kernel B3b (``cgx_bwd_items``): the backward scan from occurrence
+    ``gostart[i]`` of b, with a's query position ``tok[i]``.
+
+    Replaces ``_bwd_batch`` (cgx_tpu/search/lookup.py:246)."""
+    return _scan_items("B3b", "cgx_bwd_items", refstr, rlp, lr_tar, qtok,
+                       gostart, sl, el, tok, mrs, mgs, False)
+
+
+def pcs_items(refstr, qtok, pstart, plen, sl, el, tok, stok, mrs: int):
+    """Kernel B3p (``csrc/scan.cu``, ``cgx_pcs_items``): A3's verification
+    of explicit precomputed occurrences (``pstart[i]``, ``plen[i]``) of
+    patterns with lengths ``sl[i]``, ``el[i]`` and query positions
+    ``tok[i]``, ``stok[i]`` -> int32 [n], 1 where it verifies.
+
+    Replaces ``_pcs_batch`` (cgx_tpu/search/lookup.py:255).  On CUDA tensors
+    it launches the kernel; on CPU tensors it runs ``pcs_items_plain``."""
+    device = pstart.device
+    if not kb.route("B3p", device):
+        return pcs_items_plain(refstr, qtok, pstart, plen, sl, el, tok, stok,
+                               mrs)
+    kb.check_inputs("B3p", device, torch.int32, refstr=refstr, qtok=qtok,
+                    pstart=pstart, plen=plen, sl=sl, el=el, tok=tok,
+                    stok=stok)
+    n = pstart.shape[0]
+    _check_cols("B3p", n, plen, sl, el, tok, stok)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    if n:
+        lib = kb.library("scan")
+        kb.check("scan", lib.cgx_pcs_items(
+            *kb.view(refstr), kb.ptr(qtok), qtok.shape[0], kb.ptr(pstart),
+            kb.ptr(plen), kb.ptr(sl), kb.ptr(el), kb.ptr(tok), kb.ptr(stok),
+            n, mrs, kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES["B3p"] += 1
+    return out
+
+
+def two_items(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int):
+    """Kernel B3t (``csrc/scan.cu``, ``cgx_two_items``): A5's second-gap scan
+    and gap check for explicit aXb occurrences (``pstart[i]``, ``plen[i]``)
+    -> int32 [2, n]: the candidate masks, then the gap-check masks.
+
+    Replaces ``_two_batch`` (cgx_tpu/search/lookup.py:643).  On CUDA tensors
+    it launches the kernel; on CPU tensors it runs ``two_items_plain``."""
+    device = pstart.device
+    if not kb.route("B3t", device):
+        return two_items_plain(refstr, rlp, lr_tar, pstart, plen, mrs, mgs)
+    kb.check_inputs("B3t", device, torch.int32, refstr=refstr, rlp=rlp,
+                    lr_tar=lr_tar, pstart=pstart, plen=plen)
+    n = pstart.shape[0]
+    _check_cols("B3t", n, plen)
+    out = torch.empty((2, n), dtype=torch.int32, device=device)
+    if n:
+        lib = kb.library("scan")
+        kb.check("scan", lib.cgx_two_items(
+            *kb.view(refstr), *kb.view(rlp), *kb.view(lr_tar), kb.ptr(pstart),
+            kb.ptr(plen), n, mrs, mgs, kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES["B3t"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Host orchestration
 # ---------------------------------------------------------------------------
 
-def _pattern_tables(index, counts, cols, width=8):
-    """(pattab, offs, n) on the index's device for per-pattern item counts
-    and up to ``width`` int32 field columns."""
-    offs = _offsets(counts)
-    pattab = np.zeros((len(counts), width), np.int32)
-    for c, v in enumerate(cols):
-        pattab[:, c] = v
-    kb.check_count("lookup", int(offs[-1]))   # before the int32 cast
-    dev = index.device
-    return (torch.from_numpy(pattab).to(dev),
-            torch.from_numpy(offs.astype(np.int32)).to(dev), int(offs[-1]))
-
-
-def _scan_masks(index, qtok, fwd, lo, counts, sl, el, side, cfg):
-    """A2 over the patterns' SA ranges -> numpy int32 [sum(counts)] masks."""
-    if fwd:
-        toks = (qtok[side], qtok[side + 1], qtok[side + 2])
-    else:
-        toks = (qtok[side + sl - 1], qtok[side + np.maximum(sl - 2, 0)],
-                qtok[side + np.maximum(sl - 3, 0)])
-    pattab, offs, n = _pattern_tables(index, counts, (lo, sl, el) + toks)
-    return scan(index.refstr_padded, index.rlp, index.lr_tar, index.sa,
-                pattab, offs, n, cfg.max_rule_span, cfg.min_gap_size,
-                fwd).cpu().numpy()
-
-
-def _pcs_ok(index, qtok, pc, base, counts, sl, el, tok, stok, cfg):
-    """A3 over the precomputed occurrences -> numpy bool [sum(counts)]."""
-    pattab, offs, n = _pattern_tables(index, counts, (
-        base, sl, el, qtok[tok + np.maximum(sl - 2, 0)],
-        qtok[tok + np.maximum(sl - 3, 0)], qtok[stok + 1], qtok[stok + 2]))
-    words = pcs(index.refstr_padded, index.precomp_rows(pc), pattab, offs, n,
-                cfg.max_rule_span).cpu().numpy()
-    return np.unpackbits(words.view(np.uint8),
-                         bitorder="little")[:n].astype(bool)
-
-
-def one_gap_lookup(index, queries, p1, p2, search: OneGapSearch, pc: Precomp,
-                   cfg: ExtractorConfig) -> GapOnSA:
+def one_gap_lookup(engine, queries, p1, p2, search: OneGapSearch,
+                   pc: Precomp, cfg: ExtractorConfig) -> GapOnSA:
     """The occurrences of every distinct one-gap pattern, as rows
     (pattern, corpus start, length) sorted by (pattern, start, length);
     fills ``search.start_on_salist``/``end_on_salist``.  A precomp reference
-    row has length 0 and the precomp cell as its start."""
-    mrs, mgs = cfg.max_rule_span, cfg.min_gap_size
+    row has length 0 and the precomp cell as its start.  ``engine``
+    (``cgx_tpu_torch.engine``) runs the device work."""
+    mgs = cfg.min_gap_size
     qtok = np.asarray(queries.tokens)
     qpad = np.asarray(queries.padded_tokens()).astype(np.int64)
     sl_all = search.qrystart_len.astype(np.int64)
@@ -456,9 +584,9 @@ def one_gap_lookup(index, queries, p1, p2, search: OneGapSearch, pc: Precomp,
         inv = inv.reshape(-1)
         reps = seed_ids[rep_ix]
         counts_s = (pc_dis[reps] + 1).clip(min=0)
-        ok = _pcs_ok(index, qpad, pc, pc.index_start[pci[reps]], counts_s,
-                     sl_all[reps], el_all[reps], tok_all[reps],
-                     stok_all[reps], cfg)
+        ok = engine.pcs_expanded(queries, pc, pc.index_start[pci[reps]],
+                                 counts_s, sl_all[reps], el_all[reps],
+                                 tok_all[reps], stok_all[reps])
         hit = np.flatnonzero(ok)
         if len(hit):
             rgrp, tx, _ = expand_hits(hit, counts_s)
@@ -487,13 +615,13 @@ def one_gap_lookup(index, queries, p1, p2, search: OneGapSearch, pc: Precomp,
         lo = np.where(fwd, r1u, r2u)[ids]
         counts = (np.where(fwd, dis1, dis2)[ids] + 1).clip(min=0)
         side = (stok_all if fwd else tok_all)[ids]
-        mask = _scan_masks(index, qpad, fwd, lo, counts, sl_all[ids],
-                           el_all[ids], side, cfg)
+        mask = engine.scan_expanded(queries, fwd, lo, counts, sl_all[ids],
+                                    el_all[ids], side)
         ii, mm = _mask_hits(mask)
         if not len(ii):
             continue
         pat, tx, pi = expand_hits(ii, counts, ids)
-        gostart = sa_values(index, lo[pi] + tx)
+        gostart = engine.sa_values(lo[pi] + tx)
         if fwd:
             length = sl_all[pat] + mgs + mm + el_all[pat] - 1
             rows_parts.append(np.stack([pat, gostart, length], axis=1))
@@ -513,14 +641,6 @@ def one_gap_lookup(index, queries, p1, p2, search: OneGapSearch, pc: Precomp,
                   length2=np.zeros(len(rows), dtype=np.int32))
     _fill_salist(search.start_on_salist, search.end_on_salist, out.position)
     return out
-
-
-def _rows_on(index, start, length) -> torch.Tensor:
-    """int32 [max(n, 1), 2] (start, len) rows on the index's device."""
-    host = np.zeros((max(len(start), 1), 2), np.int32)
-    host[:len(start), 0] = start
-    host[:len(length), 1] = length
-    return torch.from_numpy(host).to(index.device)
 
 
 def two_gap_items(search1: OneGapSearch, onegap_sa: GapOnSA, pc: Precomp):
@@ -545,9 +665,9 @@ def two_gap_items(search1: OneGapSearch, onegap_sa: GapOnSA, pc: Precomp):
     return lo, np.where(has & (hi >= lo), hi - lo + 1, 0), pcmode
 
 
-def two_gap_lookup(index, queries, search1: OneGapSearch, onegap_sa: GapOnSA,
-                   search2: TwoGapSearch, pc: Precomp, cfg: ExtractorConfig,
-                   refstr_host: np.ndarray) -> GapOnSA:
+def two_gap_lookup(engine, queries, search1: OneGapSearch,
+                   onegap_sa: GapOnSA, search2: TwoGapSearch, pc: Precomp,
+                   cfg: ExtractorConfig, refstr_host: np.ndarray) -> GapOnSA:
     """The occurrences of every distinct two-gap pattern, as rows (pattern,
     corpus start, b's end offset, c's end offset) sorted by all four; fills
     ``search2.start_on_salist``/``end_on_salist``.
@@ -556,20 +676,15 @@ def two_gap_lookup(index, queries, search1: OneGapSearch, onegap_sa: GapOnSA,
     expanded, unsampled) are scanned once by kernel A5; the c token of each
     hit is read from ``refstr_host`` (the host copy of the source token
     string) and matched against the (one-gap pattern, c token) pairs of the
-    two-gap patterns."""
+    two-gap patterns.  ``engine`` as in ``one_gap_lookup``."""
     D2 = len(search2.blockid)
     mgs = cfg.min_gap_size
     empty = GapOnSA(*(np.empty(0, np.int32) for _ in range(4)))
     lo, counts, pcmode = two_gap_items(search1, onegap_sa, pc)
     if D2 == 0 or counts.sum() == 0:
         return empty
-    pattab, offs, n = _pattern_tables(index, counts, (lo, pcmode), width=2)
-    words = two(index.refstr_padded, index.rlp, index.lr_tar,
-                _rows_on(index, onegap_sa.str_position, onegap_sa.length),
-                index.precomp_rows(pc), pattab, offs, n, cfg.max_rule_span,
-                mgs).cpu().numpy().view(np.uint32)
-    cand_mask = (words & 0xFFFF).astype(np.int32)
-    gc_mask = ((words >> 16) & 0xFFFF).astype(np.int64)
+    cand_mask, gc_mask = engine.two_expanded(onegap_sa, pc, lo, counts,
+                                             pcmode)
     # sorted (oneId, c-token) -> twoId table; distinct patterns are unique
     # pairs
     ctok = np.asarray(queries.tokens)[search2.gap2].astype(np.int64)
@@ -600,7 +715,7 @@ def two_gap_lookup(index, queries, search1: OneGapSearch, onegap_sa: GapOnSA,
     ki = np.searchsorted(keys_sorted, want)
     found = (ki < len(keys_sorted)) & \
         (keys_sorted[np.minimum(ki, len(keys_sorted) - 1)] == want)
-    hit = found & (((gc_mask[ii] >> mm) & 1) == 1)
+    hit = found & (((gc_mask[ii].astype(np.int64) >> mm) & 1) == 1)
     two_id = korder[np.minimum(ki, len(korder) - 1)][hit]
     length2 = fes + 1 + mgs + mm
     rows = np.stack([two_id, css[hit], fes[hit],
@@ -612,12 +727,6 @@ def two_gap_lookup(index, queries, search1: OneGapSearch, onegap_sa: GapOnSA,
                   length2=rows[:, 3].astype(np.int32))
     _fill_salist(search2.start_on_salist, search2.end_on_salist, out.position)
     return out
-
-
-def sa_values(index, rows) -> np.ndarray:
-    """``sa[rows]`` read from the index's device copy -> int64 numpy."""
-    r = torch.from_numpy(np.asarray(rows, np.int64)).to(index.device)
-    return index.sa[r].cpu().numpy().astype(np.int64)
 
 
 def _fill_salist(start_arr, end_arr, positions):

@@ -38,7 +38,9 @@ def gap_check_plain(rlp, lr_tar, gostart, mrs: int, mgs: int, fwd: bool):
 def gap_check(rlp, lr_tar, gostart, mrs: int, mgs: int, fwd: bool):
     """Kernel A4 (``csrc/gapcheck.cu``): for each occurrence ``gostart[i]``
     the int32 mask of the gap moves (forward after it, backward before it)
-    whose target-side gap check passes.
+    whose target-side gap check passes.  ``rlp`` and ``lr_tar`` are the
+    whole arrays or ``OffsetView``s of one shard's slices (utils/views.py),
+    as JAX passes ``offs``.
 
     Replaces ``_gc_batch`` (cgx_tpu/search/precompute.py:38).  On CUDA
     tensors it launches the kernel; on CPU tensors it runs
@@ -54,10 +56,9 @@ def gap_check(rlp, lr_tar, gostart, mrs: int, mgs: int, fwd: bool):
     if n:
         lib = kb.library("gapcheck")
         kb.check("gapcheck", lib.cgx_gap_check(
-            kb.ptr(rlp), rlp.shape[0], kb.ptr(lr_tar), lr_tar.shape[0],
-            kb.ptr(gostart), n, mrs, mgs, int(fwd), kb.ptr(out),
-            kb.stream(device)))
-        kb.LAUNCHES["A4"] += 1
+            *kb.view(rlp), *kb.view(lr_tar), kb.ptr(gostart), n, mrs, mgs,
+            int(fwd), kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES[kb.launch_id("A4", rlp)] += 1
     return out
 
 
@@ -128,10 +129,12 @@ def top_tokens(source: SourceCorpus, sa: SAIndex, cfg: ExtractorConfig):
     return tokens[order], counts[order], run_start[order]
 
 
-def precompute(index, source: SourceCorpus, sa: SAIndex,
+def precompute(engine, source: SourceCorpus, sa: SAIndex,
                cfg: ExtractorConfig) -> Precomp:
     """The precomputed occurrences of every owned frequent pair, with the
-    gap checks on the index's device (A4), forward then backward."""
+    gap checks (A4) run by ``engine`` (``cgx_tpu_torch.engine``), forward
+    then backward; a ``ShardedEngine`` runs each check on the shard that
+    owns its occurrence."""
     tokens, counts, run_start = top_tokens(source, sa, cfg)
     P = len(tokens)
     mrs, mgs = cfg.max_rule_span, cfg.min_gap_size
@@ -153,9 +156,7 @@ def precompute(index, source: SourceCorpus, sa: SAIndex,
         live = np.flatnonzero(owns.any(axis=1))
         if not len(live):
             continue
-        gc = gap_check(index.rlp, index.lr_tar,
-                       torch.from_numpy(gostart[live]).to(index.device),
-                       mrs, mgs, fwd).cpu().numpy()
+        gc = engine.gap_check(gostart[live], fwd)
         ii_l, mm = np.nonzero(owns[live])
         ii = live[ii_l]
         hit = gc_bit(gc[ii_l], mm)

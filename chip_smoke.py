@@ -12,20 +12,29 @@ Phases, one line each on stdout:
    the ``medium`` corpus (20k sentences, 32 queries; dense MaxLex tables, so
    kernel A9) and the ``europarl`` corpus (1M sentences, 20k vocabulary, 64
    queries; row-range tables, so A10), both made from seeds by the generators
-   in tools/, then medium again with ``lcp_passes=True``.  Each run must
-   launch its path's kernels (launch counts reset just before it: A1 or B1's
-   two passes, A4, A2 forward and backward, A3, A5, A6, A7, A8 and A9 or
-   A10; the LCP run must not launch A1), its counters must equal the JAX
-   package's and its grammar hash the golden in
-   tests/golden_torch_hashes.json (the JAX package's full grammar).  On
-   europarl's index and queries both LCP passes must then give the
-   refinement's up, down and longestmatch;
+   in tools/, then europarl again with ``sa_shards=4`` (the sharded index,
+   all four shards on the card; its corpus text is reused), then medium
+   again with ``lcp_passes=True``.  Each run must launch its path's kernels
+   and no other (launch counts reset just before it, see ``RUNS``): A1 or
+   B1's two passes, A4, A2 forward and backward, A3, A5, A6, A7, A8 and A9
+   or A10 on the replicated index; B2r, B2g, B3f, B3b, B3p, B3t, B3c and A4,
+   A7, A8 on shard views on the sharded one (MaxLex on the host there).
+   Its counters must equal the JAX package's and its grammar hash the
+   golden in tests/golden_torch_hashes.json (the JAX package's full
+   grammar).  On europarl's index and queries both LCP passes must then
+   give the refinement's up, down and longestmatch; the sharded run prints
+   each shard's bytes and its peak device memory beside the replicated
+   run's;
 4. kernels -- each kernel against its plain PyTorch version on the card, on
    the inputs of its largest launch in phase 3 (A2 once per direction, B1
-   once per pass): the outputs must be bit-equal (float32 compared by bit
-   pattern); times of both, and the least time the card could take for the
-   same work (``bound_ms``: the larger of the bytes over the memory rate and
-   the integer operations over the peak rate, counted per item from the
+   once per pass, A4, A7 and A8 also on a shard's views, as A4v, A7v and
+   A8v), and every kernel that reads a shard's views (A4v, A7v, A8v, B3f,
+   B3b, B3p, B3t, B3c) also on its largest launch on each shard, the first
+   (negative global offset) and the last (reads clamped to the global end)
+   included: the outputs must be bit-equal (float32 compared by bit pattern);
+   times of both, and the least time the card could take for the same work
+   (``bound_ms``: the larger of the bytes over the memory rate and the
+   integer operations over the peak rate, counted per item from the
    kernel's loops, see ``WORK``), and the time of one launch on one item.
 
 Then a JSON line with every kernel's numbers, and last the line
@@ -50,7 +59,9 @@ GOLDEN = os.path.join(ROOT, "tests", "golden_torch_hashes.json")
 # _refine_chunk_local, _gc_batch, _scan_batch_exp (forward, backward),
 # _pcs_batch_exp, _two_batch_exp, _contig_batch, _onegap_batch,
 # _twogap_batch, _accum_batch_dense, _accum_batch_range, _pass1_batch,
-# _pass2_batch)
+# _pass2_batch; the sharded index's _refine_chunk, _gather_sa_chunk,
+# _fwd_batch, _bwd_batch, _pcs_batch, _two_batch, _contig_batch_pos, and
+# _gc_batch, _onegap_batch, _twogap_batch on a shard's views)
 KERNELS = {
     "A1": ("cgx_tpu_torch/csrc/refine.cu", "cgx_tpu/search/passes.py:371"),
     "A4": ("cgx_tpu_torch/csrc/gapcheck.cu",
@@ -66,10 +77,39 @@ KERNELS = {
     "A10": ("cgx_tpu_torch/csrc/maxlex.cu", "cgx_tpu/features/maxlex.py:216"),
     "B1p1": ("cgx_tpu_torch/csrc/lcp.cu", "cgx_tpu/search/passes.py:221"),
     "B1p2": ("cgx_tpu_torch/csrc/lcp.cu", "cgx_tpu/search/passes.py:229"),
+    "B2r": ("cgx_tpu_torch/csrc/sharded.cu",
+            "cgx_tpu/parallel/sharded.py:261"),
+    "B2g": ("cgx_tpu_torch/csrc/sharded.cu",
+            "cgx_tpu/parallel/sharded.py:324"),
+    "B3f": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:237"),
+    "B3b": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:246"),
+    "B3p": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:255"),
+    "B3t": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:643"),
+    "B3c": ("cgx_tpu_torch/csrc/contig.cu", "cgx_tpu/extract/device.py:391"),
+    "A4v": ("cgx_tpu_torch/csrc/gapcheck.cu",
+            "cgx_tpu/search/precompute.py:38"),
+    "A7v": ("cgx_tpu_torch/csrc/onegap.cu", "cgx_tpu/extract/device.py:616"),
+    "A8v": ("cgx_tpu_torch/csrc/twogap.cu", "cgx_tpu/extract/device.py:744"),
 }
-# the kernels every end-to-end run must launch, besides its pass-1/2 and
-# MaxLex kernels
+# the rows on a shard's views: the same kernel as their replicated row,
+# counted under its own launch id (kernels/build.py ``launch_id``)
+VIEW_ROWS = {"A4v": "A4", "A7v": "A7", "A8v": "A8"}
+# the kernels every replicated end-to-end run launches, besides its
+# pass-1/2 and MaxLex kernels
 PATH_KERNELS = ("A4", "A2f", "A2b", "A3", "A5", "A6", "A7", "A8")
+SHARDED_KERNELS = ("B2r", "B2g", "B3f", "B3b", "B3p", "B3t", "B3c", "A4v",
+                   "A7v", "A8v")
+# the end-to-end runs: (size, lcp_passes, sa_shards, must launch, must not)
+RUNS = (
+    ("medium", False, 0, PATH_KERNELS + ("A1", "A9"),
+     ("B1p1", "B1p2") + SHARDED_KERNELS),
+    ("europarl", False, 0, PATH_KERNELS + ("A1", "A10"),
+     ("B1p1", "B1p2") + SHARDED_KERNELS),
+    ("europarl", False, 4, SHARDED_KERNELS,
+     ("A1", "A9", "A10", "B1p1", "B1p2") + PATH_KERNELS),
+    ("medium", True, 0, PATH_KERNELS + ("B1p1", "B1p2", "A9"),
+     ("A1",) + SHARDED_KERNELS),
+)
 
 # The least time the card could take for a kernel's work: the larger of the
 # bytes it must move over the memory rate and its integer operations over the
@@ -93,7 +133,15 @@ WORK = {
     "A8": (6, 70, 2, 300),       # 3 x 16 RLP, 16 lr_tar, 3 sentence anchors
     "A9": (11, 48, 2, 200),      # 16 target tokens, 2 x 16 table probes
     "A10": (11, 48, 2, 200),
+    "B2g": (1, 1, 1, 10),        # the owner's SA word (meta rows in L1)
+    "B3f": (4, 54, 1, 2000),     # 3 query tokens, 18 corpus words, gap check
+    "B3b": (4, 54, 1, 2000),
+    "B3p": (6, 8, 1, 40),        # 4 query tokens, 4 corpus words
+    "B3t": (2, 50, 2, 1850),     # 17 corpus words, the gap check
+    "B3c": (2, 100, 8, 3000),    # A6 without its SA word
 }
+for _v, _k in VIEW_ROWS.items():
+    WORK[_v] = WORK[_k]
 # argument positions of the per-pattern table and count prefix
 TABLE_ARGS = {"A2f": (4, 5), "A2b": (4, 5), "A3": (2, 3), "A5": (5, 6)}
 
@@ -143,33 +191,50 @@ def grammar_hash(per_query_lines) -> str:
 
 class Capture:
     """Wraps the kernel wrappers the pipeline calls, keeping the arguments of
-    each kernel's largest launch (for phase 4) and the items per kernel
-    since ``items`` was last cleared."""
+    each kernel's largest launch and, for a kernel on a shard's views, of
+    its largest launch on each shard (for phase 4), and the items per
+    kernel since ``items`` was last cleared."""
 
     def __init__(self):
         from cgx_tpu_torch.extract import device as xdev
         from cgx_tpu_torch.features import maxlex as ml
+        from cgx_tpu_torch.parallel import sharded as shx
         from cgx_tpu_torch.search import lookup, passes
         from cgx_tpu_torch.search import precompute as pcx
+        from cgx_tpu_torch.utils.views import OffsetView
+
+        def on_view(k):     # A4, A7 and A8 on a shard's views count as Kv
+            return lambda a: k + "v" if isinstance(a[0], OffsetView) else k
         # wrapper -> (kernel id of a call, item count of a call)
         self.sites = {
             (passes, "refine_chunk"): (lambda a: "A1", lambda a: a[3].shape[0]),
-            (pcx, "gap_check"): (lambda a: "A4", lambda a: a[2].shape[0]),
+            (pcx, "gap_check"): (on_view("A4"), lambda a: a[2].shape[0]),
             (lookup, "scan"): (lambda a: "A2f" if a[9] else "A2b",
                                lambda a: a[6]),
             (lookup, "pcs"): (lambda a: "A3", lambda a: a[4]),
             (lookup, "two"): (lambda a: "A5", lambda a: a[7]),
             (xdev, "contig"): (lambda a: "A6", lambda a: a[4].shape[0]),
-            (xdev, "onegap"): (lambda a: "A7", lambda a: a[3].shape[0]),
-            (xdev, "twogap"): (lambda a: "A8", lambda a: a[3].shape[0]),
+            (xdev, "onegap"): (on_view("A7"), lambda a: a[3].shape[0]),
+            (xdev, "twogap"): (on_view("A8"), lambda a: a[3].shape[0]),
             (ml, "accum_dense"): (lambda a: "A9", lambda a: a[4].shape[0]),
             (ml, "accum_range"): (lambda a: "A10", lambda a: a[7].shape[0]),
             (passes, "pass1"): (lambda a: "B1p1", lambda a: a[5].shape[0]),
             (passes, "pass2"): (lambda a: "B1p2", lambda a: a[5].shape[0]),
+            (shx, "refine_sharded"): (lambda a: "B2r",
+                                      lambda a: a[2].shape[0]),
+            (shx, "gather_sa_sharded"): (lambda a: "B2g",
+                                         lambda a: a[1].shape[0]),
+            (lookup, "fwd_items"): (lambda a: "B3f", lambda a: a[4].shape[0]),
+            (lookup, "bwd_items"): (lambda a: "B3b", lambda a: a[4].shape[0]),
+            (lookup, "pcs_items"): (lambda a: "B3p", lambda a: a[2].shape[0]),
+            (lookup, "two_items"): (lambda a: "B3t", lambda a: a[3].shape[0]),
+            (xdev, "contig_pos"): (lambda a: "B3c", lambda a: a[3].shape[0]),
         }
         self.calls = {}          # kernel -> (n, args)
+        self.shard_calls = {}    # (kernel, view offset) -> (n, args)
         self.items = {}          # kernel -> items
         self.originals = {site: getattr(*site) for site in self.sites}
+        self.view_type = OffsetView
 
     def __enter__(self):
         for site, (kernel_of, count_of) in self.sites.items():
@@ -180,6 +245,10 @@ class Capture:
                 self.items[k] = self.items.get(k, 0) + n
                 if n > self.calls.get(k, (-1, None))[0]:
                     self.calls[k] = (n, args)
+                if isinstance(args[0], self.view_type):
+                    key = (k, int(args[0].off))
+                    if n > self.shard_calls.get(key, (-1, None))[0]:
+                        self.shard_calls[key] = (n, args)
                 return _real(*args)
             setattr(*site, hook)
         return self
@@ -193,8 +262,11 @@ _CORPORA = {}
 
 
 def run_e2e(size: str, device: str, capture: Capture, golden: dict,
-            expect: tuple, lcp_passes: bool = False, forbid: tuple = ()):
-    """One end-to-end run -> (its launch counts, its PipelineResult)."""
+            expect: tuple, lcp_passes: bool = False, forbid: tuple = (),
+            sa_shards: int = 0):
+    """One end-to-end run -> (its launch counts, its PipelineResult, its
+    own peak device bytes: the peak less what was allocated before it, such
+    as the earlier runs' tensors the capture holds)."""
     import torch
     from cgx_tpu_torch.config import DEFAULT_CONFIG
     from cgx_tpu_torch.kernels import build as kb
@@ -206,12 +278,15 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     gen_s = time.perf_counter() - t0
     kb.LAUNCHES.clear()
     capture.items.clear()
+    cuda = torch.device(device).type == "cuda"
+    held = torch.cuda.memory_allocated() if cuda else 0
     t0 = time.perf_counter()
     res = run_pipeline(*data, DEFAULT_CONFIG, device=device,
-                       lcp_passes=lcp_passes)
-    if torch.device(device).type == "cuda":
+                       lcp_passes=lcp_passes, sa_shards=sa_shards)
+    if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    run_peak = res.timing.peak_memory() - held
     launches = {k: kb.LAUNCHES[k] for k in KERNELS}
     missing = [k for k in expect if launches[k] == 0]
     if missing:
@@ -231,10 +306,11 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     lines_ok = res.counters["total_lines"] == want["lines"]
     print(json.dumps({
         "phase": "e2e", "size": size, "device": device,
-        "lcp_passes": lcp_passes,
+        "lcp_passes": lcp_passes, "sa_shards": sa_shards,
         "corpus_gen_s": gen_s, "wall_s": wall,
         "phases_s": res.timing.as_dict(),
         "peak_mem_bytes": res.timing.peak_memory(),
+        "held_before_bytes": held, "run_peak_mem_bytes": run_peak,
         "counters": res.counters, "launches": launches,
         "items": dict(capture.items),
         "grammar_sha256": ghash, "golden_ok": ghash == want["sha256"]}),
@@ -247,7 +323,7 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     if ghash != want["sha256"]:
         fail(f"{size}: grammar hash {ghash[:16]} != golden "
              f"{want['sha256'][:16]}")
-    return launches, res
+    return launches, res, run_peak
 
 
 def check_lcp_passes(res):
@@ -309,9 +385,10 @@ def _log2(x):
 def work(k: str, n: int, args) -> tuple:
     """(bytes, integer operations) that kernel ``k`` must move and do on
     the inputs of one launch over ``n`` items (see ``WORK``)."""
-    if k == "A1":          # per depth a query token, two bisections
-        depths = args[8]
-        steps = 2 * _log2(args[6] - args[5])
+    if k in ("A1", "B2r"):   # per depth a query token, two bisections
+        lo, hi, depths = (args[5], args[6], args[8]) if k == "A1" \
+            else (args[4], args[5], args[7])
+        steps = 2 * _log2(hi - lo)
         gathered = float((depths + 2 * steps).sum())
         nbytes = 4 * (n * (4 + 2 * depths + 2) + gathered)
         return nbytes, 8 * gathered
@@ -330,10 +407,43 @@ def work(k: str, n: int, args) -> tuple:
     return nbytes, n * ops
 
 
-def compare_kernels(capture: Capture, device: str, launches: dict) -> list:
+def _bit_equal(k: str, kernel, plain, args, device: str) -> float:
+    """Runs ``kernel`` and ``plain`` on ``args``; fails unless every output
+    is bit-equal (float32 by bit pattern) -> the max abs difference."""
+    import torch
+
+    def outputs(fn):
+        out = fn(*args)
+        return list(out) if isinstance(out, (tuple, list)) else [out]
+    ko = outputs(kernel)
+    po = outputs(plain)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    err = 0.0
+    for a, b in zip(ko, po):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"{k}: output {tuple(a.shape)}/{a.dtype} vs plain "
+                 f"{tuple(b.shape)}/{b.dtype}")
+        if a.dtype == torch.float32:
+            same = torch.equal(a.view(torch.int32), b.view(torch.int32))
+            if not bool(torch.isfinite(a).all()):
+                fail(f"{k}: non-finite features")
+        else:
+            same = torch.equal(a, b)
+        d = (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
+        err = max(err, d)
+        if not same:
+            fail(f"{k}: kernel and plain version differ (max abs {d})")
+    return err
+
+
+def compare_kernels(capture: Capture, device: str, launches: dict,
+                    shard_offsets: list) -> list:
+    import functools
     import torch
     from cgx_tpu_torch.extract import device as xdev
     from cgx_tpu_torch.features import maxlex as ml
+    from cgx_tpu_torch.parallel import sharded as shx
     from cgx_tpu_torch.search import lookup, passes
     from cgx_tpu_torch.search import precompute as pcx
     pairs = {"A1": (passes.refine_chunk, passes.refine_chunk_plain),
@@ -348,35 +458,39 @@ def compare_kernels(capture: Capture, device: str, launches: dict) -> list:
              "A9": (ml.accum_dense, ml.accum_dense_plain),
              "A10": (ml.accum_range, ml.accum_range_plain),
              "B1p1": (passes.pass1, passes.pass1_plain),
-             "B1p2": (passes.pass2, passes.pass2_plain)}
+             "B1p2": (passes.pass2, passes.pass2_plain),
+             "B2r": (shx.refine_sharded, shx.refine_sharded_plain),
+             "B2g": (shx.gather_sa_sharded, shx.gather_sa_sharded_plain),
+             "B3f": (lookup.fwd_items,
+                     functools.partial(lookup.scan_items_plain, fwd=True)),
+             "B3b": (lookup.bwd_items,
+                     functools.partial(lookup.scan_items_plain, fwd=False)),
+             "B3p": (lookup.pcs_items, lookup.pcs_items_plain),
+             "B3t": (lookup.two_items, lookup.two_items_plain),
+             "B3c": (xdev.contig_pos, xdev.contig_pos_plain),
+             "A4v": (pcx.gap_check, pcx.gap_check_plain),
+             "A7v": (xdev.onegap, xdev.onegap_plain),
+             "A8v": (xdev.twogap, xdev.twogap_plain)}
     rows = []
     for k, (kernel, plain) in pairs.items():
         if k not in capture.calls:
             fail(f"{k}: no launch captured on the main path")
         n, args = capture.calls[k]
-
-        def outputs(fn):
-            out = fn(*args)
-            return list(out) if isinstance(out, (tuple, list)) else [out]
-        ko = outputs(kernel)
-        po = outputs(plain)
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-        err = 0.0
-        for a, b in zip(ko, po):
-            if a.shape != b.shape or a.dtype != b.dtype:
-                fail(f"{k}: output {tuple(a.shape)}/{a.dtype} vs plain "
-                     f"{tuple(b.shape)}/{b.dtype}")
-            if a.dtype == torch.float32:
-                same = torch.equal(a.view(torch.int32), b.view(torch.int32))
-                if not bool(torch.isfinite(a).all()):
-                    fail(f"{k}: non-finite features")
-            else:
-                same = torch.equal(a, b)
-            d = (a.double() - b.double()).abs().max().item() if a.numel() else 0.0
-            err = max(err, d)
-            if not same:
-                fail(f"{k}: kernel and plain version differ (max abs {d})")
+        err = _bit_equal(k, kernel, plain, args, device)
+        # the same kernel on each shard's largest launch: the first shard
+        # (negative offset) and the last (clamped at the global end) must
+        # be among them
+        shards = []
+        for (sk, off), (sn, sargs) in sorted(capture.shard_calls.items()):
+            if sk == k:
+                if sargs is not args:
+                    err = max(err, _bit_equal(f"{k}@{off}", kernel, plain,
+                                              sargs, device))
+                shards.append({"view_offset": off, "lanes": sn})
+        offs = {s["view_offset"] for s in shards}
+        if shards and not {shard_offsets[0], shard_offsets[-1]} <= offs:
+            fail(f"{k}: no launch on the first or last shard (offsets "
+                 f"{sorted(offs)} of {shard_offsets})")
         ms = _time_ms(lambda: kernel(*args), device)
         plain_ms = _time_ms(lambda: plain(*args), device)
         src, replaces = KERNELS[k]
@@ -389,9 +503,14 @@ def compare_kernels(capture: Capture, device: str, launches: dict) -> list:
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "library_ms": None}
+        extra = {}
+        if k in VIEW_ROWS:     # the timed launch's view offset
+            extra["view_offset"] = args[0].off
+        if shards:
+            extra["shards"] = shards
         print(json.dumps({"phase": "kernel", **row, "lanes": n,
-                          "bytes": nbytes, "ops": ops, "bit_equal": True}),
-              flush=True)
+                          "bytes": nbytes, "ops": ops, "bit_equal": True,
+                          **extra}), flush=True)
         rows.append(row)
     return rows
 
@@ -443,21 +562,29 @@ def main():
     with open(GOLDEN, encoding="utf-8") as fh:
         golden = json.load(fh)
     totals = {k: 0 for k in KERNELS}
+    peaks = {}
+    shard_offsets = []
     with Capture() as cap:
-        for size, lcp, expect, forbid in (
-                ("medium", False, ("A1", "A9"), ("B1p1", "B1p2")),
-                ("europarl", False, ("A1", "A10"), ("B1p1", "B1p2")),
-                ("medium", True, ("B1p1", "B1p2", "A9"), ("A1",))):
-            launches, res = run_e2e(size, "cuda", cap, golden,
-                                    PATH_KERNELS + expect, lcp, forbid)
+        for size, lcp, shards, expect, forbid in RUNS:
+            launches, res, peaks[(size, shards)] = run_e2e(
+                size, "cuda", cap, golden, expect, lcp, forbid, shards)
             for k, v in launches.items():
                 totals[k] += v
-            if size == "europarl":
+            if size == "europarl" and not shards:
                 check_lcp_passes(res)
+            if shards:
+                shard_offsets = [int(o) for o in res.index.src_off]
+                print(json.dumps({
+                    "phase": "sharded_memory", "size": size,
+                    "sa_shards": shards,
+                    "bytes_per_shard": res.index.memory_per_device(),
+                    "run_peak_mem_bytes": peaks[(size, shards)],
+                    "replicated_run_peak_mem_bytes": peaks[(size, 0)]}),
+                    flush=True)
             del res
 
     # 4. kernels against their plain versions at the main path's shapes
-    rows = compare_kernels(cap, "cuda", totals)
+    rows = compare_kernels(cap, "cuda", totals, shard_offsets)
     launch_floor(cap, "cuda")
 
     leaked = sorted(m for m in sys.modules

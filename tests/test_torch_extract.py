@@ -23,12 +23,19 @@ from cgx_tpu.preproc import corpus as jcp  # noqa: E402
 from cgx_tpu.preproc import suffix_array as jsab  # noqa: E402
 from cgx_tpu.search import passes as jpasses  # noqa: E402
 from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
+from cgx_tpu_torch.engine import ReplicatedEngine  # noqa: E402
 from cgx_tpu_torch.extract import device as tdev  # noqa: E402
 from cgx_tpu_torch.extract.blocks import generate_blocks  # noqa: E402
 from cgx_tpu_torch.index import container as tic  # noqa: E402
 from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
 from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
 from cgx_tpu_torch.search import passes as tpasses  # noqa: E402
+from cgx_tpu_torch.utils.views import OffsetView  # noqa: E402
+
+
+def _engine(w):
+    """The replicated dispatch engine over the world's port index."""
+    return ReplicatedEngine(w["tidx"], ExtractorConfig())
 
 
 def _inputs(name, request):
@@ -112,7 +119,7 @@ def test_extract_contiguous_equals_jax_and_oracle(world, sample):
                                          dtype=object)), f.name
     jcfg = dataclasses.replace(w["cfg"], is_sample=sample)
     tcfg = ExtractorConfig(is_sample=sample)
-    got = tdev.extract_contiguous(w["tidx"], w["tblocks"], tcfg)
+    got = tdev.extract_contiguous(_engine(w), w["tblocks"], tcfg)
     want = jdev.extract_contiguous_tpu(w["jidx"], w["jblocks"], jcfg)
     oracle = oex.extract_contiguous(w["src"], w["sa"], w["al"], w["jblocks"],
                                     jcfg)
@@ -120,3 +127,28 @@ def test_extract_contiguous_equals_jax_and_oracle(world, sample):
         _eq(g, j)
         _eq(g, o)
     assert len(got[0].blocknumber) > 0 and len(got[1].gappy_index) > 0
+
+
+@pytest.mark.parametrize("sample", [True, False])
+def test_plain_identity_views_change_nothing(world, sample, monkeypatch):
+    """A6's plain version, on the inputs of the contiguous extraction's own
+    call (sampled or not), gives the same words when refstr, rlp and lr_tar
+    come as explicit identity views (offset 0, global length = local
+    length)."""
+    w = world
+    calls = []
+    real = tdev.contig
+
+    def hook(*args):
+        calls.append(args)
+        return real(*args)
+    monkeypatch.setattr(tdev, "contig", hook)
+    tdev.extract_contiguous(_engine(w), w["tblocks"],
+                            ExtractorConfig(is_sample=sample))
+    (args,) = calls
+    want = tdev.contig_plain(*args)
+    got = tdev.contig_plain(*[OffsetView(a, 0, a.shape[0])
+                              if i in (0, 2, 3) else a
+                              for i, a in enumerate(args)])
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (want[1] & 1).any()

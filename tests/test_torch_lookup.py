@@ -23,6 +23,7 @@ from cgx_tpu.search import passes as jpasses  # noqa: E402
 from cgx_tpu.search import precompute as jpcx  # noqa: E402
 from cgx_tpu.utils.batching import bucket_size  # noqa: E402
 from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
+from cgx_tpu_torch.engine import ReplicatedEngine  # noqa: E402
 from cgx_tpu_torch.index import container as tic  # noqa: E402
 from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
 from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
@@ -30,6 +31,12 @@ from cgx_tpu_torch.search import enumerate_fast as tef  # noqa: E402
 from cgx_tpu_torch.search import lookup as tlk  # noqa: E402
 from cgx_tpu_torch.search import passes as tpasses  # noqa: E402
 from cgx_tpu_torch.search import precompute as tpcx  # noqa: E402
+from cgx_tpu_torch.utils.views import OffsetView  # noqa: E402
+
+
+def _engine(w):
+    """The replicated dispatch engine over the world's port index."""
+    return ReplicatedEngine(w["tidx"], w["tcfg"])
 
 
 def _inputs(name, request):
@@ -77,7 +84,7 @@ def world(request):
         jcfg=jcfg, tcfg=tcfg, jsa=jsa, jidx=jidx, jqs=jqs, jp=(jp1, jp2),
         jsearch=jsearch, jpc=jpcx.precompute_tpu(jidx, jsrc, jsa, jcfg),
         tidx=tidx, tqs=tqs, tp=(tp1, tp2), tsearch=tsearch,
-        tpc=tpcx.precompute(tidx, tsrc, tsa, tcfg))
+        tpc=tpcx.precompute(ReplicatedEngine(tidx, tcfg), tsrc, tsa, tcfg))
 
 
 def _layout(rng, D, max_count):
@@ -240,7 +247,7 @@ def test_one_gap_lookup_equals_jax(world, monkeypatch):
     js, ts = copy.deepcopy(w["jsearch"]), copy.deepcopy(w["tsearch"])
     want = jlk.one_gap_lookup_tpu(w["jidx"], np.asarray(w["jsa"].sa),
                                   w["jqs"], *w["jp"], js, w["jpc"], w["jcfg"])
-    got = tlk.one_gap_lookup(w["tidx"], w["tqs"], *w["tp"], ts, w["tpc"],
+    got = tlk.one_gap_lookup(_engine(w), w["tqs"], *w["tp"], ts, w["tpc"],
                              w["tcfg"])
     for f in ("position", "str_position", "length", "length2"):
         assert getattr(got, f).dtype == np.int32, f
@@ -251,3 +258,40 @@ def test_one_gap_lookup_equals_jax(world, monkeypatch):
     assert (got.length == 0).sum() > 0          # precomp references
     assert items["pcs"] > 0 and items["fwd"] > 0 and items["bwd"] > 0, items
     assert (got.length > 0).sum() > 0
+
+
+def _identity_views(args, at):
+    """``args`` with the tensors at positions ``at`` wrapped in identity
+    views (offset 0, global length = local length)."""
+    return [OffsetView(a, 0, a.shape[0]) if i in at else a
+            for i, a in enumerate(args)]
+
+
+@pytest.mark.parametrize("kernel", ["A2f", "A2b", "A3"])
+def test_plain_identity_views_change_nothing(world, kernel, monkeypatch):
+    """The plain versions of A2 (each direction) and A3, on the inputs of
+    the lookup's own calls, give the same words when the corpus arrays come
+    as explicit identity views: the views the sharded index reads through
+    change nothing at offset 0."""
+    w = world
+    calls = {}
+    real_scan, real_pcs = tlk.scan, tlk.pcs
+
+    def scan(*args):
+        calls["A2f" if args[-1] else "A2b"] = args
+        return real_scan(*args)
+
+    def pcs(*args):
+        calls["A3"] = args
+        return real_pcs(*args)
+    monkeypatch.setattr(tlk, "scan", scan)
+    monkeypatch.setattr(tlk, "pcs", pcs)
+    tlk.one_gap_lookup(_engine(w), w["tqs"], *w["tp"],
+                       copy.deepcopy(w["tsearch"]), w["tpc"], w["tcfg"])
+    args = calls[kernel]
+    plain, at = ((tlk.pcs_plain, (0,)) if kernel == "A3"
+                 else (tlk.scan_plain, (0, 1, 2)))
+    want = plain(*args)
+    got = plain(*_identity_views(args, at))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (want != 0).any()

@@ -19,6 +19,7 @@ from cgx_tpu.index import container as jic  # noqa: E402
 from cgx_tpu.preproc import corpus as jcp  # noqa: E402
 from cgx_tpu.preproc import suffix_array as jsab  # noqa: E402
 from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
+from cgx_tpu_torch.engine import ReplicatedEngine  # noqa: E402
 from cgx_tpu_torch.extract import device as tdev  # noqa: E402
 from cgx_tpu_torch.types import (GapOnSA, OneGapEnum,  # noqa: E402
                                  OneGapSearch, Precomp, TwoGapEnum,
@@ -148,7 +149,8 @@ def _toy_tasks(toy_fixture):
                            cfg, "cpu")
     qs = tcp.load_queries(q, src.vocab)
     blocks = generate_blocks(sa, qs, *tpasses.refine_passes(tidx, qs))
-    contig, r1, r2 = tdev.extract_contiguous(tidx, blocks, cfg)
+    contig, r1, r2 = tdev.extract_contiguous(ReplicatedEngine(tidx, cfg),
+                                             blocks, cfg)
     s1, e1, og, pc, s2, e2 = _no_gappy_structures()
     one = tlx.fast_create_lexicon_onegap(r1, src, tgt, blocks, s1, e1, og, pc,
                                          len(r1.gappy_index), cfg)

@@ -24,6 +24,7 @@ from cgx_tpu.search import lookup as jlk  # noqa: E402
 from cgx_tpu.search import passes as jpasses  # noqa: E402
 from cgx_tpu.search import precompute as jpcx  # noqa: E402
 from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
+from cgx_tpu_torch.engine import ReplicatedEngine  # noqa: E402
 from cgx_tpu_torch.extract import device as tdev  # noqa: E402
 from cgx_tpu_torch.index import container as tic  # noqa: E402
 from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
@@ -33,6 +34,12 @@ from cgx_tpu_torch.search import lookup as tlk  # noqa: E402
 from cgx_tpu_torch.search import passes as tpasses  # noqa: E402
 from cgx_tpu_torch.search import precompute as tpcx  # noqa: E402
 from cgx_tpu_torch.types import Pass1Result  # noqa: E402
+from cgx_tpu_torch.utils.views import OffsetView  # noqa: E402
+
+
+def _engine(w):
+    """The replicated dispatch engine over the world's port index."""
+    return ReplicatedEngine(w["tidx"], w["tcfg"])
 
 
 def _inputs(name, request):
@@ -79,8 +86,9 @@ def world(request):
     tp1, tp2 = tpasses.refine_passes(tidx, tqs)
     tenum, tsearch = tef.fast_sort_and_dedup_onegap(
         tef.fast_one_gap_enumeration(tqs, tp1, tcfg), tqs)
-    tpc = tpcx.precompute(tidx, tsrc, tsa, tcfg)
-    tog = tlk.one_gap_lookup(tidx, tqs, tp1, tp2, tsearch, tpc, tcfg)
+    teng = ReplicatedEngine(tidx, tcfg)
+    tpc = tpcx.precompute(teng, tsrc, tsa, tcfg)
+    tog = tlk.one_gap_lookup(teng, tqs, tp1, tp2, tsearch, tpc, tcfg)
     return dict(jcfg=jcfg, jidx=jidx, jqs=jqs, jenum=jenum, jsearch=jsearch,
                 jpc=jpc, jog=jog, tcfg=tcfg, tidx=tidx, tqs=tqs, tp1=tp1,
                 tenum=tenum, tsearch=tsearch, tpc=tpc, tog=tog)
@@ -161,8 +169,31 @@ def test_extract_onegap_equals_jax(world, sample):
     tcfg = dataclasses.replace(w["tcfg"], is_sample=sample)
     want = jdev.extract_onegap_tpu(w["jidx"], w["jsearch"], w["jog"],
                                    w["jpc"], jcfg)
-    got = tdev.extract_onegap(w["tidx"], w["tsearch"], w["tog"], w["tpc"],
+    got = tdev.extract_onegap(_engine(w), w["tsearch"], w["tog"], w["tpc"],
                               tcfg)
     for g, j in zip(got, want):
         _eq(g, j)
     assert len(got[0].gappy_index) > 0 and len(got[1].gappy_index) > 0
+
+
+@pytest.mark.parametrize("sample", [True, False])
+def test_plain_identity_views_change_nothing(world, sample, monkeypatch):
+    """A7's plain version, on the inputs of the one-gap extraction's own
+    call (sampled or not), gives the same words when the corpus arrays come
+    as explicit identity views (offset 0, global length = local length)."""
+    w = world
+    calls = []
+    real = tdev.onegap
+
+    def hook(*args):
+        calls.append(args)
+        return real(*args)
+    monkeypatch.setattr(tdev, "onegap", hook)
+    tdev.extract_onegap(_engine(w), w["tsearch"], w["tog"], w["tpc"],
+                        dataclasses.replace(w["tcfg"], is_sample=sample))
+    (args,) = calls
+    want = tdev.onegap_plain(*args)
+    got = tdev.onegap_plain(*[OffsetView(a, 0, a.shape[0]) if i < 3 else a
+                              for i, a in enumerate(args)])
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (want[1] & 1).any()

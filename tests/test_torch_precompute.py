@@ -17,6 +17,7 @@ from cgx_tpu.preproc import corpus as jcp  # noqa: E402
 from cgx_tpu.preproc import suffix_array as jsab  # noqa: E402
 from cgx_tpu.search import precompute as jpcx  # noqa: E402
 from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
+from cgx_tpu_torch.engine import ReplicatedEngine  # noqa: E402
 from cgx_tpu_torch.index import container as tic  # noqa: E402
 from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
 from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
@@ -87,7 +88,7 @@ def test_plain_a4_equals_gc_batch(world, fwd):
 def test_precompute_equals_jax(world):
     w = world
     want = jpcx.precompute_tpu(w["jidx"], w["jsrc"], w["jsa"], w["jcfg"])
-    got = tpcx.precompute(w["tidx"], w["tsrc"], w["tsa"], w["tcfg"])
+    got = tpcx.precompute(ReplicatedEngine(w["tidx"], w["tcfg"]), w["tsrc"], w["tsa"], w["tcfg"])
     for f in ("frequent_list", "tok_start", "tok_len", "index_start",
               "index_end", "onegap_start", "onegap_length",
               "feature_missing"):

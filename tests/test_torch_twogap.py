@@ -27,6 +27,7 @@ from cgx_tpu.search import passes as jpasses  # noqa: E402
 from cgx_tpu.search import precompute as jpcx  # noqa: E402
 from cgx_tpu.utils.batching import bucket_size  # noqa: E402
 from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
+from cgx_tpu_torch.engine import ReplicatedEngine  # noqa: E402
 from cgx_tpu_torch.extract import device as tdev  # noqa: E402
 from cgx_tpu_torch.index import container as tic  # noqa: E402
 from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
@@ -35,6 +36,12 @@ from cgx_tpu_torch.search import enumerate_fast as tef  # noqa: E402
 from cgx_tpu_torch.search import lookup as tlk  # noqa: E402
 from cgx_tpu_torch.search import passes as tpasses  # noqa: E402
 from cgx_tpu_torch.search import precompute as tpcx  # noqa: E402
+from cgx_tpu_torch.utils.views import OffsetView  # noqa: E402
+
+
+def _engine(w):
+    """The replicated dispatch engine over the world's port index."""
+    return ReplicatedEngine(w["tidx"], w["tcfg"])
 
 
 def _inputs(name, request):
@@ -88,12 +95,13 @@ def world(request):
     tp1, tp2 = tpasses.refine_passes(tidx, tqs)
     tenum, tsearch = tef.fast_sort_and_dedup_onegap(
         tef.fast_one_gap_enumeration(tqs, tp1, tcfg), tqs)
-    tpc = tpcx.precompute(tidx, tsrc, tsa, tcfg)
-    tog = tlk.one_gap_lookup(tidx, tqs, tp1, tp2, tsearch, tpc, tcfg)
+    teng = ReplicatedEngine(tidx, tcfg)
+    tpc = tpcx.precompute(teng, tsrc, tsa, tcfg)
+    tog = tlk.one_gap_lookup(teng, tqs, tp1, tp2, tsearch, tpc, tcfg)
     tenum2, tsearch2 = tef.fast_sort_and_dedup_twogap(
         tef.fast_two_gap_enumeration(tqs, tp1, tenum, tsearch, tcfg), tqs)
     tsearch2_0 = copy.deepcopy(tsearch2)
-    ttg = tlk.two_gap_lookup(tidx, tqs, tsearch, tog, tsearch2, tpc, tcfg,
+    ttg = tlk.two_gap_lookup(teng, tqs, tsearch, tog, tsearch2, tpc, tcfg,
                              np.asarray(tsrc.str_))
     return dict(jcfg=jcfg, jidx=jidx, jqs=jqs, jp1=jp1, jenum=jenum,
                 jsearch=jsearch, jpc=jpc, jog=jog, jenum2=jenum2,
@@ -253,7 +261,39 @@ def test_extract_twogap_equals_jax(world, sample):
     tcfg = dataclasses.replace(w["tcfg"], is_sample=sample)
     want = jdev.extract_twogap_tpu(w["jidx"], w["jsearch"], w["jsearch2"],
                                    w["jtg"], jcfg)
-    got = tdev.extract_twogap(w["tidx"], w["tsearch"], w["tsearch2"],
+    got = tdev.extract_twogap(_engine(w), w["tsearch"], w["tsearch2"],
                               w["ttg"], tcfg)
     _eq(got, want)
     assert len(got.gappy_index) > 0
+
+
+@pytest.mark.parametrize("kernel", ["A5", "A8"])
+def test_plain_identity_views_change_nothing(world, kernel, monkeypatch):
+    """The plain versions of A5 and A8, on the inputs of lookup2's and the
+    two-gap extraction's own calls, give the same words when the corpus
+    arrays come as explicit identity views (offset 0, global length = local
+    length)."""
+    w = world
+    calls = {}
+    site = (tlk, "two") if kernel == "A5" else (tdev, "twogap")
+    real = getattr(*site)
+
+    def hook(*args):
+        calls[kernel] = args
+        return real(*args)
+    monkeypatch.setattr(*site, hook)
+    if kernel == "A5":
+        tlk.two_gap_lookup(_engine(w), w["tqs"], w["tsearch"], w["tog"],
+                           copy.deepcopy(w["tsearch2_0"]), w["tpc"],
+                           w["tcfg"], w["tstr"])
+        plain = tlk.two_plain
+    else:
+        tdev.extract_twogap(_engine(w), w["tsearch"], w["tsearch2"],
+                            w["ttg"], w["tcfg"])
+        plain = tdev.twogap_plain
+    args = calls[kernel]
+    want = plain(*args)
+    got = plain(*[OffsetView(a, 0, a.shape[0]) if i < 3 else a
+                  for i, a in enumerate(args)])
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert (want != 0).any()
