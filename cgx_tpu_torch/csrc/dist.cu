@@ -1,0 +1,99 @@
+// B4 (cgx_dp_step): one shard of the query-data-parallel search step, two
+// kernels on the caller's stream.
+//
+// Replaces the per-shard body of cgx_tpu/parallel/dist.py:
+// make_sharded_search_step (dist.py:56-83), the function `step` (:60-74)
+// that shard_map runs on every "dp" shard: pass 1 over the shard's
+// (toks, suffixlens) lanes (a vmap of passes._pass1_token), the contiguous
+// extraction over its (sa_pos, lms) items with cs = refsa[sa_pos] (a vmap
+// of device._extract_contig_item), and the shard's two partial counts that
+// the JAX step psums: sum(p1[0] > 0) and the valid bits (bit 0) of the four
+// families' packed words.  The bodies are B1's pass-1 lane (lcp.cuh) and
+// A6's item (contig.cuh), one thread per lane or item; each warp sums its
+// partial count with __reduce_add_sync and one lane adds it atomically into
+// the shard's int32 [2] counter, which the wrapper zeroes before the launch.
+// The adds are unsigned, so the counts wrap as the JAX int32 sums do.  The
+// wrapper sums the S shards' counters (the psum).
+//
+// Two __global__s rather than one grid with two lane ranges: A6's body
+// takes 254 registers a thread (contig.cu's ptxas line), and a fused grid
+// would hold the pass-1 lanes to that allocation too; as two launches each
+// body keeps its own.
+//
+// Bound on the H100: as B1 pass 1 (O(log2 reflen) dependent scattered reads
+// per lane) plus A6 (~100 scattered reads per item and the packed row);
+// latency-bound chains of gathers, as their own rows in PERF.md.
+#include "contig.cuh"
+#include "lcp.cuh"
+
+namespace {
+
+// every lane of the warp calls this (no thread has returned)
+__device__ __forceinline__ void add_count(unsigned v,
+                                          unsigned* __restrict__ counter) {
+    v = __reduce_add_sync(0xFFFFFFFFu, v);
+    if ((threadIdx.x & 31) == 0 && v != 0u) atomicAdd(counter, v);
+}
+
+__global__ void dp_pass1_kernel(Index x, const int* __restrict__ toks,
+                                const int* __restrict__ suffixlens, int n,
+                                int reflen, int* __restrict__ out,
+                                unsigned* __restrict__ counts) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    unsigned hit = 0;
+    if (i < n)
+        hit = pass1_lane(x, toks[i], suffixlens[i], reflen, n, i, out) > 0;
+    add_count(hit, counts);
+}
+
+__global__ void dp_contig_kernel(Arrays a, const int* __restrict__ sa,
+                                 int sa_len, const int* __restrict__ sa_pos,
+                                 const int* __restrict__ lms, int m, int mrs,
+                                 int msym, int* __restrict__ out,
+                                 unsigned* __restrict__ counts) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    unsigned valid = 0;
+    if (j < m)
+        valid = (unsigned)contig_item(a, sa[clampi(sa_pos[j], sa_len)],
+                                      lms[j], m, mrs, msym, j, out);
+    add_count(valid, counts + 1);
+}
+
+}  // namespace
+
+// One shard.  Index arrays as B1 pass 1 and A6 take them (refstr, SA, the
+// LCP tree, padded query tokens, RLP words, lr_tar); the shard's lanes
+// toks, suffixlens int32 [n] and items sa_pos, lms int32 [m].  p1: int32
+// [6, n] as B1 pass 1 writes it; ex: int32 [8, m] as A6 writes it; counts:
+// int32 [2], zero on entry, gets (sum(p1[0] > 0), the valid bits of ex[1],
+// ex[3], ex[5], ex[7]).
+CGX_EXPORT int cgx_dp_step(const int* refstr, int ref_len, const int* sa,
+                           int sa_len, const int* lcpleft,
+                           const int* lcpright, int lcp_len, const int* qtok,
+                           int q_len, const int* rlp, int rlp_len,
+                           const int* lr_tar, int lr_len, const int* toks,
+                           const int* suffixlens, int n, int reflen,
+                           const int* sa_pos, const int* lms, int m, int mrs,
+                           int msym, int* p1, int* ex, int* counts,
+                           void* stream) {
+    if (reflen < 1 || reflen > sa_len || lcp_len < 1 || q_len < 1 || mrs < 1
+        || mrs - 1 > HMAX)
+        return (int)cudaErrorInvalidValue;
+    const int threads = 128;
+    cudaStream_t s = (cudaStream_t)stream;
+    if (n > 0) {
+        const Index x = {refstr, ref_len, sa, sa_len, lcpleft, lcpright,
+                         lcp_len, qtok, q_len};
+        dp_pass1_kernel<<<cgx_grid(n, threads), threads, 0, s>>>(
+            x, toks, suffixlens, n, reflen, p1, (unsigned*)counts);
+    }
+    if (m > 0) {
+        const Arrays a = {identity_view(refstr, ref_len),
+                          identity_view(rlp, rlp_len),
+                          identity_view(lr_tar, lr_len)};
+        dp_contig_kernel<<<cgx_grid(m, threads), threads, 0, s>>>(
+            a, sa, sa_len, sa_pos, lms, m, mrs, msym, ex,
+            (unsigned*)counts);
+    }
+    return (int)cudaGetLastError();
+}

@@ -26,6 +26,16 @@
 //   here from the padded query tokens as _qtok_fwd / _qtok_bwd do (:224-233);
 //   cgx_pcs_items (B3p) replaces _pcs_batch (:255); cgx_two_items (B3t)
 //   replaces _two_batch (:643) and returns cand and gc as two words.
+// C1 (the column-upload variants, one item per row of host-materialised
+//   columns, identity views): cgx_scan_cols (C1f / C1b) replaces
+//   lookup.py:_scan_batch_cols (:274-282), the scan over gostart, sl, el and
+//   the three compared query tokens w0..w2 resolved on the host;
+//   cgx_pcs_cols (C1p) replaces _pcs_batch_cols (:285-295), the
+//   verification over (pstart, plen, sl, el, pa1, pa2, pb2, pb3) with the
+//   ok bits packed 32 per word by a warp ballot, as A3 packs them (any n:
+//   the last word's tail bits are 0); cgx_two_packed (C1t) replaces
+//   _two_batch_packed (:650-658), the second-gap scan over (pstart, plen)
+//   as one word cand | (gc << 16).
 //
 // Every body reads the corpus through views with the JAX bounds: a read the
 // JAX body bounds explicitly (jnp.minimum / jnp.maximum / jnp.clip against
@@ -37,8 +47,9 @@
 // pattab row, one SA word, an 18-word corpus window and the gap check's ~33
 // words, all scattered (occurrences of a pattern are SA-ordered, not corpus-
 // ordered); A3 reads ~8 words; A5 one offs search, one pattab row, one
-// occurrence row, a 17-word corpus window and the gap check; B3 reads its
-// item columns instead of the table and the SA.  All are latency-bound
+// occurrence row, a 17-word corpus window and the gap check; B3 and C1 read
+// their item columns instead of the table and the SA (C1 reads 6, 8 or 2
+// coalesced column words per item).  All are latency-bound
 // gathers with a few hundred integer ops per item at most; the design keeps
 // every per-item array in registers and launches once over the whole item
 // axis.
@@ -208,6 +219,50 @@ __global__ void two_kernel(View ref, View rlp, View lr_tar,
                                          : ogrows + 2 * clampi(row, og_rows);
     unsigned cand, gc;
     two_item(ref, rlp, lr_tar, r[0], r[1], mrs, mgs, cand, gc);
+    out[j] = (int)(cand | (gc << 16));
+}
+
+// ---- C1: one item per row of host-resolved columns
+
+__global__ void scan_cols_kernel(View ref, View rlp, View lr_tar,
+                                 const int* __restrict__ gostart,
+                                 const int* __restrict__ sl,
+                                 const int* __restrict__ el,
+                                 const int* __restrict__ w0,
+                                 const int* __restrict__ w1,
+                                 const int* __restrict__ w2, int n, int mrs,
+                                 int mgs, bool fwd, int* __restrict__ out) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n) return;
+    out[j] = (int)scan_item(ref, rlp, lr_tar, gostart[j], sl[j], el[j], w0[j],
+                            w1[j], w2[j], mrs, mgs, fwd);
+}
+
+__global__ void pcs_cols_kernel(View ref, const int* __restrict__ pstart,
+                                const int* __restrict__ plen,
+                                const int* __restrict__ sl,
+                                const int* __restrict__ el,
+                                const int* __restrict__ pa1,
+                                const int* __restrict__ pa2,
+                                const int* __restrict__ pb2,
+                                const int* __restrict__ pb3, int n, int mrs,
+                                int* __restrict__ out) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool ok = j < n && pcs_item(ref, pstart[j], plen[j], sl[j], el[j],
+                                      pa1[j], pa2[j], pb2[j], pb3[j], mrs);
+    // as pcs_kernel: lane (threadIdx.x & 31) == j % 32
+    const unsigned word = __ballot_sync(0xFFFFFFFFu, ok);
+    if ((threadIdx.x & 31) == 0 && j < n) out[j >> 5] = (int)word;
+}
+
+__global__ void two_packed_kernel(View ref, View rlp, View lr_tar,
+                                  const int* __restrict__ pstart,
+                                  const int* __restrict__ plen, int n,
+                                  int mrs, int mgs, int* __restrict__ out) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= n) return;
+    unsigned cand, gc;
+    two_item(ref, rlp, lr_tar, pstart[j], plen[j], mrs, mgs, cand, gc);
     out[j] = (int)(cand | (gc << 16));
 }
 
@@ -395,5 +450,56 @@ CGX_EXPORT int cgx_two_items(const int* ref, int ref_len, int ref_off,
         View{rlp, rlp_len, rlp_off, rlp_glen},
         View{lr_tar, lr_len, lr_off, lr_glen}, pstart, plen, n, mrs, mgs,
         out);
+    return (int)cudaGetLastError();
+}
+
+// C1f / C1b.  Per item: the occurrence `gostart` (a's start forward, b's
+// start backward, read from the host SA), sl, el and the three compared
+// query tokens w0..w2 (b's first three forward, a's last three reversed
+// backward).  out: int32 [n] move masks.
+CGX_EXPORT int cgx_scan_cols(const int* refstr, int ref_len, const int* rlp,
+                             int rlp_len, const int* lr_tar, int lr_len,
+                             const int* gostart, const int* sl, const int* el,
+                             const int* w0, const int* w1, const int* w2,
+                             int n, int mrs, int mgs, int fwd, int* out,
+                             void* stream) {
+    if (mrs < 1 || mrs > MMOV) return (int)cudaErrorInvalidValue;
+    const int threads = 128;
+    scan_cols_kernel<<<cgx_grid(n, threads), threads, 0,
+                       (cudaStream_t)stream>>>(
+        identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
+        identity_view(lr_tar, lr_len), gostart, sl, el, w0, w1, w2, n, mrs,
+        mgs, fwd != 0, out);
+    return (int)cudaGetLastError();
+}
+
+// C1p.  Per item: a precomputed occurrence (pstart, plen), sl, el and the
+// four compared query tokens.  out: int32 [(n + 31) / 32], the ok bits
+// packed 32 per word.
+CGX_EXPORT int cgx_pcs_cols(const int* refstr, int ref_len,
+                            const int* pstart, const int* plen, const int* sl,
+                            const int* el, const int* pa1, const int* pa2,
+                            const int* pb2, const int* pb3, int n, int mrs,
+                            int* out, void* stream) {
+    const int threads = 128;
+    pcs_cols_kernel<<<cgx_grid(n, threads), threads, 0,
+                      (cudaStream_t)stream>>>(
+        identity_view(refstr, ref_len), pstart, plen, sl, el, pa1, pa2, pb2,
+        pb3, n, mrs, out);
+    return (int)cudaGetLastError();
+}
+
+// C1t.  Per item: an aXb occurrence (pstart, plen).  out: int32 [n], the
+// uint32 bits cand | (gc << 16).
+CGX_EXPORT int cgx_two_packed(const int* refstr, int ref_len, const int* rlp,
+                              int rlp_len, const int* lr_tar, int lr_len,
+                              const int* pstart, const int* plen, int n,
+                              int mrs, int mgs, int* out, void* stream) {
+    if (mrs < 1 || mrs > MMOV) return (int)cudaErrorInvalidValue;
+    const int threads = 128;
+    two_packed_kernel<<<cgx_grid(n, threads), threads, 0,
+                        (cudaStream_t)stream>>>(
+        identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
+        identity_view(lr_tar, lr_len), pstart, plen, n, mrs, mgs, out);
     return (int)cudaGetLastError();
 }

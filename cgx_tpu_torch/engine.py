@@ -7,7 +7,10 @@ the same host logic drives both index layouts:
 * ``ReplicatedEngine`` -- the whole index on one device
   (``index.container.TorchGrammarIndex``); the items of each stage expand on
   the device from per-pattern tables (kernels A2, A3, A5) or go up as
-  columns (A4, A6, A7, A8);
+  columns (A4, A6, A7, A8); with ``scan_cols`` (the JAX package's
+  ``CGX_SCAN_COLS``) the scans of lookup1 and lookup2 take their items as
+  host-materialised columns instead (kernels C1f, C1b, C1t), each
+  occurrence's start read from the host SA;
 * ``parallel.sharded.ShardedEngine`` -- every O(corpus) array split into
   shards; work items go to the shard that owns the corpus position they read
   around, and SA values come from the rank-sharded SA (kernels B2 and B3).
@@ -41,8 +44,8 @@ def split_two(words) -> tuple:
 def two_gap_occurrences(onegap_sa, pc, lo, counts, pcmode):
     """Per item of lookup2's expansion, the aXb occurrence (corpus start,
     length) from the one-gap rows or, for a pcmode pattern, the precomputed
-    rows (``ShardedEngine.two_expanded``'s host materialisation) -> int64
-    numpy [N] each."""
+    rows (the host materialisation of ``ShardedEngine.two_expanded`` and of
+    the column path) -> int64 numpy [N] each."""
     item_pat, tx = materialize_items(counts)
     row = np.asarray(lo, np.int64)[item_pat] + tx
     pcm = np.asarray(pcmode, bool)[item_pat]
@@ -77,11 +80,20 @@ def on(device, *cols):
 
 
 class ReplicatedEngine:
-    """Single-device dispatch against a whole ``TorchGrammarIndex``."""
+    """Single-device dispatch against a whole ``TorchGrammarIndex``.
+    ``scan_cols=True`` runs ``scan_expanded`` and ``two_expanded`` on the
+    column-upload kernels (the JAX engine's ``_scan_expanded_cols`` and
+    ``_two_expanded_cols``); it needs ``sa_host``, the host suffix array
+    the index was built from (numpy)."""
 
-    def __init__(self, index, cfg):
+    def __init__(self, index, cfg, scan_cols: bool = False, sa_host=None):
+        if scan_cols and sa_host is None:
+            raise ValueError("scan_cols reads each occurrence's start from "
+                             "the host suffix array: pass sa_host")
         self.index = index
         self.cfg = cfg
+        self.scan_cols = scan_cols
+        self.sa_host = sa_host
 
     def sa_values(self, rows) -> np.ndarray:
         """``sa[rows]`` read from the index's device copy -> int64 numpy."""
@@ -115,24 +127,38 @@ class ReplicatedEngine:
                              bitorder="little")[:n].astype(bool)
 
     def scan_expanded(self, queries, fwd, lo, counts, sl, el, side):
-        """A2 over the patterns' SA ranges -> numpy int32 [sum(counts)]
-        masks."""
+        """A2 over the patterns' SA ranges (with ``scan_cols``: C1f/C1b over
+        the items materialised on the host, each occurrence read from the
+        host SA) -> numpy int32 [sum(counts)] masks."""
         qtok = np.asarray(queries.padded_tokens()).astype(np.int64)
         if fwd:
             toks = (qtok[side], qtok[side + 1], qtok[side + 2])
         else:
             toks = (qtok[side + sl - 1], qtok[side + np.maximum(sl - 2, 0)],
                     qtok[side + np.maximum(sl - 3, 0)])
-        pattab, offs, n = self._pattern_tables(counts, (lo, sl, el) + toks)
         ix, cfg = self.index, self.cfg
+        if self.scan_cols:
+            item_pat, tx = materialize_items(counts)
+            cols = [c[item_pat] for c in (sl, el) + toks]
+            return lookup.scan_cols(
+                ix.refstr_padded, ix.rlp, ix.lr_tar,
+                *on(ix.device, self.sa_host[lo[item_pat] + tx], *cols),
+                cfg.max_rule_span, cfg.min_gap_size, fwd).cpu().numpy()
+        pattab, offs, n = self._pattern_tables(counts, (lo, sl, el) + toks)
         return lookup.scan(ix.refstr_padded, ix.rlp, ix.lr_tar, ix.sa, pattab,
                            offs, n, cfg.max_rule_span, cfg.min_gap_size,
                            fwd).cpu().numpy()
 
     def two_expanded(self, onegap_sa, pc, lo, counts, pcmode):
-        """A5 over every one-gap occurrence -> (cand, gc) numpy int32
-        [sum(counts)] masks."""
+        """A5 (or with ``scan_cols`` C1t) over every one-gap occurrence ->
+        (cand, gc) numpy int32 [sum(counts)] masks."""
         ix, cfg = self.index, self.cfg
+        if self.scan_cols:
+            css, fes = two_gap_occurrences(onegap_sa, pc, lo, counts, pcmode)
+            words = lookup.two_packed(ix.refstr_padded, ix.rlp, ix.lr_tar,
+                                      *on(ix.device, css, fes),
+                                      cfg.max_rule_span, cfg.min_gap_size)
+            return split_two(words.cpu().numpy())
         pattab, offs, n = self._pattern_tables(counts, (lo, pcmode), width=2)
         rows = np.zeros((max(len(onegap_sa.str_position), 1), 2), np.int32)
         rows[:len(onegap_sa.str_position), 0] = onegap_sa.str_position

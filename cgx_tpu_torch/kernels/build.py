@@ -13,9 +13,11 @@ device kernels: A1, A2f and A2b for A2's forward and backward scans, A3,
 A4, A5, A6, A7, A8, A9, A10, B1p1 and B1p2 for B1's two passes, and the
 sharded index's B2r and B2g (refinement, SA gather) and B3f, B3b, B3p, B3t
 and B3c (the per-item scans, verification, second-gap scan and contiguous
-extraction)); A4, A7 and A8 count as A4v, A7v and A8v when they read a
-shard's ``OffsetView``s (``launch_id``).  A wrapper adds one right after it
-launched its kernel, and nowhere else.
+extraction), the column-upload lookups' C1f, C1b, C1p and C1t, the
+query-DP step's B4 (one per shard) and the gather probe's P1 and P2); A4,
+A7 and A8 count as A4v, A7v and A8v when they read a shard's
+``OffsetView``s (``launch_id``).  A wrapper adds one right after it launched
+its kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -71,6 +73,11 @@ SIGNATURES = {
         "cgx_pcs_items": _V + [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                                _P],
         "cgx_two_items": _V * 3 + [_P, _P, _I, _I, _I, _P, _P],
+        "cgx_scan_cols": [_P, _I, _P, _I, _P, _I] + [_P] * 6
+                         + [_I, _I, _I, _I, _P, _P],
+        "cgx_pcs_cols": [_P, _I] + [_P] * 8 + [_I, _I, _P, _P],
+        "cgx_two_packed": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P,
+                           _P],
     },
     "contig": {
         "cgx_contig": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,
@@ -88,6 +95,14 @@ SIGNATURES = {
                                _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                                _P],
         "cgx_gather_sa_sharded": [_P, _P, _I, _I, _I, _P, _I, _P, _P],
+    },
+    "dist": {
+        "cgx_dp_step": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I,
+                        _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    },
+    "probe": {
+        "cgx_gather_sum": [_P, _I, _P, _I, _P, _P],
+        "cgx_gather_rows": [_P, _I, _P, _I, _P, _P],
     },
     "maxlex": {
         "cgx_maxlex_dense": [_P, _P, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P,

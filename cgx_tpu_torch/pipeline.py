@@ -9,7 +9,10 @@ family:
 * pass 1/2: the interval refinement (kernel A1), or with
   ``lcp_passes=True`` the LCP-accelerated search (kernel B1, in two passes);
 * the one-gap enumeration (host) and lookup1 (kernels A2 and A3);
-* the two-gap enumeration (host) and lookup2 (kernel A5);
+* the two-gap enumeration (host) and lookup2 (kernel A5); with
+  ``scan_cols=True`` (the JAX package's ``CGX_SCAN_COLS``) the scans of
+  lookup1 and lookup2 run on items materialised on the host and uploaded
+  as columns (kernels C1f, C1b and C1t in place of A2 and A5);
 * contiguous blocks and extraction (kernel A6: ab, Xab, abX, XabX), one-gap
   extraction (kernel A7: aXb, XaXb, aXbX) and two-gap extraction (kernel
   A8: aXbXc);
@@ -74,16 +77,20 @@ class PipelineResult:
     # the device index the run searched: a TorchGrammarIndex, or the
     # ShardedGrammarIndex with sa_shards > 0
     index: object = None
+    # the contiguous blocks of the run's queries (extract.blocks)
+    blocks: object = None
 
 
-def make_engine(index, cfg: ExtractorConfig):
-    """The dispatch engine of an index layout (``cgx_tpu_torch.engine``)."""
+def make_engine(index, cfg: ExtractorConfig, scan_cols: bool = False,
+                sa_host=None):
+    """The dispatch engine of an index layout (``cgx_tpu_torch.engine``);
+    ``scan_cols`` and ``sa_host`` as ``ReplicatedEngine`` takes them."""
     if isinstance(index, shx.ShardedGrammarIndex):
         return shx.ShardedEngine(index, cfg)
-    return ReplicatedEngine(index, cfg)
+    return ReplicatedEngine(index, cfg, scan_cols, sa_host)
 
 
-def _check_shards(sa_shards, lcp_passes=False) -> int:
+def _check_shards(sa_shards, lcp_passes=False, scan_cols=False) -> int:
     if sa_shards == "auto":
         raise ValueError("sa_shards='auto' sizes the index against the device "
                          "budget (utils/budget.py), which is not ported yet: "
@@ -94,6 +101,9 @@ def _check_shards(sa_shards, lcp_passes=False) -> int:
     if lcp_passes and sa_shards:
         raise ValueError("lcp_passes needs the replicated index: the sharded "
                          "index keeps no LCP tree on the device")
+    if scan_cols and sa_shards:
+        raise ValueError("scan_cols needs the replicated index: the sharded "
+                         "index has no column-upload path")
     return sa_shards
 
 
@@ -133,20 +143,22 @@ def build_artifact(f_lines, e_lines, a_lines, lex_tokens,
 def run_pipeline(f_lines, e_lines, a_lines, lex_tokens, q_lines,
                  cfg: ExtractorConfig = DEFAULT_CONFIG,
                  timing: PhaseTimer = None, device="cuda",
-                 lcp_passes: bool = False,
-                 sa_shards: int = 0) -> PipelineResult:
+                 lcp_passes: bool = False, sa_shards: int = 0,
+                 scan_cols: bool = False) -> PipelineResult:
     """Runs the main path with every device stage on ``device`` ("cuda": the
     hand-written kernels; "cpu": their plain PyTorch versions).
     ``lcp_passes`` runs pass 1/2 as the LCP-accelerated search (kernel B1)
     instead of the interval refinement (kernel A1); ``sa_shards > 0`` runs
-    the sharded index of that many shards (all on ``device``).  The grammar
-    is the same in every case; ``lcp_passes`` with ``sa_shards`` is
-    refused."""
-    sa_shards = _check_shards(sa_shards, lcp_passes)
+    the sharded index of that many shards (all on ``device``);
+    ``scan_cols`` runs lookup1's and lookup2's scans on host-materialised
+    item columns (kernels C1f, C1b, C1t).  The grammar is the same in every
+    case; ``lcp_passes`` or ``scan_cols`` with ``sa_shards`` is refused."""
+    sa_shards = _check_shards(sa_shards, lcp_passes, scan_cols)
     art, index, t = build_artifact(f_lines, e_lines, a_lines, lex_tokens, cfg,
                                    timing, device, sa_shards)
     ctx = dict(index=index, source=art.source, target=art.target, sa=art.sa,
-               pc=art.precomp, engine=make_engine(index, cfg),
+               pc=art.precomp,
+               engine=make_engine(index, cfg, scan_cols, art.sa.sa),
                lex_index=index, sa_values=None)
     if sa_shards:
         with t.phase("qrysin"):
@@ -157,7 +169,8 @@ def run_pipeline(f_lines, e_lines, a_lines, lex_tokens, q_lines,
     front = _front_stages(ctx, queries, cfg, t, lcp_passes)
     per_query_lines, counters = _back_stages(ctx, queries, front, cfg, t)
     return PipelineResult(queries=queries, per_query_lines=per_query_lines,
-                          counters=counters, timing=t, index=index)
+                          counters=counters, timing=t, index=index,
+                          blocks=front["blocks"])
 
 
 def _concat_gaprules(a: GapRules, b: GapRules) -> GapRules:
@@ -275,7 +288,8 @@ def _back_stages(ctx, queries, fr, cfg, t):
 
 def run_pipeline_files(reffile, qryfile, tarfile, alignfile, lexfile, dest_dir,
                        cfg: ExtractorConfig = DEFAULT_CONFIG, device="cuda",
-                       lcp_passes: bool = False, sa_shards: int = 0):
+                       lcp_passes: bool = False, sa_shards: int = 0,
+                       scan_cols: bool = False):
     with open(reffile, encoding="utf-8") as fh:
         f_text = fh.read()
     with open(tarfile, encoding="utf-8") as fh:
@@ -283,7 +297,7 @@ def run_pipeline_files(reffile, qryfile, tarfile, alignfile, lexfile, dest_dir,
     res = run_pipeline(f_text, e_text, cp.read_lines(alignfile),
                        cp.read_tokens(lexfile), cp.read_lines(qryfile), cfg,
                        device=device, lcp_passes=lcp_passes,
-                       sa_shards=sa_shards)
+                       sa_shards=sa_shards, scan_cols=scan_cols)
     gw.write_grammars(dest_dir, res.queries.qryscount, cfg.is_sample,
                       res.per_query_lines)
     print(res.timing.report(), file=sys.stderr)

@@ -29,8 +29,11 @@ The kernels expand their item axis on the device from a per-pattern table
 (``pattab``) and the exclusive count prefix (``offs``), and launch once over
 all items.  The sharded index runs the same item bodies per item on one
 shard's views (kernels B3f, B3b, B3p and B3t: ``fwd_items``, ``bwd_items``,
-``pcs_items``, ``two_items``).  The orchestrators reach either through an
-engine (``cgx_tpu_torch.engine``).
+``pcs_items``, ``two_items``).  The column-upload variant (``scan_cols``,
+the JAX package's ``CGX_SCAN_COLS``) materialises the items on the host and
+uploads one column per field (kernels C1f, C1b and C1t: ``scan_cols``,
+``two_packed``; C1p, ``pcs_cols``, has no caller, as in the JAX package).
+The orchestrators reach each through an engine (``cgx_tpu_torch.engine``).
 """
 
 from __future__ import annotations
@@ -236,9 +239,8 @@ def two_plain(refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, n: int,
     # both reads are clamped; the pcmode flag selects one
     sel = torch.where((f[:, 1] > 0)[:, None], take(pcrows, row),
                       take(ogrows, row))
-    cand, gc = _two_body(refstr, rlp, lr_tar, sel[:, 0], sel[:, 1], mrs, mgs)
-    w = pack_moves(cand).long() | (pack_moves(gc).long() << 16)
-    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+    return two_packed_plain(refstr, rlp, lr_tar, sel[:, 0], sel[:, 1], mrs,
+                            mgs)
 
 
 def pcs_plain(refstr, pcrows, pattab, offs, n: int, mrs: int):
@@ -488,6 +490,122 @@ def two_items(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int):
             *kb.view(refstr), *kb.view(rlp), *kb.view(lr_tar), kb.ptr(pstart),
             kb.ptr(plen), n, mrs, mgs, kb.ptr(out), kb.stream(device)))
         kb.LAUNCHES["B3t"] += 1
+    return out
+
+
+def scan_cols_plain(refstr, rlp, lr_tar, gostart, sl, el, w0, w1, w2,
+                    mrs: int, mgs: int, fwd: bool):
+    """Plain PyTorch version of kernels C1f (``fwd``) and C1b -> int32 [n]
+    move masks."""
+    return pack_moves(_scan_body(refstr, rlp, lr_tar, gostart, sl, el,
+                                 torch.stack([w0, w1, w2], dim=1), mrs, mgs,
+                                 fwd))
+
+
+def pcs_cols_plain(refstr, pstart, plen, sl, el, pa1, pa2, pb2, pb3,
+                   mrs: int):
+    """Plain PyTorch version of kernel C1p -> int32 [ceil(n / 32)] packed ok
+    bits."""
+    return _pack_bits32(_pcs_body(refstr, pstart, plen, sl, el, pa1, pa2,
+                                  pb2, pb3, mrs))
+
+
+def two_packed_plain(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int):
+    """Plain PyTorch version of kernel C1t -> int32 [n] words holding the
+    uint32 bits ``cand | (gc << 16)``."""
+    cand, gc = _two_body(refstr, rlp, lr_tar, pstart, plen, mrs, mgs)
+    w = pack_moves(cand).long() | (pack_moves(gc).long() << 16)
+    return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
+
+
+def scan_cols(refstr, rlp, lr_tar, gostart, sl, el, w0, w1, w2, mrs: int,
+              mgs: int, fwd: bool):
+    """Kernels C1f (``fwd``) and C1b (``csrc/scan.cu``, ``cgx_scan_cols``):
+    A2's scan for items given as columns materialised on the host: the
+    occurrence ``gostart[i]`` (a's start forward, b's start backward),
+    ``sl[i]``, ``el[i]`` and the three compared query tokens ``w0..w2[i]``
+    (b's first three forward, a's last three reversed backward) -> int32
+    [n] move masks.
+
+    Replaces ``_scan_batch_cols`` (cgx_tpu/search/lookup.py:274).  On CUDA
+    tensors it launches the kernel; on CPU tensors it runs
+    ``scan_cols_plain``."""
+    kernel = "C1f" if fwd else "C1b"
+    device = gostart.device
+    if not kb.route(kernel, device):
+        return scan_cols_plain(refstr, rlp, lr_tar, gostart, sl, el, w0, w1,
+                               w2, mrs, mgs, fwd)
+    kb.check_inputs(kernel, device, torch.int32, refstr=refstr, rlp=rlp,
+                    lr_tar=lr_tar, gostart=gostart, sl=sl, el=el, w0=w0,
+                    w1=w1, w2=w2)
+    n = gostart.shape[0]
+    _check_cols(kernel, n, sl, el, w0, w1, w2)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    if n:
+        lib = kb.library("scan")
+        kb.check("scan", lib.cgx_scan_cols(
+            kb.ptr(refstr), refstr.shape[0], kb.ptr(rlp), rlp.shape[0],
+            kb.ptr(lr_tar), lr_tar.shape[0], kb.ptr(gostart), kb.ptr(sl),
+            kb.ptr(el), kb.ptr(w0), kb.ptr(w1), kb.ptr(w2), n, mrs, mgs,
+            int(fwd), kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES[kernel] += 1
+    return out
+
+
+def pcs_cols(refstr, pstart, plen, sl, el, pa1, pa2, pb2, pb3, mrs: int):
+    """Kernel C1p (``csrc/scan.cu``, ``cgx_pcs_cols``): A3's verification
+    for items given as columns: the precomputed occurrence (``pstart[i]``,
+    ``plen[i]``), ``sl[i]``, ``el[i]`` and the four compared query tokens
+    -> int32 [ceil(n / 32)], the ok bits packed 32 per word (tail bits 0).
+
+    Replaces ``_pcs_batch_cols`` (cgx_tpu/search/lookup.py:285), which no
+    path of the JAX package calls; no path of the port does either.  On
+    CUDA tensors it launches the kernel; on CPU tensors it runs
+    ``pcs_cols_plain``."""
+    device = pstart.device
+    if not kb.route("C1p", device):
+        return pcs_cols_plain(refstr, pstart, plen, sl, el, pa1, pa2, pb2,
+                              pb3, mrs)
+    kb.check_inputs("C1p", device, torch.int32, refstr=refstr, pstart=pstart,
+                    plen=plen, sl=sl, el=el, pa1=pa1, pa2=pa2, pb2=pb2,
+                    pb3=pb3)
+    n = pstart.shape[0]
+    _check_cols("C1p", n, plen, sl, el, pa1, pa2, pb2, pb3)
+    out = torch.empty((n + 31) // 32, dtype=torch.int32, device=device)
+    if n:
+        lib = kb.library("scan")
+        kb.check("scan", lib.cgx_pcs_cols(
+            kb.ptr(refstr), refstr.shape[0], kb.ptr(pstart), kb.ptr(plen),
+            kb.ptr(sl), kb.ptr(el), kb.ptr(pa1), kb.ptr(pa2), kb.ptr(pb2),
+            kb.ptr(pb3), n, mrs, kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES["C1p"] += 1
+    return out
+
+
+def two_packed(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int):
+    """Kernel C1t (``csrc/scan.cu``, ``cgx_two_packed``): A5's second-gap
+    scan and gap check for aXb occurrences given as columns (``pstart[i]``,
+    ``plen[i]``) -> int32 [n] words holding the uint32 bits
+    ``cand | (gc << 16)``.
+
+    Replaces ``_two_batch_packed`` (cgx_tpu/search/lookup.py:650).  On CUDA
+    tensors it launches the kernel; on CPU tensors it runs
+    ``two_packed_plain``."""
+    device = pstart.device
+    if not kb.route("C1t", device):
+        return two_packed_plain(refstr, rlp, lr_tar, pstart, plen, mrs, mgs)
+    kb.check_inputs("C1t", device, torch.int32, refstr=refstr, rlp=rlp,
+                    lr_tar=lr_tar, pstart=pstart, plen=plen)
+    n = pstart.shape[0]
+    _check_cols("C1t", n, plen)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    if n:
+        lib = kb.library("scan")
+        kb.check("scan", lib.cgx_two_packed(
+            kb.ptr(refstr), refstr.shape[0], kb.ptr(rlp), rlp.shape[0],
+            kb.ptr(lr_tar), lr_tar.shape[0], kb.ptr(pstart), kb.ptr(plen), n,
+            mrs, mgs, kb.ptr(out), kb.stream(device)))
+        kb.LAUNCHES["C1t"] += 1
     return out
 
 

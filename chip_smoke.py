@@ -14,28 +14,47 @@ Phases, one line each on stdout:
    queries; row-range tables, so A10), both made from seeds by the generators
    in tools/, then europarl again with ``sa_shards=4`` (the sharded index,
    all four shards on the card; its corpus text is reused), then medium
-   again with ``lcp_passes=True``.  Each run must launch its path's kernels
-   and no other (launch counts reset just before it, see ``RUNS``): A1 or
-   B1's two passes, A4, A2 forward and backward, A3, A5, A6, A7, A8 and A9
-   or A10 on the replicated index; B2r, B2g, B3f, B3b, B3p, B3t, B3c and A4,
-   A7, A8 on shard views on the sharded one (MaxLex on the host there).
-   Its counters must equal the JAX package's and its grammar hash the
-   golden in tests/golden_torch_hashes.json (the JAX package's full
-   grammar).  On europarl's index and queries both LCP passes must then
-   give the refinement's up, down and longestmatch; the sharded run prints
-   each shard's bytes and its peak device memory beside the replicated
-   run's;
-4. kernels -- each kernel against its plain PyTorch version on the card, on
-   the inputs of its largest launch in phase 3 (A2 once per direction, B1
-   once per pass, A4, A7 and A8 also on a shard's views, as A4v, A7v and
-   A8v), and every kernel that reads a shard's views (A4v, A7v, A8v, B3f,
-   B3b, B3p, B3t, B3c) also on its largest launch on each shard, the first
-   (negative global offset) and the last (reads clamped to the global end)
-   included: the outputs must be bit-equal (float32 compared by bit pattern);
-   times of both, and the least time the card could take for the same work
-   (``bound_ms``: the larger of the bytes over the memory rate and the
-   integer operations over the peak rate, counted per item from the
-   kernel's loops, see ``WORK``), and the time of one launch on one item.
+   again with ``sa_shards=4``, europarl again with ``scan_cols=True`` (the
+   column-upload lookups), then medium again with ``lcp_passes=True``.
+   Each run must launch its path's kernels and no other (launch counts
+   reset just before it, see ``RUNS``): A1 or B1's two passes, A4, A2
+   forward and backward (C1f and C1b with ``scan_cols``), A3, A5 (C1t with
+   ``scan_cols``), A6, A7, A8 and A9 or A10 on the replicated index; B2r,
+   B2g, B3f, B3b, B3p, B3t, B3c and A4, A7, A8 on shard views on the
+   sharded one (MaxLex on the host there).  Its counters must equal the
+   JAX package's and its grammar hash the golden in
+   tests/golden_torch_hashes.json (the JAX package's full grammar).  On
+   europarl's index and queries both LCP passes must then give the
+   refinement's up, down and longestmatch; the sharded run prints each
+   shard's bytes and its peak device memory beside the replicated run's;
+4. query_dp -- ``parallel.dist.run_sharded_search`` on the europarl run's
+   index, pass-1 tokens and sampled block occurrences, over four shards on
+   the one card (kernel B4, one launch per shard, and nothing else):
+   longestmatch must equal the refinement's, the match count the number of
+   tokens that match, every shard's outputs and counts its plain
+   version's, the extraction of the real items A6's on the same SA
+   positions, and the rule count the plain shards' sum;
+5. columns -- kernel C1p (``lookup.pcs_cols``, which no pipeline path
+   calls, as in the JAX package) on the items of A3's largest launch,
+   materialised into columns on the host: its ok bits must equal A3's;
+6. probe -- the gather probe (``tools.gather_probe.run_probe``: P1, P2,
+   their plain versions and the one-call library form) at the probe's
+   defaults and on europarl's corpus at the scan starts of A2b's largest
+   launch: every checksum and every P2 row equal the plain version's;
+   milliseconds and words per second printed;
+7. kernels -- each kernel against its plain PyTorch version on the card, on
+   the inputs of its largest launch in phases 3 to 6 (A2 and C1 once per
+   direction, B1 once per pass, A4, A7 and A8 also on a shard's views, as
+   A4v, A7v and A8v), and every kernel that reads a shard's views (A4v,
+   A7v, A8v, B3f, B3b, B3p, B3t, B3c) also on its largest launch on each
+   shard, the first (negative global offset) and the last (reads clamped to
+   the global end) included: the outputs must be bit-equal (float32
+   compared by bit pattern); times of both, the time of one PyTorch call
+   that computes the same function where there is one (P1, P2), and the
+   least time the card could take for the same work (``bound_ms``: the
+   larger of the bytes over the memory rate and the integer operations over
+   the peak rate, counted per item from the kernel's loops, see ``WORK``),
+   and the time of one launch on one item.
 
 Then a JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -61,7 +80,10 @@ GOLDEN = os.path.join(ROOT, "tests", "golden_torch_hashes.json")
 # _twogap_batch, _accum_batch_dense, _accum_batch_range, _pass1_batch,
 # _pass2_batch; the sharded index's _refine_chunk, _gather_sa_chunk,
 # _fwd_batch, _bwd_batch, _pcs_batch, _two_batch, _contig_batch_pos, and
-# _gc_batch, _onegap_batch, _twogap_batch on a shard's views)
+# _gc_batch, _onegap_batch, _twogap_batch on a shard's views; the column
+# path's _scan_batch_cols (forward, backward), _pcs_batch_cols,
+# _two_batch_packed; the query-DP step; the probe's two pl.pallas_call
+# kernels)
 KERNELS = {
     "A1": ("cgx_tpu_torch/csrc/refine.cu", "cgx_tpu/search/passes.py:371"),
     "A4": ("cgx_tpu_torch/csrc/gapcheck.cu",
@@ -90,6 +112,13 @@ KERNELS = {
             "cgx_tpu/search/precompute.py:38"),
     "A7v": ("cgx_tpu_torch/csrc/onegap.cu", "cgx_tpu/extract/device.py:616"),
     "A8v": ("cgx_tpu_torch/csrc/twogap.cu", "cgx_tpu/extract/device.py:744"),
+    "C1f": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:274"),
+    "C1b": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:274"),
+    "C1p": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:285"),
+    "C1t": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:650"),
+    "B4": ("cgx_tpu_torch/csrc/dist.cu", "cgx_tpu/parallel/dist.py:56"),
+    "P1": ("cgx_tpu_torch/csrc/probe.cu", "tools/pallas_probe.py:51"),
+    "P2": ("cgx_tpu_torch/csrc/probe.cu", "tools/pallas_probe.py:97"),
 }
 # the rows on a shard's views: the same kernel as their replicated row,
 # counted under its own launch id (kernels/build.py ``launch_id``)
@@ -99,16 +128,24 @@ VIEW_ROWS = {"A4v": "A4", "A7v": "A7", "A8v": "A8"}
 PATH_KERNELS = ("A4", "A2f", "A2b", "A3", "A5", "A6", "A7", "A8")
 SHARDED_KERNELS = ("B2r", "B2g", "B3f", "B3b", "B3p", "B3t", "B3c", "A4v",
                    "A7v", "A8v")
-# the end-to-end runs: (size, lcp_passes, sa_shards, must launch, must not)
+# the column path's scans, and the kernels no end-to-end run launches
+COLS_KERNELS = ("C1f", "C1b", "C1t")
+OFF_PATH = ("C1p", "B4", "P1", "P2")
+# the end-to-end runs: (size, lcp_passes, sa_shards, scan_cols, must launch,
+# must not)
 RUNS = (
-    ("medium", False, 0, PATH_KERNELS + ("A1", "A9"),
-     ("B1p1", "B1p2") + SHARDED_KERNELS),
-    ("europarl", False, 0, PATH_KERNELS + ("A1", "A10"),
-     ("B1p1", "B1p2") + SHARDED_KERNELS),
-    ("europarl", False, 4, SHARDED_KERNELS,
-     ("A1", "A9", "A10", "B1p1", "B1p2") + PATH_KERNELS),
-    ("medium", True, 0, PATH_KERNELS + ("B1p1", "B1p2", "A9"),
-     ("A1",) + SHARDED_KERNELS),
+    ("medium", False, 0, False, PATH_KERNELS + ("A1", "A9"),
+     ("B1p1", "B1p2") + SHARDED_KERNELS + COLS_KERNELS + OFF_PATH),
+    ("europarl", False, 0, False, PATH_KERNELS + ("A1", "A10"),
+     ("B1p1", "B1p2") + SHARDED_KERNELS + COLS_KERNELS + OFF_PATH),
+    ("europarl", False, 4, False, SHARDED_KERNELS,
+     ("A1", "A9", "A10", "B1p1", "B1p2") + PATH_KERNELS + COLS_KERNELS
+     + OFF_PATH),
+    ("europarl", False, 0, True,
+     ("A1", "A4", "A3", "A6", "A7", "A8", "A10") + COLS_KERNELS,
+     ("A2f", "A2b", "A5", "B1p1", "B1p2") + SHARDED_KERNELS + OFF_PATH),
+    ("medium", True, 0, False, PATH_KERNELS + ("B1p1", "B1p2", "A9"),
+     ("A1",) + SHARDED_KERNELS + COLS_KERNELS + OFF_PATH),
 )
 
 # The least time the card could take for a kernel's work: the larger of the
@@ -139,6 +176,12 @@ WORK = {
     "B3p": (6, 8, 1, 40),        # 4 query tokens, 4 corpus words
     "B3t": (2, 50, 2, 1850),     # 17 corpus words, the gap check
     "B3c": (2, 100, 8, 3000),    # A6 without its SA word
+    "C1f": (6, 51, 1, 2000),     # 6 columns, 18 corpus words, gap check
+    "C1b": (6, 51, 1, 2000),
+    "C1p": (8, 4, 1 / 32, 40),   # 8 columns, 4 corpus words
+    "C1t": (2, 50, 1, 1850),     # 17 corpus words, the gap check
+    "P1": (1, 32, 0, 32),        # the position, the 32-word window
+    "P2": (1, 32, 32, 0),        # and the row written
 }
 for _v, _k in VIEW_ROWS.items():
     WORK[_v] = WORK[_k]
@@ -198,9 +241,11 @@ class Capture:
     def __init__(self):
         from cgx_tpu_torch.extract import device as xdev
         from cgx_tpu_torch.features import maxlex as ml
+        from cgx_tpu_torch.parallel import dist
         from cgx_tpu_torch.parallel import sharded as shx
         from cgx_tpu_torch.search import lookup, passes
         from cgx_tpu_torch.search import precompute as pcx
+        from cgx_tpu_torch.tools import gather_probe as gp
         from cgx_tpu_torch.utils.views import OffsetView
 
         def on_view(k):     # A4, A7 and A8 on a shard's views count as Kv
@@ -229,9 +274,19 @@ class Capture:
             (lookup, "pcs_items"): (lambda a: "B3p", lambda a: a[2].shape[0]),
             (lookup, "two_items"): (lambda a: "B3t", lambda a: a[3].shape[0]),
             (xdev, "contig_pos"): (lambda a: "B3c", lambda a: a[3].shape[0]),
+            (lookup, "scan_cols"): (lambda a: "C1f" if a[11] else "C1b",
+                                    lambda a: a[3].shape[0]),
+            (lookup, "pcs_cols"): (lambda a: "C1p", lambda a: a[1].shape[0]),
+            (lookup, "two_packed"): (lambda a: "C1t",
+                                     lambda a: a[3].shape[0]),
+            (dist, "dp_step"): (lambda a: "B4",
+                                lambda a: a[7].shape[0] + a[9].shape[0]),
+            (gp, "gather_sum"): (lambda a: "P1", lambda a: a[1].shape[0]),
+            (gp, "gather_rows"): (lambda a: "P2", lambda a: a[1].shape[0]),
         }
         self.calls = {}          # kernel -> (n, args)
         self.shard_calls = {}    # (kernel, view offset) -> (n, args)
+        self.dp_calls = []       # every B4 call's args, in shard order
         self.items = {}          # kernel -> items
         self.originals = {site: getattr(*site) for site in self.sites}
         self.view_type = OffsetView
@@ -245,6 +300,8 @@ class Capture:
                 self.items[k] = self.items.get(k, 0) + n
                 if n > self.calls.get(k, (-1, None))[0]:
                     self.calls[k] = (n, args)
+                if k == "B4":
+                    self.dp_calls.append(args)
                 if isinstance(args[0], self.view_type):
                     key = (k, int(args[0].off))
                     if n > self.shard_calls.get(key, (-1, None))[0]:
@@ -263,7 +320,7 @@ _CORPORA = {}
 
 def run_e2e(size: str, device: str, capture: Capture, golden: dict,
             expect: tuple, lcp_passes: bool = False, forbid: tuple = (),
-            sa_shards: int = 0):
+            sa_shards: int = 0, scan_cols: bool = False):
     """One end-to-end run -> (its launch counts, its PipelineResult, its
     own peak device bytes: the peak less what was allocated before it, such
     as the earlier runs' tensors the capture holds)."""
@@ -282,20 +339,13 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     held = torch.cuda.memory_allocated() if cuda else 0
     t0 = time.perf_counter()
     res = run_pipeline(*data, DEFAULT_CONFIG, device=device,
-                       lcp_passes=lcp_passes, sa_shards=sa_shards)
+                       lcp_passes=lcp_passes, sa_shards=sa_shards,
+                       scan_cols=scan_cols)
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     run_peak = res.timing.peak_memory() - held
-    launches = {k: kb.LAUNCHES[k] for k in KERNELS}
-    missing = [k for k in expect if launches[k] == 0]
-    if missing:
-        fail(f"{size}: kernels {missing} never launched on the main path "
-             f"(launches {launches})")
-    stray = [k for k in forbid if launches[k] != 0]
-    if stray:
-        fail(f"{size}: kernels {stray} launched on a path without them "
-             f"(launches {launches})")
+    launches = check_launches(size, expect, forbid)
     lines = res.per_query_lines
     ok_shape = len(lines) == len(data[4]) and all(
         ln.startswith("[X] ||| ") for q in lines for ln in q)
@@ -307,6 +357,7 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     print(json.dumps({
         "phase": "e2e", "size": size, "device": device,
         "lcp_passes": lcp_passes, "sa_shards": sa_shards,
+        "scan_cols": scan_cols,
         "corpus_gen_s": gen_s, "wall_s": wall,
         "phases_s": res.timing.as_dict(),
         "peak_mem_bytes": res.timing.peak_memory(),
@@ -324,6 +375,22 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
         fail(f"{size}: grammar hash {ghash[:16]} != golden "
              f"{want['sha256'][:16]}")
     return launches, res, run_peak
+
+
+def check_launches(what: str, expect, forbid) -> dict:
+    """The launch counts since the last reset; fails unless every kernel in
+    ``expect`` launched and none in ``forbid`` did."""
+    from cgx_tpu_torch.kernels import build as kb
+    launches = {k: kb.LAUNCHES[k] for k in KERNELS}
+    missing = [k for k in expect if launches[k] == 0]
+    if missing:
+        fail(f"{what}: kernels {missing} never launched on the main path "
+             f"(launches {launches})")
+    stray = [k for k in forbid if launches[k] != 0]
+    if stray:
+        fail(f"{what}: kernels {stray} launched on a path without them "
+             f"(launches {launches})")
+    return launches
 
 
 def check_lcp_passes(res):
@@ -350,6 +417,145 @@ def check_lcp_passes(res):
         flush=True)
     if off:
         fail(f"LCP passes differ from the refinement in {off}")
+
+
+def check_query_dp(res, capture: Capture) -> dict:
+    """Phase 4: the query-DP step over four shards on the card, on a run's
+    index, queries and blocks -> its launch counts."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.config import DEFAULT_CONFIG as cfg
+    from cgx_tpu_torch.extract import device as xdev
+    from cgx_tpu_torch.kernels import build as kb
+    from cgx_tpu_torch.parallel import dist
+    from cgx_tpu_torch.search import passes
+    index, queries = res.index, res.queries
+    want_lm = passes.refine_passes(index, queries)[0].longestmatch
+    _, sa_pos, lms = dist.contig_occurrences(res.blocks, cfg)
+    devices = dist.make_mesh(devices=["cuda:0"] * 4)
+    kb.LAUNCHES.clear()
+    capture.items.clear()
+    capture.dp_calls.clear()
+    t0 = time.perf_counter()
+    lm, n_match, n_rules = dist.run_sharded_search(devices, index, queries,
+                                                   res.blocks, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = check_launches("query_dp", ("B4",),
+                              [k for k in KERNELS if k != "B4"])
+    if launches["B4"] != len(devices):
+        fail(f"query_dp: B4 launched {launches['B4']} times, not once per "
+             f"shard ({len(devices)})")
+    # every shard against its plain version; the real items' extraction
+    # against A6 on the same SA positions; the counts against the plain sum
+    step = capture.originals[(dist, "dp_step")]    # not captured again
+    err, ex, plain_rules = 0.0, [], 0
+    for s, args in enumerate(capture.dp_calls):
+        err = max(err, _bit_equal(f"B4@shard{s}", step, dist.dp_step_plain,
+                                  args, "cuda"))
+        ex.append(step(*args)[1])
+        plain_rules += int(dist.dp_step_plain(*args)[2][1])
+    m = len(sa_pos)
+    ex = torch.cat(ex, dim=1)[:, :m]
+    a6 = xdev.contig(index.refstr_padded, index.sa, index.rlp, index.lr_tar,
+                     *(torch.from_numpy(x).cuda() for x in (sa_pos, lms)),
+                     cfg.max_rule_span, cfg.max_rule_symbols)
+    torch.cuda.synchronize()
+    checks = {
+        "lm_equals_refinement": bool(np.array_equal(lm, want_lm)),
+        "n_match_equals_matches": n_match == int((lm > 0).sum()),
+        "extraction_equals_A6": bool(torch.equal(ex, a6)),
+        "n_rules_equals_plain": n_rules == dist.wrap32(plain_rules),
+    }
+    print(json.dumps({
+        "phase": "query_dp", "shards": len(devices),
+        "devices": [str(d) for d in devices], "pass1_tokens": len(lm),
+        "items": m, "n_match": n_match, "n_rules": n_rules, "wall_s": wall,
+        "launches": {k: v for k, v in launches.items() if v},
+        "max_abs_err": err, **checks}), flush=True)
+    off = [k for k, v in checks.items() if not v]
+    if off:
+        fail(f"query_dp: {off}")
+    return launches
+
+
+def check_pcs_cols(capture: Capture) -> dict:
+    """Phase 5: C1p on A3's largest launch, its items materialised into
+    columns on the host -> its launch counts."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.engine import materialize_items
+    from cgx_tpu_torch.kernels import build as kb
+    from cgx_tpu_torch.search import lookup
+    refstr, pcrows, pattab, offs, n, mrs = capture.calls["A3"][1]
+    tab, rows = pattab.cpu().numpy(), pcrows.cpu().numpy()
+    item_pat, tx = materialize_items(np.diff(offs.cpu().numpy()))
+    occ = rows[np.clip(tab[item_pat, 0] + tx, 0, len(rows) - 1)]
+    cols = [occ[:, 0], occ[:, 1]] + [tab[item_pat, c] for c in range(1, 7)]
+    cols = [torch.from_numpy(np.ascontiguousarray(c, np.int32)).cuda()
+            for c in cols]
+    kb.LAUNCHES.clear()
+    capture.items.clear()
+    got = lookup.pcs_cols(refstr, *cols, mrs)
+    torch.cuda.synchronize()
+    launches = check_launches("columns", ("C1p",),
+                              [k for k in KERNELS if k != "C1p"])
+    want = lookup.pcs(refstr, pcrows, pattab, offs, n, mrs)
+
+    def bits(words):
+        return np.unpackbits(words.cpu().numpy().view(np.uint8),
+                             bitorder="little")[:n]
+    same = bool(np.array_equal(bits(got), bits(want)))
+    print(json.dumps({"phase": "columns", "kernel": "C1p", "items": n,
+                      "ok_bits": int(bits(got).sum()),
+                      "equals_A3": same}), flush=True)
+    if not same:
+        fail("columns: C1p's ok bits differ from A3's on the same items")
+    return launches
+
+
+def check_probe(capture: Capture) -> dict:
+    """Phase 6: the gather probe at its defaults and on europarl's corpus
+    at the scan starts of A2b's largest launch -> its launch counts."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.engine import materialize_items
+    from cgx_tpu_torch.kernels import build as kb
+    from cgx_tpu_torch.tools import gather_probe as gp
+    refstr, _, _, sa, pattab, offs = capture.calls["A2b"][1][:6]
+    tab, sa_h = pattab.cpu().numpy(), sa.cpu().numpy()
+    item_pat, tx = materialize_items(np.diff(offs.cpu().numpy()))
+    starts = sa_h[np.clip(tab[item_pat, 0] + tx, 0, len(sa_h) - 1)]
+    starts = np.minimum(starts[:len(starts) // gp.BLK * gp.BLK],
+                        refstr.shape[0] - gp.W).astype(np.int32)
+    inputs = {"defaults": [torch.from_numpy(a).cuda() for a in
+                           gp.probe_data(131072, 1_000_000)],
+              "europarl_A2b": [refstr, torch.from_numpy(starts).cuda()]}
+    kb.LAUNCHES.clear()
+    capture.items.clear()
+    results = {name: gp.run_probe(ref, pos, reps=10)
+               for name, (ref, pos) in inputs.items()}
+    torch.cuda.synchronize()
+    launches = check_launches("probe", ("P1", "P2"),
+                              [k for k in KERNELS if k not in ("P1", "P2")])
+    for name, (ref, pos) in inputs.items():
+        res = results[name]
+        want = res["plain_gather"][2]
+        bad = [k for k in ("library_unfold", "P1", "P2") if res[k][2] != want]
+        for k, kernel, plain in (("P1", gp.gather_sum, gp.gather_sum_plain),
+                                 ("P2", gp.gather_rows,
+                                  gp.gather_rows_plain)):
+            _bit_equal(f"{k}@{name}", kernel, plain, (ref, pos), "cuda")
+        print(json.dumps({
+            "phase": "probe", "inputs": name, "items": int(pos.shape[0]),
+            "corpus_words": int(ref.shape[0]),
+            **{k: {"ms": ms, "words_per_s": rate, "checksum": ck}
+               for k, (ms, rate, ck) in res.items()},
+            "checksums_equal": not bad}), flush=True)
+        if bad:
+            fail(f"probe {name}: checksums of {bad} differ from the plain "
+                 f"gather's")
+    return launches
 
 
 def _time_ms(fn, device) -> float:
@@ -401,6 +607,14 @@ def work(k: str, n: int, args) -> tuple:
             io = 5 + 2
         gathered = float((5 * steps + 2 * 2 * steps).sum())
         return 4 * (n * io + gathered), 10 * gathered
+    if k == "B4":    # B1 pass 1 on the lanes, A6 on the items
+        lanes, items = args[7].shape[0], args[9].shape[0]
+        steps = _log2(args[7].new_full((lanes,), args[11]))
+        gathered = float((5 * steps + 2 * 2 * steps).sum())
+        w_in, w_gather, w_out, ops = WORK["A6"]
+        return (4 * (lanes * 8 + gathered
+                     + items * (w_in + w_gather + w_out) + 2),
+                10 * gathered + items * ops)
     w_in, w_gather, w_out, ops = WORK[k]
     tables = sum(args[i].numel() for i in TABLE_ARGS.get(k, ()))
     nbytes = 4 * (n * (w_in + w_gather + w_out) + tables)
@@ -443,9 +657,11 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
     import torch
     from cgx_tpu_torch.extract import device as xdev
     from cgx_tpu_torch.features import maxlex as ml
+    from cgx_tpu_torch.parallel import dist
     from cgx_tpu_torch.parallel import sharded as shx
     from cgx_tpu_torch.search import lookup, passes
     from cgx_tpu_torch.search import precompute as pcx
+    from cgx_tpu_torch.tools import gather_probe as gp
     pairs = {"A1": (passes.refine_chunk, passes.refine_chunk_plain),
              "A4": (pcx.gap_check, pcx.gap_check_plain),
              "A2f": (lookup.scan, lookup.scan_plain),
@@ -470,7 +686,18 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
              "B3c": (xdev.contig_pos, xdev.contig_pos_plain),
              "A4v": (pcx.gap_check, pcx.gap_check_plain),
              "A7v": (xdev.onegap, xdev.onegap_plain),
-             "A8v": (xdev.twogap, xdev.twogap_plain)}
+             "A8v": (xdev.twogap, xdev.twogap_plain),
+             "C1f": (lookup.scan_cols, lookup.scan_cols_plain),
+             "C1b": (lookup.scan_cols, lookup.scan_cols_plain),
+             "C1p": (lookup.pcs_cols, lookup.pcs_cols_plain),
+             "C1t": (lookup.two_packed, lookup.two_packed_plain),
+             "B4": (dist.dp_step, dist.dp_step_plain),
+             "P1": (gp.gather_sum, gp.gather_sum_plain),
+             "P2": (gp.gather_rows, gp.gather_rows_plain)}
+    # one PyTorch call computing a kernel's function (P1: with its sum, a
+    # second call), timed beside it only
+    library = {"P1": lambda ref, pos: gp.library_rows(ref, pos).sum(
+        dtype=torch.int32), "P2": gp.library_rows}
     rows = []
     for k, (kernel, plain) in pairs.items():
         if k not in capture.calls:
@@ -493,6 +720,8 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
                  f"{sorted(offs)} of {shard_offsets})")
         ms = _time_ms(lambda: kernel(*args), device)
         plain_ms = _time_ms(lambda: plain(*args), device)
+        library_ms = (_time_ms(lambda: library[k](*args), device)
+                      if k in library else None)
         src, replaces = KERNELS[k]
         nbytes, ops = work(k, n, args)
         bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
@@ -502,7 +731,7 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "library_ms": None}
+               "library_ms": library_ms}
         extra = {}
         if k in VIEW_ROWS:     # the timed launch's view offset
             extra["view_offset"] = args[0].off
@@ -564,26 +793,35 @@ def main():
     totals = {k: 0 for k in KERNELS}
     peaks = {}
     shard_offsets = []
+
+    def count(launches):
+        for k, v in launches.items():
+            totals[k] += v
     with Capture() as cap:
-        for size, lcp, shards, expect, forbid in RUNS:
-            launches, res, peaks[(size, shards)] = run_e2e(
-                size, "cuda", cap, golden, expect, lcp, forbid, shards)
-            for k, v in launches.items():
-                totals[k] += v
-            if size == "europarl" and not shards:
+        for size, lcp, shards, cols, expect, forbid in RUNS:
+            launches, res, peaks[(size, shards, cols)] = run_e2e(
+                size, "cuda", cap, golden, expect, lcp, forbid, shards, cols)
+            count(launches)
+            if size == "europarl" and not shards and not cols:
                 check_lcp_passes(res)
+                # 4. query-DP on the same index, queries and blocks
+                count(check_query_dp(res, cap))
             if shards:
                 shard_offsets = [int(o) for o in res.index.src_off]
                 print(json.dumps({
                     "phase": "sharded_memory", "size": size,
                     "sa_shards": shards,
                     "bytes_per_shard": res.index.memory_per_device(),
-                    "run_peak_mem_bytes": peaks[(size, shards)],
-                    "replicated_run_peak_mem_bytes": peaks[(size, 0)]}),
+                    "run_peak_mem_bytes": peaks[(size, shards, cols)],
+                    "replicated_run_peak_mem_bytes":
+                        peaks[(size, 0, False)]}),
                     flush=True)
             del res
+        # 5. C1p on A3's largest launch, as columns; 6. the gather probe
+        count(check_pcs_cols(cap))
+        count(check_probe(cap))
 
-    # 4. kernels against their plain versions at the main path's shapes
+    # 7. kernels against their plain versions at the main path's shapes
     rows = compare_kernels(cap, "cuda", totals, shard_offsets)
     launch_floor(cap, "cuda")
 

@@ -160,7 +160,9 @@ def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "import cgx_tpu_torch.pipeline, cgx_tpu_torch.cli, "
             "cgx_tpu_torch.search.precompute, cgx_tpu_torch.search.lookup, "
-            "cgx_tpu_torch.parallel.sharded, cgx_tpu_torch.engine; "
+            "cgx_tpu_torch.parallel.sharded, cgx_tpu_torch.engine, "
+            "cgx_tpu_torch.parallel.dist, "
+            "cgx_tpu_torch.tools.gather_probe; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'cgx_tpu') "
             "and sys.modules[m] is not None); "
