@@ -1,13 +1,19 @@
-// lookup1's and lookup2's device kernels, one thread per work item:
+// lookup1's and lookup2's device kernels: A2 a warp per 32 items, the others
+// one thread per work item.
 //
 // A2 (cgx_scan): the forward/backward aXb occurrence scan.  Replaces
 //   cgx_tpu/search/lookup.py:_scan_batch_exp (lookup.py:337-353) with
 //   _cumsum_expand (:298), _fwd_item (:110), _bwd_item (:161) and the fused
 //   _gap_check_grow (gapcheck.cuh).  Item j belongs to pattern p, the last p
 //   with offs[p] <= j (a binary search over the count prefix; patterns with
-//   no items are skipped), and reads its start from the device SA.  The 16
-//   gap moves are scanned in order, so the JAX prefix-AND of "survive"
-//   becomes a running flag.
+//   no items are skipped), and reads its start from the device SA.  A warp
+//   takes 32 consecutive items in three steps: lane i finds item i's
+//   pattern, row, SA word and gap-0 token; then a half-warp per item, lane m
+//   reading window word m, gives the candidate mask of moves m (the JAX
+//   prefix-AND of "survive" is a ballot); then only the items with a
+//   candidate run the cooperative gap check (gap_check_half), two at a
+//   time.  This is exact: the result is cand & gc, and gc does not depend
+//   on the scan (the JAX package's do_gap=False split, done in the kernel).
 // A3 (cgx_pcs): the precomp-seed verification.  Replaces
 //   lookup.py:_pcs_batch_exp (:315) with _pcs_item (:203): the span budget,
 //   up to 2 prefix and 2 suffix tokens per precomputed occurrence.  The ok
@@ -44,15 +50,22 @@
 // identity views, where both are the old clamp.
 //
 // Bound on the H100: A2 reads per item one offs search (log2 D words), one
-// pattab row, one SA word, an 18-word corpus window and the gap check's ~33
-// words, all scattered (occurrences of a pattern are SA-ordered, not corpus-
-// ordered); A3 reads ~8 words; A5 one offs search, one pattab row, one
-// occurrence row, a 17-word corpus window and the gap check; B3 and C1 read
-// their item columns instead of the table and the SA (C1 reads 6, 8 or 2
-// coalesced column words per item).  All are latency-bound
-// gathers with a few hundred integer ops per item at most; the design keeps
-// every per-item array in registers and launches once over the whole item
-// axis.
+// pattab row, one SA word, the gap-0 token and an 18-word corpus window, and
+// the gap check's ~33 words only for the items with a candidate (under 2% at
+// europarl; chip_smoke.py prints the share), all scattered (occurrences of a
+// pattern are SA-ordered, not corpus-ordered); A3 reads ~8 words; A5 one
+// offs search, one pattab row, one occurrence row, a 17-word corpus window
+// and the gap check; B3 and C1 read their item columns instead of the table
+// and the SA (C1 reads 6, 8 or 2 coalesced column words per item).  All are
+// latency-bound gathers with a few hundred integer ops per item at most.
+// In the one-thread forms every window is 16-18 loads per thread, each
+// touching 32 unrelated lines per warp instruction; A2's half-warp windows
+// make each a 64-byte request, and its step 3 skips the gap check for the
+// items that cannot emit.  The scans' bound counts only the window words
+// that decide a candidate (up to the first dead move and the span limit,
+// lookup.scan_reads), not the 18 read; PERF.md gives A2's time
+// against it, the host's launch included.  A5, B3 and C1 keep the
+// per-thread bodies (scan_item, two_item, gap_check_grow).
 #include "gapcheck.cuh"
 
 namespace {
@@ -170,19 +183,125 @@ __device__ __forceinline__ int qt(const int* __restrict__ qtok, int q_len,
 
 // ---- replicated index, items expanded from the per-pattern table
 
-__global__ void scan_kernel(View ref, View rlp, View lr_tar,
-                            const int* __restrict__ sa, int sa_len,
-                            const int* __restrict__ pattab,
-                            const int* __restrict__ offs, int D, int n,
-                            int mrs, int mgs, bool fwd,
-                            int* __restrict__ out) {
+constexpr int kScanThreads = 256;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// A2: a warp per 32 consecutive items.  Every lane stays to the end (tail
+// lanes past n are masked, never returned), since the shuffles and ballots
+// name the whole warp.
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel(View ref, View rlp, View lr_tar, const int* __restrict__ sa,
+            int sa_len, const int* __restrict__ pattab,
+            const int* __restrict__ offs, int D, int n, int mrs, int mgs,
+            bool fwd, int* __restrict__ out) {
+    const int lane = lane_id();
+    const int m = lane & 15;         // the move (and window word) of a lane
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n) return;
-    const int p = find_pattern(offs, D, j);
-    const int* f = pattab + 8 * p;
-    const int gostart = sa[clip(f[0] + j - offs[p], 0, sa_len - 1)];
-    out[j] = (int)scan_item(ref, rlp, lr_tar, gostart, f[1], f[2], f[3], f[4],
-                            f[5], mrs, mgs, fwd);
+    const bool valid = j < n;
+
+    // 1. item scalars, lane i for the warp's item i: the pattern, its row,
+    // the SA word and the gap-0 token; a tail lane's item has gap0_bad and
+    // so no candidate
+    int gostart = 0, sl = 0, el = 0, w0 = 0, w1 = 0, w2 = 0;
+    bool gap0_bad = true;
+    if (valid) {
+        const int p = find_pattern(offs, D, j);
+        const int* f = pattab + 8 * p;
+        gostart = sa[clip(f[0] + j - offs[p], 0, sa_len - 1)];
+        sl = f[1];
+        el = f[2];
+        w0 = f[3];
+        w1 = f[4];
+        w2 = f[5];
+        // refstr[gostart + sl] forward, refstr[jnp.maximum(gostart - 1, 0)]
+        // backward
+        gap0_bad = ref.at(fwd ? gostart + sl : max(gostart - 1, 0)) < 2;
+    }
+
+    // 2. the scan's candidate masks, a half-warp per item, items 2it and
+    // 2it + 1 in step it; lane i keeps item i's mask
+    unsigned cand = 0;
+#pragma unroll
+    for (int it = 0; it < 16; ++it) {
+        const int src = 2 * it + (lane >> 4);
+        const int g = __shfl_sync(kFull, gostart, src);
+        const int s = __shfl_sync(kFull, sl, src);
+        const int e = __shfl_sync(kFull, el, src);
+        const int q0 = __shfl_sync(kFull, w0, src);
+        const int q1 = __shfl_sync(kFull, w1, src);
+        const int q2 = __shfl_sync(kFull, w2, src);
+        const bool g0 = __shfl_sync(kFull, (int)gap0_bad, src) != 0;
+        // window word m on every lane, words 16 and 17 on lanes 0 and 1:
+        // refstr[jnp.minimum(wpos, glen - 1)] forward; backward the words at
+        // positions < 0 read as -1
+        int lo, hi = 0;
+        if (fwd) {
+            const int p0 = g + s + mgs;
+            lo = ref.at(min(p0 + m, ref.glen - 1));
+            if (m < 2) hi = ref.at(min(p0 + 16 + m, ref.glen - 1));
+        } else {
+            const int p0 = g - 1 - mgs;
+            lo = p0 - m < 0 ? -1 : ref.at(p0 - m);
+            if (m < 2) hi = p0 - 16 - m < 0 ? -1 : ref.at(p0 - 16 - m);
+        }
+        // the compared side's length: b's (el) forward, a's (sl) backward
+        const int side_len = fwd ? e : s;
+        const int other_len = fwd ? s : e;
+        const bool bad = lo < 2;
+        const bool is_w = lo == q0;
+        bool verify_ok = true, verify_kill = false;
+#pragma unroll
+        for (int k = 1; k <= 2; ++k) {
+            // window word m + k (<= 17) from the lane that read it
+            const int a = __shfl_sync(kFull, lo, (m + k) & 15, 16);
+            const int b = __shfl_sync(kFull, hi, (m + k) & 15, 16);
+            const int bo = m + k < 16 ? a : b;
+            const int want = k == 1 ? q1 : q2;
+            const bool need = side_len > k;
+            const bool in_span = other_len + mgs + m + 1 + k <= mrs;
+            const bool match = bo == want;
+            const bool cmp_here = is_w && need && verify_ok && in_span;
+            if (need) verify_ok = verify_ok && in_span && match;
+            verify_kill = verify_kill || (cmp_here && !match && bo < 2);
+        }
+        // reach: no earlier move of this item stopped the scan
+        const unsigned stops = __ballot_sync(kFull, bad || verify_kill)
+                               >> (lane & 16);
+        const bool reach = (stops & ((1u << m) - 1)) == 0;
+        const bool span_ok = s + mgs + m + e <= mrs;
+        const unsigned c = __ballot_sync(
+            kFull, reach && span_ok && !g0 && !bad && is_w && verify_ok);
+        if (lane == 2 * it) cand = c & 0xFFFFu;
+        if (lane == 2 * it + 1) cand = c >> 16;
+    }
+
+    // 3. the gap check, only for items with a candidate (mask = cand & gc,
+    // and gc does not depend on the scan): two such items at a time, one
+    // per half-warp
+    unsigned mask = 0;
+    unsigned pending = __ballot_sync(kFull, cand != 0);
+    while (pending) {
+        const int a = __ffs(pending) - 1;
+        pending &= pending - 1;
+        const int b = pending ? __ffs(pending) - 1 : -1;
+        if (pending) pending &= pending - 1;
+        const int item = lane < 16 ? a : b;
+        const int src = item < 0 ? 0 : item;
+        const int g = __shfl_sync(kFull, gostart, src);
+        const int s = __shfl_sync(kFull, sl, src);
+        unsigned gc = 0;
+        if (item >= 0)
+            gc = gap_check_half(rlp, lr_tar, fwd ? g + s : g - 1, mgs - 1, mrs,
+                                fwd);
+        __syncwarp();
+        const unsigned gc_a = __shfl_sync(kFull, gc, 0);
+        const unsigned gc_b = __shfl_sync(kFull, gc, 16);
+        if (lane == a) mask = cand & gc_a;
+        if (lane == b) mask = cand & gc_b;
+    }
+
+    // 4. lane i stores item i's mask: one coalesced store per warp
+    if (valid) out[j] = (int)mask;
 }
 
 __global__ void pcs_kernel(View ref, const int* __restrict__ pcrows,
@@ -331,8 +450,8 @@ CGX_EXPORT int cgx_scan(const int* refstr, int ref_len, const int* rlp,
                         const int* offs, int D, int n, int mrs, int mgs,
                         int fwd, int* out, void* stream) {
     if (mrs < 1 || mrs > MMOV || D < 1) return (int)cudaErrorInvalidValue;
-    const int threads = 128;
-    scan_kernel<<<cgx_grid(n, threads), threads, 0, (cudaStream_t)stream>>>(
+    scan_kernel<<<cgx_grid(n, kScanThreads), kScanThreads, 0,
+                  (cudaStream_t)stream>>>(
         identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
         identity_view(lr_tar, lr_len), sa, sa_len, pattab, offs, D, n, mrs,
         mgs, fwd != 0, out);

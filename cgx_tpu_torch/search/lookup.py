@@ -17,8 +17,11 @@ package does:
   precomputed occurrence of the pair;
 * scan: kernel A2 (``scan``) scans the 16 gap moves from every occurrence of
   the rarer phrase, forward from a or backward from b, with the target-side
-  gap check fused in (``do_gap=True``; the JAX package's two-phase variant
-  gives the same rows by construction and is not ported).
+  gap check fused in.  The JAX package's two-phase variant (``do_gap=False``,
+  then a second dispatch for the candidates) lives inside A2: it runs the
+  gap check only for items whose candidate mask is non-zero, which gives
+  the same rows by construction.  ``scan_plain(..., gap=False)`` returns the
+  candidate masks alone.
 
 lookup2: kernel A5 (``two``) scans right from every occurrence of every
 distinct one-gap pattern (precomputed cells expanded) for the second gap,
@@ -147,48 +150,84 @@ def _expand(pattab, offs, n: int):
     return pattab[p], j - offs[p]
 
 
-def _scan_body(refstr, rlp, lr_tar, gostart, sl, el, want, mrs: int,
-               mgs: int, fwd: bool):
-    """``_fwd_item`` / ``_bwd_item`` over N items -> bool [N, MMOV] of the
-    moves whose scan and gap check pass; ``want`` holds the three compared
-    query tokens per item ([N, 3]).  The corpus reads keep the JAX bounds:
-    ``ref[i]`` where the JAX body leaves ``i`` unbounded, ``take`` or an
-    explicit clamp where it bounds it (utils/views.py)."""
+def _scan_window(refstr, gostart, sl, mgs: int, fwd: bool):
+    """-> (gap0_bad bool [N], win [N, MMOV + 2]): the gap-0 token's test and
+    the corpus words that the moves and their verify shifts compare.  The
+    reads keep the JAX bounds: ``ref[i]`` where the JAX body leaves ``i``
+    unbounded, ``take`` or an explicit clamp where it bounds it
+    (utils/views.py)."""
     ref = as_view(refstr)
-    dev = gostart.device
-    ks = torch.arange(MMOV + 2, dtype=torch.int32, device=dev)
+    ks = torch.arange(MMOV + 2, dtype=torch.int32, device=gostart.device)
     if fwd:
         gap0_bad = ref[gostart + sl] < 2
         win = ref[((gostart + sl + mgs)[:, None] + ks).clamp(
             max=ref.shape[0] - 1)]
-        side, other = el, sl            # b is compared, a bounds the span
-        gc = gap_check_grow(rlp, lr_tar, gostart + sl, mgs - 1, mrs, True)
     else:
         gap0_bad = ref[(gostart - 1).clamp(min=0)] < 2
         pos = (gostart - 1 - mgs)[:, None] - ks
         win = torch.where(pos < 0, -1, ref[pos.clamp(min=0)])
-        side, other = sl, el
-        gc = gap_check_grow(rlp, lr_tar, gostart - 1, mgs - 1, mrs, False)
-    moves = ks[:MMOV]
+    return gap0_bad, win
+
+
+def _scan_cand(win, gap0_bad, sl, el, want, mrs: int, mgs: int, fwd: bool):
+    """The scan of ``_fwd_item`` / ``_bwd_item`` on the window -> (cand bool
+    [N, MMOV], read bool [N, MMOV + 2]): the candidate moves, and the window
+    words that decide them.  Word m decides while move m is reached inside
+    the span (a scan stops at its first dead move), word m + k where a
+    live move m compares it."""
+    side, other = (el, sl) if fwd else (sl, el)   # the compared side, the other
+    moves = torch.arange(MMOV, dtype=torch.int32, device=win.device)
     temp = win[:, :MMOV]
     bad = temp < 2
     is_w = temp == want[:, 0:1]
     verify_ok = torch.ones_like(bad)
     verify_kill = torch.zeros_like(bad)
+    compared = []
     for k in (1, 2):
         need = (side > k)[:, None]
         in_span = other[:, None] + mgs + moves + 1 + k <= mrs
         bo = win[:, k:MMOV + k]
         match = bo == want[:, k:k + 1]
         cmp_here = is_w & need & verify_ok & in_span
+        compared.append(cmp_here)
         verify_ok = verify_ok & (~need | (in_span & match))
         verify_kill = verify_kill | (cmp_here & ~match & (bo < 2))
     # reach[m]: every earlier move survived (exclusive prefix AND)
     alive = torch.cumprod((~bad & ~verify_kill).to(torch.int32), dim=1) == 1
     reach = torch.cat([torch.ones_like(alive[:, :1]), alive[:, :-1]], dim=1)
     span_ok = (sl + mgs + el)[:, None] + moves <= mrs
-    cand = reach & span_ok & ~gap0_bad[:, None] & ~bad & is_w & verify_ok
-    return cand & gc
+    looked = reach & span_ok & ~gap0_bad[:, None]
+    read = torch.nn.functional.pad(looked, (0, 2))
+    for k, cmp_here in zip((1, 2), compared):
+        read[:, k:MMOV + k] |= looked & ~bad & cmp_here
+    return looked & ~bad & is_w & verify_ok, read
+
+
+def _scan_body(refstr, rlp, lr_tar, gostart, sl, el, want, mrs: int,
+               mgs: int, fwd: bool, gap: bool = True):
+    """``_fwd_item`` / ``_bwd_item`` over N items -> bool [N, MMOV] of the
+    moves whose scan and gap check pass (``gap=False``: whose scan passes,
+    the candidates, as ``do_gap=False``); ``want`` holds the three compared
+    query tokens per item ([N, 3])."""
+    gap0_bad, win = _scan_window(refstr, gostart, sl, mgs, fwd)
+    cand = _scan_cand(win, gap0_bad, sl, el, want, mrs, mgs, fwd)[0]
+    if not gap:
+        return cand
+    fixed = gostart + sl if fwd else gostart - 1
+    return cand & gap_check_grow(rlp, lr_tar, fixed, mgs - 1, mrs, fwd)
+
+
+def scan_reads(refstr, gostart, sl, el, want, mrs: int, mgs: int,
+               fwd: bool) -> tuple:
+    """What lookup1's scan needs of the corpus for N items (occurrence
+    ``gostart``, lengths ``sl``, ``el``, compared tokens ``want`` [N, 3]),
+    besides one gap-0 token each -> (items with a candidate, window words
+    that decide the candidates).  Only an item with a candidate needs the
+    gap check.  The least work of kernels A2, B3f/B3b and C1f/C1b, for
+    their bounds."""
+    gap0_bad, win = _scan_window(refstr, gostart, sl, mgs, fwd)
+    cand, read = _scan_cand(win, gap0_bad, sl, el, want, mrs, mgs, fwd)
+    return int(cand.any(dim=1).sum()), int(read.sum())
 
 
 def _pcs_body(refstr, pstart, plen, sl, el, pa1, pa2, pb2, pb3, mrs: int):
@@ -223,11 +262,13 @@ def _two_body(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int):
 
 
 def scan_plain(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int,
-               mgs: int, fwd: bool):
-    """Plain PyTorch version of kernel A2 -> int32 [n] move masks."""
+               mgs: int, fwd: bool, gap: bool = True):
+    """Plain PyTorch version of kernel A2 -> int32 [n] move masks
+    (``gap=False``: the candidate masks, before the gap check)."""
     f, tx = _expand(pattab, offs, n)
     return pack_moves(_scan_body(refstr, rlp, lr_tar, take(sa, f[:, 0] + tx),
-                                 f[:, 1], f[:, 2], f[:, 3:6], mrs, mgs, fwd))
+                                 f[:, 1], f[:, 2], f[:, 3:6], mrs, mgs, fwd,
+                                 gap))
 
 
 def two_plain(refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, n: int,

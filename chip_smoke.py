@@ -7,15 +7,16 @@ Phases, one line each on stdout:
 
 1. card   -- the card's name and power limit (nvidia-smi) and torch's name;
 2. build  -- nvcc builds every kernel of the main path from csrc/, one
-   process per source, all at once;
+   process per source, all at once, and each kernel's registers, stack and
+   spills are printed from ptxas's report;
 3. e2e    -- ``cgx_tpu_torch.pipeline.run_pipeline(..., device="cuda")`` on
    the ``medium`` corpus (20k sentences, 32 queries; dense MaxLex tables, so
    kernel A9) and the ``europarl`` corpus (1M sentences, 20k vocabulary, 64
    queries; row-range tables, so A10), both made from seeds by the generators
    in tools/, then europarl again with ``sa_shards=4`` (the sharded index,
-   all four shards on the card; its corpus text is reused), then medium
-   again with ``sa_shards=4``, europarl again with ``scan_cols=True`` (the
-   column-upload lookups), then medium again with ``lcp_passes=True``.
+   all four shards on the card; its corpus text is reused), europarl again
+   with ``scan_cols=True`` (the column-upload lookups), then medium again
+   with ``lcp_passes=True`` (``RUNS``).
    Each run must launch its path's kernels and no other (launch counts
    reset just before it, see ``RUNS``): A1 or B1's two passes, A4, A2
    forward and backward (C1f and C1b with ``scan_cols``), A3, A5 (C1t with
@@ -53,8 +54,12 @@ Phases, one line each on stdout:
    that computes the same function where there is one (P1, P2), and the
    least time the card could take for the same work (``bound_ms``: the
    larger of the bytes over the memory rate and the integer operations over
-   the peak rate, counted per item from the kernel's loops, see ``WORK``),
-   and the time of one launch on one item.
+   the peak rate, counted per item from the kernel's loops, see ``WORK``;
+   lookup1's scans count the corpus words that decide each item's
+   candidates and the gap check only for the items whose candidate mask is
+   non-zero, and print both counts), and the time of one launch on
+   one item.  Then A2f, A2b, A4 and A4v against their plain versions on
+   synthetic edge inputs over europarl's index arrays (``check_edges``).
 
 Then a JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -156,13 +161,16 @@ RUNS = (
 # per item, integer operations per item), each counted once from the
 # kernel's loops (the csrc notes); the per-pattern tables are counted once
 # whole.  The searches' gathers depend on the data and are counted from
-# this run's inputs in ``work``.
+# this run's inputs in ``work``, and so are lookup1's scans (``SCAN_ROWS``,
+# ``scan_reads``): their corpus window counts only the words that decide a
+# candidate (up to the first dead move and the span limit), and only an
+# item whose candidate mask is non-zero needs the gap check.
 MEM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 WORK = {
     "A4": (1, 33, 1, 1700),      # mrs + 2 RLP words, 16 lr_tar words
-    "A2f": (0, 52, 1, 2000),     # SA word, 18 corpus words, the gap check
-    "A2b": (0, 52, 1, 2000),
+    "A2f": (0, 2, 1, 300),       # SA word, gap-0 token (+ the window)
+    "A2b": (0, 2, 1, 300),
     "A3": (0, 6, 1 / 32, 40),    # one occurrence row, 4 corpus words
     "A5": (0, 52, 1, 1850),      # occurrence row, 17 corpus words, gap check
     "A6": (2, 101, 8, 3000),     # SA word, RLP and target windows
@@ -171,13 +179,13 @@ WORK = {
     "A9": (11, 48, 2, 200),      # 16 target tokens, 2 x 16 table probes
     "A10": (11, 48, 2, 200),
     "B2g": (1, 1, 1, 10),        # the owner's SA word (meta rows in L1)
-    "B3f": (4, 54, 1, 2000),     # 3 query tokens, 18 corpus words, gap check
-    "B3b": (4, 54, 1, 2000),
+    "B3f": (4, 4, 1, 300),       # 3 query tokens, gap-0 token (+ window)
+    "B3b": (4, 4, 1, 300),
     "B3p": (6, 8, 1, 40),        # 4 query tokens, 4 corpus words
     "B3t": (2, 50, 2, 1850),     # 17 corpus words, the gap check
     "B3c": (2, 100, 8, 3000),    # A6 without its SA word
-    "C1f": (6, 51, 1, 2000),     # 6 columns, 18 corpus words, gap check
-    "C1b": (6, 51, 1, 2000),
+    "C1f": (6, 1, 1, 300),       # 6 columns, gap-0 token (+ the window)
+    "C1b": (6, 1, 1, 300),
     "C1p": (8, 4, 1 / 32, 40),   # 8 columns, 4 corpus words
     "C1t": (2, 50, 1, 1850),     # 17 corpus words, the gap check
     "P1": (1, 32, 0, 32),        # the position, the 32-word window
@@ -185,6 +193,14 @@ WORK = {
 }
 for _v, _k in VIEW_ROWS.items():
     WORK[_v] = WORK[_k]
+# lookup1's scans, and the words and operations of the gap check (as A4's)
+# that each of their items with a candidate adds
+SCAN_ROWS = ("A2f", "A2b", "C1f", "C1b", "B3f", "B3b")
+GAP_WORDS, GAP_OPS = 33, 1700
+# ``check_edges``: item counts that leave partial half-warps and warps, and
+# span limits from the narrowest to the default
+EDGE_ITEMS = (1, 15, 17, 33)
+EDGE_MRS = (1, 2, 8, 15)
 # argument positions of the per-pattern table and count prefix
 TABLE_ARGS = {"A2f": (4, 5), "A2b": (4, 5), "A3": (2, 3), "A5": (5, 6)}
 
@@ -588,9 +604,32 @@ def _log2(x):
     return torch.ceil(torch.log2(x.double().clamp(min=0) + 1))
 
 
-def work(k: str, n: int, args) -> tuple:
+def scan_reads(k: str, args) -> tuple:
+    """(items with a candidate, corpus window words that decide the
+    candidates) of one launch of lookup1's scan ``k``, from its own items
+    (``lookup.scan_reads``)."""
+    import torch
+    from cgx_tpu_torch.search import lookup
+    from cgx_tpu_torch.utils.views import take
+    if k in ("A2f", "A2b"):
+        refstr, _, _, sa, pattab, offs, n, mrs, mgs, fwd = args
+        f, tx = lookup._expand(pattab, offs, n)
+        items = (take(sa, f[:, 0] + tx), f[:, 1], f[:, 2], f[:, 3:6])
+    elif k in ("C1f", "C1b"):
+        refstr, _, _, gostart, sl, el, w0, w1, w2, mrs, mgs, fwd = args
+        items = (gostart, sl, el, torch.stack([w0, w1, w2], dim=1))
+    else:
+        refstr, _, _, qtok, gostart, sl, el, qpos, mrs, mgs = args
+        fwd = k == "B3f"
+        items = (gostart, sl, el, lookup._scan_want(qtok, qpos, sl, fwd))
+    return lookup.scan_reads(refstr, *items, mrs, mgs, fwd)
+
+
+def work(k: str, n: int, args, cand: int = 0, window: int = 0) -> tuple:
     """(bytes, integer operations) that kernel ``k`` must move and do on
-    the inputs of one launch over ``n`` items (see ``WORK``)."""
+    the inputs of one launch over ``n`` items, ``cand`` of them with a
+    candidate for lookup1's gap check, reading ``window`` corpus words in
+    all for lookup1's scan (see ``WORK``)."""
     if k in ("A1", "B2r"):   # per depth a query token, two bisections
         lo, hi, depths = (args[5], args[6], args[8]) if k == "A1" \
             else (args[4], args[5], args[7])
@@ -617,8 +656,9 @@ def work(k: str, n: int, args) -> tuple:
                 10 * gathered + items * ops)
     w_in, w_gather, w_out, ops = WORK[k]
     tables = sum(args[i].numel() for i in TABLE_ARGS.get(k, ()))
-    nbytes = 4 * (n * (w_in + w_gather + w_out) + tables)
-    return nbytes, n * ops
+    nbytes = 4 * (n * (w_in + w_gather + w_out) + tables + cand * GAP_WORDS
+                  + window)
+    return nbytes, n * ops + cand * GAP_OPS
 
 
 def _bit_equal(k: str, kernel, plain, args, device: str) -> float:
@@ -723,7 +763,14 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
         library_ms = (_time_ms(lambda: library[k](*args), device)
                       if k in library else None)
         src, replaces = KERNELS[k]
-        nbytes, ops = work(k, n, args)
+        extra = {}
+        cand = window = 0
+        if k in SCAN_ROWS:
+            cand, window = scan_reads(k, args)
+            extra = {"candidate_items": cand, "candidate_share": cand / n,
+                     "window_words": window, "window_words_per_item":
+                         window / n}
+        nbytes, ops = work(k, n, args, cand, window)
         bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
         ops_ms = ops / OPS_PER_S * 1e3
         row = {"name": k, "route": "cuda", "source": src,
@@ -732,7 +779,6 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "library_ms": library_ms}
-        extra = {}
         if k in VIEW_ROWS:     # the timed launch's view offset
             extra["view_offset"] = args[0].off
         if shards:
@@ -742,6 +788,121 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
                           **extra}), flush=True)
         rows.append(row)
     return rows
+
+
+def _edge_offs(rng, n: int):
+    """The count prefix of ``n`` items over a few patterns, with empty
+    patterns first, last and between -> int32 [D + 1]."""
+    import numpy as np
+    counts, left = [0], n
+    while left:
+        c = int(rng.integers(1, left + 1))
+        counts += [c, 0] if rng.random() < 0.5 else [c]
+        left -= c
+    if counts[-1]:
+        counts.append(0)
+    return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def _edge_starts(rng, edges, n: int, lo: int, hi: int):
+    """Launches of ``n`` occurrences, each led by the edge positions
+    rotated so that every edge comes first in one of them (all of them in
+    one launch when they fit), the rest drawn from [lo, hi)."""
+    import numpy as np
+    turns = len(edges) if n < len(edges) else 1
+    return [np.concatenate([np.roll(edges, -r), rng.integers(lo, hi, n)])[:n]
+            .astype(np.int32) for r in range(turns)]
+
+
+def check_edges(capture: Capture):
+    """A2f, A2b, A4 and A4v (the half-warp kernels) against their plain
+    versions on synthetic inputs over europarl's index arrays: occurrences
+    at 0, 1, glen - 2 and glen - 1 (A4v: also at its shard's own ends, on
+    the first and the last shard), item counts 1, 15, 17 and 33 (partial
+    half-warps and warps), per-pattern tables whose first, last and some
+    inner patterns are empty, and mrs 1, 2, 8 and 15.  A2's compared query
+    tokens are read from the corpus at a random move of each pattern's first
+    item, so that moves match and the gap check runs."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.search import lookup
+    from cgx_tpu_torch.search import precompute as pcx
+    rng = np.random.default_rng(20260817)
+    refstr, rlp, lr_tar = capture.calls["A2b"][1][:3]
+    mgs = capture.calls["A2b"][1][8]
+    ref_h = refstr.cpu().numpy().astype(np.int64)
+    glen = len(ref_h)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+    stats = {k: {"launches": 0, "mask_items": 0}
+             for k in ("A2f", "A2b", "A4", "A4v")}
+
+    def compare(k, kernel, plain, args, what):
+        _bit_equal(f"{k}@edge({what})", kernel, plain, args, "cuda")
+        st = stats[k]
+        st["launches"] += 1
+        st["mask_items"] += int((plain(*args) != 0).sum())
+        if k in ("A2f", "A2b"):
+            st["candidate_items"] = st.get("candidate_items", 0) + int(
+                (plain(*args, gap=False) != 0).sum())
+    edges = np.array([0, 1, glen - 2, glen - 1])
+    for fwd in (True, False):
+        k = "A2f" if fwd else "A2b"
+        for n in EDGE_ITEMS:
+            for mrs in EDGE_MRS:
+                for r in range(len(edges)):
+                    offs = _edge_offs(rng, n)
+                    D = len(offs) - 1
+                    pos = np.concatenate([np.roll(edges, -r),
+                                          rng.integers(0, glen, 12)])
+                    lo = rng.integers(0, len(pos) + 2, D)   # some past the end
+                    lo[1] = 0          # the first items: the edges in turn
+                    sl, el = rng.integers(1, 4, D), rng.integers(1, 4, D)
+                    mv = rng.integers(0, 4, D)
+                    g = pos[np.minimum(lo, len(pos) - 1)]
+                    if fwd:
+                        p0 = g + sl + mgs + mv
+                        toks = [ref_h[np.clip(p0 + i, 0, glen - 1)]
+                                for i in range(3)]
+                    else:
+                        p0 = g - 1 - mgs - mv
+                        toks = [np.where(p0 - i < 0, -1,
+                                         ref_h[np.clip(p0 - i, 0, None)])
+                                for i in range(3)]
+                    pattab = np.stack([lo, sl, el] + toks + [0 * lo] * 2,
+                                      axis=1)
+                    args = (refstr, rlp, lr_tar, dev(pos), dev(pattab),
+                            dev(offs), n, mrs, mgs, fwd)
+                    compare(k, lookup.scan, lookup.scan_plain, args,
+                            f"n={n},mrs={mrs},r={r}")
+    # A4 on the whole arrays, A4v on the first and the last shard's views
+    shard_args = [a for (k, _), (_, a) in sorted(capture.shard_calls.items())
+                  if k == "A4v"]
+    for k, (vr, vt) in [("A4", (rlp, lr_tar))] + [
+            ("A4v", a[:2]) for a in (shard_args[0], shard_args[-1])]:
+        if k == "A4":
+            ends, lo, hi = [], 0, vr.shape[0]
+        else:
+            lo, hi = int(vr.off), int(vr.off) + vr.arr.shape[0]
+            ends = [lo, lo + 1, hi - 2, hi - 1]
+        g_len = vr.shape[0] if k == "A4" else int(vr.glen)
+        ends = np.array([0, 1, g_len - 2, g_len - 1] + ends)
+        for fwd in (True, False):
+            for n in EDGE_ITEMS:
+                for mrs in EDGE_MRS:
+                    for starts in _edge_starts(rng, ends, n, lo, hi):
+                        compare(k, pcx.gap_check, pcx.gap_check_plain,
+                                (vr, vt, dev(starts), mrs, mgs, fwd),
+                                f"n={n},mrs={mrs},fwd={fwd},first="
+                                f"{starts[0]}")
+    print(json.dumps({"phase": "edges", "items": EDGE_ITEMS,
+                      "mrs": EDGE_MRS, **stats, "bit_equal": True}),
+          flush=True)
+    idle = [k for k, st in stats.items()
+            if st["mask_items"] == 0 or st.get("candidate_items") == 0]
+    if idle:
+        fail(f"edges: the inputs of {idle} never reached the gap check")
 
 
 def launch_floor(capture: Capture, device: str):
@@ -783,7 +944,8 @@ def main():
         if f.endswith(".ptxas.txt"):
             with open(os.path.join(kb.BUILD_DIR, f), encoding="utf-8") as fh:
                 ptxas[f] = [ln.strip() for ln in fh
-                            if "registers" in ln or "spill" in ln]
+                            if "Function properties" in ln
+                            or "registers" in ln or "spill" in ln]
     print(json.dumps({"phase": "build", "seconds": build_s,
                       "ptxas": ptxas}), flush=True)
 
@@ -823,6 +985,7 @@ def main():
 
     # 7. kernels against their plain versions at the main path's shapes
     rows = compare_kernels(cap, "cuda", totals, shard_offsets)
+    check_edges(cap)
     launch_floor(cap, "cuda")
 
     leaked = sorted(m for m in sys.modules

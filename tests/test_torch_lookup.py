@@ -1,6 +1,7 @@
 """lookup1 in the port: the item expansion, kernel A2's plain version (both
-directions) against the JAX ``_scan_batch_exp`` with the fused gap check,
-kernel A3's plain version against ``_pcs_batch_exp``, and ``one_gap_lookup``
+directions) against the JAX ``_scan_batch_exp`` with the fused gap check and
+its candidate masks (``gap=False``) against ``do_gap=False``, the window
+words that decide the candidates (what the scans' bounds count), kernel A3's plain version against ``_pcs_batch_exp``, and ``one_gap_lookup``
 against the JAX package's ``one_gap_lookup_tpu``, bit for bit."""
 
 import copy
@@ -31,7 +32,7 @@ from cgx_tpu_torch.search import enumerate_fast as tef  # noqa: E402
 from cgx_tpu_torch.search import lookup as tlk  # noqa: E402
 from cgx_tpu_torch.search import passes as tpasses  # noqa: E402
 from cgx_tpu_torch.search import precompute as tpcx  # noqa: E402
-from cgx_tpu_torch.utils.views import OffsetView  # noqa: E402
+from cgx_tpu_torch.utils.views import OffsetView, take  # noqa: E402
 
 
 def _engine(w):
@@ -135,11 +136,15 @@ def _index_args(w):
             (t.refstr_padded, t.rlp, t.lr_tar, t.sa))
 
 
-@pytest.mark.parametrize("fwd", [True, False])
-def test_plain_a2_equals_scan_batch_exp(world, fwd):
+@pytest.mark.parametrize("fwd,do_gap", [(True, True), (False, True),
+                                        (True, False), (False, False)],
+                         ids=["True", "False", "True-nogap", "False-nogap"])
+def test_plain_a2_equals_scan_batch_exp(world, fwd, do_gap):
     """A random pattern layout over the SA, past its end included, with the
     compared query tokens read from the corpus next to each pattern's first
-    occurrence, so that moves match and the gap check decides."""
+    occurrence, so that moves match and the gap check decides.  Without the
+    gap check (``do_gap=False``) the plain version's candidate masks, which
+    kernel A2 gap-checks alone, equal the JAX ones."""
     w = world
     cfg = w["jcfg"]
     mrs, mgs = cfg.max_rule_span, cfg.min_gap_size
@@ -170,13 +175,58 @@ def test_plain_a2_equals_scan_batch_exp(world, fwd):
     (want,) = jlk._scan_batch_exp(
         jr, jrlp, jlr, jsa, tab, offs_pad, jnp.int32(0), jnp.int32(pat0),
         jnp.int32(D), w["jidx"].offs0, mrs, mgs, fwd, bucket_size(N),
-        do_gap=True)
-    got = tlk.scan(*targs, torch.from_numpy(pattab),
-                   torch.from_numpy(offs.astype(np.int32)), N, mrs, mgs, fwd)
+        do_gap=do_gap)
+    targs += (torch.from_numpy(pattab),
+              torch.from_numpy(offs.astype(np.int32)), N, mrs, mgs, fwd)
+    got = (tlk.scan(*targs) if do_gap
+           else tlk.scan_plain(*targs, gap=False))
     assert got.dtype == torch.int32 and got.shape == (N,)
     want = np.asarray(want)[:N]
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want != 0).any()
+    if not do_gap:      # the gap check clears some candidates
+        full = tlk.scan_plain(*targs).numpy()
+        assert ((full & ~want) == 0).all() and (full != want).any()
+        # the count the kernels' bounds use
+        f, tx = tlk._expand(targs[4], targs[5], N)
+        n_cand, n_read = tlk.scan_reads(
+            targs[0], take(targs[3], f[:, 0] + tx), f[:, 1], f[:, 2],
+            f[:, 3:6], mrs, mgs, fwd)
+        assert n_cand == int((want != 0).sum())
+        assert 0 < n_read < N * (tlk.MMOV + 2)
+
+
+@pytest.mark.parametrize("fwd", [True, False])
+def test_scan_reads_decide_candidates(fwd):
+    """The window words that ``_scan_cand`` marks as read decide the
+    candidate masks: redrawing every other word changes no mask, so the
+    kernels' bounds, which count only the read words, count all the scan
+    needs.  Tokens come from a small alphabet with sentence ends (< 2) so
+    that moves match, verify and stop; some spans are too short for any
+    move."""
+    rng = np.random.default_rng(7 if fwd else 8)
+    N, mgs = 2000, 1
+
+    def draw(shape):
+        return torch.from_numpy(rng.integers(0, 6, shape).astype(np.int32))
+    for mrs in (2, 8, 15):
+        win, want = draw((N, tlk.MMOV + 2)), draw((N, 3))
+        gap0_bad = torch.from_numpy(rng.random(N) < 0.1)
+        sl, el = draw(N) % 3 + 1, draw(N) % 3 + 1
+        cand, read = tlk._scan_cand(win, gap0_bad, sl, el, want, mrs, mgs,
+                                    fwd)
+        for _ in range(5):
+            other = torch.where(read, win, draw(win.shape))
+            again, _ = tlk._scan_cand(other, gap0_bad, sl, el, want, mrs,
+                                      mgs, fwd)
+            assert torch.equal(again, cand)
+        words = read.sum(dim=1)
+        assert (words[gap0_bad] == 0).all()
+        assert int(words.sum()) < read.numel() // 2
+        if mrs > 2:
+            assert cand.any()
+        else:           # sl + mgs + el > mrs: no move, no word
+            assert not read.any()
 
 
 def test_plain_a3_equals_pcs_batch_exp(world):
