@@ -19,6 +19,15 @@ __device__ __forceinline__ int clip(int x, int lo, int hi) {
     return x < lo ? lo : (x > hi ? hi : x);
 }
 
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+// the lanes of the caller's half-warp (blocks are whole warps, 1-D)
+__device__ __forceinline__ unsigned half_mask() {
+    return 0xFFFFu << (lane_id() & 16);
+}
+
 // A local slice of a global array, addressed by global indices: the CUDA form
 // of cgx_tpu/utils/views.py:OffsetView.  `arr[0]` is global element `off`;
 // the slice holds `len` words of a `glen`-word array.  `at(i)` clamps

@@ -8,21 +8,25 @@
 // extraction over its (sa_pos, lms) items with cs = refsa[sa_pos] (a vmap
 // of device._extract_contig_item), and the shard's two partial counts that
 // the JAX step psums: sum(p1[0] > 0) and the valid bits (bit 0) of the four
-// families' packed words.  The bodies are B1's pass-1 lane (lcp.cuh) and
-// A6's item (contig.cuh), one thread per lane or item; each warp sums its
-// partial count with __reduce_add_sync and one lane adds it atomically into
-// the shard's int32 [2] counter, which the wrapper zeroes before the launch.
+// families' packed words.  The bodies are B1's pass-1 lane (lcp.cuh), one
+// thread per lane, and A6's warp body (contig.cuh), 32 items a warp; each
+// warp sums its partial count with __reduce_add_sync and one lane adds it
+// atomically into the shard's int32 [2] counter, which the wrapper zeroes
+// before the launch.
 // The adds are unsigned, so the counts wrap as the JAX int32 sums do.  The
 // wrapper sums the S shards' counters (the psum).
 //
-// Two __global__s rather than one grid with two lane ranges: A6's body
-// takes 254 registers a thread (contig.cu's ptxas line), and a fused grid
-// would hold the pass-1 lanes to that allocation too; as two launches each
-// body keeps its own.
+// Two __global__s rather than one grid with two lane ranges: A6's warp body
+// needs blocks of kContigThreads with a shared record per warp
+// (contig.cuh), and the pass-1 lanes need neither; as two launches each body
+// keeps its own block shape and registers.
 //
 // Bound on the H100: as B1 pass 1 (O(log2 reflen) dependent scattered reads
-// per lane) plus A6 (~100 scattered reads per item and the packed row);
-// latency-bound chains of gathers, as their own rows in PERF.md.
+// per lane) plus A6 (the words its function needs per item, tools/reads.py,
+// and the packed row).  The pass-1 half is a latency-bound chain of one lane per token,
+// unchanged; the extraction half is A6's body (contig.cuh: half-warp
+// gathers into a shared record, then a lane per item's growth), see
+// contig.cu's note.
 #include "contig.cuh"
 #include "lcp.cuh"
 
@@ -46,17 +50,19 @@ __global__ void dp_pass1_kernel(Index x, const int* __restrict__ toks,
     add_count(hit, counts);
 }
 
-__global__ void dp_contig_kernel(Arrays a, const int* __restrict__ sa,
-                                 int sa_len, const int* __restrict__ sa_pos,
-                                 const int* __restrict__ lms, int m, int mrs,
-                                 int msym, int* __restrict__ out,
-                                 unsigned* __restrict__ counts) {
+// a warp wholly past m returns at once (before any shuffle)
+__global__ void __launch_bounds__(kContigThreads, kContigBlocks)
+dp_contig_kernel(Arrays a, const int* __restrict__ sa, int sa_len,
+                 const int* __restrict__ sa_pos, const int* __restrict__ lms,
+                 int m, int mrs, int msym, int* __restrict__ out,
+                 unsigned* __restrict__ counts) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    unsigned valid = 0;
-    if (j < m)
-        valid = (unsigned)contig_item(a, sa[clampi(sa_pos[j], sa_len)],
-                                      lms[j], m, mrs, msym, j, out);
-    add_count(valid, counts + 1);
+    if (j - lane_id() >= m) return;
+    const bool valid = j < m;
+    const int cs = valid ? sa[clampi(sa_pos[j], sa_len)] : 0;
+    add_count((unsigned)contig_warp(a, cs, valid ? lms[j] : 1, valid, j, m,
+                                    mrs, msym, out),
+              counts + 1);
 }
 
 }  // namespace
@@ -91,9 +97,9 @@ CGX_EXPORT int cgx_dp_step(const int* refstr, int ref_len, const int* sa,
         const Arrays a = {identity_view(refstr, ref_len),
                           identity_view(rlp, rlp_len),
                           identity_view(lr_tar, lr_len)};
-        dp_contig_kernel<<<cgx_grid(m, threads), threads, 0, s>>>(
-            a, sa, sa_len, sa_pos, lms, m, mrs, msym, ex,
-            (unsigned*)counts);
+        dp_contig_kernel<<<cgx_grid(m, kContigThreads), kContigThreads, 0,
+                           s>>>(a, sa, sa_len, sa_pos, lms, m, mrs, msym, ex,
+                                (unsigned*)counts);
     }
     return (int)cudaGetLastError();
 }

@@ -1,6 +1,8 @@
-// Device functions shared by the extraction kernels A6 (contig.cu), A7
-// (onegap.cu) and A8 (twogap.cu): the per-item helpers of
-// cgx_tpu/extract/device.py, one thread per item.  Every JAX read of
+// Device functions shared by the extraction kernels A6 (contig.cu, through
+// contig.cuh), A7 (onegap.cu) and A8 (twogap.cu): the per-item helpers of
+// cgx_tpu/extract/device.py, one thread per item.  A6's warp body takes
+// only Arrays, Rule and pack from here; the per-thread windows and growth
+// sides (Window, grow_side) serve A7.  Every JAX read of
 // refstr/rlp/lr_tar here is bounded explicitly by jnp.clip against the
 // array's (global) length, so every read is View::atg (common.cuh): the
 // replicated index passes identity views, the sharded one a shard's slices.

@@ -12,12 +12,14 @@
 // (View::atg), so the same body runs on the replicated arrays and on a
 // shard's slices.
 //
-// gap_check_grow: one thread per item, each window read word by word (A5,
-// B3 and C1 in scan.cu).  gap_check_half: the 16 lanes of a half-warp per
-// item, lane m holding window word m and move m (A4 in gapcheck.cu, A2 in
-// scan.cu): each window is one 64-byte request, the prefix min/max a 4-step
-// shuffle scan, and the lr_tar window is not read at all when no move
-// passes the first test (every bit needs it).
+// gap_check_half: the 16 lanes of a half-warp per item, lane m holding
+// window word m and move m (A4 in gapcheck.cu; A2 and A5 with its C1t and
+// B3t forms in scan.cu): each window is one 64-byte request, the prefix
+// min/max a 4-step shuffle scan, and the lr_tar window is not read at all
+// when no move passes the first test (every bit needs it).  gap_check_grow:
+// one thread per item, each window read word by word; only the per-thread
+// lookup1 scan `scan_item` (B3f/B3b, C1f/C1b) still calls it, and both go
+// when that scan moves onto A2's half-warp scan.
 #pragma once
 
 #include "common.cuh"
@@ -25,13 +27,6 @@
 #define MMOV 16   // move axis width (real moves are bounded by mrs - 2)
 
 namespace {
-
-__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
-
-// the lanes of the caller's half-warp (blocks are whole warps, 1-D)
-__device__ __forceinline__ unsigned half_mask() {
-    return 0xFFFFu << (lane_id() & 16);
-}
 
 __device__ __forceinline__ unsigned gap_check_grow(
         const View& rlp, const View& lr_tar, int fixed, int base_off,
@@ -100,19 +95,26 @@ __device__ __forceinline__ unsigned gap_check_grow(
     return mask;
 }
 
+// lane m's RLP word of gap_check_half: fixed +- m (words past mrs - 1 are
+// read but never selected)
+__device__ __forceinline__ unsigned gap_check_word(const View& rlp, int fixed,
+                                                   bool grow_right) {
+    const int m = lane_id() & 15;
+    return (unsigned)rlp.atg(grow_right ? fixed + m : fixed - m);
+}
+
 // gap_check_grow for one item, called by all 16 lanes of a half-warp with
-// the same item; lane m = lane_id() & 15 takes window word m and move m.
-// Returns the 16-bit mask on every lane of the half.  The other half of the
-// warp may run another item or none: every shuffle names this half alone.
+// the same item; lane m = lane_id() & 15 takes window word m and move m, t
+// (gap_check_word, which a caller may read ahead).  Returns the 16-bit mask
+// on every lane of the half.  The other half of the warp may run another
+// item or none: every shuffle names this half alone.
 __device__ __forceinline__ unsigned gap_check_half(
         const View& rlp, const View& lr_tar, int fixed, int base_off,
-        int mrs, bool grow_right) {
+        int mrs, bool grow_right, unsigned t) {
     const unsigned hm = half_mask();
     const int m = lane_id() & 15;
-    // RLP word fixed +- m (words past mrs - 1 are read but never selected);
     // ks < 0 reads as unaligned
     const int ks = grow_right ? fixed + m : fixed - m;
-    const unsigned t = (unsigned)rlp.atg(ks);
     const int L = (int)((t >> 24) & 0xFF), R = (int)((t >> 16) & 0xFF);
     const bool un = L == 255 || R == 255 || ks < 0;
     int mn = un ? 256 : L, mx = un ? -1 : R;
@@ -163,6 +165,13 @@ __device__ __forceinline__ unsigned gap_check_half(
     const bool bit = ok1 && tempind + 1 + bmin == src_start
                      && tempind + 1 + bmax == src_end;
     return (__ballot_sync(hm, bit) >> (lane_id() & 16)) & 0xFFFFu;
+}
+
+__device__ __forceinline__ unsigned gap_check_half(
+        const View& rlp, const View& lr_tar, int fixed, int base_off,
+        int mrs, bool grow_right) {
+    return gap_check_half(rlp, lr_tar, fixed, base_off, mrs, grow_right,
+                          gap_check_word(rlp, fixed, grow_right));
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
-// lookup1's and lookup2's device kernels: A2 a warp per 32 items, the others
-// one thread per work item.
+// lookup1's and lookup2's device kernels: A2 and lookup2's second-gap scan
+// (A5, C1t, B3t) a warp per 32 items, the others one thread per work item.
 //
 // A2 (cgx_scan): the forward/backward aXb occurrence scan.  Replaces
 //   cgx_tpu/search/lookup.py:_scan_batch_exp (lookup.py:337-353) with
@@ -24,14 +24,20 @@
 //   one-gap rows as the pattern's pcmode flag says, the 16 moves right of
 //   the core and the fused gap check anchored one token past it.  The word
 //   holds the uint32 bits cand | (gc << 16); the c token is resolved on the
-//   host.
+//   host.  A warp takes 32 consecutive items as A2 does: lane i finds item
+//   i's pattern and occurrence row; then a half-warp per item reads the 16
+//   move words (one request), takes the candidate mask by ballot and runs
+//   gap_check_half for every item (gc is part of the word), two items at a
+//   time, the next pair's move and RLP words read a step ahead (two_warp,
+//   which C1t and B3t share).
 // B3 (the sharded index's per-item forms of the same bodies, one item per
 //   input row, on views of one shard's slices; common.cuh):
 //   cgx_fwd_items / cgx_bwd_items (B3f / B3b) replace lookup.py:_fwd_batch
 //   (:237) and _bwd_batch (:246), with the compared query tokens gathered
 //   here from the padded query tokens as _qtok_fwd / _qtok_bwd do (:224-233);
 //   cgx_pcs_items (B3p) replaces _pcs_batch (:255); cgx_two_items (B3t)
-//   replaces _two_batch (:643) and returns cand and gc as two words.
+//   replaces _two_batch (:643), A5's warp body on one item per row, and
+//   returns cand and gc as two words.
 // C1 (the column-upload variants, one item per row of host-materialised
 //   columns, identity views): cgx_scan_cols (C1f / C1b) replaces
 //   lookup.py:_scan_batch_cols (:274-282), the scan over gostart, sl, el and
@@ -40,8 +46,8 @@
 //   verification over (pstart, plen, sl, el, pa1, pa2, pb2, pb3) with the
 //   ok bits packed 32 per word by a warp ballot, as A3 packs them (any n:
 //   the last word's tail bits are 0); cgx_two_packed (C1t) replaces
-//   _two_batch_packed (:650-658), the second-gap scan over (pstart, plen)
-//   as one word cand | (gc << 16).
+//   _two_batch_packed (:650-658), A5's warp body over (pstart, plen) as one
+//   word cand | (gc << 16).
 //
 // Every body reads the corpus through views with the JAX bounds: a read the
 // JAX body bounds explicitly (jnp.minimum / jnp.maximum / jnp.clip against
@@ -55,17 +61,21 @@
 // europarl; chip_smoke.py prints the share), all scattered (occurrences of a
 // pattern are SA-ordered, not corpus-ordered); A3 reads ~8 words; A5 one
 // offs search, one pattab row, one occurrence row, a 17-word corpus window
-// and the gap check; B3 and C1 read their item columns instead of the table
-// and the SA (C1 reads 6, 8 or 2 coalesced column words per item).  All are
-// latency-bound gathers with a few hundred integer ops per item at most.
-// In the one-thread forms every window is 16-18 loads per thread, each
-// touching 32 unrelated lines per warp instruction; A2's half-warp windows
-// make each a 64-byte request, and its step 3 skips the gap check for the
-// items that cannot emit.  The scans' bound counts only the window words
-// that decide a candidate (up to the first dead move and the span limit,
-// lookup.scan_reads), not the 18 read; PERF.md gives A2's time
-// against it, the host's launch included.  A5, B3 and C1 keep the
-// per-thread bodies (scan_item, two_item, gap_check_grow).
+// and the gap check's ~33 words for every item; B3 and C1 read their item
+// columns instead of the table and the SA (C1 reads 6, 8 or 2 coalesced
+// column words per item).  All are latency-bound gathers with a few hundred
+// integer ops per item at most.  In the one-thread forms every window is
+// 16-18 loads per thread, each touching 32 unrelated lines per warp
+// instruction; the half-warp windows of A2 and two_warp make each a 64-byte
+// request, and A2's step 3 skips the gap check for the items that cannot
+// emit (A5 cannot skip: its word carries gc).  The bounds count only the
+// words the functions need (tools/reads.py): the window words that decide a
+// candidate (up to the first dead move and the span limit), not the 17-18
+// read, and of the gap check the RLP words up to the widest span and the
+// lr_tar words only where some move passes its first test; PERF.md gives
+// each time against its bound, the host's launch included.  The per-thread lookup1 scan
+// `scan_item` (B3f/B3b, C1f/C1b), the last caller of gap_check_grow, moves
+// onto A2's half-warp scan next; then both go.
 #include "gapcheck.cuh"
 
 namespace {
@@ -157,25 +167,6 @@ __device__ bool pcs_item(const View& ref, int pstart, int plen, int sl,
     return ok;
 }
 
-// _two_item: the 16 moves right of an aXb core (pstart, plen) and the fused
-// gap check anchored one token past it
-__device__ void two_item(const View& ref, const View& rlp, const View& lr_tar,
-                         int pstart, int plen, int mrs, int mgs,
-                         unsigned& cand, unsigned& gc) {
-    const int gostart = pstart + plen;
-    // refstr[gostart + mgs] and refstr[jnp.minimum(pos, glen - 1)]
-    const bool gap0_bad = ref.at(gostart + mgs) < 2;
-    cand = 0;
-    bool reach = true;               // AND of survive over the earlier moves
-    for (int m = 0; m < MMOV; ++m) {
-        const bool bad = ref.at(min(gostart + 1 + mgs + m, ref.glen - 1)) < 2;
-        const bool span_kill = plen + 1 + mgs + m + 1 > mrs;
-        if (reach && !gap0_bad && !span_kill && !bad) cand |= 1u << m;
-        reach = reach && !bad && !span_kill;
-    }
-    gc = gap_check_grow(rlp, lr_tar, gostart + 1, mgs - 1, mrs, true);
-}
-
 __device__ __forceinline__ int qt(const int* __restrict__ qtok, int q_len,
                                   int i) {
     return qtok[clampi(i, q_len)];
@@ -184,7 +175,6 @@ __device__ __forceinline__ int qt(const int* __restrict__ qtok, int q_len,
 // ---- replicated index, items expanded from the per-pattern table
 
 constexpr int kScanThreads = 256;
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // A2: a warp per 32 consecutive items.  Every lane stays to the end (tail
 // lanes past n are masked, never returned), since the shuffles and ballots
@@ -304,6 +294,70 @@ scan_kernel(View ref, View rlp, View lr_tar, const int* __restrict__ sa,
     if (valid) out[j] = (int)mask;
 }
 
+// _two_item for a warp's 32 aXb cores, lane i holding item i's (pstart,
+// plen) (a tail lane any core: its words are not stored): the 16 moves right
+// of the core and the fused gap check anchored one token past it, a
+// half-warp per item, items 2it and 2it + 1 in step it.  Lane m reads the
+// move's corpus word (one 64-byte request a half), `reach` (the AND of
+// survive over the earlier moves) is a ballot, and the gap check is
+// gap_check_half for every item: gc is part of the output (do_gap=True).
+// Both first-round words of pair it + 1 are read while pair it's gap check
+// runs.  Lane i gets item i's cand and gc.  Every lane of the warp calls
+// this.
+__device__ __forceinline__ void two_warp(const View& ref, const View& rlp,
+                                         const View& lr_tar, int pstart,
+                                         int plen, int mrs, int mgs,
+                                         unsigned& cand, unsigned& gc) {
+    const int lane = lane_id();
+    const int m = lane & 15;
+    const int gostart = pstart + plen;
+    // refstr[gostart + mgs], lane i for its own item
+    const bool gap0_bad = ref.at(gostart + mgs) < 2;
+    // lane m's two words of pair it, read a step ahead: the move's corpus
+    // word refstr[jnp.minimum(pos, glen - 1)] and the gap check's RLP word
+    auto move_word = [&](int g) {
+        return ref.at(min(g + 1 + mgs + m, ref.glen - 1));
+    };
+    int g = __shfl_sync(kFull, gostart, lane >> 4);
+    int word = move_word(g);
+    unsigned t = gap_check_word(rlp, g + 1, true);
+    cand = 0;
+    gc = 0;
+#pragma unroll 1
+    for (int it = 0; it < 16; ++it) {
+        const int src = 2 * it + (lane >> 4);
+        const int pl = __shfl_sync(kFull, plen, src);
+        const bool g0 = __shfl_sync(kFull, (int)gap0_bad, src) != 0;
+        int g_next = g, word_next = word;
+        unsigned t_next = t;
+        if (it < 15) {
+            g_next = __shfl_sync(kFull, gostart, src + 2);
+            word_next = move_word(g_next);
+            t_next = gap_check_word(rlp, g_next + 1, true);
+        }
+        const bool bad = word < 2;
+        const bool span_kill = pl + 1 + mgs + m + 1 > mrs;
+        // reach: no earlier move of this item stopped the scan
+        const unsigned stops = __ballot_sync(kFull, bad || span_kill)
+                               >> (lane & 16);
+        const bool reach = (stops & ((1u << m) - 1)) == 0;
+        const unsigned c = __ballot_sync(kFull,
+                                         reach && !g0 && !span_kill && !bad);
+        const unsigned h = gap_check_half(rlp, lr_tar, g + 1, mgs - 1, mrs,
+                                          true, t);
+        __syncwarp();
+        // lane 2it takes half 0's item, lane 2it + 1 half 1's
+        const unsigned hv = __shfl_sync(kFull, h, (lane & 1) << 4);
+        if ((lane >> 1) == it) {
+            cand = (c >> ((lane & 1) << 4)) & 0xFFFFu;
+            gc = hv;
+        }
+        g = g_next;
+        word = word_next;
+        t = t_next;
+    }
+}
+
 __global__ void pcs_kernel(View ref, const int* __restrict__ pcrows,
                            int m_rows, const int* __restrict__ pattab,
                            const int* __restrict__ offs, int D, int n,
@@ -323,22 +377,32 @@ __global__ void pcs_kernel(View ref, const int* __restrict__ pcrows,
     if ((threadIdx.x & 31) == 0 && j < n) out[j >> 5] = (int)word;
 }
 
-__global__ void two_kernel(View ref, View rlp, View lr_tar,
-                           const int* __restrict__ ogrows, int og_rows,
-                           const int* __restrict__ pcrows, int pc_rows,
-                           const int* __restrict__ pattab,
-                           const int* __restrict__ offs, int D, int n,
-                           int mrs, int mgs, int* __restrict__ out) {
+// A5: a warp per 32 consecutive items (two_warp); a warp wholly past n
+// returns at once, and its other lanes stay to the end
+__global__ void __launch_bounds__(kScanThreads)
+two_kernel(View ref, View rlp, View lr_tar, const int* __restrict__ ogrows,
+           int og_rows, const int* __restrict__ pcrows, int pc_rows,
+           const int* __restrict__ pattab, const int* __restrict__ offs, int D,
+           int n, int mrs, int mgs, int* __restrict__ out) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n) return;
-    const int p = find_pattern(offs, D, j);
-    const int row = pattab[2 * p] + j - offs[p];
-    // the unselected table is never read, and the selected read is clamped
-    const int* r = pattab[2 * p + 1] > 0 ? pcrows + 2 * clampi(row, pc_rows)
-                                         : ogrows + 2 * clampi(row, og_rows);
+    if (j - lane_id() >= n) return;
+    // 1. lane i: item i's pattern, its row and the occurrence (start, len)
+    int pstart = 0, plen = 0;
+    if (j < n) {
+        const int p = find_pattern(offs, D, j);
+        const int row = pattab[2 * p] + j - offs[p];
+        // the unselected table is never read, and the selected read is
+        // clamped
+        const int* r = pattab[2 * p + 1] > 0
+                           ? pcrows + 2 * clampi(row, pc_rows)
+                           : ogrows + 2 * clampi(row, og_rows);
+        pstart = r[0];
+        plen = r[1];
+    }
+    // 2-3. the candidate and gap-check masks; 4. one coalesced store
     unsigned cand, gc;
-    two_item(ref, rlp, lr_tar, r[0], r[1], mrs, mgs, cand, gc);
-    out[j] = (int)(cand | (gc << 16));
+    two_warp(ref, rlp, lr_tar, pstart, plen, mrs, mgs, cand, gc);
+    if (j < n) out[j] = (int)(cand | (gc << 16));
 }
 
 // ---- C1: one item per row of host-resolved columns
@@ -374,15 +438,18 @@ __global__ void pcs_cols_kernel(View ref, const int* __restrict__ pstart,
     if ((threadIdx.x & 31) == 0 && j < n) out[j >> 5] = (int)word;
 }
 
-__global__ void two_packed_kernel(View ref, View rlp, View lr_tar,
-                                  const int* __restrict__ pstart,
-                                  const int* __restrict__ plen, int n,
-                                  int mrs, int mgs, int* __restrict__ out) {
+__global__ void __launch_bounds__(kScanThreads)
+two_packed_kernel(View ref, View rlp, View lr_tar,
+                  const int* __restrict__ pstart,
+                  const int* __restrict__ plen, int n, int mrs, int mgs,
+                  int* __restrict__ out) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n) return;
+    if (j - lane_id() >= n) return;
+    const bool valid = j < n;
     unsigned cand, gc;
-    two_item(ref, rlp, lr_tar, pstart[j], plen[j], mrs, mgs, cand, gc);
-    out[j] = (int)(cand | (gc << 16));
+    two_warp(ref, rlp, lr_tar, valid ? pstart[j] : 0, valid ? plen[j] : 0,
+             mrs, mgs, cand, gc);
+    if (valid) out[j] = (int)(cand | (gc << 16));
 }
 
 // ---- B3: one item per input row, on views of a shard's slices
@@ -426,16 +493,20 @@ __global__ void pcs_items_kernel(View ref, const int* __restrict__ qtok,
                            mrs);
 }
 
-__global__ void two_items_kernel(View ref, View rlp, View lr_tar,
-                                 const int* __restrict__ pstart,
-                                 const int* __restrict__ plen, int n, int mrs,
-                                 int mgs, int* __restrict__ out) {
+__global__ void __launch_bounds__(kScanThreads)
+two_items_kernel(View ref, View rlp, View lr_tar,
+                 const int* __restrict__ pstart, const int* __restrict__ plen,
+                 int n, int mrs, int mgs, int* __restrict__ out) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n) return;
+    if (j - lane_id() >= n) return;
+    const bool valid = j < n;
     unsigned cand, gc;
-    two_item(ref, rlp, lr_tar, pstart[j], plen[j], mrs, mgs, cand, gc);
-    out[j] = (int)cand;
-    out[n + j] = (int)gc;
+    two_warp(ref, rlp, lr_tar, valid ? pstart[j] : 0, valid ? plen[j] : 0,
+             mrs, mgs, cand, gc);
+    if (valid) {
+        out[j] = (int)cand;
+        out[n + j] = (int)gc;
+    }
 }
 
 }  // namespace
@@ -482,8 +553,8 @@ CGX_EXPORT int cgx_two(const int* refstr, int ref_len, const int* rlp,
                        int n, int mrs, int mgs, int* out, void* stream) {
     if (mrs < 1 || mrs > MMOV || D < 1 || og_rows < 1 || pc_rows < 1)
         return (int)cudaErrorInvalidValue;
-    const int threads = 128;
-    two_kernel<<<cgx_grid(n, threads), threads, 0, (cudaStream_t)stream>>>(
+    two_kernel<<<cgx_grid(n, kScanThreads), kScanThreads, 0,
+                 (cudaStream_t)stream>>>(
         identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
         identity_view(lr_tar, lr_len), ogrows, og_rows, pcrows, pc_rows,
         pattab, offs, D, n, mrs, mgs, out);
@@ -562,8 +633,7 @@ CGX_EXPORT int cgx_two_items(const int* ref, int ref_len, int ref_off,
                              const int* pstart, const int* plen, int n,
                              int mrs, int mgs, int* out, void* stream) {
     if (mrs < 1 || mrs > MMOV) return (int)cudaErrorInvalidValue;
-    const int threads = 128;
-    two_items_kernel<<<cgx_grid(n, threads), threads, 0,
+    two_items_kernel<<<cgx_grid(n, kScanThreads), kScanThreads, 0,
                        (cudaStream_t)stream>>>(
         View{ref, ref_len, ref_off, ref_glen},
         View{rlp, rlp_len, rlp_off, rlp_glen},
@@ -615,8 +685,7 @@ CGX_EXPORT int cgx_two_packed(const int* refstr, int ref_len, const int* rlp,
                               const int* pstart, const int* plen, int n,
                               int mrs, int mgs, int* out, void* stream) {
     if (mrs < 1 || mrs > MMOV) return (int)cudaErrorInvalidValue;
-    const int threads = 128;
-    two_packed_kernel<<<cgx_grid(n, threads), threads, 0,
+    two_packed_kernel<<<cgx_grid(n, kScanThreads), kScanThreads, 0,
                         (cudaStream_t)stream>>>(
         identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
         identity_view(lr_tar, lr_len), pstart, plen, n, mrs, mgs, out);

@@ -149,6 +149,19 @@ def contig_plain(refstr, sa, rlp, lr_tar, sa_pos, lm, mrs: int, msym: int):
 def contig_pos_plain(refstr, rlp, lr_tar, cs, lm, mrs: int, msym: int):
     """Plain PyTorch version of kernel B3c (``_extract_contig_item`` for
     occurrences at corpus positions ``cs``) -> int32 [8, N]."""
+    return _contig_body(refstr, rlp, lr_tar, cs, lm, mrs, msym)
+
+
+def _contig_body(refstr, rlp, lr_tar, cs, lm, mrs: int, msym: int,
+                 need: dict | None = None):
+    """``contig_pos_plain``.  Given ``need``, it also records there what the
+    function looked at, for ``tools.reads.contig_reads``: per growth step
+    [N, IMAX] of each side (``l_*`` left, ``r_*`` right) whether its token
+    (``*_tok``), its RLP word (``*_rlp``), its X gap's window check
+    (``*_gap``) and its whole-span part-vector (``*_part``) decided
+    anything, ``ab`` where the base window checked the ab span, the outer
+    and inner growth steps run per item (``steps``, ``inner``), and the
+    values that place those reads."""
     dev = cs.device
     i32 = torch.int32
     ender = cs + lm - 1
@@ -215,6 +228,17 @@ def contig_pos_plain(refstr, rlp, lr_tar, cs, lm, mrs: int, msym: int):
     xab = [F, zero, zero, zero, zero]
     abx = [F, zero, zero, zero, zero]
     xabx = [F, zero, zero, zero, zero, zero, zero]
+    if need is not None:
+        need.update({f"{s}_{w}": torch.zeros((cs.shape[0], IMAX),
+                                             dtype=torch.bool, device=dev)
+                     for s in "lr" for w in ("tok", "rlp", "gap", "part")})
+        need.update(ab=ab, steps=zero.clone(), inner=zero.clone(),
+                    sentstart=sentstart, stb=stb, min_L=min_L, max_R=max_R,
+                    l=(lal, lmin, lmax), r=(ral, rmin, rmax))
+
+    def mark(key, col, mask):
+        if need is not None:
+            need[key][:, col] |= mask
 
     def xabx_scan(i, alive, XabX, xabx, count_limit, al_k, pmin_k, pmax_k,
                   gap_k, w_ts_k, w_te_k, w_ok_k, o_min, o_max, scan_is_left):
@@ -231,7 +255,12 @@ def contig_pos_plain(refstr, rlp, lr_tar, cs, lm, mrs: int, msym: int):
             nx = nx & ~spank2 & gap_k[:, k0]
             bad = w_te_k[:, k0] - w_ts_k[:, k0] >= mrs
             alive = alive & ~(nx & bad)
-            nx = nx & ~bad & w_ok_k[:, k0]
+            nx = nx & ~bad
+            if need is not None:   # w_ok reads both sides' part-vectors
+                need["inner"] += run
+                mark("l_part", k0 if scan_is_left else i - 1, nx)
+                mark("r_part", i - 1 if scan_is_left else k0, nx)
+            nx = nx & w_ok_k[:, k0]
             emit = nx & XabX
             scanned = (stb + pmin_k[:, k0], stb + pmax_k[:, k0])
             other = (stb + o_min, stb + o_max)
@@ -249,6 +278,8 @@ def contig_pos_plain(refstr, rlp, lr_tar, cs, lm, mrs: int, msym: int):
         # ---- Xab (left)
         l_has = (cs - i >= 0) & (ltok[:, i0] >= 2)
         l_proc = active & Xab & l_has
+        mark("l_tok", i0, active & Xab)
+        mark("l_rlp", i0, l_proc)
         Xab = Xab & ~(active & ~l_has)
         nxt = l_proc & lal[:, i0]
         first_unal = l_proc & ~lal[:, i0] & (i == 1)
@@ -256,10 +287,12 @@ def contig_pos_plain(refstr, rlp, lr_tar, cs, lm, mrs: int, msym: int):
         XabX = XabX & ~first_unal
         spank = lmax[:, i0] - lmin[:, i0] >= mrs
         Xab = Xab & ~(l_proc & spank)
+        mark("l_gap", i0, nxt & ~spank)
         nxt = nxt & ~spank & lgap[:, i0]
         XabCount = torch.where(nxt, i, XabCount)
         wkill = l_proc & XabNoSuccess & nxt & (wl_te[:, i0] - wl_ts[:, i0] >= mrs)
         Xab = Xab & ~wkill
+        mark("l_part", i0, l_proc & XabNoSuccess & nxt & ~wkill)
         emit = l_proc & XabNoSuccess & nxt & ~wkill & wl_ok[:, i0]
         xab = _put(xab, emit, (wl_ts[:, i0], wl_te[:, i0], stb + lmin[:, i0],
                                stb + lmax[:, i0]))
@@ -267,6 +300,8 @@ def contig_pos_plain(refstr, rlp, lr_tar, cs, lm, mrs: int, msym: int):
         # ---- abX (right)
         r_has = rtok[:, i0] >= 2
         r_proc = active & abX & r_has
+        mark("r_tok", i0, active & abX)
+        mark("r_rlp", i0, r_proc)
         abX = abX & ~(active & ~r_has)
         nxt = r_proc & ral[:, i0]
         first_unal = r_proc & ~ral[:, i0] & (i == 1)
@@ -274,10 +309,14 @@ def contig_pos_plain(refstr, rlp, lr_tar, cs, lm, mrs: int, msym: int):
         XabX = XabX & ~first_unal
         spank = rmax[:, i0] - rmin[:, i0] >= mrs
         abX = abX & ~(r_proc & spank)
+        mark("r_gap", i0, nxt & ~spank)
         nxt = nxt & ~spank & rgap[:, i0]
         abXCount = torch.where(nxt, i, abXCount)
         wkill = r_proc & abXNoSuccess & nxt & (wr_te[:, i0] - wr_ts[:, i0] >= mrs)
         abX = abX & ~wkill
+        mark("r_part", i0, r_proc & abXNoSuccess & nxt & ~wkill)
+        if need is not None:
+            need["steps"] += active
         emit = r_proc & abXNoSuccess & nxt & ~wkill & wr_ok[:, i0]
         abx = _put(abx, emit, (wr_ts[:, i0], wr_te[:, i0], stb + rmin[:, i0],
                                stb + rmax[:, i0]))

@@ -95,12 +95,11 @@ def _pack_bits32(ok: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 2**31, w - 2**32, w).to(torch.int32)
 
 
-def gap_check_grow(rlp, lr_tar, fixed, base_off: int, mrs: int,
-                   grow_right: bool):
-    """Plain version of the fused gap check (``_gap_check_grow``,
-    csrc/gapcheck.cuh) -> bool [N, MMOV]: move m's span is
-    [fixed, fixed + base_off + m] (grow_right) or
-    [fixed - base_off - m, fixed]."""
+def _gap_first_test(rlp, fixed, base_off: int, mrs: int, grow_right: bool):
+    """The RLP half of the fused gap check: the window positions ``ks``
+    [N, mrs], their ``unal`` flags, the moves' first test ``ok1`` and target
+    spans ``ts``, ``te`` [N, MMOV], and ``tempind``, the sentence anchor of
+    the spans' start token [N]."""
     dev = fixed.device
     moves = torch.arange(MMOV, dtype=torch.int32, device=dev)
     w = torch.arange(mrs, dtype=torch.int32, device=dev)
@@ -120,12 +119,26 @@ def gap_check_grow(rlp, lr_tar, fixed, base_off: int, mrs: int,
     tempind = start_tok - ((take(rlp, start_tok) >> 8) & 0xFF) - 1
     stb = torch.where(tempind == -1, 0, take(rlp, tempind))
     ok1 = ~fail0 & (minL <= maxR) & (maxR - minL < mrs)
-    ts = minL + stb[:, None]
-    te = maxR + stb[:, None]
-    # every valid target span lies in 16 positions from the smallest start
+    return ks, unal, ok1, minL + stb[:, None], maxR + stb[:, None], tempind
+
+
+def _gap_anchor(ok1, ts):
+    """The lr_tar window's anchor: every valid target span lies in 16
+    positions from the smallest start (0 with none)."""
     anchor = torch.where(ok1, ts, 2**30).amin(dim=1)
-    anchor = torch.where(anchor == 2**30, 0, anchor)
-    win = anchor[:, None] + moves
+    return torch.where(anchor == 2**30, 0, anchor)
+
+
+def gap_check_grow(rlp, lr_tar, fixed, base_off: int, mrs: int,
+                   grow_right: bool):
+    """Plain version of the fused gap check (``_gap_check_grow``,
+    csrc/gapcheck.cuh) -> bool [N, MMOV]: move m's span is
+    [fixed, fixed + base_off + m] (grow_right) or
+    [fixed - base_off - m, fixed]."""
+    _, _, ok1, ts, te, tempind = _gap_first_test(rlp, fixed, base_off, mrs,
+                                                 grow_right)
+    moves = torch.arange(MMOV, dtype=torch.int32, device=fixed.device)
+    win = _gap_anchor(ok1, ts)[:, None] + moves
     w2 = take(lr_tar, win)
     L2 = w2 >> 8
     R2 = w2 & 255
@@ -135,6 +148,7 @@ def gap_check_grow(rlp, lr_tar, fixed, base_off: int, mrs: int,
     bmin = torch.where(m2, L2[:, None, :], 256).amin(dim=2)
     bmax = torch.where(m2, R2[:, None, :], -1).amax(dim=2)
     f = fixed[:, None]
+    span = base_off + moves
     src_start = f if grow_right else f - span
     src_end = f + span if grow_right else f
     s = (tempind + 1)[:, None]
@@ -217,19 +231,6 @@ def _scan_body(refstr, rlp, lr_tar, gostart, sl, el, want, mrs: int,
     return cand & gap_check_grow(rlp, lr_tar, fixed, mgs - 1, mrs, fwd)
 
 
-def scan_reads(refstr, gostart, sl, el, want, mrs: int, mgs: int,
-               fwd: bool) -> tuple:
-    """What lookup1's scan needs of the corpus for N items (occurrence
-    ``gostart``, lengths ``sl``, ``el``, compared tokens ``want`` [N, 3]),
-    besides one gap-0 token each -> (items with a candidate, window words
-    that decide the candidates).  Only an item with a candidate needs the
-    gap check.  The least work of kernels A2, B3f/B3b and C1f/C1b, for
-    their bounds."""
-    gap0_bad, win = _scan_window(refstr, gostart, sl, mgs, fwd)
-    cand, read = _scan_cand(win, gap0_bad, sl, el, want, mrs, mgs, fwd)
-    return int(cand.any(dim=1).sum()), int(read.sum())
-
-
 def _pcs_body(refstr, pstart, plen, sl, el, pa1, pa2, pb2, pb3, mrs: int):
     """``_pcs_item`` over N precomputed occurrences -> bool [N]."""
     ref = as_view(refstr)
@@ -244,8 +245,10 @@ def _pcs_body(refstr, pstart, plen, sl, el, pa1, pa2, pb2, pb3, mrs: int):
     return ok
 
 
-def _two_body(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int):
-    """``_two_item`` over N aXb occurrences -> (cand, gc) bool [N, MMOV]."""
+def _two_cand(refstr, pstart, plen, mrs: int, mgs: int):
+    """The scan of ``_two_item`` over N aXb occurrences -> (cand bool [N,
+    MMOV], read bool [N, MMOV]): the candidate moves, and the move words
+    that decide them (a scan stops at its first bad or killed move)."""
     ref = as_view(refstr)
     gostart = pstart + plen
     moves = torch.arange(MMOV, dtype=torch.int32, device=pstart.device)
@@ -257,8 +260,15 @@ def _two_body(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int):
     # reach[m]: every earlier move survived (exclusive prefix AND)
     alive = torch.cumprod((~bad & ~span_kill).to(torch.int32), dim=1) == 1
     reach = torch.cat([torch.ones_like(alive[:, :1]), alive[:, :-1]], dim=1)
-    cand = reach & ~gap0_bad[:, None] & ~span_kill & ~bad
-    return cand, gap_check_grow(rlp, lr_tar, gostart + 1, mgs - 1, mrs, True)
+    read = reach & ~gap0_bad[:, None] & ~span_kill
+    return read & ~bad, read
+
+
+def _two_body(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int):
+    """``_two_item`` over N aXb occurrences -> (cand, gc) bool [N, MMOV]."""
+    cand = _two_cand(refstr, pstart, plen, mrs, mgs)[0]
+    return cand, gap_check_grow(rlp, lr_tar, pstart + plen + 1, mgs - 1, mrs,
+                                True)
 
 
 def scan_plain(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int,

@@ -1,0 +1,214 @@
+"""The words of their inputs that the kernels' functions need, per item:
+what the bounds in ``chip_smoke.py`` count.
+
+A function that stops early (a scan at its first dead move, the growth
+state machine at its first inactive step, the gap check when no move
+passes its first test) needs only the words that decide its result.  Each
+counter here takes them from the plain version's own flags, maps them to
+the slots of the arrays that the reads land in (clamped as the plain
+version clamps them), and counts each distinct slot of an item once,
+summed over the items.  ``*_need`` returns the slots and which of them are
+needed, so that a test can redraw every other word and find the result
+unchanged.
+
+* ``contig_reads``: A6, B3c and B4's extraction (``_extract_contig_item``);
+* ``two_reads``: A5, C1t and B3t (``_two_item``);
+* ``gap_reads``: the fused gap check alone (A4, and lookup1's scans for
+  the items with a candidate);
+* ``scan_reads``: lookup1's scans (A2, B3f/B3b, C1f/C1b).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cgx_tpu_torch.extract import device as xdev
+from cgx_tpu_torch.search import lookup
+from cgx_tpu_torch.utils.views import as_view
+
+
+def _slots(arr, pos, bounded: bool = True):
+    """The slots of ``arr``'s storage that reads at ``pos`` land in: a read
+    the plain version bounds (``take``) is clamped into the global array
+    first, every read then into the local slice (``utils.views``)."""
+    v = as_view(arr)
+    if bounded:
+        pos = pos.clamp(0, v.glen - 1)
+    return (pos - v.off).clamp(0, v.arr.shape[0] - 1)
+
+
+def _distinct(slots, keep) -> int:
+    """Distinct kept slots per row of [N, K], summed over the rows."""
+    s = torch.where(keep, slots, -1).sort(dim=1).values
+    new = torch.ones_like(keep)
+    new[:, 1:] = s[:, 1:] != s[:, :-1]
+    return int(((s >= 0) & new).sum())
+
+
+def count(need: dict) -> int:
+    """The words of a ``*_need`` record, each array's distinct slots of an
+    item counted once."""
+    return sum(_distinct(*need[a]) for a in ("refstr", "rlp", "lr_tar")
+               if a in need)
+
+
+def _range(lo, hi, looked, H: int):
+    """[N, 2H + 1] window offsets -H..H that lookups at offsets -lo..hi
+    ([N, K] each, ``looked`` where made) read."""
+    d = torch.arange(-H, H + 1, dtype=torch.int32, device=lo.device)
+    return (looked[..., None] & (d >= -lo[..., None])
+            & (d <= hi[..., None])).any(dim=1)
+
+
+def contig_need(refstr, rlp, lr_tar, cs, lm, mrs: int, msym: int) -> dict:
+    """What ``_extract_contig_item`` needs for the occurrences at corpus
+    positions ``cs`` with block lengths ``lm`` -> {array: (slots, keep)}
+    and the growth steps run (``steps``, ``inner``, int [N]).
+
+    * RLP: the block's lm span words (word 0 also gives the sentence
+      anchor) and the anchor word; each side's step words up to the first
+      step at which its family is dead or the outer loop ends;
+    * refstr: each side's step tokens while its family is alive;
+    * lr_tar: only the window entries that a check looks up, from the
+      offsets -lo..hi it reads: the base window for the ab span and each
+      whole-span part-vector used, each side's window for its X gap checks
+      (made only past an aligned step)."""
+    need: dict = {}
+    xdev._contig_body(refstr, rlp, lr_tar, cs, lm, mrs, msym, need)
+    dev, i32 = cs.device, torch.int32
+    H = mrs - 1
+    IMAX = xdev.IMAX
+    k = torch.arange(xdev.CWID, dtype=i32, device=dev)
+    steps = torch.arange(1, IMAX + 1, dtype=i32, device=dev)
+    span = cs[:, None] + k
+    span_keep = ((k < lm[:, None]) & (span >= 0)) | (k == 0)
+    tempind = (need["sentstart"] - 1)[:, None]
+    left = cs[:, None] - steps
+    right = (cs + lm - 1)[:, None] + steps
+    rlp_pos = torch.cat([span, tempind, left, right], dim=1)
+    rlp_keep = torch.cat([span_keep, tempind != -1,
+                          need["l_rlp"] & (left >= 0),
+                          need["r_rlp"] & (right >= 0)], dim=1)
+    ref_pos = torch.cat([left, right], dim=1)
+    ref_keep = torch.cat([need["l_tok"] & (left >= 0),
+                          need["r_tok"] & (right >= 0)], dim=1)
+
+    stb, mL, mR = need["stb"], need["min_L"], need["max_R"]
+    anchor = stb + mL.clamp(max=255)
+    # the ab check looks up [ts, te] = stb + [min_L, max_R] (``_win_check``)
+    ab_lo = (anchor - stb - mL).clamp(0, H)[:, None]
+    ab_hi = (stb + mR - anchor).clamp(0, H)[:, None]
+    anchors = [anchor]
+    keeps = [_range(ab_lo, ab_hi, need["ab"][:, None], H)]
+    for s in "lr":
+        al, pmin, pmax = need[s]
+        # the whole-span part-vectors (``_whole_span``)
+        lo = (mL[:, None] - pmin).clamp(0, H)
+        hi = (torch.maximum(pmax, mR[:, None]) - mL[:, None]).clamp(0, H)
+        keeps[0] = keeps[0] | _range(lo, hi, need[f"{s}_part"], H)
+        # the X gap checks on the side's own window, anchored at its first
+        # aligned step (where a check is made there is one)
+        first = al.to(i32).argmax(dim=1, keepdim=True)
+        a = stb + pmin.gather(1, first)[:, 0]
+        ts, te = stb[:, None] + pmin, stb[:, None] + pmax
+        lo = (a[:, None] - ts).clamp(0, H)
+        hi = (te - a[:, None]).clamp(0, H)
+        anchors.append(a)
+        keeps.append(_range(lo, hi, need[f"{s}_gap"] & (ts <= te), H))
+    d = torch.arange(-H, H + 1, dtype=i32, device=dev)
+    tar_pos = torch.cat([a[:, None] + d for a in anchors], dim=1)
+    return {"refstr": (_slots(refstr, ref_pos), ref_keep),
+            "rlp": (_slots(rlp, rlp_pos), rlp_keep),
+            "lr_tar": (_slots(lr_tar, tar_pos), torch.cat(keeps, dim=1)),
+            "steps": need["steps"], "inner": need["inner"]}
+
+
+def contig_reads(refstr, rlp, lr_tar, cs, lm, mrs: int,
+                 msym: int) -> tuple:
+    """(words, outer growth steps, inner growth steps) that
+    ``_extract_contig_item`` needs over the items (``contig_need``)."""
+    need = contig_need(refstr, rlp, lr_tar, cs, lm, mrs, msym)
+    return (count(need), int(need["steps"].sum()),
+            int(need["inner"].sum()))
+
+
+def gap_need(rlp, lr_tar, fixed, base_off: int, mrs: int,
+             grow_right: bool) -> dict:
+    """What the fused gap check (``lookup.gap_check_grow``) needs ->
+    {array: (slots, keep)} and ``ok`` (bool [N], some move passes the first
+    test):
+
+    * RLP: window word 0; if it is aligned, the words up to the widest
+      move's span; if some move passes the first test, the spans' start
+      token and its sentence anchor;
+    * lr_tar: only if some move passes the first test, the window words
+      that lie in such a move's target span."""
+    ks, unal, ok1, ts, te, tempind = lookup._gap_first_test(
+        rlp, fixed, base_off, mrs, grow_right)
+    dev = fixed.device
+    w = torch.arange(mrs, dtype=torch.int32, device=dev)
+    last = min(base_off + lookup.MMOV - 1, mrs - 1)
+    ok = ok1.any(dim=1)
+    win_keep = ((w == 0) | ((w <= last) & ~unal[:, :1])) & (ks >= 0)
+    start_tok = fixed if grow_right else fixed - base_off
+    rlp_pos = torch.cat([ks, start_tok[:, None], tempind[:, None]], dim=1)
+    rlp_keep = torch.cat([win_keep, ok[:, None],
+                          (ok & (tempind != -1))[:, None]], dim=1)
+    moves = torch.arange(lookup.MMOV, dtype=torch.int32, device=dev)
+    win = lookup._gap_anchor(ok1, ts)[:, None] + moves
+    in_span = ((win[:, None, :] >= ts[:, :, None])
+               & (win[:, None, :] <= te[:, :, None]) & ok1[:, :, None])
+    return {"rlp": (_slots(rlp, rlp_pos), rlp_keep),
+            "lr_tar": (_slots(lr_tar, win), in_span.any(dim=1)), "ok": ok}
+
+
+def gap_reads(rlp, lr_tar, fixed, base_off: int, mrs: int,
+              grow_right: bool) -> tuple:
+    """(words, items where some move passes the first test) of the fused
+    gap check over the items (``gap_need``)."""
+    need = gap_need(rlp, lr_tar, fixed, base_off, mrs, grow_right)
+    return count(need), int(need["ok"].sum())
+
+
+def two_need(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int) -> dict:
+    """What ``_two_item`` needs for the aXb occurrences (``pstart``,
+    ``plen``) -> {array: (slots, keep)} and ``ok`` (``gap_need``): the
+    gap-0 token, the move words up to the first that stops the scan or
+    the span limit (none after a bad gap-0 token), and the gap check's
+    words (gc is half the output, so every item runs it)."""
+    _, read = lookup._two_cand(refstr, pstart, plen, mrs, mgs)
+    gostart = pstart + plen
+    glen = as_view(refstr).glen
+    moves = torch.arange(lookup.MMOV, dtype=torch.int32, device=pstart.device)
+    ref_pos = torch.cat([
+        _slots(refstr, (gostart + mgs)[:, None], bounded=False),
+        _slots(refstr, ((gostart + 1 + mgs)[:, None] + moves).clamp(
+            max=glen - 1), bounded=False)], dim=1)
+    ref_keep = torch.cat([torch.ones_like(read[:, :1]), read], dim=1)
+    need = gap_need(rlp, lr_tar, gostart + 1, mgs - 1, mrs, True)
+    need["refstr"] = (ref_pos, ref_keep)
+    return need
+
+
+def two_reads(refstr, rlp, lr_tar, pstart, plen, mrs: int,
+              mgs: int) -> tuple:
+    """(words, items where some move passes the gap check's first test)
+    that ``_two_item`` needs over the items (``two_need``)."""
+    need = two_need(refstr, rlp, lr_tar, pstart, plen, mrs, mgs)
+    return count(need), int(need["ok"].sum())
+
+
+def scan_reads(refstr, rlp, lr_tar, gostart, sl, el, want, mrs: int,
+               mgs: int, fwd: bool) -> tuple:
+    """What lookup1's scan needs for N items (occurrence ``gostart``,
+    lengths ``sl``, ``el``, compared tokens ``want`` [N, 3]), besides one
+    gap-0 token each -> (items with a candidate, window words that decide
+    the candidates, the gap check's words and its items past the first test
+    over the items with a candidate: only those need it)."""
+    gap0_bad, win = lookup._scan_window(refstr, gostart, sl, mgs, fwd)
+    cand, read = lookup._scan_cand(win, gap0_bad, sl, el, want, mrs, mgs,
+                                   fwd)
+    has = cand.any(dim=1)
+    fixed = (gostart + sl if fwd else gostart - 1)[has]
+    gap_words, gap_ok = gap_reads(rlp, lr_tar, fixed, mgs - 1, mrs, fwd)
+    return int(has.sum()), int(read.sum()), gap_words, gap_ok

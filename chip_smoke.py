@@ -55,10 +55,15 @@ Phases, one line each on stdout:
    least time the card could take for the same work (``bound_ms``: the
    larger of the bytes over the memory rate and the integer operations over
    the peak rate, counted per item from the kernel's loops, see ``WORK``;
-   lookup1's scans count the corpus words that decide each item's
-   candidates and the gap check only for the items whose candidate mask is
-   non-zero, and print both counts), and the time of one launch on
-   one item.  Then A2f, A2b, A4 and A4v against their plain versions on
+   where a function stops early, only the words its result needs, counted
+   from this launch's items by ``tools.reads`` and printed: lookup1's scans
+   the corpus words that decide each item's candidates and the gap check
+   only for the items whose candidate mask is non-zero; A4, A5, C1t and B3t
+   the gap check's words; A5, C1t and B3t the move words up to the first
+   stop; A6, B3c and B4's extraction the words and growth steps of
+   ``_extract_contig_item`` up to each loop's exit), and the time of one
+   launch on one item.  Then the half-warp kernels (A2f,
+   A2b, A4, A4v, A6, B3c, A5, C1t, B3t) against their plain versions on
    synthetic edge inputs over europarl's index arrays (``check_edges``).
 
 Then a JSON line with every kernel's numbers, and last the line
@@ -161,19 +166,23 @@ RUNS = (
 # per item, integer operations per item), each counted once from the
 # kernel's loops (the csrc notes); the per-pattern tables are counted once
 # whole.  The searches' gathers depend on the data and are counted from
-# this run's inputs in ``work``, and so are lookup1's scans (``SCAN_ROWS``,
-# ``scan_reads``): their corpus window counts only the words that decide a
-# candidate (up to the first dead move and the span limit), and only an
-# item whose candidate mask is non-zero needs the gap check.
+# this run's inputs in ``work``, and so are the words of the functions that
+# stop early (``tools.reads``, ``data_reads``): lookup1's scans count the
+# corpus words that decide a candidate (up to the first dead move and the
+# span limit), and the gap check only for an item whose candidate mask is
+# non-zero; the gap check (A4, and in A2, A5, B3, C1) its RLP window up to
+# the widest span, and its lr_tar words only where some move passes the
+# first test; A5's scan its move words up to the first stop; A6's body the
+# words of each growth step that runs and each window entry looked up.
 MEM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 WORK = {
-    "A4": (1, 33, 1, 1700),      # mrs + 2 RLP words, 16 lr_tar words
+    "A4": (1, 0, 1, 0),          # (+ the gap check's words)
     "A2f": (0, 2, 1, 300),       # SA word, gap-0 token (+ the window)
     "A2b": (0, 2, 1, 300),
     "A3": (0, 6, 1 / 32, 40),    # one occurrence row, 4 corpus words
-    "A5": (0, 52, 1, 1850),      # occurrence row, 17 corpus words, gap check
-    "A6": (2, 101, 8, 3000),     # SA word, RLP and target windows
+    "A5": (0, 2, 1, 150),        # occurrence row (+ scan, gap check)
+    "A6": (2, 1, 8, 0),          # SA word (+ contig_reads)
     "A7": (4, 100, 6, 2000),
     "A8": (6, 70, 2, 300),       # 3 x 16 RLP, 16 lr_tar, 3 sentence anchors
     "A9": (11, 48, 2, 200),      # 16 target tokens, 2 x 16 table probes
@@ -182,25 +191,35 @@ WORK = {
     "B3f": (4, 4, 1, 300),       # 3 query tokens, gap-0 token (+ window)
     "B3b": (4, 4, 1, 300),
     "B3p": (6, 8, 1, 40),        # 4 query tokens, 4 corpus words
-    "B3t": (2, 50, 2, 1850),     # 17 corpus words, the gap check
-    "B3c": (2, 100, 8, 3000),    # A6 without its SA word
+    "B3t": (2, 0, 2, 150),       # (+ scan, gap check)
+    "B3c": (2, 0, 8, 0),         # A6 without its SA word
     "C1f": (6, 1, 1, 300),       # 6 columns, gap-0 token (+ the window)
     "C1b": (6, 1, 1, 300),
     "C1p": (8, 4, 1 / 32, 40),   # 8 columns, 4 corpus words
-    "C1t": (2, 50, 1, 1850),     # 17 corpus words, the gap check
+    "C1t": (2, 0, 1, 150),       # (+ scan, gap check)
     "P1": (1, 32, 0, 32),        # the position, the 32-word window
     "P2": (1, 32, 32, 0),        # and the row written
 }
 for _v, _k in VIEW_ROWS.items():
     WORK[_v] = WORK[_k]
-# lookup1's scans, and the words and operations of the gap check (as A4's)
-# that each of their items with a candidate adds
+# the rows whose words are counted from each launch's items (``data_reads``):
+# lookup1's scans, the gap check, A5's body and A6's body
 SCAN_ROWS = ("A2f", "A2b", "C1f", "C1b", "B3f", "B3b")
-GAP_WORDS, GAP_OPS = 33, 1700
+GAP_ROWS = ("A4", "A4v")
+TWO_ROWS = ("A5", "C1t", "B3t")
+CONTIG_ROWS = ("A6", "B3c", "B4")
+# integer operations: the gap check's RLP window, prefix scan and first test
+# per item, and its 16 x 16 fold over the lr_tar window per item where some
+# move passes the first test; A6's body per needed word (unpack, compare,
+# min/max, prefix), per outer growth step run (both sides' tests, flag
+# updates, the whole-span checks) and per inner step run
+GAP_OPS, FOLD_OPS = 200, 1500
+CONTIG_WORD_OPS, CONTIG_STEP_OPS, CONTIG_INNER_OPS = 10, 100, 30
 # ``check_edges``: item counts that leave partial half-warps and warps, and
 # span limits from the narrowest to the default
 EDGE_ITEMS = (1, 15, 17, 33)
 EDGE_MRS = (1, 2, 8, 15)
+EDGE_MSYM = (2, 3, 5)    # A6, B3c
 # argument positions of the per-pattern table and count prefix
 TABLE_ARGS = {"A2f": (4, 5), "A2b": (4, 5), "A3": (2, 3), "A5": (5, 6)}
 
@@ -604,32 +623,80 @@ def _log2(x):
     return torch.ceil(torch.log2(x.double().clamp(min=0) + 1))
 
 
-def scan_reads(k: str, args) -> tuple:
-    """(items with a candidate, corpus window words that decide the
-    candidates) of one launch of lookup1's scan ``k``, from its own items
-    (``lookup.scan_reads``)."""
+def data_reads(k: str, n: int, args) -> tuple:
+    """(words, integer operations, printed counts) that the data of one
+    launch of kernel ``k`` decides, beyond ``WORK``'s fixed counts per item
+    (``tools.reads``)."""
     import torch
     from cgx_tpu_torch.search import lookup
+    from cgx_tpu_torch.tools import reads
     from cgx_tpu_torch.utils.views import take
-    if k in ("A2f", "A2b"):
-        refstr, _, _, sa, pattab, offs, n, mrs, mgs, fwd = args
-        f, tx = lookup._expand(pattab, offs, n)
-        items = (take(sa, f[:, 0] + tx), f[:, 1], f[:, 2], f[:, 3:6])
-    elif k in ("C1f", "C1b"):
-        refstr, _, _, gostart, sl, el, w0, w1, w2, mrs, mgs, fwd = args
-        items = (gostart, sl, el, torch.stack([w0, w1, w2], dim=1))
+    if k in SCAN_ROWS:
+        if k in ("A2f", "A2b"):
+            refstr, rlp, lr_tar, sa, pattab, offs, _, mrs, mgs, fwd = args
+            f, tx = lookup._expand(pattab, offs, n)
+            items = (take(sa, f[:, 0] + tx), f[:, 1], f[:, 2], f[:, 3:6])
+        elif k in ("C1f", "C1b"):
+            refstr, rlp, lr_tar, gostart, sl, el, w0, w1, w2, mrs, mgs, \
+                fwd = args
+            items = (gostart, sl, el, torch.stack([w0, w1, w2], dim=1))
+        else:
+            refstr, rlp, lr_tar, qtok, gostart, sl, el, qpos, mrs, mgs = args
+            fwd = k == "B3f"
+            items = (gostart, sl, el,
+                     lookup._scan_want(qtok, qpos, sl, fwd))
+        cand, window, gap, ok = reads.scan_reads(refstr, rlp, lr_tar, *items,
+                                                 mrs, mgs, fwd)
+        return (window + gap, cand * GAP_OPS + ok * FOLD_OPS,
+                {"candidate_items": cand, "candidate_share": cand / n,
+                 "window_words": window, "window_words_per_item": window / n,
+                 "gap_words": gap, "gap_first_test_items": ok})
+    if k in GAP_ROWS:
+        rlp, lr_tar, gostart, mrs, mgs, fwd = args
+        words, ok = reads.gap_reads(rlp, lr_tar,
+                                    gostart + 1 if fwd else gostart - 1,
+                                    mgs - 1, mrs, fwd)
+    elif k in TWO_ROWS:
+        if k == "A5":
+            refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, _, mrs, mgs = \
+                args
+            f, tx = lookup._expand(pattab, offs, n)
+            row = f[:, 0] + tx
+            occ = torch.where((f[:, 1] > 0)[:, None], take(pcrows, row),
+                              take(ogrows, row))
+            items = (occ[:, 0], occ[:, 1])
+        else:
+            refstr, rlp, lr_tar, pstart, plen, mrs, mgs = args
+            items = (pstart, plen)
+        words, ok = reads.two_reads(refstr, rlp, lr_tar, *items, mrs, mgs)
     else:
-        refstr, _, _, qtok, gostart, sl, el, qpos, mrs, mgs = args
-        fwd = k == "B3f"
-        items = (gostart, sl, el, lookup._scan_want(qtok, qpos, sl, fwd))
-    return lookup.scan_reads(refstr, *items, mrs, mgs, fwd)
+        if k == "A6":
+            refstr, sa, rlp, lr_tar, sa_pos, lm, mrs, msym = args
+            items = (take(sa, sa_pos), lm)
+        elif k == "B3c":
+            refstr, rlp, lr_tar, cs, lm, mrs, msym = args
+            items = (cs, lm)
+        else:
+            refstr, sa, rlp, lr_tar = args[0], args[1], args[4], args[5]
+            items = (take(sa, args[9]), args[10])
+            mrs, msym = args[12], args[13]
+            n = args[9].shape[0]
+        words, steps, inner = reads.contig_reads(refstr, rlp, lr_tar, *items,
+                                                 mrs, msym)
+        return (words, CONTIG_WORD_OPS * words + CONTIG_STEP_OPS * steps
+                + CONTIG_INNER_OPS * inner,
+                {"words": words, "words_per_item": words / max(n, 1),
+                 "growth_steps": steps, "inner_steps": inner})
+    return (words, n * GAP_OPS + ok * FOLD_OPS,
+            {"words": words, "words_per_item": words / max(n, 1),
+             "gap_first_test_items": ok})
 
 
-def work(k: str, n: int, args, cand: int = 0, window: int = 0) -> tuple:
+def work(k: str, n: int, args, words: int = 0, ops: int = 0) -> tuple:
     """(bytes, integer operations) that kernel ``k`` must move and do on
-    the inputs of one launch over ``n`` items, ``cand`` of them with a
-    candidate for lookup1's gap check, reading ``window`` corpus words in
-    all for lookup1's scan (see ``WORK``)."""
+    the inputs of one launch over ``n`` items: ``WORK``'s counts per item,
+    and ``words`` gathered and ``ops`` done in all as the data decides
+    (``data_reads``)."""
     if k in ("A1", "B2r"):   # per depth a query token, two bisections
         lo, hi, depths = (args[5], args[6], args[8]) if k == "A1" \
             else (args[4], args[5], args[7])
@@ -650,15 +717,14 @@ def work(k: str, n: int, args, cand: int = 0, window: int = 0) -> tuple:
         lanes, items = args[7].shape[0], args[9].shape[0]
         steps = _log2(args[7].new_full((lanes,), args[11]))
         gathered = float((5 * steps + 2 * 2 * steps).sum())
-        w_in, w_gather, w_out, ops = WORK["A6"]
+        w_in, w_gather, w_out, _ = WORK["A6"]
         return (4 * (lanes * 8 + gathered
-                     + items * (w_in + w_gather + w_out) + 2),
-                10 * gathered + items * ops)
-    w_in, w_gather, w_out, ops = WORK[k]
+                     + items * (w_in + w_gather + w_out) + words + 2),
+                10 * gathered + ops)
+    w_in, w_gather, w_out, per_item = WORK[k]
     tables = sum(args[i].numel() for i in TABLE_ARGS.get(k, ()))
-    nbytes = 4 * (n * (w_in + w_gather + w_out) + tables + cand * GAP_WORDS
-                  + window)
-    return nbytes, n * ops + cand * GAP_OPS
+    nbytes = 4 * (n * (w_in + w_gather + w_out) + tables + words)
+    return nbytes, n * per_item + ops
 
 
 def _bit_equal(k: str, kernel, plain, args, device: str) -> float:
@@ -763,14 +829,11 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
         library_ms = (_time_ms(lambda: library[k](*args), device)
                       if k in library else None)
         src, replaces = KERNELS[k]
+        words = ops = 0
         extra = {}
-        cand = window = 0
-        if k in SCAN_ROWS:
-            cand, window = scan_reads(k, args)
-            extra = {"candidate_items": cand, "candidate_share": cand / n,
-                     "window_words": window, "window_words_per_item":
-                         window / n}
-        nbytes, ops = work(k, n, args, cand, window)
+        if k in SCAN_ROWS + GAP_ROWS + TWO_ROWS + CONTIG_ROWS:
+            words, ops, extra = data_reads(k, n, args)
+        nbytes, ops = work(k, n, args, words, ops)
         bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
         ops_ms = ops / OPS_PER_S * 1e3
         row = {"name": k, "route": "cuda", "source": src,
@@ -814,19 +877,59 @@ def _edge_starts(rng, edges, n: int, lo: int, hi: int):
             .astype(np.int32) for r in range(turns)]
 
 
-def check_edges(capture: Capture):
-    """A2f, A2b, A4 and A4v (the half-warp kernels) against their plain
-    versions on synthetic inputs over europarl's index arrays: occurrences
-    at 0, 1, glen - 2 and glen - 1 (A4v: also at its shard's own ends, on
-    the first and the last shard), item counts 1, 15, 17 and 33 (partial
-    half-warps and warps), per-pattern tables whose first, last and some
-    inner patterns are empty, and mrs 1, 2, 8 and 15.  A2's compared query
-    tokens are read from the corpus at a random move of each pattern's first
-    item, so that moves match and the gap check runs."""
+def _edge_picks(rng, n_edges: int, n_fill: int, n: int, turn: int):
+    """Item picks of the launches of ``n`` items for span limit number
+    ``turn``, as indices into the edges followed by the fill: one launch
+    per edge for one item (the edges spread over the span limits), else one
+    launch led by all edges, rotated, the rest drawn from the fill."""
+    import numpy as np
+    if n == 1:
+        return [np.array([e]) for e in range(turn, n_edges, len(EDGE_MRS))]
+    lead = np.roll(np.arange(n_edges), -int(rng.integers(n_edges)))
+    return [np.concatenate([lead, n_edges + rng.integers(0, n_fill, n)])[:n]]
+
+
+def _sentence_edges(refstr, reflen: int):
+    """Corpus positions at the ends of a few sentences: either side of the
+    first two separators and of one in the middle."""
     import numpy as np
     import torch
+    sep = torch.nonzero(refstr[:reflen] == 1).flatten().cpu().numpy()
+    pick = sep[[0, 1, len(sep) // 2]]
+    return np.concatenate([pick - 1, pick + 1])
+
+
+def check_edges(capture: Capture):
+    """The half-warp kernels against their plain versions on synthetic
+    inputs over europarl's index arrays, item counts 1, 15, 17 and 33
+    (partial half-warps and warps) and mrs 1, 2, 8 and 15:
+
+    * A2f, A2b: occurrences at 0, 1, glen - 2 and glen - 1, per-pattern
+      tables whose first, last and some inner patterns are empty; the
+      compared query tokens are read from the corpus at a random move of
+      each pattern's first item, so that moves match and the gap check runs;
+    * A4, A4v: the same occurrences (A4v: also at its shard's own ends, on
+      the first and the last shard);
+    * A6: occurrences (by SA position, from the inverse SA) at 0, 1,
+      reflen - 2, reflen - 1 and either side of a few sentence separators,
+      SA positions past both ends, block lengths 1 and mrs, msym 2, 3 and
+      5, the rest the main path's own items; B3c the same by corpus
+      position, at glen - 2 and glen - 1 too, on the first and the last
+      shard's views, and at each one's own ends;
+    * A5: (start, len) rows at those corpus positions and ending at the
+      corpus end, in both row tables, under tables with empty patterns as
+      A2's; C1t the same rows as columns, and B3t on the first and the last
+      shard's views at their own ends too.
+
+    Fails unless every output is bit-equal, the inputs of A2, A4 reach the
+    gap check, A6's emit each of its four families and A5's set both halves
+    of its word (cand and gc)."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.extract import device as xdev
     from cgx_tpu_torch.search import lookup
     from cgx_tpu_torch.search import precompute as pcx
+    t0 = time.perf_counter()
     rng = np.random.default_rng(20260817)
     refstr, rlp, lr_tar = capture.calls["A2b"][1][:3]
     mgs = capture.calls["A2b"][1][8]
@@ -835,17 +938,33 @@ def check_edges(capture: Capture):
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
-    stats = {k: {"launches": 0, "mask_items": 0}
-             for k in ("A2f", "A2b", "A4", "A4v")}
+    stats = {k: {"launches": 0} for k in ("A2f", "A2b", "A4", "A4v", "A6",
+                                          "B3c", "A5", "C1t", "B3t")}
 
     def compare(k, kernel, plain, args, what):
-        _bit_equal(f"{k}@edge({what})", kernel, plain, args, "cuda")
-        st = stats[k]
+        outs = []
+
+        def plain_once(*a):
+            outs.append(plain(*a))
+            return outs[-1]
+        _bit_equal(f"{k}@edge({what})", kernel, plain_once, args, "cuda")
+        out, st = outs[-1], stats[k]
         st["launches"] += 1
-        st["mask_items"] += int((plain(*args) != 0).sum())
-        if k in ("A2f", "A2b"):
-            st["candidate_items"] = st.get("candidate_items", 0) + int(
-                (plain(*args, gap=False) != 0).sum())
+
+        def add(name, count):
+            st[name] = st.get(name, 0) + int(count)
+        if k in ("A6", "B3c"):
+            for r, fam in enumerate(("ab", "Xab", "abX", "XabX")):
+                add(fam, (out[2 * r + 1] & 1).sum())
+        elif k in ("A5", "C1t", "B3t"):
+            cand, gc = (out[0], out[1]) if k == "B3t" else (
+                out & 0xFFFF, (out >> 16) & 0xFFFF)
+            add("cand_items", (cand != 0).sum())
+            add("gc_items", (gc != 0).sum())
+        else:
+            add("mask_items", (out != 0).sum())
+            if k in ("A2f", "A2b"):
+                add("candidate_items", (plain(*args, gap=False) != 0).sum())
     edges = np.array([0, 1, glen - 2, glen - 1])
     for fwd in (True, False):
         k = "A2f" if fwd else "A2b"
@@ -877,10 +996,12 @@ def check_edges(capture: Capture):
                     compare(k, lookup.scan, lookup.scan_plain, args,
                             f"n={n},mrs={mrs},r={r}")
     # A4 on the whole arrays, A4v on the first and the last shard's views
-    shard_args = [a for (k, _), (_, a) in sorted(capture.shard_calls.items())
-                  if k == "A4v"]
+    def first_last(k):
+        got = [a for (sk, _), (_, a) in sorted(capture.shard_calls.items())
+               if sk == k]
+        return got[0], got[-1]
     for k, (vr, vt) in [("A4", (rlp, lr_tar))] + [
-            ("A4v", a[:2]) for a in (shard_args[0], shard_args[-1])]:
+            ("A4v", a[:2]) for a in first_last("A4v")]:
         if k == "A4":
             ends, lo, hi = [], 0, vr.shape[0]
         else:
@@ -896,13 +1017,119 @@ def check_edges(capture: Capture):
                                 (vr, vt, dev(starts), mrs, mgs, fwd),
                                 f"n={n},mrs={mrs},fwd={fwd},first="
                                 f"{starts[0]}")
+
+    # A6 by SA position: the edges' positions from the inverse SA, SA
+    # positions past both ends, then the main path's items
+    t1 = time.perf_counter()
+    _, sa, _, _, real_pos, real_lm = capture.calls["A6"][1][:6]
+    reflen = int(capture.calls["B4"][1][11])
+    sent = _sentence_edges(refstr, reflen)
+    corpus_edges = np.concatenate([[0, 1, reflen - 2, reflen - 1], sent])
+    head = sa[:reflen]
+    sa_edges = [int(torch.nonzero(head == int(p))[0]) for p in corpus_edges]
+    sa_edges += [sa.shape[0] - 1, sa.shape[0] + 3, -1]
+
+    contig_pairs = {"A6": (xdev.contig, xdev.contig_plain),
+                    "B3c": (xdev.contig_pos, xdev.contig_pos_plain)}
+
+    def contig_launches(k, arrays, edge_at, fill_at, fill_lm):
+        """A6 or B3c over ``arrays`` (the captured call's first arrays):
+        ``edge_at`` its item words at the edges, ``fill_at``/``fill_lm``
+        the main path's items."""
+        n_edges = len(edge_at)
+        at = np.concatenate([edge_at, fill_at.cpu().numpy()])
+        lms_fill = fill_lm.cpu().numpy()
+        for n in EDGE_ITEMS:
+            for turn, mrs in enumerate(EDGE_MRS):
+                for pick in _edge_picks(rng, n_edges, len(fill_at), n, turn):
+                    # block lengths 1 and mrs at the edges, the main path's
+                    # own beyond them
+                    lm = np.where(pick < n_edges,
+                                  np.where((pick + n + turn) % 2, mrs, 1),
+                                  lms_fill[np.maximum(pick - n_edges, 0)])
+                    msym = EDGE_MSYM[(n + turn) % len(EDGE_MSYM)]
+                    compare(k, *contig_pairs[k],
+                            (*arrays, dev(at[pick]), dev(lm), mrs, msym),
+                            f"n={n},mrs={mrs},msym={msym},first={at[pick[0]]}")
+    contig_launches("A6", (refstr, sa, rlp, lr_tar), np.array(sa_edges),
+                    real_pos, real_lm)
+    for args in first_last("B3c"):
+        vr = args[0]
+        g_ends = [0, 1, vr.glen - 2, vr.glen - 1, args[1].glen - 2,
+                  args[1].glen - 1]
+        lo, hi = int(vr.off), int(vr.off) + vr.arr.shape[0]
+        at = np.concatenate([g_ends, [lo, lo + 1, hi - 2, hi - 1], sent])
+        contig_launches("B3c", args[:3], at, args[3], args[4])
+
+    # A5 over (start, len) rows: the edges (starting there, or ending at the
+    # corpus end) lead both row tables, the main path's rows follow
+    a5 = capture.calls["A5"][1]
+    ends_at = np.array([glen, reflen, reflen - 1])
+    plen = rng.integers(1, 4, len(corpus_edges) + 4)
+    starts = np.concatenate([corpus_edges, [glen - 2, glen - 1, 0, 1]])
+    edge_rows = np.stack([starts, plen], axis=1)
+    tail = np.stack([np.repeat(ends_at, 3) - np.tile([1, 2, 3], 3),
+                     np.tile([1, 2, 3], 3)], axis=1)
+    edge_rows = np.concatenate([edge_rows, tail])
+    n_edges = len(edge_rows)
+    real_rows = {t: a5[i].cpu().numpy() for t, i in (("og", 3), ("pc", 4))}
+    for n in EDGE_ITEMS:
+        for turn, mrs in enumerate(EDGE_MRS):
+            for pick in _edge_picks(rng, n_edges, 64, n, turn):
+                e = int(pick[0]) if n == 1 else int(rng.integers(n_edges))
+                tables = []
+                for t in ("og", "pc"):
+                    fill = real_rows[t][rng.integers(0, len(real_rows[t]),
+                                                     64)]
+                    tables.append(np.concatenate([np.roll(edge_rows, -e, 0),
+                                                  fill]))
+                offs = _edge_offs(rng, n)
+                D = len(offs) - 1
+                lo = rng.integers(0, n_edges + 66, D)   # some past the end
+                lo[1] = 0
+                pattab = np.stack([lo, rng.integers(0, 2, D)], axis=1)
+                compare("A5", lookup.two, lookup.two_plain,
+                        (refstr, rlp, lr_tar, dev(tables[0]), dev(tables[1]),
+                         dev(pattab), dev(offs), n, mrs, mgs),
+                        f"n={n},mrs={mrs},first={edge_rows[e]}")
+                rows = np.concatenate([edge_rows, tables[0][n_edges:]])[
+                    pick]
+                compare("C1t", lookup.two_packed, lookup.two_packed_plain,
+                        (refstr, rlp, lr_tar, dev(rows[:, 0]),
+                         dev(rows[:, 1]), mrs, mgs),
+                        f"n={n},mrs={mrs},first={rows[0]}")
+    for args in first_last("B3t"):
+        vr = args[0]
+        lo, hi = int(vr.off), int(vr.off) + vr.arr.shape[0]
+        shard_rows = np.concatenate([edge_rows, np.stack(
+            [[lo, lo + 1, hi - 2, hi - 1, hi - 3], [1, 2, 1, 1, 3]], axis=1)])
+        fill = np.stack([args[3].cpu().numpy(), args[4].cpu().numpy()], 1)
+        rows_all = np.concatenate([shard_rows, fill])
+        for n in EDGE_ITEMS:
+            for turn, mrs in enumerate(EDGE_MRS):
+                for pick in _edge_picks(rng, len(shard_rows), len(fill), n,
+                                        turn):
+                    rows = rows_all[pick]
+                    compare("B3t", lookup.two_items, lookup.two_items_plain,
+                            (*args[:3], dev(rows[:, 0]), dev(rows[:, 1]),
+                             mrs, mgs),
+                            f"n={n},mrs={mrs},off={lo},first={rows[0]}")
+
+    t2 = time.perf_counter()
     print(json.dumps({"phase": "edges", "items": EDGE_ITEMS,
-                      "mrs": EDGE_MRS, **stats, "bit_equal": True}),
-          flush=True)
-    idle = [k for k, st in stats.items()
-            if st["mask_items"] == 0 or st.get("candidate_items") == 0]
+                      "mrs": EDGE_MRS, "msym": EDGE_MSYM, **stats,
+                      "seconds_a2_a4": t1 - t0, "seconds_a6_a5": t2 - t1,
+                      "bit_equal": True}), flush=True)
+    idle = [k for k in ("A2f", "A2b", "A4", "A4v")
+            if stats[k]["mask_items"] == 0
+            or stats[k].get("candidate_items") == 0]
     if idle:
         fail(f"edges: the inputs of {idle} never reached the gap check")
+    silent = [f"{k}.{f}" for k, fams in (
+        ("A6", ("ab", "Xab", "abX", "XabX")), ("A5", ("cand_items", "gc_items")))
+        for f in fams if stats[k][f] == 0]
+    if silent:
+        fail(f"edges: the inputs never set {silent}")
 
 
 def launch_floor(capture: Capture, device: str):

@@ -30,6 +30,7 @@ from cgx_tpu_torch.index import container as tic  # noqa: E402
 from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
 from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
 from cgx_tpu_torch.search import passes as tpasses  # noqa: E402
+from cgx_tpu_torch.tools import reads  # noqa: E402
 from cgx_tpu_torch.utils.views import OffsetView  # noqa: E402
 
 
@@ -75,9 +76,13 @@ def world(request):
                 tidx=tidx, tblocks=tblocks)
 
 
-def test_plain_a6_equals_contig_batch(world):
-    """Every sampled occurrence of the corpus's blocks, plus random
-    (position, length) lanes that run into corpus and sentence edges."""
+@pytest.mark.parametrize("mrs,msym", [(15, 5), (1, 5), (2, 2), (8, 3)])
+def test_plain_a6_equals_contig_batch(world, mrs, msym):
+    """Every sampled occurrence of the corpus's blocks, random (position,
+    length) lanes that run into corpus and sentence edges, and the
+    occurrences at corpus positions 0, 1, reflen - 2 and reflen - 1 (SA
+    positions from the inverse SA) with every block length 1..mrs, under
+    the default span limits and narrower ones."""
     w = world
     b = w["jblocks"]
     lo = np.where(b.matchlen >= 1, b.start, 0)
@@ -85,22 +90,92 @@ def test_plain_a6_equals_contig_batch(world):
     bnums, tx = occurrence_lists(lo, hi, 300, True)
     rng = np.random.default_rng(0)
     extra = 200
-    sa_pos = np.concatenate([b.start[bnums] + tx, rng.integers(
-        0, w["jidx"].reflen, extra)]).astype(np.int32)
-    lm = np.concatenate([b.matchlen[bnums], rng.integers(1, 6, extra)]
-                        ).astype(np.int32)
     ix = w["jidx"]
+    reflen = int(ix.reflen)
+    inv = np.empty(reflen, np.int64)
+    inv[np.asarray(ix.sa)[:reflen]] = np.arange(reflen)
+    ends = inv[[0, 1, reflen - 2, reflen - 1]]
+    lms = np.arange(1, mrs + 1)
+    sa_pos = np.concatenate([b.start[bnums] + tx, rng.integers(
+        0, reflen, extra), np.repeat(ends, mrs)]).astype(np.int32)
+    lm = np.concatenate([b.matchlen[bnums], rng.integers(1, 6, extra),
+                         np.tile(lms, len(ends))]).astype(np.int32)
     want = jdev._contig_batch(ix.refstr_padded, ix.sa, ix.rlp, ix.lr_tar,
                               jnp.asarray(sa_pos), jnp.asarray(lm), ix.offs0,
-                              15, 5)
+                              mrs, msym)
     t = w["tidx"]
     got = tdev.contig(t.refstr_padded, t.sa, t.rlp, t.lr_tar,
-                      torch.from_numpy(sa_pos), torch.from_numpy(lm), 15, 5)
+                      torch.from_numpy(sa_pos), torch.from_numpy(lm), mrs,
+                      msym)
     assert got.shape == (8, len(sa_pos)) and got.dtype == torch.int32
     for col, wcol in enumerate(want):
         np.testing.assert_array_equal(got[col].numpy(), np.asarray(wcol),
                                       err_msg=f"column {col}")
-    assert (got[1].numpy() & 1).any() and (got[7].numpy() & 1).any()
+    # ab always; XabX wherever lm + 2 <= min(mrs, msym) admits it
+    assert (got[1].numpy() & 1).any()
+    assert (got[7].numpy() & 1).any() == (min(mrs, msym) >= 3)
+
+
+def test_contig_reads_counts_distinct_words(world):
+    """``tools.reads.contig_reads`` (the words the bound of A6, B3c and B4
+    counts) is each item's distinct needed slots per array, summed: it
+    equals a walk over ``contig_need``'s slots, and lies under a word-by-word
+    walk of everything ``_extract_contig_item`` gathers (the base span, its
+    sentence anchor, each side's 14 steps, three whole target windows), on
+    random occurrences and the corpus ends.  ``tests/test_torch_reads.py``
+    shows that the needed words decide the output."""
+    t = world["tidx"]
+    rlp = t.rlp.numpy().view(np.uint32).astype(np.int64)
+    n_ref, n_tar = t.refstr_padded.shape[0], t.lr_tar.shape[0]
+    rng = np.random.default_rng(5)
+    cs = np.concatenate([[0, 1, t.reflen - 2, t.reflen - 1],
+                         rng.integers(0, t.reflen, 200)])
+    lm = rng.integers(1, 16, len(cs))
+    mrs, msym = 15, 5
+
+    def clamp(p, n):
+        return min(max(p, 0), n - 1)
+
+    def L_al(p):
+        if p < 0:
+            return 255, False
+        x = rlp[clamp(p, len(rlp))]
+        L, R = (x >> 24) & 0xFF, (x >> 16) & 0xFF
+        return L, L != 255 and R != 255
+    gathered = []
+    for c, m in zip(cs.tolist(), lm.tolist()):
+        tempind = c - ((rlp[clamp(c, len(rlp))] >> 8) & 0xFF) - 1
+        stb = 0 if tempind == -1 else rlp[clamp(tempind, len(rlp))]
+        stb = stb - 2**32 if stb >= 2**31 else stb
+        span = [c + k for k in range(16)]
+        min_L = min([L for L, al in map(L_al, span[:m]) if al] + [256])
+        sides = [[c - i for i in range(1, 15)],
+                 [c + m - 1 + i for i in range(1, 15)]]
+        anchors = [stb + min(min_L, 255)]
+        for pos in sides:
+            steps = [L_al(p) for p in pos]
+            first = next((L for L, al in steps if al), steps[0][0])
+            anchors.append(stb + first)
+        read = [p for s in sides for p in s if p >= 0]
+        rl = span + read + ([tempind] if tempind != -1 else [])
+        gathered.append(len({clamp(p, len(rlp)) for p in rl})
+                        + len({clamp(p, n_ref) for p in read})
+                        + len({clamp(a + d, n_tar) for a in anchors
+                               for d in range(-mrs + 1, mrs)}))
+    args = (t.refstr_padded, t.rlp, t.lr_tar,
+            torch.from_numpy(cs.astype(np.int32)),
+            torch.from_numpy(lm.astype(np.int32)), mrs, msym)
+    need = reads.contig_need(*args)
+    needed = []
+    for i in range(len(cs)):
+        needed.append(sum(len(set(slots[i][keep[i]].tolist()))
+                          for slots, keep in (need["refstr"], need["rlp"],
+                                              need["lr_tar"])))
+    words, steps, inner = reads.contig_reads(*args)
+    assert words == sum(needed)
+    assert all(0 < w <= g for w, g in zip(needed, gathered))
+    assert words < sum(gathered)
+    assert 0 < steps <= 14 * len(cs) and 0 <= inner <= 14 * steps
 
 
 def _eq(a, b):

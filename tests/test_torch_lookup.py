@@ -32,6 +32,7 @@ from cgx_tpu_torch.search import enumerate_fast as tef  # noqa: E402
 from cgx_tpu_torch.search import lookup as tlk  # noqa: E402
 from cgx_tpu_torch.search import passes as tpasses  # noqa: E402
 from cgx_tpu_torch.search import precompute as tpcx  # noqa: E402
+from cgx_tpu_torch.tools import reads  # noqa: E402
 from cgx_tpu_torch.utils.views import OffsetView, take  # noqa: E402
 
 
@@ -189,11 +190,14 @@ def test_plain_a2_equals_scan_batch_exp(world, fwd, do_gap):
         assert ((full & ~want) == 0).all() and (full != want).any()
         # the count the kernels' bounds use
         f, tx = tlk._expand(targs[4], targs[5], N)
-        n_cand, n_read = tlk.scan_reads(
-            targs[0], take(targs[3], f[:, 0] + tx), f[:, 1], f[:, 2],
-            f[:, 3:6], mrs, mgs, fwd)
+        n_cand, n_read, n_gap, n_ok = reads.scan_reads(
+            targs[0], targs[1], targs[2], take(targs[3], f[:, 0] + tx),
+            f[:, 1], f[:, 2], f[:, 3:6], mrs, mgs, fwd)
         assert n_cand == int((want != 0).sum())
         assert 0 < n_read < N * (tlk.MMOV + 2)
+        # the gap check's words, over the items with a candidate only
+        assert n_cand <= n_gap < n_cand * (mrs + 2 + tlk.MMOV)
+        assert 0 < n_ok <= n_cand
 
 
 @pytest.mark.parametrize("fwd", [True, False])

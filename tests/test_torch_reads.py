@@ -1,0 +1,147 @@
+"""The words the kernels' bounds count (``cgx_tpu_torch.tools.reads``): for
+the fused gap check, A5's body and A6's body, the words each counter marks
+as needed decide the plain version's output.  Redrawing every other word of
+the index arrays (from the same array, so that the words stay plausible)
+changes no output, so the bounds, which count only the needed words, count
+all that the functions need; and the needed words are fewer than the
+gathers."""
+
+import pathlib
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
+from cgx_tpu_torch.extract import device as xdev  # noqa: E402
+from cgx_tpu_torch.index import container as tic  # noqa: E402
+from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
+from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
+from cgx_tpu_torch.search import lookup  # noqa: E402
+from cgx_tpu_torch.tools import reads  # noqa: E402
+
+
+@pytest.fixture(scope="module", params=["real", "hard"])
+def index(request):
+    """The port's index over a fixture corpus, on the CPU."""
+    if request.param == "hard":
+        sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
+        from tools.make_bigcorpus import make_hard_corpus
+        f, e, a, lex_t = make_hard_corpus(400, vocab=200, seed=11)
+        f, e = f.split("\n"), e.split("\n")
+    else:
+        d = request.getfixturevalue("real_fixture")
+        f, e, a = (tcp.read_lines(str(d / n))
+                   for n in ("corpus.f", "corpus.e", "corpus.a"))
+        lex_t = tcp.read_tokens(str(d / "lex.txt"))
+    src, tgt = tcp.load_source_corpus(f), tcp.load_target_corpus(e)
+    return tic.build_index(src, tgt, tsab.build_index(src.str_),
+                           tcp.load_alignment_fast(a, src, tgt),
+                           tcp.load_lex_table(lex_t, src.vocab, tgt.vocab),
+                           ExtractorConfig(), "cpu")
+
+
+def _arrays(ix):
+    return {"refstr": ix.refstr_padded, "rlp": ix.rlp, "lr_tar": ix.lr_tar}
+
+
+def _redrawn(rng, arrays, need, rows):
+    """The arrays with every word that no item of ``rows`` needs redrawn
+    from the same array."""
+    out = {}
+    for name, arr in arrays.items():
+        a = arr.numpy()
+        b = a[rng.integers(0, len(a), len(a))]
+        if name in need:
+            slots, keep = need[name]
+            kept = slots[rows][keep[rows]].numpy()
+            b[kept] = a[kept]
+        out[name] = torch.from_numpy(b)
+    return out
+
+
+def _starts(rng, ix, n):
+    """Corpus positions: both corpus ends and random ones."""
+    r = int(ix.reflen)
+    return torch.from_numpy(np.concatenate(
+        [[0, 1, r - 2, r - 1], rng.integers(0, r, n - 4)]).astype(np.int32))
+
+
+def _check(rng, arrays, need, n, fn, batch=4, rounds=8):
+    """``fn(arrays, rows)`` is unchanged on every batch of rows when the
+    words no row of the batch needs are redrawn."""
+    for _ in range(rounds):
+        rows = torch.from_numpy(rng.choice(n, batch, replace=False))
+        want = fn(arrays, rows)
+        got = fn(_redrawn(rng, arrays, need, rows), rows)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("grow_right", [True, False])
+def test_gap_need_decides_the_mask(index, grow_right):
+    rng = np.random.default_rng(11 if grow_right else 12)
+    arrays = _arrays(index)
+    n = 400
+    fixed = _starts(rng, index, n)
+    for mrs, base_off in ((15, 0), (15, 1), (8, 0), (2, 0)):
+        need = reads.gap_need(arrays["rlp"], arrays["lr_tar"], fixed,
+                              base_off, mrs, grow_right)
+
+        def fn(a, rows):
+            return lookup.gap_check_grow(a["rlp"], a["lr_tar"], fixed[rows],
+                                         base_off, mrs, grow_right)
+        _check(rng, arrays, need, n, fn)
+        mask = fn(arrays, torch.arange(n))
+        assert (need["ok"] == False).any()                 # noqa: E712
+        if mrs > 2:
+            assert need["ok"].any() and mask.any()
+        words, ok = reads.gap_reads(arrays["rlp"], arrays["lr_tar"], fixed,
+                                    base_off, mrs, grow_right)
+        assert ok == int(need["ok"].sum())
+        # the per-thread form reads mrs + 2 RLP and 16 lr_tar words
+        assert n <= words < n * (mrs + 2 + lookup.MMOV)
+
+
+def test_two_need_decides_the_word(index):
+    rng = np.random.default_rng(13)
+    arrays = _arrays(index)
+    n = 400
+    pstart = _starts(rng, index, n)
+    plen = torch.from_numpy(rng.integers(1, 6, n).astype(np.int32))
+    for mrs in (15, 8, 2):
+        need = reads.two_need(*arrays.values(), pstart, plen, mrs, 1)
+
+        def fn(a, rows):
+            return lookup.two_packed_plain(*a.values(), pstart[rows],
+                                           plen[rows], mrs, 1)
+        _check(rng, arrays, need, n, fn)
+        words, ok = reads.two_reads(*arrays.values(), pstart, plen, mrs, 1)
+        # the gap-0 token and the gap check's word 0 at least; the
+        # per-thread form read 17 corpus and mrs + 18 gap-check words
+        assert 2 * n <= words < n * (17 + mrs + 18)
+        if mrs == 2:      # no move fits the span: no move word is needed
+            assert not need["refstr"][1][:, 1:].any()
+        else:
+            assert need["refstr"][1][:, 1:].any() and ok > 0
+
+
+@pytest.mark.parametrize("mrs,msym", [(15, 5), (8, 3), (2, 2)])
+def test_contig_need_decides_the_output(index, mrs, msym):
+    rng = np.random.default_rng(mrs)
+    arrays = _arrays(index)
+    n = 400
+    cs = _starts(rng, index, n)
+    lm = torch.from_numpy(rng.integers(1, mrs + 1, n).astype(np.int32))
+    need = reads.contig_need(*arrays.values(), cs, lm, mrs, msym)
+
+    def fn(a, rows):
+        return xdev.contig_pos_plain(*a.values(), cs[rows], lm[rows], mrs,
+                                     msym)
+    _check(rng, arrays, need, n, fn, rounds=12)
+    out = fn(arrays, torch.arange(n))
+    assert (out[1] & 1).any()
+    if mrs > 2:
+        assert (out[3] & 1).any() or (out[5] & 1).any()
+        assert int(need["steps"].sum()) > 0

@@ -155,10 +155,13 @@ def _bucket_rows(start, length):
     return rows
 
 
-def test_plain_a5_equals_two_batch_exp(world):
+@pytest.mark.parametrize("mrs", [15, 8, 2])
+def test_plain_a5_equals_two_batch_exp(world, mrs):
     """lookup2's own layout (every distinct one-gap pattern, precomputed
-    cells expanded) plus random patterns over both row tables, compared on
-    the first N words."""
+    cells expanded), random patterns over both row tables and patterns over
+    occurrences that end at the corpus end (the logical and the padded
+    one), compared on the first N words, under the default span limit and
+    narrower ones."""
     w = world
     cfg = w["jcfg"]
     og, pc = w["tog"], w["tpc"]
@@ -171,14 +174,23 @@ def test_plain_a5_equals_two_batch_exp(world):
                     rng.integers(0, max(len(og.length), 1), extra))
     r_cnt = rng.integers(0, 4, extra)
     r_cnt = np.minimum(r_cnt, np.where(r_pcm, pc.count, len(og.length)) - r_lo)
-    lo = np.concatenate([lo, r_lo])
-    counts = np.concatenate([counts, r_cnt]).astype(np.int64)
-    pcmode = np.concatenate([pcmode, r_pcm])
+    # one-gap rows ending at the corpus end: each alone, then all six
+    t = w["tidx"]
+    tail_len = np.array([1, 2, 3, 1, 2, 3])
+    tail_start = np.concatenate([t.reflen - tail_len[:3],
+                                 t.refstr_padded.shape[0] - tail_len[3:]])
+    n_og = len(og.length)
+    t_lo = n_og + np.array([0, 1, 2, 3, 4, 5, 0])
+    t_cnt = np.array([1, 1, 1, 1, 1, 1, 6])
+    lo = np.concatenate([lo, r_lo, t_lo])
+    counts = np.concatenate([counts, r_cnt, t_cnt]).astype(np.int64)
+    pcmode = np.concatenate([pcmode, r_pcm, np.zeros(len(t_lo), bool)])
     D = len(lo)
     offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
     N = int(offs[-1])
     pattab = np.stack([lo, pcmode], axis=1).astype(np.int32)
-    ogrows = _bucket_rows(og.str_position, og.length)
+    ogrows = _bucket_rows(np.concatenate([og.str_position, tail_start]),
+                          np.concatenate([og.length, tail_len]))
     pcrows = _bucket_rows(pc.onegap_start, pc.onegap_length)
     tab = np.zeros((bucket_size(D), 2), np.int32)
     tab[:D] = pattab
@@ -190,17 +202,19 @@ def test_plain_a5_equals_two_batch_exp(world):
         ix.refstr_padded, ix.rlp, ix.lr_tar, jnp.asarray(ogrows),
         jnp.asarray(pcrows), jnp.asarray(tab),
         jnp.asarray(offs_pad.astype(np.int32)), jnp.int32(0),
-        jnp.int32(pat0), jnp.int32(D), ix.offs0, cfg.max_rule_span,
-        cfg.min_gap_size, bucket_size(N), do_gap=True)
-    t = w["tidx"]
+        jnp.int32(pat0), jnp.int32(D), ix.offs0, mrs, cfg.min_gap_size,
+        bucket_size(N), do_gap=True)
     got = tlk.two(t.refstr_padded, t.rlp, t.lr_tar, torch.from_numpy(ogrows),
                   torch.from_numpy(pcrows), torch.from_numpy(pattab),
-                  torch.from_numpy(offs.astype(np.int32)), N,
-                  cfg.max_rule_span, cfg.min_gap_size)
+                  torch.from_numpy(offs.astype(np.int32)), N, mrs,
+                  cfg.min_gap_size)
     assert got.dtype == torch.int32 and got.shape == (N,)
     want = np.asarray(want, np.uint32)[:N].view(np.int32)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert (want & 0xFFFF).any() and (want >> 16).any()
+    # gc always; cand only where a core of >= 1 token, the gap and a move
+    # fit in the span limit
+    assert (want >> 16).any()
+    assert (want & 0xFFFF).any() == (mrs > 2)
 
 
 def test_two_gap_lookup_equals_jax(world):
