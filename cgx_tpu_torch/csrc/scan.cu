@@ -1,53 +1,50 @@
-// lookup1's and lookup2's device kernels: A2 and lookup2's second-gap scan
-// (A5, C1t, B3t) a warp per 32 items, the others one thread per work item.
+// lookup1's and lookup2's device kernels: lookup1's scan (A2, B3f/B3b,
+// C1f/C1b) and lookup2's second-gap scan (A5, C1t, B3t) a warp per 32 items,
+// each on one warp body; the verifications (A3, B3p, C1p) one thread per
+// item.
 //
-// A2 (cgx_scan): the forward/backward aXb occurrence scan.  Replaces
-//   cgx_tpu/search/lookup.py:_scan_batch_exp (lookup.py:337-353) with
-//   _cumsum_expand (:298), _fwd_item (:110), _bwd_item (:161) and the fused
-//   _gap_check_grow (gapcheck.cuh).  Item j belongs to pattern p, the last p
-//   with offs[p] <= j (a binary search over the count prefix; patterns with
-//   no items are skipped), and reads its start from the device SA.  A warp
-//   takes 32 consecutive items in three steps: lane i finds item i's
-//   pattern, row, SA word and gap-0 token; then a half-warp per item, lane m
-//   reading window word m, gives the candidate mask of moves m (the JAX
-//   prefix-AND of "survive" is a ballot); then only the items with a
-//   candidate run the cooperative gap check (gap_check_half), two at a
-//   time.  This is exact: the result is cand & gc, and gc does not depend
-//   on the scan (the JAX package's do_gap=False split, done in the kernel).
-// A3 (cgx_pcs): the precomp-seed verification.  Replaces
-//   lookup.py:_pcs_batch_exp (:315) with _pcs_item (:203): the span budget,
-//   up to 2 prefix and 2 suffix tokens per precomputed occurrence.  The ok
-//   bits leave packed 32 per word; one warp ballot writes each word.
-// A5 (cgx_two): lookup2's scan for a second gap.  Replaces
-//   lookup.py:_two_batch_exp (:662-680) with _two_item (:615-639): from an
-//   aXb occurrence (start, len), read from the precomputed rows or the
-//   one-gap rows as the pattern's pcmode flag says, the 16 moves right of
-//   the core and the fused gap check anchored one token past it.  The word
-//   holds the uint32 bits cand | (gc << 16); the c token is resolved on the
-//   host.  A warp takes 32 consecutive items as A2 does: lane i finds item
-//   i's pattern and occurrence row; then a half-warp per item reads the 16
-//   move words (one request), takes the candidate mask by ballot and runs
-//   gap_check_half for every item (gc is part of the word), two items at a
-//   time, the next pair's move and RLP words read a step ahead (two_warp,
-//   which C1t and B3t share).
-// B3 (the sharded index's per-item forms of the same bodies, one item per
-//   input row, on views of one shard's slices; common.cuh):
-//   cgx_fwd_items / cgx_bwd_items (B3f / B3b) replace lookup.py:_fwd_batch
-//   (:237) and _bwd_batch (:246), with the compared query tokens gathered
-//   here from the padded query tokens as _qtok_fwd / _qtok_bwd do (:224-233);
-//   cgx_pcs_items (B3p) replaces _pcs_batch (:255); cgx_two_items (B3t)
-//   replaces _two_batch (:643), A5's warp body on one item per row, and
-//   returns cand and gc as two words.
-// C1 (the column-upload variants, one item per row of host-materialised
-//   columns, identity views): cgx_scan_cols (C1f / C1b) replaces
-//   lookup.py:_scan_batch_cols (:274-282), the scan over gostart, sl, el and
-//   the three compared query tokens w0..w2 resolved on the host;
-//   cgx_pcs_cols (C1p) replaces _pcs_batch_cols (:285-295), the
-//   verification over (pstart, plen, sl, el, pa1, pa2, pb2, pb3) with the
-//   ok bits packed 32 per word by a warp ballot, as A3 packs them (any n:
-//   the last word's tail bits are 0); cgx_two_packed (C1t) replaces
-//   _two_batch_packed (:650-658), A5's warp body over (pstart, plen) as one
-//   word cand | (gc << 16).
+// lookup1's scan, `scan_warp`: the forward/backward aXb occurrence scan of
+//   cgx_tpu/search/lookup.py:_fwd_item (:110) and _bwd_item (:161) with the
+//   fused _gap_check_grow (gapcheck.cuh).  Lane i holds item i's scalars;
+//   a half-warp per item, lane m reading window word m, gives the candidate
+//   mask of moves m (the JAX prefix-AND of "survive" is a ballot); then
+//   only the items with a candidate run the cooperative gap check
+//   (gap_check_half), two at a time.  This is exact: the result is cand &
+//   gc, and gc does not depend on the scan (the JAX package's do_gap=False
+//   split, done in the kernel).  Its three kernels differ only in how lane
+//   i finds its item:
+//   A2 (cgx_scan) replaces lookup.py:_scan_batch_exp (:337-353) with
+//     _cumsum_expand (:298): item j belongs to pattern p, the last p with
+//     offs[p] <= j (a binary search over the count prefix; patterns with no
+//     items are skipped), and reads its start from the device SA;
+//   B3f / B3b (cgx_fwd_items / cgx_bwd_items, the sharded index, on views of
+//     one shard's slices; common.cuh) replace _fwd_batch (:237) and
+//     _bwd_batch (:246): one item per input row, the compared query tokens
+//     gathered from the padded query tokens as _qtok_fwd / _qtok_bwd do
+//     (:224-233);
+//   C1f / C1b (cgx_scan_cols, identity views) replace _scan_batch_cols
+//     (:274-282): one item per row of host-resolved columns gostart, sl, el
+//     and the three compared query tokens w0..w2.
+// lookup2's second-gap scan, `two_warp`: _two_item (:615-639): from an aXb
+//   occurrence (start, len) the 16 moves right of the core and the fused
+//   gap check anchored one token past it.  A half-warp per item reads the
+//   16 move words (one request), takes the candidate mask by ballot and
+//   runs gap_check_half for every item (gc is part of the result), two
+//   items at a time, the next pair's move and RLP words read a step ahead.
+//   A5 (cgx_two) replaces lookup.py:_two_batch_exp (:662-680), the
+//   occurrence read from the precomputed rows or the one-gap rows as the
+//   pattern's pcmode flag says, and returns the uint32 bits cand | (gc <<
+//   16) (the c token is resolved on the host); C1t (cgx_two_packed)
+//   replaces _two_batch_packed (:650-658), the same word over (pstart,
+//   plen) columns; B3t (cgx_two_items) replaces _two_batch (:643) on a
+//   shard's views and returns cand and gc as two words.
+// The verifications: A3 (cgx_pcs) replaces lookup.py:_pcs_batch_exp (:315)
+//   with _pcs_item (:203): the span budget, up to 2 prefix and 2 suffix
+//   tokens per precomputed occurrence, the ok bits packed 32 per word by a
+//   warp ballot; B3p (cgx_pcs_items) replaces _pcs_batch (:255) on a
+//   shard's views; C1p (cgx_pcs_cols) replaces _pcs_batch_cols (:285-295)
+//   over (pstart, plen, sl, el, pa1, pa2, pb2, pb3) columns, packed as A3
+//   (any n: the last word's tail bits are 0).
 //
 // Every body reads the corpus through views with the JAX bounds: a read the
 // JAX body bounds explicitly (jnp.minimum / jnp.maximum / jnp.clip against
@@ -55,27 +52,23 @@
 // into the local slice (View::at).  The replicated entry points pass
 // identity views, where both are the old clamp.
 //
-// Bound on the H100: A2 reads per item one offs search (log2 D words), one
-// pattab row, one SA word, the gap-0 token and an 18-word corpus window, and
-// the gap check's ~33 words only for the items with a candidate (under 2% at
-// europarl; chip_smoke.py prints the share), all scattered (occurrences of a
-// pattern are SA-ordered, not corpus-ordered); A3 reads ~8 words; A5 one
-// offs search, one pattab row, one occurrence row, a 17-word corpus window
-// and the gap check's ~33 words for every item; B3 and C1 read their item
-// columns instead of the table and the SA (C1 reads 6, 8 or 2 coalesced
-// column words per item).  All are latency-bound gathers with a few hundred
-// integer ops per item at most.  In the one-thread forms every window is
-// 16-18 loads per thread, each touching 32 unrelated lines per warp
-// instruction; the half-warp windows of A2 and two_warp make each a 64-byte
-// request, and A2's step 3 skips the gap check for the items that cannot
-// emit (A5 cannot skip: its word carries gc).  The bounds count only the
-// words the functions need (tools/reads.py): the window words that decide a
-// candidate (up to the first dead move and the span limit), not the 17-18
-// read, and of the gap check the RLP words up to the widest span and the
-// lr_tar words only where some move passes its first test; PERF.md gives
-// each time against its bound, the host's launch included.  The per-thread lookup1 scan
-// `scan_item` (B3f/B3b, C1f/C1b), the last caller of gap_check_grow, moves
-// onto A2's half-warp scan next; then both go.
+// Bound on the H100: lookup1's scan reads per item its scalars (A2: one
+// offs search of log2 D words, one pattab row and one SA word; B3 four
+// columns and three query tokens; C1 six columns), the gap-0 token and an
+// 18-word corpus window, and the gap check's ~33 words only for the items
+// with a candidate (under 2% at europarl; chip_smoke.py prints the share),
+// all scattered (occurrences of a pattern are SA-ordered, not
+// corpus-ordered); A3 reads ~8 words; A5 one offs search, one pattab row,
+// one occurrence row, a 17-word corpus window and the gap check's ~33 words
+// for every item (A5 cannot skip it: its word carries gc).  All are
+// latency-bound gathers with a few hundred integer ops per item at most.
+// The half-warp windows make each window one 64-byte request.  The bounds
+// count only the words the functions need (tools/reads.py): the window
+// words that decide a candidate (up to the first dead move and the span
+// limit), not the 17-18 read, and of the gap check the RLP words up to the
+// widest span and the lr_tar words only where some move passes its first
+// test; PERF.md gives each time against its bound, the host's launch
+// included.
 #include "gapcheck.cuh"
 
 namespace {
@@ -89,62 +82,6 @@ __device__ __forceinline__ int find_pattern(const int* __restrict__ offs,
         if (offs[mid] <= j) lo = mid; else hi = mid;
     }
     return min(lo, D - 1);
-}
-
-// _fwd_item / _bwd_item: the move mask of one occurrence at `gostart`
-// (a's start forward, b's start backward); want0..2 are the compared query
-// tokens (b's first three forward, a's last three reversed backward).
-__device__ unsigned scan_item(const View& ref, const View& rlp,
-                              const View& lr_tar, int gostart, int sl, int el,
-                              int want0, int want1, int want2, int mrs,
-                              int mgs, bool fwd) {
-    // the compared side's length: b's (el) forward, a's (sl) backward
-    const int side_len = fwd ? el : sl;
-    const int other_len = fwd ? sl : el;
-
-    bool gap0_bad;
-    int win[MMOV + 2];
-    if (fwd) {
-        // refstr[gostart + sl] and refstr[jnp.minimum(wpos, glen - 1)]
-        gap0_bad = ref.at(gostart + sl) < 2;
-        for (int k = 0; k < MMOV + 2; ++k)
-            win[k] = ref.at(min(gostart + sl + mgs + k, ref.glen - 1));
-    } else {
-        // refstr[jnp.maximum(gostart - 1, 0)]; the window reads at >= 0
-        gap0_bad = ref.at(max(gostart - 1, 0)) < 2;
-        for (int k = 0; k < MMOV + 2; ++k) {
-            const int pos = gostart - 1 - mgs - k;
-            win[k] = pos < 0 ? -1 : ref.at(pos);
-        }
-    }
-    const unsigned gc = gap_check_grow(rlp, lr_tar,
-                                       fwd ? gostart + sl : gostart - 1,
-                                       mgs - 1, mrs, fwd);
-
-    unsigned mask = 0;
-    bool reach = true;               // AND of survive over the earlier moves
-    for (int m = 0; m < MMOV; ++m) {
-        const int temp = win[m];
-        const bool bad = temp < 2;
-        const bool is_w = temp == want0;
-        bool verify_ok = true, verify_kill = false;
-        for (int k = 1; k <= 2; ++k) {
-            const int want = k == 1 ? want1 : want2;
-            const bool need = side_len > k;
-            const bool in_span = other_len + mgs + m + 1 + k <= mrs;
-            const int bo = win[m + k];
-            const bool match = bo == want;
-            const bool cmp_here = is_w && need && verify_ok && in_span;
-            if (need) verify_ok = verify_ok && in_span && match;
-            verify_kill = verify_kill || (cmp_here && !match && bo < 2);
-        }
-        const bool span_ok = sl + mgs + m + el <= mrs;
-        const bool cand = reach && span_ok && !gap0_bad && !bad && is_w
-                          && verify_ok;
-        if (cand && ((gc >> m) & 1u)) mask |= 1u << m;
-        reach = reach && !bad && !verify_kill;
-    }
-    return mask;
 }
 
 // _pcs_item: one precomputed occurrence (pstart, plen) against the span
@@ -172,41 +109,29 @@ __device__ __forceinline__ int qt(const int* __restrict__ qtok, int q_len,
     return qtok[clampi(i, q_len)];
 }
 
-// ---- replicated index, items expanded from the per-pattern table
-
 constexpr int kScanThreads = 256;
 
-// A2: a warp per 32 consecutive items.  Every lane stays to the end (tail
-// lanes past n are masked, never returned), since the shuffles and ballots
-// name the whole warp.
-__global__ void __launch_bounds__(kScanThreads)
-scan_kernel(View ref, View rlp, View lr_tar, const int* __restrict__ sa,
-            int sa_len, const int* __restrict__ pattab,
-            const int* __restrict__ offs, int D, int n, int mrs, int mgs,
-            bool fwd, int* __restrict__ out) {
+// ---- the warp bodies, and the replicated index's kernels (items expanded
+// from the per-pattern table)
+
+// _fwd_item / _bwd_item for a warp's 32 items, lane i holding item i's
+// occurrence `gostart` (a's start forward, b's start backward), sl, el and
+// the compared query tokens w0..w2 (b's first three forward, a's last three
+// reversed backward); a lane that holds no item (`valid` false) any values:
+// its item has gap0_bad and so no candidate.  Returns lane i's move mask.
+// Every lane of the warp calls this.
+__device__ __forceinline__ unsigned scan_warp(const View& ref, const View& rlp,
+                                              const View& lr_tar, int gostart,
+                                              int sl, int el, int w0, int w1,
+                                              int w2, bool valid, int mrs,
+                                              int mgs, bool fwd) {
     const int lane = lane_id();
     const int m = lane & 15;         // the move (and window word) of a lane
-    const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool valid = j < n;
-
-    // 1. item scalars, lane i for the warp's item i: the pattern, its row,
-    // the SA word and the gap-0 token; a tail lane's item has gap0_bad and
-    // so no candidate
-    int gostart = 0, sl = 0, el = 0, w0 = 0, w1 = 0, w2 = 0;
+    // 1. the gap-0 token, lane i for its own item: refstr[gostart + sl]
+    // forward, refstr[jnp.maximum(gostart - 1, 0)] backward
     bool gap0_bad = true;
-    if (valid) {
-        const int p = find_pattern(offs, D, j);
-        const int* f = pattab + 8 * p;
-        gostart = sa[clip(f[0] + j - offs[p], 0, sa_len - 1)];
-        sl = f[1];
-        el = f[2];
-        w0 = f[3];
-        w1 = f[4];
-        w2 = f[5];
-        // refstr[gostart + sl] forward, refstr[jnp.maximum(gostart - 1, 0)]
-        // backward
+    if (valid)
         gap0_bad = ref.at(fwd ? gostart + sl : max(gostart - 1, 0)) < 2;
-    }
 
     // 2. the scan's candidate masks, a half-warp per item, items 2it and
     // 2it + 1 in step it; lane i keeps item i's mask
@@ -289,8 +214,34 @@ scan_kernel(View ref, View rlp, View lr_tar, const int* __restrict__ sa,
         if (lane == a) mask = cand & gc_a;
         if (lane == b) mask = cand & gc_b;
     }
+    return mask;
+}
 
-    // 4. lane i stores item i's mask: one coalesced store per warp
+// A2: a warp per 32 consecutive items.  Every lane stays to the end (tail
+// lanes past n are masked, never returned), since the shuffles and ballots
+// name the whole warp.
+__global__ void __launch_bounds__(kScanThreads)
+scan_kernel(View ref, View rlp, View lr_tar, const int* __restrict__ sa,
+            int sa_len, const int* __restrict__ pattab,
+            const int* __restrict__ offs, int D, int n, int mrs, int mgs,
+            bool fwd, int* __restrict__ out) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    const bool valid = j < n;
+    // lane i for the warp's item i: the pattern, its row and the SA word
+    int gostart = 0, sl = 0, el = 0, w0 = 0, w1 = 0, w2 = 0;
+    if (valid) {
+        const int p = find_pattern(offs, D, j);
+        const int* f = pattab + 8 * p;
+        gostart = sa[clip(f[0] + j - offs[p], 0, sa_len - 1)];
+        sl = f[1];
+        el = f[2];
+        w0 = f[3];
+        w1 = f[4];
+        w2 = f[5];
+    }
+    // the scan and the gap check, then one coalesced store per warp
+    const unsigned mask = scan_warp(ref, rlp, lr_tar, gostart, sl, el, w0, w1,
+                                    w2, valid, mrs, mgs, fwd);
     if (valid) out[j] = (int)mask;
 }
 
@@ -407,18 +358,22 @@ two_kernel(View ref, View rlp, View lr_tar, const int* __restrict__ ogrows,
 
 // ---- C1: one item per row of host-resolved columns
 
-__global__ void scan_cols_kernel(View ref, View rlp, View lr_tar,
-                                 const int* __restrict__ gostart,
-                                 const int* __restrict__ sl,
-                                 const int* __restrict__ el,
-                                 const int* __restrict__ w0,
-                                 const int* __restrict__ w1,
-                                 const int* __restrict__ w2, int n, int mrs,
-                                 int mgs, bool fwd, int* __restrict__ out) {
+// C1f / C1b: a warp per 32 consecutive rows, lane i loading row i's six
+// columns (one coalesced load each); a warp wholly past n returns at once
+__global__ void __launch_bounds__(kScanThreads)
+scan_cols_kernel(View ref, View rlp, View lr_tar,
+                 const int* __restrict__ gostart, const int* __restrict__ sl,
+                 const int* __restrict__ el, const int* __restrict__ w0,
+                 const int* __restrict__ w1, const int* __restrict__ w2, int n,
+                 int mrs, int mgs, bool fwd, int* __restrict__ out) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n) return;
-    out[j] = (int)scan_item(ref, rlp, lr_tar, gostart[j], sl[j], el[j], w0[j],
-                            w1[j], w2[j], mrs, mgs, fwd);
+    if (j - lane_id() >= n) return;
+    const bool valid = j < n;
+    const unsigned mask = scan_warp(
+        ref, rlp, lr_tar, valid ? gostart[j] : 0, valid ? sl[j] : 0,
+        valid ? el[j] : 0, valid ? w0[j] : 0, valid ? w1[j] : 0,
+        valid ? w2[j] : 0, valid, mrs, mgs, fwd);
+    if (valid) out[j] = (int)mask;
 }
 
 __global__ void pcs_cols_kernel(View ref, const int* __restrict__ pstart,
@@ -454,25 +409,34 @@ two_packed_kernel(View ref, View rlp, View lr_tar,
 
 // ---- B3: one item per input row, on views of a shard's slices
 
-__global__ void scan_items_kernel(View ref, View rlp, View lr_tar,
-                                  const int* __restrict__ qtok, int q_len,
-                                  const int* __restrict__ gostart,
-                                  const int* __restrict__ sl,
-                                  const int* __restrict__ el,
-                                  const int* __restrict__ qpos, int n,
-                                  int mrs, int mgs, bool fwd,
-                                  int* __restrict__ out) {
+// B3f / B3b: a warp per 32 consecutive rows, lane i loading row i's four
+// columns and gathering its three compared query tokens; a warp wholly past
+// n returns at once
+__global__ void __launch_bounds__(kScanThreads)
+scan_items_kernel(View ref, View rlp, View lr_tar,
+                  const int* __restrict__ qtok, int q_len,
+                  const int* __restrict__ gostart, const int* __restrict__ sl,
+                  const int* __restrict__ el, const int* __restrict__ qpos,
+                  int n, int mrs, int mgs, bool fwd, int* __restrict__ out) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n) return;
-    const int s = sl[j], t = qpos[j];
-    // _qtok_fwd (b's first three) / _qtok_bwd (a's last three, reversed)
-    const int w0 = fwd ? qt(qtok, q_len, t) : qt(qtok, q_len, t + s - 1);
-    const int w1 = fwd ? qt(qtok, q_len, t + 1)
-                       : qt(qtok, q_len, t + max(s - 2, 0));
-    const int w2 = fwd ? qt(qtok, q_len, t + 2)
-                       : qt(qtok, q_len, t + max(s - 3, 0));
-    out[j] = (int)scan_item(ref, rlp, lr_tar, gostart[j], s, el[j], w0, w1,
-                            w2, mrs, mgs, fwd);
+    if (j - lane_id() >= n) return;
+    const bool valid = j < n;
+    int g = 0, s = 0, e = 0, w0 = 0, w1 = 0, w2 = 0;
+    if (valid) {
+        const int t = qpos[j];
+        g = gostart[j];
+        s = sl[j];
+        e = el[j];
+        // _qtok_fwd (b's first three) / _qtok_bwd (a's last three, reversed)
+        w0 = fwd ? qt(qtok, q_len, t) : qt(qtok, q_len, t + s - 1);
+        w1 = fwd ? qt(qtok, q_len, t + 1)
+                 : qt(qtok, q_len, t + max(s - 2, 0));
+        w2 = fwd ? qt(qtok, q_len, t + 2)
+                 : qt(qtok, q_len, t + max(s - 3, 0));
+    }
+    const unsigned mask = scan_warp(ref, rlp, lr_tar, g, s, e, w0, w1, w2,
+                                    valid, mrs, mgs, fwd);
+    if (valid) out[j] = (int)mask;
 }
 
 __global__ void pcs_items_kernel(View ref, const int* __restrict__ qtok,
@@ -572,8 +536,7 @@ static int scan_items(const int* ref, int ref_len, int ref_off, int ref_glen,
                       const int* sl, const int* el, const int* qpos, int n,
                       int mrs, int mgs, bool fwd, int* out, void* stream) {
     if (mrs < 1 || mrs > MMOV || q_len < 1) return (int)cudaErrorInvalidValue;
-    const int threads = 128;
-    scan_items_kernel<<<cgx_grid(n, threads), threads, 0,
+    scan_items_kernel<<<cgx_grid(n, kScanThreads), kScanThreads, 0,
                         (cudaStream_t)stream>>>(
         View{ref, ref_len, ref_off, ref_glen},
         View{rlp, rlp_len, rlp_off, rlp_glen},
@@ -653,8 +616,7 @@ CGX_EXPORT int cgx_scan_cols(const int* refstr, int ref_len, const int* rlp,
                              int n, int mrs, int mgs, int fwd, int* out,
                              void* stream) {
     if (mrs < 1 || mrs > MMOV) return (int)cudaErrorInvalidValue;
-    const int threads = 128;
-    scan_cols_kernel<<<cgx_grid(n, threads), threads, 0,
+    scan_cols_kernel<<<cgx_grid(n, kScanThreads), kScanThreads, 0,
                        (cudaStream_t)stream>>>(
         identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
         identity_view(lr_tar, lr_len), gostart, sl, el, w0, w1, w2, n, mrs,

@@ -131,9 +131,9 @@ def _gap_anchor(ok1, ts):
 
 def gap_check_grow(rlp, lr_tar, fixed, base_off: int, mrs: int,
                    grow_right: bool):
-    """Plain version of the fused gap check (``_gap_check_grow``,
-    csrc/gapcheck.cuh) -> bool [N, MMOV]: move m's span is
-    [fixed, fixed + base_off + m] (grow_right) or
+    """Plain version of the fused gap check (``_gap_check_grow``;
+    csrc/gapcheck.cuh ``gap_check_half``) -> bool [N, MMOV]: move m's
+    span is [fixed, fixed + base_off + m] (grow_right) or
     [fixed - base_off - m, fixed]."""
     _, _, ok1, ts, te, tempind = _gap_first_test(rlp, fixed, base_off, mrs,
                                                  grow_right)
@@ -316,12 +316,13 @@ def _scan_want(qtok, qpos, sl, fwd: bool):
 
 
 def scan_items_plain(refstr, rlp, lr_tar, qtok, gostart, sl, el, qpos,
-                     mrs: int, mgs: int, fwd: bool):
+                     mrs: int, mgs: int, fwd: bool, gap: bool = True):
     """Plain PyTorch version of kernels B3f (``fwd``, ``qpos`` = b's start)
-    and B3b (``qpos`` = a's start) -> int32 [n] move masks."""
+    and B3b (``qpos`` = a's start) -> int32 [n] move masks (``gap=False``:
+    the candidate masks, before the gap check)."""
     return pack_moves(_scan_body(refstr, rlp, lr_tar, gostart, sl, el,
                                  _scan_want(qtok, qpos, sl, fwd), mrs, mgs,
-                                 fwd))
+                                 fwd, gap))
 
 
 def pcs_items_plain(refstr, qtok, pstart, plen, sl, el, tok, stok, mrs: int):
@@ -474,7 +475,10 @@ def fwd_items(refstr, rlp, lr_tar, qtok, gostart, sl, el, stok, mrs: int,
     """Kernel B3f (``csrc/scan.cu``, ``cgx_fwd_items``): the forward scan of
     A2 for explicit items (occurrence ``gostart[i]`` of a, lengths ``sl[i]``,
     ``el[i]``, b's query position ``stok[i]`` into the padded query tokens
-    ``qtok``) on views of one shard's slices -> int32 [n] move masks.
+    ``qtok``) on views of one shard's slices -> int32 [n] move masks.  It
+    runs A2's warp body ``scan_warp`` (a warp per 32 rows, a half-warp per
+    item's window, the gap check only for items with a candidate) on rows
+    loaded one column at a time.
 
     Replaces ``_fwd_batch`` (cgx_tpu/search/lookup.py:237).  On CUDA tensors
     it launches the kernel; on CPU tensors it runs ``scan_items_plain``."""
@@ -485,7 +489,8 @@ def fwd_items(refstr, rlp, lr_tar, qtok, gostart, sl, el, stok, mrs: int,
 def bwd_items(refstr, rlp, lr_tar, qtok, gostart, sl, el, tok, mrs: int,
               mgs: int):
     """Kernel B3b (``cgx_bwd_items``): the backward scan from occurrence
-    ``gostart[i]`` of b, with a's query position ``tok[i]``.
+    ``gostart[i]`` of b, with a's query position ``tok[i]``, on the same
+    warp body ``scan_warp`` as B3f.
 
     Replaces ``_bwd_batch`` (cgx_tpu/search/lookup.py:246)."""
     return _scan_items("B3b", "cgx_bwd_items", refstr, rlp, lr_tar, qtok,
@@ -545,12 +550,13 @@ def two_items(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int):
 
 
 def scan_cols_plain(refstr, rlp, lr_tar, gostart, sl, el, w0, w1, w2,
-                    mrs: int, mgs: int, fwd: bool):
+                    mrs: int, mgs: int, fwd: bool, gap: bool = True):
     """Plain PyTorch version of kernels C1f (``fwd``) and C1b -> int32 [n]
-    move masks."""
+    move masks (``gap=False``: the candidate masks, before the gap
+    check)."""
     return pack_moves(_scan_body(refstr, rlp, lr_tar, gostart, sl, el,
                                  torch.stack([w0, w1, w2], dim=1), mrs, mgs,
-                                 fwd))
+                                 fwd, gap))
 
 
 def pcs_cols_plain(refstr, pstart, plen, sl, el, pa1, pa2, pb2, pb3,
@@ -576,7 +582,9 @@ def scan_cols(refstr, rlp, lr_tar, gostart, sl, el, w0, w1, w2, mrs: int,
     occurrence ``gostart[i]`` (a's start forward, b's start backward),
     ``sl[i]``, ``el[i]`` and the three compared query tokens ``w0..w2[i]``
     (b's first three forward, a's last three reversed backward) -> int32
-    [n] move masks.
+    [n] move masks, on A2's warp body ``scan_warp`` (a warp per 32 rows, a
+    half-warp per item's window, the gap check only for items with a
+    candidate).
 
     Replaces ``_scan_batch_cols`` (cgx_tpu/search/lookup.py:274).  On CUDA
     tensors it launches the kernel; on CPU tensors it runs

@@ -63,8 +63,9 @@ Phases, one line each on stdout:
    stop; A6, B3c and B4's extraction the words and growth steps of
    ``_extract_contig_item`` up to each loop's exit), and the time of one
    launch on one item.  Then the half-warp kernels (A2f,
-   A2b, A4, A4v, A6, B3c, A5, C1t, B3t) against their plain versions on
-   synthetic edge inputs over europarl's index arrays (``check_edges``).
+   A2b, A4, A4v, C1f, C1b, B3f, B3b, A6, B3c, A5, C1t, B3t) against their
+   plain versions on synthetic edge inputs over europarl's index arrays
+   (``check_edges``).
 
 Then a JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -910,6 +911,11 @@ def check_edges(capture: Capture):
       each pattern's first item, so that moves match and the gap check runs;
     * A4, A4v: the same occurrences (A4v: also at its shard's own ends, on
       the first and the last shard);
+    * C1f, C1b: A2's items materialised as columns, which must also give
+      A2's masks; B3f, B3b on the first and the last shard's views, at the
+      corpus ends and the shard's own ends, the compared query tokens read
+      from the corpus (the padded corpus as the query tokens) at a random
+      move of each item;
     * A6: occurrences (by SA position, from the inverse SA) at 0, 1,
       reflen - 2, reflen - 1 and either side of a few sentence separators,
       SA positions past both ends, block lengths 1 and mrs, msym 2, 3 and
@@ -921,9 +927,12 @@ def check_edges(capture: Capture):
       A2's; C1t the same rows as columns, and B3t on the first and the last
       shard's views at their own ends too.
 
-    Fails unless every output is bit-equal, the inputs of A2, A4 reach the
-    gap check, A6's emit each of its four families and A5's set both halves
-    of its word (cand and gc)."""
+    Fails unless every output is bit-equal, the inputs of A2, A4, C1f, C1b,
+    B3f and B3b reach the gap check (lookup1's scans: items with a
+    candidate and items with a non-zero mask), A6's emit each of its four
+    families and A5's set both halves of its word (cand and gc)."""
+    import functools
+
     import numpy as np
     import torch
     from cgx_tpu_torch.extract import device as xdev
@@ -938,8 +947,10 @@ def check_edges(capture: Capture):
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
-    stats = {k: {"launches": 0} for k in ("A2f", "A2b", "A4", "A4v", "A6",
-                                          "B3c", "A5", "C1t", "B3t")}
+    stats = {k: {"launches": 0} for k in ("A2f", "A2b", "A4", "A4v", "C1f",
+                                          "C1b", "B3f", "B3b", "A6", "B3c",
+                                          "A5", "C1t", "B3t")}
+    scans = ("A2f", "A2b", "C1f", "C1b", "B3f", "B3b")
 
     def compare(k, kernel, plain, args, what):
         outs = []
@@ -963,9 +974,11 @@ def check_edges(capture: Capture):
             add("gc_items", (gc != 0).sum())
         else:
             add("mask_items", (out != 0).sum())
-            if k in ("A2f", "A2b"):
+            if k in scans:
                 add("candidate_items", (plain(*args, gap=False) != 0).sum())
+        return out
     edges = np.array([0, 1, glen - 2, glen - 1])
+    a2_items = []     # A2's launches: (fwd, mrs, columns, masks)
     for fwd in (True, False):
         k = "A2f" if fwd else "A2b"
         for n in EDGE_ITEMS:
@@ -993,8 +1006,17 @@ def check_edges(capture: Capture):
                                       axis=1)
                     args = (refstr, rlp, lr_tar, dev(pos), dev(pattab),
                             dev(offs), n, mrs, mgs, fwd)
-                    compare(k, lookup.scan, lookup.scan_plain, args,
-                            f"n={n},mrs={mrs},r={r}")
+                    masks = compare(k, lookup.scan, lookup.scan_plain, args,
+                                    f"n={n},mrs={mrs},r={r}")
+                    # the items as columns: item j of pattern p (the last
+                    # with offs[p] <= j) starts at pos[lo[p] + j - offs[p]],
+                    # clamped as the SA read is
+                    j = np.arange(n)
+                    p = np.clip(np.searchsorted(offs, j, side="right") - 1,
+                                0, D - 1)
+                    g_j = pos[np.clip(lo[p] + j - offs[p], 0, len(pos) - 1)]
+                    a2_items.append((fwd, mrs, [g_j] + [pattab[p, c] for c in
+                                                        range(1, 6)], masks))
     # A4 on the whole arrays, A4v on the first and the last shard's views
     def first_last(k):
         got = [a for (sk, _), (_, a) in sorted(capture.shard_calls.items())
@@ -1018,9 +1040,45 @@ def check_edges(capture: Capture):
                                 f"n={n},mrs={mrs},fwd={fwd},first="
                                 f"{starts[0]}")
 
+    # C1f, C1b on A2's items as columns: equal to their plain version and
+    # to A2's masks
+    t1 = time.perf_counter()
+    for fwd, mrs, cols, masks in a2_items:
+        k = "C1f" if fwd else "C1b"
+        got = compare(k, lookup.scan_cols, lookup.scan_cols_plain,
+                      (refstr, rlp, lr_tar, *map(dev, cols), mrs, mgs, fwd),
+                      f"n={len(cols[0])},mrs={mrs},first={cols[0][0]}")
+        if not torch.equal(got, masks):
+            fail(f"{k}@edge: the masks of A2's items as columns differ from "
+                 f"A2's (mrs={mrs}, first={cols[0][0]})")
+    # B3f, B3b on the first and the last shard's views: occurrences at the
+    # corpus ends and the shard's own ends, the rest drawn from its slice;
+    # the padded corpus serves as the query tokens, so a query position is
+    # the corpus position of a compared token (b's first forward, a's first
+    # backward, a random move away)
+    for k, fwd, kernel in (("B3f", True, lookup.fwd_items),
+                           ("B3b", False, lookup.bwd_items)):
+        plain = functools.partial(lookup.scan_items_plain, fwd=fwd)
+        for args in first_last(k):
+            vr = args[0]
+            lo, hi = int(vr.off), int(vr.off) + vr.arr.shape[0]
+            ends = np.array([0, 1, vr.glen - 2, vr.glen - 1, lo, lo + 1,
+                             hi - 2, hi - 1])
+            for n in EDGE_ITEMS:
+                for mrs in EDGE_MRS:
+                    for g in _edge_starts(rng, ends, n, lo, hi):
+                        sl, el = rng.integers(1, 4, n), rng.integers(1, 4, n)
+                        mv = rng.integers(0, 4, n)
+                        qpos = g + sl + mgs + mv if fwd \
+                            else np.maximum(g - mgs - mv - sl, 0)
+                        compare(k, kernel, plain,
+                                (*args[:3], refstr, dev(g), dev(sl), dev(el),
+                                 dev(qpos), mrs, mgs),
+                                f"n={n},mrs={mrs},off={lo},first={g[0]}")
+
     # A6 by SA position: the edges' positions from the inverse SA, SA
     # positions past both ends, then the main path's items
-    t1 = time.perf_counter()
+    t2 = time.perf_counter()
     _, sa, _, _, real_pos, real_lm = capture.calls["A6"][1][:6]
     reflen = int(capture.calls["B4"][1][11])
     sent = _sentence_edges(refstr, reflen)
@@ -1115,12 +1173,13 @@ def check_edges(capture: Capture):
                              mrs, mgs),
                             f"n={n},mrs={mrs},off={lo},first={rows[0]}")
 
-    t2 = time.perf_counter()
+    t3 = time.perf_counter()
     print(json.dumps({"phase": "edges", "items": EDGE_ITEMS,
                       "mrs": EDGE_MRS, "msym": EDGE_MSYM, **stats,
-                      "seconds_a2_a4": t1 - t0, "seconds_a6_a5": t2 - t1,
-                      "bit_equal": True}), flush=True)
-    idle = [k for k in ("A2f", "A2b", "A4", "A4v")
+                      "seconds_a2_a4": t1 - t0, "seconds_c1_b3": t2 - t1,
+                      "seconds_a6_a5": t3 - t2, "bit_equal": True}),
+          flush=True)
+    idle = [k for k in scans + ("A4", "A4v")
             if stats[k]["mask_items"] == 0
             or stats[k].get("candidate_items") == 0]
     if idle:

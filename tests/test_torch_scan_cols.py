@@ -84,12 +84,22 @@ def _torch_cols(*cols):
     return [torch.from_numpy(np.asarray(c, np.int32)) for c in cols]
 
 
-@pytest.mark.parametrize("fwd", [True, False])
-def test_plain_c1_scan_equals_scan_batch_cols(arrays, fwd):
+@pytest.mark.parametrize(
+    "fwd,mrs,do_gap",
+    [(True, 15, True), (False, 15, True), (True, 8, True), (False, 8, True),
+     (True, 2, True), (False, 2, True), (True, 15, False),
+     (False, 15, False)],
+    ids=["True", "False", "True-mrs8", "False-mrs8", "True-mrs2",
+         "False-mrs2", "True-nogap", "False-nogap"])
+def test_plain_c1_scan_equals_scan_batch_cols(arrays, fwd, mrs, do_gap):
     """Compared tokens read from the corpus beside each occurrence (some
-    altered), so that moves match and the gap check decides."""
+    altered), so that moves match and the gap check decides; under the
+    default span limit and narrower ones (at 2 no move fits a gap), and
+    without the gap check (``do_gap=False``: the candidate masks, which the
+    kernels gap-check alone)."""
     w, cfg = arrays, arrays["cfg"]
-    mrs, mgs = cfg.max_rule_span, cfg.min_gap_size
+    mgs = cfg.min_gap_size
+    assert mrs <= cfg.max_rule_span
     rng = np.random.default_rng(12 if fwd else 13)
     n = 3000
     ref = w["refstr"]
@@ -109,12 +119,18 @@ def test_plain_c1_scan_equals_scan_batch_cols(arrays, fwd):
     j, t = w["jidx"], w["tidx"]
     (want,) = jlk._scan_batch_cols(j.refstr_padded, j.rlp, j.lr_tar,
                                    *_jax_cols(*cols), j.offs0, mrs, mgs, fwd,
-                                   do_gap=True)
-    got = tlk.scan_cols(t.refstr_padded, t.rlp, t.lr_tar, *_torch_cols(*cols),
-                        mrs, mgs, fwd)
+                                   do_gap=do_gap)
+    if do_gap:
+        got = tlk.scan_cols(t.refstr_padded, t.rlp, t.lr_tar,
+                            *_torch_cols(*cols), mrs, mgs, fwd)
+    else:
+        got = tlk.scan_cols_plain(t.refstr_padded, t.rlp, t.lr_tar,
+                                  *_torch_cols(*cols), mrs, mgs, fwd,
+                                  gap=False)
     assert got.dtype == torch.int32 and got.shape == (n,)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert (np.asarray(want) != 0).any()
+    # a move needs sl + mgs + m + el <= mrs, so none fits under mrs 2
+    assert (np.asarray(want) != 0).any() == (mrs > 2)
 
 
 def _bits(words, n):

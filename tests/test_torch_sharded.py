@@ -192,7 +192,8 @@ def _shard_positions(rng, t, s, n):
     return np.concatenate([edge, rng.integers(lo, hi, n)]).astype(np.int32)
 
 
-KERNELS = ("B3f", "B3b", "B3p", "B3t", "B3c", "A4f", "A4b", "A7", "A8")
+KERNELS = ("B3f", "B3b", "B3p", "B3t", "B3c", "A4f", "A4b", "A7", "A8",
+           "B3f-nogap", "B3b-nogap")
 
 
 @pytest.mark.parametrize("shard", ["first", "middle", "last"])
@@ -204,7 +205,8 @@ def test_shard_view_kernels_equal_jax(world, kernel, shard):
     (``qtok`` = the padded corpus), so that moves match and the gap check
     and the halos decide; some verification tokens are shifted to mismatch.
     Query positions are >= 0, as the engines give them (a negative index
-    would wrap in JAX)."""
+    would wrap in JAX).  B3f and B3b also without the gap check (``nogap``:
+    the plain version's candidate masks against ``do_gap=False``)."""
     w = world
     S = 8
     j = w["jsidx"][S]
@@ -230,17 +232,20 @@ def test_shard_view_kernels_equal_jax(world, kernel, shard):
     sl = rng.integers(1, 4, n)
     el = rng.integers(1, 4, n)
     m = rng.integers(0, 4, n)
-    if kernel == "B3f":
-        stok = pos + sl + MGS + m
-        (want,) = jlk._fwd_batch(jref, jrlp, jlrt, jnp.asarray(qtok),
-                                 *J(pos, sl, el, stok), offs, MRS, MGS)
-        got = [tlk.fwd_items(*views, tq, *T(pos, sl, el, stok), MRS, MGS)]
-        want = [want]
-    elif kernel == "B3b":
-        tok = np.maximum(pos - MGS - m - sl, 0)   # query positions are >= 0
-        (want,) = jlk._bwd_batch(jref, jrlp, jlrt, jnp.asarray(qtok),
-                                 *J(pos, sl, el, tok), offs, MRS, MGS)
-        got = [tlk.bwd_items(*views, tq, *T(pos, sl, el, tok), MRS, MGS)]
+    if kernel.startswith(("B3f", "B3b")):
+        fwd = kernel.startswith("B3f")
+        gap = not kernel.endswith("nogap")
+        qpos = pos + sl + MGS + m if fwd \
+            else np.maximum(pos - MGS - m - sl, 0)   # query positions >= 0
+        (want,) = (jlk._fwd_batch if fwd else jlk._bwd_batch)(
+            jref, jrlp, jlrt, jnp.asarray(qtok), *J(pos, sl, el, qpos), offs,
+            MRS, MGS, do_gap=gap)
+        if gap:
+            got = [(tlk.fwd_items if fwd else tlk.bwd_items)(
+                *views, tq, *T(pos, sl, el, qpos), MRS, MGS)]
+        else:
+            got = [tlk.scan_items_plain(*views, tq, *T(pos, sl, el, qpos),
+                                        MRS, MGS, fwd, gap=False)]
         want = [want]
     elif kernel == "B3p":
         plen = rng.integers(1, 9, n)
