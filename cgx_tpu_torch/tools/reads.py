@@ -15,7 +15,8 @@ unchanged.
 * ``two_reads``: A5, C1t and B3t (``_two_item``);
 * ``gap_reads``: the fused gap check alone (A4, and lookup1's scans for
   the items with a candidate);
-* ``scan_reads``: lookup1's scans (A2, B3f/B3b, C1f/C1b).
+* ``scan_reads``: lookup1's scans (A2, B3f/B3b, C1f/C1b);
+* ``maxlex_reads``: A10 (``_accum_batch_range``).
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ from __future__ import annotations
 import torch
 
 from cgx_tpu_torch.extract import device as xdev
+from cgx_tpu_torch.features import maxlex as ml
 from cgx_tpu_torch.search import lookup
-from cgx_tpu_torch.utils.views import as_view
+from cgx_tpu_torch.utils.views import as_view, take
 
 
 def _slots(arr, pos, bounded: bool = True):
@@ -45,11 +47,10 @@ def _distinct(slots, keep) -> int:
     return int(((s >= 0) & new).sum())
 
 
-def count(need: dict) -> int:
+def count(need: dict, arrays=("refstr", "rlp", "lr_tar")) -> int:
     """The words of a ``*_need`` record, each array's distinct slots of an
     item counted once."""
-    return sum(_distinct(*need[a]) for a in ("refstr", "rlp", "lr_tar")
-               if a in need)
+    return sum(_distinct(*need[a]) for a in arrays if a in need)
 
 
 def _range(lo, hi, looked, H: int):
@@ -212,3 +213,82 @@ def scan_reads(refstr, rlp, lr_tar, gostart, sl, el, want, mrs: int,
     fixed = (gostart + sl if fwd else gostart - 1)[has]
     gap_words, gap_ok = gap_reads(rlp, lr_tar, fixed, mgs - 1, mrs, fwd)
     return int(has.sum()), int(read.sum()), gap_words, gap_ok
+
+
+MAXLEX_ARRAYS = ("rs", "re", "lt", "lnv1", "lnv2")
+
+
+def maxlex_need(rs, re, lt, lnv1, lnv2, tgt_str, sp, t0, tend, g1, g11, g2,
+                g21, steps: int) -> dict:
+    """What ``_accum_batch_range`` needs per rule -> {array: (slots,
+    keep)}, ``searches`` (int [T], the distinct searches) and ``steps_run``
+    (int [T], their bisection steps).
+
+    The searches are the distinct (row, target) pairs: each valid source
+    row x the kept target positions, each valid source row counted in
+    ``nsrc`` x the target -1 when any position is kept, and the NULL row x
+    the kept positions.  Each needs the lt words of its bisection path
+    while lo < hi (at most ceil(log2(hi - lo + 1)) of them) and its found
+    word; a present pair its value words: lnv2 for the P(t|s) side (rows
+    counted in ``nsrc``), lnv1 for the P(s|t) side (source rows and the
+    NULL row).  rs and re: each valid source's two words and the NULL
+    row's."""
+    ttok, tmask, any_t = ml._probe_masks(tgt_str, t0, tend, g1, g11, g2, g21)
+    T = sp.shape[0]
+    ns = rs.shape[0]
+    si = sp + 1
+    oks = (si >= 0) & (si < ns)
+    sic = torch.where(oks, si, 0)
+    lo = torch.where(oks, take(rs, sic), 0)
+    hi = torch.where(oks, take(re, sic), 0)
+    counted = (sp != -99).sum(dim=1, keepdim=True) > torch.arange(
+        ml.SRCW, device=sp.device)
+    P = ml.TPOSW
+    pairs = (oks[:, :, None] & tmask[:, None, :]).reshape(T, -1)
+    los = torch.cat([lo[:, :, None].expand(T, ml.SRCW, P).reshape(T, -1), lo,
+                     rs[0].expand(T, P)], dim=1)
+    his = torch.cat([hi[:, :, None].expand(T, ml.SRCW, P).reshape(T, -1), hi,
+                     re[0].expand(T, P)], dim=1)
+    keys = torch.cat([ttok[:, None, :].expand(T, ml.SRCW, P).reshape(T, -1),
+                      torch.full_like(sp, -1), ttok], dim=1)
+    need_v2 = torch.cat([(pairs.reshape(T, ml.SRCW, P)
+                          & counted[:, :, None]).reshape(T, -1),
+                         oks & counted & any_t[:, None],
+                         torch.zeros_like(tmask)], dim=1)
+    need_v1 = torch.cat([pairs, torch.zeros_like(oks), tmask], dim=1)
+    needed = need_v1 | need_v2
+    l, h = los, torch.where(needed, his, los)   # an unneeded search: no read
+    h_init = h
+    mids, acts = [], []
+    for _ in range(steps):
+        mid = (l + h) >> 1
+        act = l < h
+        mids.append(mid)
+        acts.append(act)
+        less = take(lt, mid) < keys
+        l, h = (torch.where(act & less, mid + 1, l),
+                torch.where(act & ~less, mid, h))
+    looked = l < h_init
+    found = looked & (take(lt, l) == keys)
+    lt_pos = torch.cat(mids + [l], dim=1)
+    lt_keep = torch.cat(acts + [looked], dim=1)
+    src_pos = torch.cat([sic, torch.zeros_like(sic[:, :1])], dim=1)
+    src_keep = torch.cat([oks, torch.ones_like(oks[:, :1])], dim=1)
+    return {"lt": (_slots(lt, lt_pos), lt_keep),
+            "lnv1": (_slots(lnv1, l), found & need_v1),
+            "lnv2": (_slots(lnv2, l), found & need_v2),
+            "rs": (_slots(rs, src_pos), src_keep),
+            "re": (_slots(re, src_pos), src_keep),
+            "searches": needed.sum(dim=1),
+            "steps_run": sum(a.sum(dim=1) for a in acts)}
+
+
+def maxlex_reads(rs, re, lt, lnv1, lnv2, tgt_str, sp, t0, tend, g1, g11, g2,
+                 g21, steps: int) -> tuple:
+    """(words, searches, bisection steps) that ``_accum_batch_range`` needs
+    over the rules beyond each rule's fixed input, target and output words
+    (``maxlex_need``)."""
+    need = maxlex_need(rs, re, lt, lnv1, lnv2, tgt_str, sp, t0, tend, g1, g11,
+                       g2, g21, steps)
+    return (count(need, MAXLEX_ARRAYS), int(need["searches"].sum()),
+            int(need["steps_run"].sum()))

@@ -51,7 +51,11 @@ Phases, one line each on stdout:
    shard, the first (negative global offset) and the last (reads clamped to
    the global end) included: the outputs must be bit-equal (float32
    compared by bit pattern); times of both, the time of one PyTorch call
-   that computes the same function where there is one (P1, P2), and the
+   that computes the same function where there is one (P1, P2), the
+   kernel's time by the device's own clock (``device_ms``: the timed calls
+   once more under ``torch.profiler``, the CUDA time of the csrc kernels
+   they launched over the calls; null, with the reason, where the profiler
+   records none), and the
    least time the card could take for the same work (``bound_ms``: the
    larger of the bytes over the memory rate and the integer operations over
    the peak rate, counted per item from the kernel's loops, see ``WORK``;
@@ -61,11 +65,12 @@ Phases, one line each on stdout:
    only for the items whose candidate mask is non-zero; A4, A5, C1t and B3t
    the gap check's words; A5, C1t and B3t the move words up to the first
    stop; A6, B3c and B4's extraction the words and growth steps of
-   ``_extract_contig_item`` up to each loop's exit), and the time of one
-   launch on one item.  Then the half-warp kernels (A2f,
-   A2b, A4, A4v, C1f, C1b, B3f, B3b, A6, B3c, A5, C1t, B3t) against their
-   plain versions on synthetic edge inputs over europarl's index arrays
-   (``check_edges``).
+   ``_extract_contig_item`` up to each loop's exit; A10 the bisection path
+   and found words of each distinct search), and the time of one
+   launch on one item (also by the device's clock).  Then the warp and
+   half-warp kernels (A1, A2f, A2b, A4, A4v, C1f, C1b, B3f, B3b, A6, B3c,
+   A5, C1t, B3t, A10) against their plain versions on synthetic edge inputs
+   over europarl's index arrays and tables (``check_edges``).
 
 Then a JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -187,7 +192,7 @@ WORK = {
     "A7": (4, 100, 6, 2000),
     "A8": (6, 70, 2, 300),       # 3 x 16 RLP, 16 lr_tar, 3 sentence anchors
     "A9": (11, 48, 2, 200),      # 16 target tokens, 2 x 16 table probes
-    "A10": (11, 48, 2, 200),
+    "A10": (11, 16, 2, 200),     # 16 target tokens (+ maxlex_reads)
     "B2g": (1, 1, 1, 10),        # the owner's SA word (meta rows in L1)
     "B3f": (4, 4, 1, 300),       # 3 query tokens, gap-0 token (+ window)
     "B3b": (4, 4, 1, 300),
@@ -209,6 +214,7 @@ SCAN_ROWS = ("A2f", "A2b", "C1f", "C1b", "B3f", "B3b")
 GAP_ROWS = ("A4", "A4v")
 TWO_ROWS = ("A5", "C1t", "B3t")
 CONTIG_ROWS = ("A6", "B3c", "B4")
+MAXLEX_ROWS = ("A10",)
 # integer operations: the gap check's RLP window, prefix scan and first test
 # per item, and its 16 x 16 fold over the lr_tar window per item where some
 # move passes the first test; A6's body per needed word (unpack, compare,
@@ -216,6 +222,8 @@ CONTIG_ROWS = ("A6", "B3c", "B4")
 # updates, the whole-span checks) and per inner step run
 GAP_OPS, FOLD_OPS = 200, 1500
 CONTIG_WORD_OPS, CONTIG_STEP_OPS, CONTIG_INNER_OPS = 10, 100, 30
+# A10 per bisection step: midpoint, compare, two selects
+MAXLEX_STEP_OPS = 4
 # ``check_edges``: item counts that leave partial half-warps and warps, and
 # span limits from the narrowest to the default
 EDGE_ITEMS = (1, 15, 17, 33)
@@ -594,15 +602,15 @@ def check_probe(capture: Capture) -> dict:
     return launches
 
 
-def _time_ms(fn, device) -> float:
-    """Mean milliseconds per call on the device timeline (events around a
-    run of calls after one warm-up call)."""
+def _time_ms(fn, device) -> tuple:
+    """(mean milliseconds per call on the device timeline, the calls timed):
+    events around a run of calls after one warm-up call."""
     import torch
     fn()
     if torch.device(device).type != "cuda":
         t0 = time.perf_counter()
         fn()
-        return (time.perf_counter() - t0) * 1e3
+        return (time.perf_counter() - t0) * 1e3, 1
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -615,7 +623,57 @@ def _time_ms(fn, device) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, reps
+
+
+def _kernel_names() -> list:
+    """The ``__global__`` names that the csrc/ sources launch
+    (``name<<<...>>>``)."""
+    import re
+    csrc = os.path.join(ROOT, "cgx_tpu_torch", "csrc")
+    names = set()
+    for f in sorted(os.listdir(csrc)):
+        if f.endswith(".cu"):
+            with open(os.path.join(csrc, f), encoding="utf-8") as fh:
+                names |= set(re.findall(r"(\w+)\s*<<<", fh.read()))
+    return sorted(names)
+
+
+def _device_ms(fn, reps: int) -> dict:
+    """``fn`` run ``reps`` times more under ``torch.profiler``: the device's
+    own time of the csrc kernels it launched, summed by kernel name and
+    divided by the calls -> {"device_ms": ms or None, "device_kernels":
+    the names seen} (None, with "device_ms_why", where two profiler windows
+    saw no device time for them)."""
+    import re
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    pat = re.compile(r"\b(" + "|".join(_kernel_names()) + r")\b")
+    total, seen = 0.0, set()
+    for windows in (1, 2):      # a second window where the first saw none
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            m = pat.search(ev.key)
+            if m is None:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0)
+            total += us
+            seen.add(m.group(1))
+        if total > 0:
+            break
+    if total <= 0:
+        return {"device_ms": None, "device_kernels": sorted(seen),
+                "device_ms_why": "two profiler windows recorded no device "
+                                 "time for the csrc kernels"}
+    return {"device_ms": total / 1e3 / reps, "device_kernels": sorted(seen),
+            "device_windows": windows}
 
 
 def _log2(x):
@@ -652,6 +710,12 @@ def data_reads(k: str, n: int, args) -> tuple:
                 {"candidate_items": cand, "candidate_share": cand / n,
                  "window_words": window, "window_words_per_item": window / n,
                  "gap_words": gap, "gap_first_test_items": ok})
+    if k in MAXLEX_ROWS:
+        words, searches, steps = reads.maxlex_reads(*args[:6], *args[7:])
+        return (words, MAXLEX_STEP_OPS * steps,
+                {"words": words, "searches": searches,
+                 "searches_per_rule": searches / max(n, 1),
+                 "bisection_steps": steps})
     if k in GAP_ROWS:
         rlp, lr_tar, gostart, mrs, mgs, fwd = args
         words, ok = reads.gap_reads(rlp, lr_tar,
@@ -825,21 +889,23 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
         if shards and not {shard_offsets[0], shard_offsets[-1]} <= offs:
             fail(f"{k}: no launch on the first or last shard (offsets "
                  f"{sorted(offs)} of {shard_offsets})")
-        ms = _time_ms(lambda: kernel(*args), device)
-        plain_ms = _time_ms(lambda: plain(*args), device)
-        library_ms = (_time_ms(lambda: library[k](*args), device)
+        ms, reps = _time_ms(lambda: kernel(*args), device)
+        dev = _device_ms(lambda: kernel(*args), reps)
+        plain_ms = _time_ms(lambda: plain(*args), device)[0]
+        library_ms = (_time_ms(lambda: library[k](*args), device)[0]
                       if k in library else None)
         src, replaces = KERNELS[k]
         words = ops = 0
         extra = {}
-        if k in SCAN_ROWS + GAP_ROWS + TWO_ROWS + CONTIG_ROWS:
+        if k in SCAN_ROWS + GAP_ROWS + TWO_ROWS + CONTIG_ROWS + MAXLEX_ROWS:
             words, ops, extra = data_reads(k, n, args)
         nbytes, ops = work(k, n, args, words, ops)
         bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
         ops_ms = ops / OPS_PER_S * 1e3
         row = {"name": k, "route": "cuda", "source": src,
                "replaces": replaces, "launches": launches[k],
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": err, "ms": ms,
+               "device_ms": dev["device_ms"], "plain_ms": plain_ms,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                "library_ms": library_ms}
@@ -849,6 +915,7 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
             extra["shards"] = shards
         print(json.dumps({"phase": "kernel", **row, "lanes": n,
                           "bytes": nbytes, "ops": ops, "bit_equal": True,
+                          **{f: v for f, v in dev.items() if f != "device_ms"},
                           **extra}), flush=True)
         rows.append(row)
     return rows
@@ -900,6 +967,137 @@ def _sentence_edges(refstr, reflen: int):
     return np.concatenate([pick - 1, pick + 1])
 
 
+def refine_edges(capture: Capture, rng, reflen: int, sent) -> dict:
+    """A1 against its plain version on edge lanes over europarl's SA, the
+    padded corpus as the query tokens: lanes at the corpus ends, either side
+    of sentence separators and at the suffixes of the SA's first and last
+    rows, empty intervals ([0, 0), [reflen, reflen) and inside), query
+    tokens replaced by the largest token id, the sentinel and an id past
+    both, and the query's end at and before d0; d0 0 (the whole SA) and 3
+    (each lane's own interval, from the plain version), 4 and 16 depths,
+    1-33 lanes -> counts.  Every interval is an SA interval of suffixes
+    that share their first d0 tokens, as on the main path (csrc/refine.cu's
+    premise)."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.search import passes
+    sa, refstr = capture.calls["A1"][1][:2]
+    top = int(refstr[:reflen - 1].max())
+    head = sa[:reflen].cpu().numpy()
+    edges = np.concatenate([[0, 1, reflen - 2, reflen - 1], sent,
+                            head[[0, 1, reflen - 2, reflen - 1]]])
+    # some lanes' tokens replaced (at the lane's own depth d0 .. d0 + 2)
+    swaps = np.array([top, top + 1, top + 2, top, 0])
+    stats = {"launches": 0, "lanes": 0, "empty_lanes": 0, "past_end": 0,
+             "collapsed": 0, "narrowed": 0}
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+    for d0 in (0, 3):
+        q = refstr.clone()
+        for k, t in enumerate(swaps):
+            q[int(min(edges[k] + d0 + k % 3, q.shape[0] - 1))] = int(t)
+        for n in EDGE_ITEMS:
+            for depths in (4, 16):
+                toks = np.concatenate([np.roll(edges, -n),
+                                       rng.integers(0, reflen, n)])[:n]
+                lo, hi = np.zeros(n), np.full(n, reflen)
+                if d0:
+                    _, _, lo_d, hi_d = passes.refine_chunk_plain(
+                        sa, refstr, q, dev(toks), dev(np.full(n, 99)),
+                        dev(lo), dev(hi), 0, d0)
+                    lo, hi = lo_d.cpu().numpy(), hi_d.cpu().numpy()
+                sls = rng.choice([d0 - 1, d0, d0 + 1, d0 + 3, 40], n)
+                empty = rng.random(n) < 0.2
+                at = rng.choice([0, reflen, int(rng.integers(0, reflen))], n)
+                lo, hi = np.where(empty, at, lo), np.where(empty, at, hi)
+                args = (sa, refstr, q, dev(toks), dev(sls), dev(lo),
+                        dev(hi), d0, depths)
+                _bit_equal(f"A1@edge(n={n},d0={d0},depths={depths})",
+                           passes.refine_chunk, passes.refine_chunk_plain,
+                           args, "cuda")
+                out = passes.refine_chunk_plain(*args)
+                lo_f, hi_f = out[2].cpu().numpy(), out[3].cpu().numpy()
+                live = hi > lo
+                stats["launches"] += 1
+                stats["lanes"] += n
+                stats["empty_lanes"] += int((~live).sum())
+                stats["past_end"] += int((live & (sls < d0 + depths)).sum())
+                stats["collapsed"] += int((live & (hi_f <= lo_f)).sum())
+                stats["narrowed"] += int((live & (hi_f > lo_f)
+                                          & (hi_f - lo_f < hi - lo)).sum())
+    return stats
+
+
+def maxlex_edges(capture: Capture, rng) -> dict:
+    """A10 against its plain version on edge rules over europarl's tables
+    and target corpus: nsrc 0 and 5, the NULL source (-1), sources with no
+    rows and ids past every row, the source with the most rows (its range
+    is exactly max_rows long; steps = bit_length(max_rows)) with target
+    spans that hold its first and its last row's target, every target
+    position kept and none, spans at and past both ends of the target
+    corpus; the rest the main path's own rules; 1-33 rules a launch ->
+    counts (rules with a probe found and none)."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.features import maxlex as ml
+    args = capture.calls["A10"][1]
+    rs, re, lt, lnv1, lnv2, tgt, maxscore = args[:7]
+    real = [a.cpu().numpy() for a in args[7:14]]
+    steps = args[14]
+    rows = (re - rs).cpu().numpy()
+    big = int(rows.argmax())
+    if steps != max(int(rows.max()).bit_length(), 1):
+        fail(f"A10@edge: steps {steps} is not bit_length(max_rows "
+             f"{int(rows.max())})")
+    tgt_h = tgt.cpu().numpy()
+    nt = len(tgt_h)
+
+    def first_at(t):        # a span start that holds target t at position 3
+        hit = np.flatnonzero(tgt_h == t)
+        return int(hit[0]) - 3 if len(hit) else 0
+    lt_h = lt.cpu().numpy()
+    big_t0 = [first_at(lt_h[int(rs[big])]),
+              first_at(lt_h[int(re[big]) - 1])]
+    empty_src = np.flatnonzero(rows == 0)
+    srcs = [big - 1, -1, len(rows) - 1, len(rows) + 5] + (
+        [int(empty_src[0]) - 1] if len(empty_src) else [])
+    E = 16
+    sp = np.full((E, ml.SRCW), -99)
+    sp[1] = (srcs * 2)[:ml.SRCW]              # nsrc 5
+    sp[2:, 0] = big - 1
+    sp[2:, 1] = rng.choice(srcs, E - 2)
+    sp[3, :] = -99                            # nsrc 0
+    t0 = np.array([0, nt - 1, nt - 2, nt + 3] + big_t0 * 2
+                  + list(rng.integers(0, nt, E - 8)))
+    tend = rng.integers(0, ml.TPOSW, E)
+    tend[:8] = ml.TPOSW - 1                   # every position kept
+    g1, g11 = np.full(E, -1), np.full(E, -1)
+    g1[8:10], g11[8:10] = 0, ml.TPOSW - 1     # none kept
+    edge = [sp, t0, tend, g1, g11, np.full(E, -1), np.full(E, -1)]
+    stats = {"launches": 0, "rules": 0, "found": 0, "none_found": 0,
+             "max_rows": int(rows.max())}
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+    for n in EDGE_ITEMS:
+        for turn in range(2):
+            pick = rng.integers(0, len(real[1]), n)
+            cols = [np.concatenate([np.roll(e, -(n + 7 * turn), 0), r[pick]])
+                    [:n] for e, r in zip(edge, real)]
+            call = (*args[:7], *map(dev, cols), steps)
+            _bit_equal(f"A10@edge(n={n},turn={turn})", ml.accum_range,
+                       ml.accum_range_plain, call, "cuda")
+            fge, egf = (x.cpu().numpy() for x in ml.accum_range_plain(*call))
+            hit = ((fge % np.float32(maxscore) != 0)
+                   | (egf % np.float32(maxscore) != 0))
+            stats["launches"] += 1
+            stats["rules"] += n
+            stats["found"] += int(hit.sum())
+            stats["none_found"] += int((~hit).sum())
+    return stats
+
+
 def check_edges(capture: Capture):
     """The half-warp kernels against their plain versions on synthetic
     inputs over europarl's index arrays, item counts 1, 15, 17 and 33
@@ -925,12 +1123,15 @@ def check_edges(capture: Capture):
     * A5: (start, len) rows at those corpus positions and ending at the
       corpus end, in both row tables, under tables with empty patterns as
       A2's; C1t the same rows as columns, and B3t on the first and the last
-      shard's views at their own ends too.
+      shard's views at their own ends too;
+    * A1 and A10: ``refine_edges`` and ``maxlex_edges``.
 
     Fails unless every output is bit-equal, the inputs of A2, A4, C1f, C1b,
     B3f and B3b reach the gap check (lookup1's scans: items with a
     candidate and items with a non-zero mask), A6's emit each of its four
-    families and A5's set both halves of its word (cand and gc)."""
+    families, A5's set both halves of its word (cand and gc), A1's lanes
+    hold empty intervals, lanes past the query's end, and lanes that
+    collapse and narrow, and A10's rules with a probe found and none."""
     import functools
 
     import numpy as np
@@ -1174,10 +1375,14 @@ def check_edges(capture: Capture):
                             f"n={n},mrs={mrs},off={lo},first={rows[0]}")
 
     t3 = time.perf_counter()
+    stats["A1"] = refine_edges(capture, rng, reflen, sent)
+    stats["A10"] = maxlex_edges(capture, rng)
+    t4 = time.perf_counter()
     print(json.dumps({"phase": "edges", "items": EDGE_ITEMS,
                       "mrs": EDGE_MRS, "msym": EDGE_MSYM, **stats,
                       "seconds_a2_a4": t1 - t0, "seconds_c1_b3": t2 - t1,
-                      "seconds_a6_a5": t3 - t2, "bit_equal": True}),
+                      "seconds_a6_a5": t3 - t2, "seconds_a1_a10": t4 - t3,
+                      "bit_equal": True}),
           flush=True)
     idle = [k for k in scans + ("A4", "A4v")
             if stats[k]["mask_items"] == 0
@@ -1187,6 +1392,10 @@ def check_edges(capture: Capture):
     silent = [f"{k}.{f}" for k, fams in (
         ("A6", ("ab", "Xab", "abX", "XabX")), ("A5", ("cand_items", "gc_items")))
         for f in fams if stats[k][f] == 0]
+    silent += [f"A1.{f}" for f in ("empty_lanes", "past_end", "collapsed",
+                                    "narrowed") if stats["A1"][f] == 0]
+    silent += [f"A10.{f}" for f in ("found", "none_found")
+               if stats["A10"][f] == 0]
     if silent:
         fail(f"edges: the inputs never set {silent}")
 
@@ -1198,9 +1407,11 @@ def launch_floor(capture: Capture, device: str):
     from cgx_tpu_torch.extract import device as xdev
     args = list(capture.calls["A8"][1])
     args[3:9] = [a[:1].contiguous() for a in args[3:9]]
-    ms = _time_ms(lambda: xdev.twogap(*args), device)
+    ms, reps = _time_ms(lambda: xdev.twogap(*args), device)
     print(json.dumps({"phase": "launch_floor", "kernel": "A8", "items": 1,
-                      "ms": ms}), flush=True)
+                      "ms": ms,
+                      **_device_ms(lambda: xdev.twogap(*args), reps)}),
+          flush=True)
 
 
 def main():

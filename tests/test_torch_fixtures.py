@@ -9,6 +9,15 @@ first test, so this module builds each missing fixture while it is imported:
 into a temporary sibling directory, moved into place with one ``os.rename``,
 under an exclusive lock on ``tests/fixtures/.lock``.  The existence check in
 conftest.py then always finds complete files and never regenerates them.
+
+The JAX package's native library (``cgx_tpu/preproc/native_build.py``)
+compiles itself on first use straight into its final path, with no lock
+across processes, and a worker that loads another worker's half-written
+library keeps ``load_native()`` at None for the rest of its run (its
+callers then skip).  So this module also calls ``load_native()`` once while
+it is imported, under the same lock: the first worker compiles, every later
+one finds the library complete, and no worker compiles it while the tests
+run.
 """
 
 import fcntl
@@ -53,8 +62,19 @@ def ensure_fixture(name: str) -> pathlib.Path:
     return dest
 
 
+def ensure_native():
+    """Build the JAX package's native library (if it is missing or older
+    than its source) and load it, one process at a time."""
+    FIXTURES.mkdir(parents=True, exist_ok=True)
+    with open(FIXTURES / ".lock", "w", encoding="utf-8") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        from cgx_tpu.preproc.native_build import load_native
+        load_native()
+
+
 for _name in GENERATORS:
     ensure_fixture(_name)
+ensure_native()
 
 
 def _line_count(path: pathlib.Path) -> int:

@@ -183,3 +183,107 @@ def test_compute_maxlex_equals_jax_host_loop(toy_fixture, monkeypatch, limit):
         assert len(rt) > 0
         np.testing.assert_array_equal(_bits(rt.max_lex_fge), _bits(rj.max_lex_fge))
         np.testing.assert_array_equal(_bits(rt.max_lex_egf), _bits(rj.max_lex_egf))
+
+
+def _edge_lex():
+    """A row-range table with a largest source (3: every target once and two
+    duplicate rows, so its range is the longest), duplicate (5, 7) rows of
+    differing values (the first row wins), NULL source and target rows, and
+    sources with no row (9, and every id past the largest)."""
+    probs = [1.0, 0.5, 0.25, 0.05, 1e-6, 0.0]
+    rows = [(3, t, probs[t % 6]) for t in range(-1, TV)]
+    rows += [(3, 4, 0.125), (3, 11, 0.75)]
+    rows += [(5, 7, 0.25), (5, 7, 1.0), (5, 7, 0.5), (5, 2, 0.5)]
+    rows += [(-1, t, p) for t, p in zip([-1, 0, 2, 7, 11, 30],
+                                        [0.5, 1.0, 0.05] * 2)]
+    rows += [(1, -1, 0.25), (1, 2, 0.5), (12, 7, 1.0), (12, 40, 0.0)]
+    src, tgt, v = (list(c) for c in zip(*rows))
+    src, tgt = np.array(src), np.array(tgt)
+    v1 = np.array(v, np.float32)
+    v2 = np.roll(v1, 3)
+    order = np.lexsort((tgt, src))        # stable: duplicates keep their order
+    return types.SimpleNamespace(
+        lex_key=jic.pack_lex_key(src[order], tgt[order]),
+        lex_val1_host=v1[order], lex_val2_host=v2[order])
+
+
+def _edge_rules(case, rng, T=64):
+    """The rule columns of one edge case (sp, t0, tend, g1, g11, g2, g21)
+    over ``_EDGE_TGT``."""
+    sp = np.full((T, 5), -99, np.int32)
+    t0 = rng.integers(0, len(_EDGE_TGT) - 4, T)
+    tend = rng.integers(0, 16, T)
+    no_gap = np.full(T, -1)
+    g1, g11, g2, g21 = no_gap, no_gap, no_gap, no_gap
+    if case == "sources":         # nsrc 0 and 5, the NULL source, no rows
+        pool = np.array([-1, 1, 3, 5, 9, 12, 40, 41])
+        nsrc = np.where(np.arange(T) % 2 == 0, 0, 5)
+        for r in range(T):
+            sp[r, :nsrc[r]] = rng.choice(pool, nsrc[r])
+        sp[1] = [-1, -1, 3, 40, 5]
+    elif case == "tmask":         # every position kept, then none
+        sp[:, :3] = rng.choice([-1, 1, 3, 5, 12], (T, 3))
+        half = np.arange(T) < T // 2
+        tend = np.where(half, 15, rng.integers(0, 16, T))
+        g1 = np.where(half, -1, 0)                      # one gap over all
+        g11 = np.where(half, -1, 15)
+        g2, g21 = np.where(half, -1, 3), np.where(half, -1, 5)
+    elif case == "absent_dup":    # targets the rows lack, the (5, 7) rows
+        sp[:, 0] = 5
+        sp[:, 1] = rng.choice([1, 12, 9], T)
+        t0 = np.where(np.arange(T) % 2 == 0, 0, len(_EDGE_TGT) - 3)
+    elif case == "max_rows":      # the largest source's whole range
+        sp[:, 0] = 3
+        sp[:, 1] = rng.choice([3, -1, 5], T)
+    return tuple(np.ascontiguousarray(c, np.int32)
+                 for c in (sp, t0, tend, g1, g11, g2, g21))
+
+
+# targets 7 (the duplicate rows) first, then ids the rows lack, the NULL
+# target -1 and ids past every row
+_EDGE_TGT = np.array([7, 2, 49, 0, 11, 30, -1, 4, 7, 13, 45, 52, 60, 7, 2,
+                      11, 23, 37, 41, 1, 3, 5, 7], np.int32)
+
+
+@pytest.mark.parametrize("case", ["sources", "tmask", "absent_dup",
+                                  "max_rows"])
+def test_plain_a10_edge_rules_equal_jax(case, monkeypatch):
+    """A10's plain version against the JAX ``_accum_batch_range`` on edge
+    rules: nsrc 0 and 5 with the NULL source, every target position kept
+    and none, targets absent from a row and duplicate (src, tgt) rows, and
+    a range of exactly ``max_rows`` rows with ``steps =
+    bit_length(max_rows)``; float32 compared by bit pattern."""
+    monkeypatch.setattr(jml, "DEV_DENSE_LIMIT", 0)
+    monkeypatch.setattr(tml, "DEV_DENSE_LIMIT", 0)
+    lex = _edge_lex()
+    jmode, (*jarr, steps) = jml._device_lex_tables(copy.copy(lex))
+    tix = types.SimpleNamespace(**vars(lex), device=torch.device("cpu"),
+                                maxlex_tables=None)
+    tmode, (rs, re, lt, lnv1, lnv2, tsteps) = tml.lex_tables(tix)
+    assert jmode == tmode == "range" and steps == tsteps
+    rows = (re - rs).numpy()
+    assert rows.max() == rows[4] == TV + 3 and steps == (TV + 3).bit_length()
+    cols = _edge_rules(case, np.random.default_rng(len(case)))
+    want = jml._accum_batch_range(*jarr, jnp.asarray(_EDGE_TGT),
+                                  jnp.float32(99.0),
+                                  *(jnp.asarray(c) for c in cols),
+                                  steps=steps)
+    got = tml.accum_range(rs, re, lt, lnv1, lnv2, torch.from_numpy(_EDGE_TGT),
+                          99.0, *(torch.from_numpy(c) for c in cols), steps)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(w))
+    fge, egf = (g.numpy() for g in got)
+    if case == "sources":
+        assert (fge[::2] == 0).all() and (fge[1::2] > 0).all()
+    elif case == "tmask":
+        assert (egf[32:] == 0).all() and (egf[:32] > 0).all()
+    elif case == "absent_dup":
+        # the first (5, 7) row's P(t|s) wins over the later duplicates
+        first = int(rs[6]) + int((lt[rs[6]:re[6]] == 7).int().argmax())
+        assert int(lt[first]) == int(lt[first + 1]) == 7
+        got7 = tml._range_lookup(lt, lnv2, rs[6], re[6], torch.tensor(7),
+                                 steps)
+        assert _bits(got7.numpy()) == _bits(lnv2[first].numpy())
+        assert float(lnv2[first]) != float(lnv2[first + 1])
+    # some probes found a table entry in every case but the empty rules
+    assert ((egf > 0) & (egf % np.float32(99.0) != 0)).any()

@@ -1,13 +1,14 @@
 """The words the kernels' bounds count (``cgx_tpu_torch.tools.reads``): for
-the fused gap check, A5's body and A6's body, the words each counter marks
-as needed decide the plain version's output.  Redrawing every other word of
-the index arrays (from the same array, so that the words stay plausible)
-changes no output, so the bounds, which count only the needed words, count
-all that the functions need; and the needed words are fewer than the
-gathers."""
+the fused gap check, A5's body, A6's body and A10's probes, the words each
+counter marks as needed decide the plain version's output.  Redrawing every
+other word of the index arrays (from the same array, so that the words stay
+plausible) changes no output, so the bounds, which count only the needed
+words, count all that the functions need; and the needed words are fewer
+than the gathers."""
 
 import pathlib
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
 from cgx_tpu_torch.extract import device as xdev  # noqa: E402
+from cgx_tpu_torch.features import maxlex as ml  # noqa: E402
 from cgx_tpu_torch.index import container as tic  # noqa: E402
 from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
 from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
@@ -145,3 +147,51 @@ def test_contig_need_decides_the_output(index, mrs, msym):
     if mrs > 2:
         assert (out[3] & 1).any() or (out[5] & 1).any()
         assert int(need["steps"].sum()) > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_maxlex_need_decides_the_features(index, seed):
+    """A10's probes over the index's own lexical table as row ranges, for
+    synthetic rules: the source ids of its table (and NULL, unknown ids and
+    pads), target spans over its target corpus.  Redrawing every lt, lnv1
+    and lnv2 word that no rule of a batch needs changes no feature bit."""
+    rng = np.random.default_rng(seed)
+    lex = types.SimpleNamespace(lex_key=index.lex_key,
+                                lex_val1_host=index.lex_val1_host,
+                                lex_val2_host=index.lex_val2_host,
+                                device=torch.device("cpu"),
+                                maxlex_tables=None)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ml, "DEV_DENSE_LIMIT", 0)
+        mode, (rs, re, lt, lnv1, lnv2, steps) = ml.lex_tables(lex)
+    assert mode == "range"
+    T = 300
+    ns = rs.shape[0]
+    nsrc = rng.integers(0, ml.SRCW + 1, T)
+    # mostly sources with rows, some NULL (-1) and unknown ids
+    sp = rng.integers(-1, ns + 2, (T, ml.SRCW))
+    sp[np.arange(ml.SRCW)[None, :] >= nsrc[:, None]] = -99
+    tgt_str = index.tgt_str
+    t0 = rng.integers(0, tgt_str.shape[0] + 4, T)
+    tend = rng.integers(0, ml.TPOSW, T)
+    g1 = np.where(rng.random(T) < 0.5, -1, rng.integers(0, 8, T))
+    g11 = np.where(g1 < 0, -1, g1 + rng.integers(0, 4, T))
+    cols = [torch.from_numpy(np.ascontiguousarray(c, np.int32))
+            for c in (sp, t0, tend, g1, g11, np.full(T, -1), np.full(T, -1))]
+    arrays = {"lt": lt, "lnv1": lnv1, "lnv2": lnv2}
+    need = reads.maxlex_need(rs, re, lt, lnv1, lnv2, tgt_str, *cols, steps)
+
+    def fn(a, rows):
+        out = ml.accum_range_plain(rs, re, a["lt"], a["lnv1"], a["lnv2"],
+                                   tgt_str, 99.0, *(c[rows] for c in cols),
+                                   steps)
+        return torch.stack(out).view(torch.int32)
+    _check(rng, arrays, need, T, fn, batch=8, rounds=12)
+    words, searches, bisect = reads.maxlex_reads(rs, re, lt, lnv1, lnv2,
+                                                 tgt_str, *cols, steps)
+    # present pairs were found, and each search reads at most
+    # ceil(log2(rows + 1)) path words and its found word
+    assert bool(need["lnv1"][1].any()) and bool(need["lnv2"][1].any())
+    assert 0 < searches <= T * 101
+    assert bisect <= searches * steps
+    assert words < 2 * (ml.SRCW + 1) * T + (bisect + searches) * 3
