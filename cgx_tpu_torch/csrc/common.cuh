@@ -43,8 +43,12 @@ struct View {
     __device__ __forceinline__ int at(int i) const {
         return arr[clampi(i - off, len)];
     }
+    // at(clampi(i, glen)) as one clamp: clamping into [0, glen - 1] and
+    // then, less off, into [0, len - 1] is clamping i - off into
+    // [clampi(-off, len), clampi(glen - 1 - off, len)] (both lengths >= 1)
     __device__ __forceinline__ int atg(int i) const {
-        return at(clampi(i, glen));
+        return arr[min(max(i - off, clampi(-off, len)),
+                       clampi(glen - 1 - off, len))];
     }
 };
 

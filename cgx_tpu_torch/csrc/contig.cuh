@@ -6,14 +6,12 @@
 // Two phases per warp of 32 items:
 //
 // 1. Gathers and per-step tables, a half-warp per item (items 2it and
-//    2it + 1 in step it), lane k on span word k or growth step k: the base
-//    span (CWID = 16 RLP words) and each side's IMAX = 14 refstr and RLP
-//    words are one 64-byte request each; each (2H + 1)-wide target window
-//    is lane k's words anchor + k and anchor - k, its four prefix
-//    min(L)/max(R) tables 4-step shuffle scans; a side's prefix min/max is a
-//    scan, its anchor (the first aligned step, else step 0) a ballot, and
-//    every lookup into a window (win_check) two shuffles from lanes lo and
-//    hi.  An item's reads come in three dependent rounds (the words that
+//    2it + 1 in step it), on the half-warp helpers of extract_common.cuh
+//    (shared with A7 and A8): the base span (CWID = 16 RLP words) and
+//    each side's IMAX = 14 refstr and RLP words are one 64-byte request
+//    each; a (2H + 1)-wide target window is lane k's words anchor +- k and
+//    two 4-step prefix scans, each lookup two shuffles.  An item's reads
+//    come in three dependent rounds (the words that
 //    need only cs and lm; the sentence anchor's word; the three windows),
 //    and the first two rounds of pair it + 1 are issued while pair it's
 //    windows are in flight.  Lane k writes step k of the item's record to
@@ -44,14 +42,14 @@
 // 64 registers).
 //
 // What bounds it: the dependent rounds of phase 1 (16 pairs a warp, each a
-// few hundred-cycle gathers and ~110 warp shuffles) at 24 warps an SM.  It
-// gathers ~90 scattered words an item, of which the function needs a
-// fraction (the words of the steps that run and the window entries looked
-// up: tools/reads.py, what the bound counts).
+// few hundred-cycle gathers; 133 SHFL in the kernel's SASS) at 24 warps an
+// SM.  It gathers ~90 scattered words an item, of which the function needs
+// a fraction (the words of the steps that run and the window entries
+// looked up: tools/reads.py, what the bound counts).
 //
 // Every lane stays to the end (tail lanes are masked, never returned),
-// since the shuffles and ballots name whole halves or the whole warp; a
-// warp wholly past the end returns at once.
+// since the shuffles and ballots name the whole warp; a warp wholly past
+// the end returns at once.
 #pragma once
 
 #include "extract_common.cuh"
@@ -64,107 +62,6 @@ constexpr int kContigThreads = 128;
 // blocks per SM that __launch_bounds__ holds the registers to (<= 85 a
 // thread); the shared records would admit 10
 constexpr int kContigBlocks = 6;
-
-// the anchored target window of one item on a half-warp: lane k holds entry
-// k (k <= H) of the forward (anchor..anchor+k) and backward
-// (anchor-k..anchor) prefix min(L)/max(R) (_tar_window_prefixes)
-struct HalfWindow { int fL, fR, bL, bR; };
-
-__device__ __forceinline__ void prefix_min_max(unsigned hm, int k, int& mn,
-                                               int& mx) {
-#pragma unroll
-    for (int d = 1; d < 16; d <<= 1) {      // inclusive prefix over 0..k
-        const int omn = __shfl_up_sync(hm, mn, d, 16);
-        const int omx = __shfl_up_sync(hm, mx, d, 16);
-        if (k >= d) { mn = min(mn, omn); mx = max(mx, omx); }
-    }
-}
-
-// lane k's words anchor + k and anchor - k of a (2H + 1)-wide target
-// window (k <= H; the others read as unaligned and are never looked up)
-struct WinWords { int f, b; };
-
-__device__ __forceinline__ WinWords window_words(const View& lr_tar,
-                                                 int anchor, int H) {
-    const int k = lane_id() & 15;
-    WinWords w = {255 << 8, 255 << 8};
-    if (k <= H) {
-        w.f = lr_tar.atg(anchor + k);
-        w.b = lr_tar.atg(anchor - k);
-    }
-    return w;
-}
-
-__device__ __forceinline__ HalfWindow window_scan(const WinWords& ww) {
-    const unsigned hm = half_mask();
-    const int k = lane_id() & 15;
-    HalfWindow w = {256, -1, 256, -1};
-    const int Lf = ww.f >> 8, Rf = ww.f & 255, Lb = ww.b >> 8, Rb = ww.b & 255;
-    if (Lf != 255 && Rf != 255) { w.fL = Lf; w.fR = Rf; }
-    if (Lb != 255 && Rb != 255) { w.bL = Lb; w.bR = Rb; }
-    prefix_min_max(hm, k, w.fL, w.fR);
-    prefix_min_max(hm, k, w.bL, w.bR);
-    return w;
-}
-
-// win_check on a half-warp: the lookups come from lanes lo and hi (each
-// lane may ask for its own span)
-__device__ __forceinline__ bool half_win_check(const HalfWindow& w,
-                                               int anchor, int ts, int te,
-                                               int start_chk, int end_chk,
-                                               int sentstart, int H) {
-    const unsigned hm = half_mask();
-    const int lo = clip(anchor - ts, 0, H);
-    const int hi = clip(te - anchor, 0, H);
-    int bmin = min(__shfl_sync(hm, w.bL, lo, 16), __shfl_sync(hm, w.fL, hi, 16));
-    int bmax = max(__shfl_sync(hm, w.bR, lo, 16), __shfl_sync(hm, w.fR, hi, 16));
-    if (ts > te) { bmin = 256; bmax = -1; }
-    return sentstart + bmin == start_chk && sentstart + bmax == end_chk;
-}
-
-// growth step k (lane k < IMAX) of one side on a half-warp
-// (_grow_side_arrays), from the step's position, token and raw RLP word:
-// its (L, R), a token >= 2 at pos >= 0 (has) and aligned; side_checks adds
-// the prefix min(L)/max(R) and the X gap's consistency
-struct HalfStep { int L, R, pmin, pmax; bool has, al, gap; };
-
-__device__ __forceinline__ HalfStep side_step(int pos, int tok, unsigned t) {
-    const bool in = (lane_id() & 15) < IMAX;
-    HalfStep s = {255, 255, 255, 0, false, false, false};
-    if (pos >= 0) {                         // pos < 0 reads as unaligned
-        s.L = (int)((t >> 24) & 0xFF);
-        s.R = (int)((t >> 16) & 0xFF);
-    }
-    s.al = in && s.L != 255 && s.R != 255;
-    s.has = in && pos >= 0 && tok >= 2;
-    return s;
-}
-
-// the side's window anchor: L at the first aligned step; jnp.argmax of an
-// all-false mask is 0, so with no aligned step step 0's L (unused)
-__device__ __forceinline__ int side_anchor(const HalfStep& s, int stb) {
-    const unsigned hm = half_mask();
-    const unsigned aligned = (__ballot_sync(hm, s.al) >> (lane_id() & 16))
-                             & 0xFFFFu;
-    const int first = aligned ? __ffs(aligned) - 1 : 0;
-    return stb + __shfl_sync(hm, s.L, first, 16);
-}
-
-__device__ __forceinline__ void side_checks(HalfStep& s, const WinWords& ww,
-                                            int anchor, bool left, int cs,
-                                            int ender, int sentstart, int stb,
-                                            int H) {
-    const int k = lane_id() & 15;
-    s.pmin = s.al ? s.L : 255;
-    s.pmax = s.al ? s.R : 0;
-    prefix_min_max(half_mask(), k, s.pmin, s.pmax);
-    const HalfWindow w = window_scan(ww);
-    const int i = k + 1;
-    const bool gap = half_win_check(w, anchor, stb + s.pmin, stb + s.pmax,
-                                    left ? cs - i : ender + 1,
-                                    left ? cs - 1 : ender + i, sentstart, H);
-    s.gap = k < IMAX && gap;
-}
 
 // the value of `v` on lane 0 of this half for even lanes, lane 16 for odd:
 // lanes 2it and 2it + 1 take items 2it and 2it + 1's values
@@ -214,22 +111,14 @@ __device__ int contig_warp(const Arrays& a, int cs, int lm, bool valid, int j,
     };
     // tempind of the span's first token (_sent_anchor), from span word 0
     auto tempind_of = [&](int it, unsigned tb) {
-        const int c = __shfl_sync(kFull, cs, 2 * it + (lane >> 4));
-        const unsigned t0 = (unsigned)__shfl_sync(kFull, (int)tb,
-                                                  lane & 16);
-        return c - (int)((t0 >> 8) & 0xFF) - 1;
-    };
-    // stb: one address for the whole half, a single request
-    auto stb_of = [&](int tempind) {
-        return tempind == -1 ? 0 : a.rlp.atg(tempind);
+        return sent_tempind(__shfl_sync(kFull, cs, 2 * it + (lane >> 4)), tb);
     };
     int sentstart = 0, stb = 0, min_L = 0, max_R = 0, flags = 0;
     unsigned lhas = 0, lal = 0, lgap = 0, rhas = 0, ral = 0, rgap = 0;
     Words cur = words(0);
-    int cur_sb = stb_of(tempind_of(0, cur.tb));
+    int cur_sb = sent_stb(a.rlp, tempind_of(0, cur.tb));
 #pragma unroll 1
     for (int it = 0; it < 16; ++it) {
-        const unsigned hm = half_mask();
         const int src = 2 * it + (lane >> 4);
         const int c = __shfl_sync(kFull, cs, src);
         const int m = __shfl_sync(kFull, lm, src);
@@ -240,18 +129,9 @@ __device__ int contig_warp(const Arrays& a, int cs, int lm, bool valid, int j,
         const int sb = cur_sb;
 
         // base span scan (ExtractPair.cu:1178-1231)
-        int L = 255, R = 255;                // positions < 0 read as unaligned
-        if (c + k >= 0) {
-            L = (int)((cur.tb >> 24) & 0xFF);
-            R = (int)((cur.tb >> 16) & 0xFF);
-        }
-        const bool al = L != 255 && R != 255;
-        const bool kin = k < m && al;
-        const int mnL = __reduce_min_sync(hm, kin ? L : 256);
-        const int mxR = __reduce_max_sync(hm, kin ? R : -1);
-        const bool al_first = __shfl_sync(hm, (int)al, 0, 16) != 0;
-        const bool al_last = __shfl_sync(hm, (int)al, clip(m - 1, 0, CWID - 1),
-                                         16) != 0;
+        const HalfSpan span = span_scan(c, ender, cur.tb);
+        const int mnL = span.mn, mxR = span.mx;
+        const bool al_first = span.al_first, al_last = span.al_last;
         const bool dead = (mnL > mxR) || (mxR - mnL >= mrs);
 
         // the three windows' words in flight together, then pair it + 1's
@@ -265,29 +145,26 @@ __device__ int contig_warp(const Arrays& a, int cs, int lm, bool valid, int j,
         const WinWords lww = window_words(a.lr_tar, l_anchor, H);
         const WinWords rww = window_words(a.lr_tar, r_anchor, H);
         int nxt_sb = cur_sb;
-        if (it < 15) nxt_sb = stb_of(tempind_of(it + 1, nxt.tb));
+        if (it < 15) nxt_sb = sent_stb(a.rlp, tempind_of(it + 1, nxt.tb));
 
         // the base window and the `ab` check, the growth sides
         const HalfWindow bw = window_scan(bww);
         const bool wc = half_win_check(bw, anchor, mnL + sb, mxR + sb, c,
                                        ender, ss, H);
         const bool ab_ok = al_first && al_last && !dead && wc;
-        side_checks(ls, lww, l_anchor, true, c, ender, ss, sb, H);
-        side_checks(rs, rww, r_anchor, false, c, ender, ss, sb, H);
+        side_prefix(ls);
+        side_prefix(rs);
+        side_gap(ls, lww, l_anchor, true, c, ender, ss, sb, H);
+        side_gap(rs, rww, r_anchor, false, c, ender, ss, sb, H);
 
         // whole-span range-min(L)/max(R) part-vectors (device.py:225-234)
         const int loL = clip(mnL - ls.pmin, 0, H);
         const int hiL = clip(max(ls.pmax, mxR) - mnL, 0, H);
         const int loR = clip(mnL - rs.pmin, 0, H);
         const int hiR = clip(max(rs.pmax, mxR) - mnL, 0, H);
-        const int pmnL = min(__shfl_sync(hm, bw.bL, loL, 16),
-                             __shfl_sync(hm, bw.fL, hiL, 16));
-        const int pmxL = max(__shfl_sync(hm, bw.bR, loL, 16),
-                             __shfl_sync(hm, bw.fR, hiL, 16));
-        const int pmnR = min(__shfl_sync(hm, bw.bL, loR, 16),
-                             __shfl_sync(hm, bw.fL, hiR, 16));
-        const int pmxR = max(__shfl_sync(hm, bw.bR, loR, 16),
-                             __shfl_sync(hm, bw.fR, hiR, 16));
+        int pmnL, pmxL, pmnR, pmxR;
+        window_range(bw, loL, hiL, pmnL, pmxL);
+        window_range(bw, loR, hiR, pmnR, pmxR);
         if (k < IMAX) {
             const int item = src;
             rec[0][k][item] = (unsigned)ls.pmin | (unsigned)ls.pmax << 8

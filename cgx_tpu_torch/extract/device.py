@@ -486,7 +486,8 @@ def _consistent(lr_tar, ts, te, start_chk, end_chk, sentstart):
 
 def check_boundary(rlp, lr_tar, start, ender, mrs: int):
     """checkBoundary (ExtractPair.cu:252-342) for spans at most CWID wide
-    (``_check_boundary_dev``) -> (code 0-4, ts, te)."""
+    (``_check_boundary_dev``) -> (code 0-4, ts, te, check: where
+    consistent() decides between codes 1 and 0)."""
     ks = start[:, None] + torch.arange(CWID, dtype=torch.int32,
                                        device=start.device)
     L, R, al = _rlp_lr(rlp, ks)
@@ -503,16 +504,30 @@ def check_boundary(rlp, lr_tar, start, ender, mrs: int):
     sentstart, stb = _sent_anchor(rlp, start)
     ts = min_L + stb
     te = max_R + stb
-    ok_span = (min_L <= max_R) & (max_R - min_L < mrs)
+    check = (code_fw == 0) & (min_L <= max_R) & (max_R - min_L < mrs)
     cons = _consistent(lr_tar, ts, te, start, ender, sentstart)
-    code = torch.where(code_fw != 0, code_fw,
-                       (ok_span & cons).to(code_fw.dtype))
-    return code, ts, te
+    code = torch.where(check, cons.to(code_fw.dtype), code_fw)
+    return code, ts, te, check
 
 
 def onegap_plain(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs: int,
                  msym: int):
     """Plain PyTorch version of kernel A7 -> int32 [6, N]."""
+    return _onegap_body(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs,
+                        msym)
+
+
+def _onegap_body(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs: int,
+                 msym: int, need: dict | None = None):
+    """``onegap_plain``.  Given ``need``, it also records there what the
+    function looked at, for ``tools.reads.onegap_reads`` and the tests: per
+    growth step [N, IMAX] of each side (``l_*`` left, ``r_*`` right) its
+    token test (``*_has``), alignment (``*_al``), prefix min(L)/max(R)
+    (``*_pmin``, ``*_pmax``), X gap check (``*_gap``), grown target span
+    (``*_wts``, ``*_wte``) and its whole-span check (``*_wok``), and
+    whether the loop ran the step for that side (``*_run``); each side's
+    flag before the loop (``*_alive``), the output's valid bits
+    (``valid``: aXb, XaXb, aXbX), and the values that place the reads."""
     dev = cs.device
     i32 = torch.int32
     ender = cs + first_end
@@ -526,7 +541,7 @@ def onegap_plain(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs: int,
     gap1s = torch.where(gin, gL, 256).amin(dim=1) + stb
     gap1e = torch.where(gin, gR, -1).amax(dim=1) + stb
 
-    code, ts, te = check_boundary(rlp, lr_tar, cs, ender, mrs)
+    code, ts, te, check = check_boundary(rlp, lr_tar, cs, ender, mrs)
     min_L = ts - stb
     max_R = te - stb
     # code 2 (front unaligned) kills aXbX, code 3 (end unaligned) kills XaXb,
@@ -546,6 +561,8 @@ def onegap_plain(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs: int,
     rtok, ral, rmin, rmax, rgap = _grow_side(
         refstr, rlp, lr_tar, ender, 1, sentstart, stb,
         (ender + 1)[:, None] + col, ender[:, None] + (ir + 1), H)
+    lhas = (cs[:, None] - (ir + 1) >= 0) & (ltok >= 2)
+    rhas = rtok >= 2
     mL, mR = min_L[:, None], max_R[:, None]
     mnL, mxL = _whole_span(base_pref, mL, mR, lmin, lmax, H)
     mnR, mxR = _whole_span(base_pref, mL, mR, rmin, rmax, H)
@@ -556,6 +573,15 @@ def onegap_plain(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs: int,
     wr_ts = t0 + torch.minimum(rmin, mL)
     wr_te = t0 + torch.maximum(rmax, mR)
     wr_ok = (s0 + mnR == cs[:, None]) & (s0 + mxR == ender[:, None] + (ir + 1))
+    if need is not None:
+        need.update(l_has=lhas, l_al=lal, l_pmin=lmin, l_pmax=lmax,
+                    l_gap=lgap, l_wts=wl_ts, l_wte=wl_te, l_wok=wl_ok,
+                    r_has=rhas, r_al=ral, r_pmin=rmin, r_pmax=rmax,
+                    r_gap=rgap, r_wts=wr_ts, r_wte=wr_te, r_wok=wr_ok,
+                    l_alive=left, r_alive=right,
+                    l_run=torch.zeros_like(lal), r_run=torch.zeros_like(ral),
+                    stb=stb, sentstart=sentstart, min_L=min_L, max_R=max_R,
+                    ts=ts, te=te, check=check)
 
     zero = torch.zeros_like(cs)
     F = torch.zeros_like(left)
@@ -564,10 +590,12 @@ def onegap_plain(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs: int,
     for i in range(1, IMAX + 1):
         i0 = i - 1
         active = (first_end + 1 + i <= mrs) & (left | right)
+        if need is not None:
+            need["l_run"][:, i0] = active & left
+            need["r_run"][:, i0] = active & right
         # ---- XaXb (prepend X), ExtractPair.cu:639-760
-        l_has = (cs - i >= 0) & (ltok[:, i0] >= 2)
-        l_proc = active & left & l_has
-        left = left & ~(active & ~l_has)
+        l_proc = active & left & lhas[:, i0]
+        left = left & ~(active & ~lhas[:, i0])
         nxt = l_proc & lal[:, i0]
         left = left & ~(l_proc & ~lal[:, i0] & (i == 1))
         spank = lmax[:, i0] - lmin[:, i0] >= mrs
@@ -580,9 +608,8 @@ def onegap_plain(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs: int,
                                  stb + lmin[:, i0], stb + lmax[:, i0]))
         left = left & ~emit
         # ---- aXbX (append X), ExtractPair.cu:763-880
-        r_has = rtok[:, i0] >= 2
-        r_proc = active & right & r_has
-        right = right & ~(active & ~r_has)
+        r_proc = active & right & rhas[:, i0]
+        right = right & ~(active & ~rhas[:, i0])
         nxt = r_proc & ral[:, i0]
         right = right & ~(r_proc & ~ral[:, i0] & (i == 1))
         spank = rmax[:, i0] - rmin[:, i0] >= mrs
@@ -598,6 +625,8 @@ def onegap_plain(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs: int,
     # the original gap rides in each grown family: XaXb's second gap, aXbX's
     # first (an empty slot keeps ts there)
     xv, axv = xaxb[0], axbx[0]
+    if need is not None:
+        need["valid"] = (code == 1, xv, axv)
     return torch.stack(
         _pack(code == 1, ts, te, gap1s, gap1e)
         + _pack(*xaxb, torch.where(xv, gap1s, xaxb[1]),
@@ -725,7 +754,7 @@ def twogap_plain(refstr, rlp, lr_tar, cs, first_end, second_end, sl, el, cl,
     """Plain PyTorch version of kernel A8 -> int32 [2, N]."""
     g1s, g1e = _gap_span(rlp, cs + sl, cs + first_end - el)
     g2s, g2e = _gap_span(rlp, cs + first_end + 1, cs + second_end - cl)
-    code, ts, te = check_boundary(rlp, lr_tar, cs, cs + second_end, mrs)
+    code, ts, te, _ = check_boundary(rlp, lr_tar, cs, cs + second_end, mrs)
     return torch.stack(_pack(code == 1, ts, te, g1s, g1e, g2s, g2e))
 
 

@@ -12,6 +12,9 @@ needed, so that a test can redraw every other word and find the result
 unchanged.
 
 * ``contig_reads``: A6, B3c and B4's extraction (``_extract_contig_item``);
+* ``onegap_reads``: A7 on the whole arrays or a shard's views
+  (``_extract_onegap_item``);
+* ``twogap_reads``: A8 likewise (``_extract_twogap_item``);
 * ``two_reads``: A5, C1t and B3t (``_two_item``);
 * ``gap_reads``: the fused gap check alone (A4, and lookup1's scans for
   the items with a candidate);
@@ -131,6 +134,150 @@ def contig_reads(refstr, rlp, lr_tar, cs, lm, mrs: int,
     need = contig_need(refstr, rlp, lr_tar, cs, lm, mrs, msym)
     return (count(need), int(need["steps"].sum()),
             int(need["inner"].sum()))
+
+
+def _span(start, ender, keep):
+    """[N, CWID] positions of a source span's RLP words and those needed:
+    the words up to ``ender`` (positions < 0 read as unaligned, so no word)
+    where ``keep``."""
+    k = torch.arange(xdev.CWID, dtype=torch.int32, device=start.device)
+    pos = start[:, None] + k
+    return pos, (pos <= ender[:, None]) & (pos >= 0) & keep[:, None]
+
+
+def onegap_need(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs: int,
+                msym: int) -> dict:
+    """What ``_extract_onegap_item`` needs for the aXb occurrences (corpus
+    start ``cs``, span end offset ``first_end``, a and b lengths ``sl``,
+    ``el``) -> {array: (slots, keep)} and the growth steps run (``steps``,
+    int [N], both sides).  A side runs while its flag holds and the span
+    limit allows, so to its first event (``_onegap_body``):
+
+    * RLP: checkBoundary's span words and its anchor word (its ts is
+      always written); the first gap's span words where a family is valid
+      (only then are the gap's offsets packed), its word 0 and anchor word
+      also where a side reaches its X gap check (the item's sentence
+      anchor); each side's step words where the step runs and its token
+      passes;
+    * refstr: each side's step tokens where the step runs;
+    * lr_tar: consistent()'s words where checkBoundary calls it; each
+      side's window entries that its X gap checks look up; the base
+      window's entries that the whole-span checks (``w_ok``) look up."""
+    need: dict = {}
+    xdev._onegap_body(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs, msym,
+                      need)
+    dev, i32 = cs.device, torch.int32
+    H = mrs - 1
+    k = torch.arange(xdev.CWID, dtype=i32, device=dev)
+    steps = torch.arange(1, xdev.IMAX + 1, dtype=i32, device=dev)
+    ender = cs + first_end
+    stb, mL, mR = need["stb"], need["min_L"], need["max_R"]
+    d = torch.arange(-H, H + 1, dtype=i32, device=dev)
+    base = stb + mL.clamp(max=255)
+    base_keep = torch.zeros((cs.shape[0], 2 * H + 1), dtype=torch.bool,
+                            device=dev)
+    anchors, tar_keep = [], []
+    checked_any = torch.zeros_like(cs, dtype=torch.bool)
+    for s in "lr":
+        has, al, pmin, pmax = (need[f"{s}_{f}"]
+                               for f in ("has", "al", "pmin", "pmax"))
+        run = need[f"{s}_run"]
+        # the X gap check is made where the step runs, its token passes, it
+        # is aligned and its aligned span is not too wide
+        checked = run & has & al & (pmax - pmin < mrs)
+        checked_any |= checked.any(dim=1)
+        # the whole-span check where the X gap passes and the grown span is
+        # not too wide (``_whole_span``)
+        looked = checked & need[f"{s}_gap"] & (
+            need[f"{s}_wte"] - need[f"{s}_wts"] < mrs)
+        lo = (mL[:, None] - pmin).clamp(0, H)
+        hi = (torch.maximum(pmax, mR[:, None]) - mL[:, None]).clamp(0, H)
+        base_keep |= _range(lo, hi, looked, H)
+        # the side's window, anchored at its first aligned step (where a
+        # check is made there is one)
+        first = al.to(i32).argmax(dim=1, keepdim=True)
+        a = stb + pmin.gather(1, first)[:, 0]
+        ts, te = stb[:, None] + pmin, stb[:, None] + pmax
+        anchors.append(a)
+        tar_keep.append(_range((a[:, None] - ts).clamp(0, H),
+                               (te - a[:, None]).clamp(0, H),
+                               checked & (ts <= te), H))
+    valid = need["valid"][0] | need["valid"][1] | need["valid"][2]
+    b_pos, b_keep = _span(cs, ender, torch.ones_like(valid))
+    b_keep[:, 0] = True                  # al_first and the sentence anchor
+    g_pos, g_keep = _span(cs + sl, ender - el, valid)
+    g_keep[:, 0] = valid | checked_any   # also the item's sentence anchor
+    b_temp = xdev._sent_anchor(rlp, cs)[0] - 1     # stb = rlp[tempind]
+    g_temp = need["sentstart"] - 1
+    left = cs[:, None] - steps
+    right = ender[:, None] + steps
+    rlp_pos = torch.cat([b_pos, b_temp[:, None], g_pos, g_temp[:, None],
+                         left, right], dim=1)
+    rlp_keep = torch.cat([b_keep, (b_temp != -1)[:, None], g_keep,
+                          (g_keep[:, :1] & (g_temp != -1)[:, None]),
+                          need["l_run"] & need["l_has"],
+                          need["r_run"] & need["r_has"]], dim=1)
+    ref_pos = torch.cat([left, right], dim=1)
+    ref_keep = torch.cat([need["l_run"] & (left >= 0),
+                          need["r_run"] & (right >= 0)], dim=1)
+    c_pos = need["ts"][:, None] + k
+    c_keep = need["check"][:, None] & (c_pos <= need["te"][:, None])
+    tar_pos = torch.cat([c_pos] + [x[:, None] + d
+                                   for x in [base] + anchors], dim=1)
+    return {"refstr": (_slots(refstr, ref_pos), ref_keep),
+            "rlp": (_slots(rlp, rlp_pos), rlp_keep),
+            "lr_tar": (_slots(lr_tar, tar_pos),
+                       torch.cat([c_keep, base_keep] + tar_keep, dim=1)),
+            "steps": need["l_run"].sum(dim=1) + need["r_run"].sum(dim=1)}
+
+
+def onegap_reads(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs: int,
+                 msym: int) -> tuple:
+    """(words, growth steps run) that ``_extract_onegap_item`` needs over
+    the items (``onegap_need``)."""
+    need = onegap_need(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs, msym)
+    return count(need), int(need["steps"].sum())
+
+
+def twogap_need(refstr, rlp, lr_tar, cs, first_end, second_end, sl, el, cl,
+                mrs: int) -> dict:
+    """What ``_extract_twogap_item`` needs for the aXbXc occurrences ->
+    {array: (slots, keep)} and ``valid`` (bool [N]): checkBoundary's span
+    words and anchor word over [cs, cs + second_end] (its ts is always
+    written) and consistent()'s lr_tar words where it is called; each gap's
+    span words and anchor word only where the rule is valid (only then are
+    the gaps' offsets packed)."""
+    ender = cs + second_end
+    code, ts, te, check = xdev.check_boundary(rlp, lr_tar, cs, ender, mrs)
+    valid = code == 1
+    b_pos, b_keep = _span(cs, ender, torch.ones_like(valid))
+    b_keep[:, 0] = True
+    g1, g2 = cs + sl, cs + first_end + 1
+    s1_pos, s1_keep = _span(g1, cs + first_end - el, valid)
+    s2_pos, s2_keep = _span(g2, ender - cl, valid)
+    s1_keep[:, 0] |= valid
+    s2_keep[:, 0] |= valid
+    temps = [xdev._sent_anchor(rlp, p)[0] - 1 for p in (cs, g1, g2)]
+    rlp_pos = torch.cat([b_pos, s1_pos, s2_pos]
+                        + [t[:, None] for t in temps], dim=1)
+    rlp_keep = torch.cat([b_keep, s1_keep, s2_keep]
+                         + [((t != -1) & w)[:, None] for t, w in
+                            zip(temps, (torch.ones_like(valid), valid,
+                                        valid))], dim=1)
+    k = torch.arange(xdev.CWID, dtype=torch.int32, device=cs.device)
+    c_pos = ts[:, None] + k
+    c_keep = check[:, None] & (c_pos <= te[:, None])
+    return {"rlp": (_slots(rlp, rlp_pos), rlp_keep),
+            "lr_tar": (_slots(lr_tar, c_pos), c_keep), "valid": valid}
+
+
+def twogap_reads(refstr, rlp, lr_tar, cs, first_end, second_end, sl, el, cl,
+                 mrs: int) -> tuple:
+    """(words, valid rules) that ``_extract_twogap_item`` needs over the
+    items (``twogap_need``)."""
+    need = twogap_need(refstr, rlp, lr_tar, cs, first_end, second_end, sl,
+                       el, cl, mrs)
+    return count(need), int(need["valid"].sum())
 
 
 def gap_need(rlp, lr_tar, fixed, base_off: int, mrs: int,

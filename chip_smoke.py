@@ -65,11 +65,14 @@ Phases, one line each on stdout:
    only for the items whose candidate mask is non-zero; A4, A5, C1t and B3t
    the gap check's words; A5, C1t and B3t the move words up to the first
    stop; A6, B3c and B4's extraction the words and growth steps of
-   ``_extract_contig_item`` up to each loop's exit; A10 the bisection path
-   and found words of each distinct search), and the time of one
-   launch on one item (also by the device's clock).  Then the warp and
-   half-warp kernels (A1, A2f, A2b, A4, A4v, C1f, C1b, B3f, B3b, A6, B3c,
-   A5, C1t, B3t, A10) against their plain versions on synthetic edge inputs
+   ``_extract_contig_item`` up to each loop's exit; A7 and A7v each side's
+   step words up to its first event and the window entries its checks look
+   up; A8 and A8v the gaps' words only where the rule is valid; A10 the
+   bisection path and found words of each distinct search), and the time
+   of one launch of A8 on one item (by the device's clock A8's own
+   one-item chain, ``launch_floor``).  Then the warp and half-warp kernels
+   (A1, A2f, A2b, A4, A4v, C1f, C1b, B3f, B3b, A6, B3c, A5, C1t, B3t, A7,
+   A7v, A8, A8v, A10) against their plain versions on synthetic edge inputs
    over europarl's index arrays and tables (``check_edges``).
 
 Then a JSON line with every kernel's numbers, and last the line
@@ -178,8 +181,9 @@ RUNS = (
 # span limit), and the gap check only for an item whose candidate mask is
 # non-zero; the gap check (A4, and in A2, A5, B3, C1) its RLP window up to
 # the widest span, and its lr_tar words only where some move passes the
-# first test; A5's scan its move words up to the first stop; A6's body the
-# words of each growth step that runs and each window entry looked up.
+# first test; A5's scan its move words up to the first stop; A6's and A7's
+# bodies the words of each growth step that runs and each window entry
+# looked up; A8's the gaps' words only where the rule is valid.
 MEM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 WORK = {
@@ -189,8 +193,8 @@ WORK = {
     "A3": (0, 6, 1 / 32, 40),    # one occurrence row, 4 corpus words
     "A5": (0, 2, 1, 150),        # occurrence row (+ scan, gap check)
     "A6": (2, 1, 8, 0),          # SA word (+ contig_reads)
-    "A7": (4, 100, 6, 2000),
-    "A8": (6, 70, 2, 300),       # 3 x 16 RLP, 16 lr_tar, 3 sentence anchors
+    "A7": (4, 0, 6, 200),        # (+ onegap_reads)
+    "A8": (6, 0, 2, 150),        # (+ twogap_reads)
     "A9": (11, 48, 2, 200),      # 16 target tokens, 2 x 16 table probes
     "A10": (11, 16, 2, 200),     # 16 target tokens (+ maxlex_reads)
     "B2g": (1, 1, 1, 10),        # the owner's SA word (meta rows in L1)
@@ -209,26 +213,31 @@ WORK = {
 for _v, _k in VIEW_ROWS.items():
     WORK[_v] = WORK[_k]
 # the rows whose words are counted from each launch's items (``data_reads``):
-# lookup1's scans, the gap check, A5's body and A6's body
+# lookup1's scans, the gap check, A5's, A6's, A7's and A8's bodies
 SCAN_ROWS = ("A2f", "A2b", "C1f", "C1b", "B3f", "B3b")
 GAP_ROWS = ("A4", "A4v")
 TWO_ROWS = ("A5", "C1t", "B3t")
 CONTIG_ROWS = ("A6", "B3c", "B4")
+ONEGAP_ROWS = ("A7", "A7v")
+TWOGAP_ROWS = ("A8", "A8v")
 MAXLEX_ROWS = ("A10",)
 # integer operations: the gap check's RLP window, prefix scan and first test
 # per item, and its 16 x 16 fold over the lr_tar window per item where some
 # move passes the first test; A6's body per needed word (unpack, compare,
 # min/max, prefix), per outer growth step run (both sides' tests, flag
-# updates, the whole-span checks) and per inner step run
+# updates, the whole-span checks) and per inner step run; A7's and A8's
+# bodies per needed word as A6's, and A7's per side step run (its tests and
+# checks)
 GAP_OPS, FOLD_OPS = 200, 1500
 CONTIG_WORD_OPS, CONTIG_STEP_OPS, CONTIG_INNER_OPS = 10, 100, 30
+ONEGAP_STEP_OPS = 50
 # A10 per bisection step: midpoint, compare, two selects
 MAXLEX_STEP_OPS = 4
 # ``check_edges``: item counts that leave partial half-warps and warps, and
 # span limits from the narrowest to the default
 EDGE_ITEMS = (1, 15, 17, 33)
 EDGE_MRS = (1, 2, 8, 15)
-EDGE_MSYM = (2, 3, 5)    # A6, B3c
+EDGE_MSYM = (2, 3, 5)    # A6, B3c, A7, A7v
 # argument positions of the per-pattern table and count prefix
 TABLE_ARGS = {"A2f": (4, 5), "A2b": (4, 5), "A3": (2, 3), "A5": (5, 6)}
 
@@ -710,6 +719,16 @@ def data_reads(k: str, n: int, args) -> tuple:
                 {"candidate_items": cand, "candidate_share": cand / n,
                  "window_words": window, "window_words_per_item": window / n,
                  "gap_words": gap, "gap_first_test_items": ok})
+    if k in ONEGAP_ROWS:
+        words, steps = reads.onegap_reads(*args)
+        return (words, CONTIG_WORD_OPS * words + ONEGAP_STEP_OPS * steps,
+                {"words": words, "words_per_item": words / max(n, 1),
+                 "growth_steps": steps})
+    if k in TWOGAP_ROWS:
+        words, valid = reads.twogap_reads(*args)
+        return (words, CONTIG_WORD_OPS * words,
+                {"words": words, "words_per_item": words / max(n, 1),
+                 "valid_rules": valid})
     if k in MAXLEX_ROWS:
         words, searches, steps = reads.maxlex_reads(*args[:6], *args[7:])
         return (words, MAXLEX_STEP_OPS * steps,
@@ -897,7 +916,8 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
         src, replaces = KERNELS[k]
         words = ops = 0
         extra = {}
-        if k in SCAN_ROWS + GAP_ROWS + TWO_ROWS + CONTIG_ROWS + MAXLEX_ROWS:
+        if k in (SCAN_ROWS + GAP_ROWS + TWO_ROWS + CONTIG_ROWS + ONEGAP_ROWS
+                 + TWOGAP_ROWS + MAXLEX_ROWS):
             words, ops, extra = data_reads(k, n, args)
         nbytes, ops = work(k, n, args, words, ops)
         bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
@@ -1098,6 +1118,156 @@ def maxlex_edges(capture: Capture, rng) -> dict:
     return stats
 
 
+def _first_events(need, first_end, mrs: int) -> dict:
+    """Each growth side's first event within the span limit, from
+    ``_onegap_body``'s record -> {side: (alive with a step in the limit,
+    some event, step of the first, whether that step emits)}."""
+    import torch
+    from cgx_tpu_torch.extract import device as xdev
+    k = torch.arange(xdev.IMAX, device=first_end.device)
+    lim = (mrs - first_end - 1).clamp(max=xdev.IMAX)
+    out = {}
+    for s in "lr":
+        has, al, pmin, pmax, gap, wts, wte, wok = (
+            need[f"{s}_{f}"] for f in ("has", "al", "pmin", "pmax", "gap",
+                                       "wts", "wte", "wok"))
+        spank = pmax - pmin >= mrs
+        nxt = has & al & ~spank & gap
+        wkill = wte - wts >= mrs
+        event = (k < lim[:, None]) & (~has | ((k == 0) & ~al) | spank
+                                      | (nxt & (wkill | wok)))
+        first = event.to(torch.int32).argmax(dim=1)
+        emit = (nxt & ~wkill & wok).gather(1, first.long()[:, None])[:, 0]
+        out[s] = (need[f"{s}_alive"] & (lim > 0), event.any(dim=1), first,
+                  emit)
+    return out
+
+
+def gap_edges(rng, launches) -> dict:
+    """A7, A7v, A8 and A8v against their plain versions on edge
+    occurrences, over the arrays of each ``launches`` entry (kernel id, a
+    captured call: the largest launch's whole arrays, medium's, or the
+    first or the last europarl shard's views): cs at 0, 1, glen - 2,
+    glen - 1, the last two tokens of the corpus (of the shard's slice) and
+    either side of three sentence separators in it, and just before each
+    of those with the gap (cs + sl = the separator + 1) in the next
+    sentence, and A8's second gap likewise (cs + first_end + 1); on the
+    views also at the shard's own ends.  a, b and c are 1-3 tokens, each
+    gap 1-4; beyond the edges the launch's own main-path items; 1, 15, 17
+    and 33 items, mrs 1, 2, 8 and 15, msym 2, 3 and 5 (A7).  Then, at the
+    call's own mrs (and msym), 1-33 of its own items picked by class, in
+    turn: A7's by each growth side's first event within the span limit (a
+    death at step 0, an emission after step 0, none), A8's by
+    checkBoundary code (0-4) -> counts: each A7 family's emissions, A7's
+    growth sides (alive, with a step within the span limit) by their first
+    event, A8's items by code."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.extract import device as xdev
+    from cgx_tpu_torch.utils.views import as_view
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+
+    def rows(cs, sl=None):
+        """(cs, first_end, sl, el, second_end, cl) of occurrences at cs"""
+        m = len(cs)
+        sl = rng.integers(1, 4, m) if sl is None else np.full(m, sl)
+        el, cl = rng.integers(1, 4, m), rng.integers(1, 4, m)
+        fe = sl + el - 1 + rng.integers(1, 5, m)
+        se = fe + cl + rng.integers(1, 5, m)
+        return np.stack([cs, fe, sl, el, se, cl], axis=1)
+
+    def classes(k, call):
+        """The call's items of each class (bool [N] per class)"""
+        if k.startswith("A7"):
+            need: dict = {}
+            xdev._onegap_body(*call, need)
+            ev = _first_events(need, call[4], call[7]).values()
+            return [sum(alive & any_ev & (first == 0) & ~emit
+                        for alive, any_ev, first, emit in ev).bool(),
+                    sum(alive & any_ev & (first > 0) & emit
+                        for alive, any_ev, first, emit in ev).bool(),
+                    sum(alive & ~any_ev for alive, any_ev, _, _ in ev).bool()]
+        code = xdev.check_boundary(call[1], call[2], call[3],
+                                   call[3] + call[5], call[9])[0]
+        return [code == c for c in range(5)]
+
+    stats = {}
+
+    def launch(k, arrays, r, mrs, msym, what):
+        st = stats.setdefault(k, {"launches": 0})
+
+        def add(name, count):
+            st[name] = st.get(name, 0) + int(count)
+        cs, fe, sl, el, se, cl = (dev(c) for c in r.T)
+        st["launches"] += 1
+        if k.startswith("A7"):
+            call = (*arrays, cs, fe, sl, el, mrs, msym)
+            _bit_equal(f"{k}@edge({what},msym={msym})", xdev.onegap,
+                       xdev.onegap_plain, call, "cuda")
+            need: dict = {}
+            out = xdev._onegap_body(*call, need)
+            for i, fam in enumerate(("aXb", "XaXb", "aXbX")):
+                add(fam, (out[2 * i + 1] & 1).sum())
+            for alive, any_ev, first, emit in _first_events(need, fe,
+                                                            mrs).values():
+                add("side_dies_at_step_0",
+                    (alive & any_ev & (first == 0) & ~emit).sum())
+                add("side_emits_after_step_0",
+                    (alive & any_ev & (first > 0) & emit).sum())
+                add("side_no_event", (alive & ~any_ev).sum())
+        else:
+            call = (*arrays, cs, fe, se, sl, el, cl, mrs)
+            _bit_equal(f"{k}@edge({what})", xdev.twogap, xdev.twogap_plain,
+                       call, "cuda")
+            code = xdev.check_boundary(arrays[1], arrays[2], cs, cs + se,
+                                       mrs)[0]
+            for c in range(5):
+                add(f"code_{c}", (code == c).sum())
+
+    for k, args in launches:
+        arrays, is7 = args[:3], k.startswith("A7")
+        ref = as_view(arrays[0])
+        glen, lo = ref.glen, ref.off
+        words = ref.arr.cpu().numpy()
+        nz = np.flatnonzero(words)                       # zeros pad the end
+        end = lo + (int(nz[-1]) + 1 if len(nz) else 0)
+        seps = lo + np.flatnonzero(words == 1)
+        seps = seps[[0, 1, len(seps) // 2]] if len(seps) > 1 else seps
+        ends = [0, 1, glen - 2, glen - 1, end - 2, end - 1, *(seps - 1),
+                *(seps + 1)]
+        if k.endswith("v"):
+            hi = lo + words.shape[0]
+            ends += [lo, lo + 1, hi - 2, hi - 1]
+        cross2 = rows(seps)                       # cs + first_end = sep
+        cross2[:, 0] = seps - cross2[:, 1]
+        edge = np.concatenate([rows(np.array(ends)), rows(seps - 1, sl=2),
+                               cross2])
+        own = [a.cpu().numpy() for a in args[3:7 if is7 else 9]]
+        if is7:     # (cs, first_end, sl, el), no second gap
+            own += [np.zeros_like(own[0])] * 2
+        else:       # (cs, first_end, second_end, sl, el, cl)
+            own = [own[i] for i in (0, 1, 3, 4, 2, 5)]
+        own = np.stack(own, axis=1)
+        table = np.concatenate([edge, own])
+        for n in EDGE_ITEMS:
+            for turn, mrs in enumerate(EDGE_MRS):
+                msym = EDGE_MSYM[(n + turn) % len(EDGE_MSYM)]
+                for pick in _edge_picks(rng, len(edge), len(own), n, turn):
+                    launch(k, arrays, table[pick], mrs, msym,
+                           f"n={n},mrs={mrs},first={table[pick[0]][0]}")
+        # the call's own items by class, in turn, at its own settings
+        pools = [torch.nonzero(c).flatten()[:12].cpu().numpy()
+                 for c in classes(k, args)]
+        turns = [p[i] for i in range(12) for p in pools if i < len(p)]
+        mrs, msym = (args[7], args[8]) if is7 else (args[9], 0)
+        for n in EDGE_ITEMS:
+            pick = np.roll(np.array(turns), -n)[:n]
+            launch(k, arrays, own[pick], mrs, msym, f"n={n},classes")
+    return stats
+
+
 def check_edges(capture: Capture):
     """The half-warp kernels against their plain versions on synthetic
     inputs over europarl's index arrays, item counts 1, 15, 17 and 33
@@ -1124,14 +1294,21 @@ def check_edges(capture: Capture):
       corpus end, in both row tables, under tables with empty patterns as
       A2's; C1t the same rows as columns, and B3t on the first and the last
       shard's views at their own ends too;
+    * A7, A8 on the whole arrays, A7v, A8v on the first and the last
+      shard's views: ``gap_edges`` (occurrences at the corpus, sentence
+      and shard ends, the gaps in another sentence than cs, msym 2, 3 and
+      5);
     * A1 and A10: ``refine_edges`` and ``maxlex_edges``.
 
     Fails unless every output is bit-equal, the inputs of A2, A4, C1f, C1b,
     B3f and B3b reach the gap check (lookup1's scans: items with a
     candidate and items with a non-zero mask), A6's emit each of its four
-    families, A5's set both halves of its word (cand and gc), A1's lanes
-    hold empty intervals, lanes past the query's end, and lanes that
-    collapse and narrow, and A10's rules with a probe found and none."""
+    families, A5's set both halves of its word (cand and gc), A7's emit
+    each of its three families and have growth sides that die at step 0,
+    that emit after step 0 and that meet no event within the span limit,
+    A8's items have every checkBoundary code (0-4), A1's lanes hold empty
+    intervals, lanes past the query's end, and lanes that collapse and
+    narrow, and A10's rules with a probe found and none."""
     import functools
 
     import numpy as np
@@ -1375,14 +1552,20 @@ def check_edges(capture: Capture):
                             f"n={n},mrs={mrs},off={lo},first={rows[0]}")
 
     t3 = time.perf_counter()
+    stats.update(gap_edges(
+        rng, [("A7", capture.calls["A7"][1])]
+        + [("A7v", a) for a in first_last("A7v")]
+        + [("A8", capture.calls["A8"][1])]
+        + [("A8v", a) for a in first_last("A8v")]))
+    t4 = time.perf_counter()
     stats["A1"] = refine_edges(capture, rng, reflen, sent)
     stats["A10"] = maxlex_edges(capture, rng)
-    t4 = time.perf_counter()
+    t5 = time.perf_counter()
     print(json.dumps({"phase": "edges", "items": EDGE_ITEMS,
                       "mrs": EDGE_MRS, "msym": EDGE_MSYM, **stats,
                       "seconds_a2_a4": t1 - t0, "seconds_c1_b3": t2 - t1,
-                      "seconds_a6_a5": t3 - t2, "seconds_a1_a10": t4 - t3,
-                      "bit_equal": True}),
+                      "seconds_a6_a5": t3 - t2, "seconds_a7_a8": t4 - t3,
+                      "seconds_a1_a10": t5 - t4, "bit_equal": True}),
           flush=True)
     idle = [k for k in scans + ("A4", "A4v")
             if stats[k]["mask_items"] == 0
@@ -1396,14 +1579,23 @@ def check_edges(capture: Capture):
                                     "narrowed") if stats["A1"][f] == 0]
     silent += [f"A10.{f}" for f in ("found", "none_found")
                if stats["A10"][f] == 0]
+    silent += [f"A7.{f}" for f in ("aXb", "XaXb", "aXbX",
+                                    "side_dies_at_step_0",
+                                    "side_emits_after_step_0",
+                                    "side_no_event")
+               if stats["A7"].get(f, 0) == 0]
+    silent += [f"A8.code_{c}" for c in range(5)
+               if stats["A8"].get(f"code_{c}", 0) == 0]
     if silent:
         fail(f"edges: the inputs never set {silent}")
 
 
 def launch_floor(capture: Capture, device: str):
-    """The time of one launch that does almost no work: A8 (plain C entry,
-    ctypes) on the first item of its captured inputs, the floor under every
-    kernel time above."""
+    """The time of one launch of A8 (plain C entry, ctypes) on the first
+    item of its captured inputs: by CUDA events the floor that host issue
+    puts under every kernel time above; by the device's clock A8's own
+    one-item chain (three dependent rounds of reads on one half-warp), not
+    the card's empty-launch time."""
     from cgx_tpu_torch.extract import device as xdev
     args = list(capture.calls["A8"][1])
     args[3:9] = [a[:1].contiguous() for a in args[3:9]]

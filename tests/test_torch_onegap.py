@@ -1,6 +1,8 @@
 """One-gap patterns in the port: the enumeration and distinct scan, kernel A7's
-plain version against the JAX ``_onegap_batch`` on all six output columns,
-and ``extract_onegap`` against the JAX package's ``extract_onegap_tpu``, bit
+plain version against the JAX ``_onegap_batch`` on all six output columns
+over several span and symbol limits, the premise of A7's kernel (each growth
+side decided by its first event, the two sides independently), and
+``extract_onegap`` against the JAX package's ``extract_onegap_tpu``, bit
 for bit."""
 
 import dataclasses
@@ -126,10 +128,16 @@ def test_empty_onegap_enumeration_equals_oracle(world):
     _eq(got, want)
 
 
-def test_plain_a7_equals_onegap_batch(world):
+# (mrs, msym): the default (15, 5) first; mrs 2 leaves no growth step for
+# an aXb of 2 or more tokens, msym 2 and 3 no room for a grown X
+SETTINGS = [(15, 5), (15, 3), (15, 2), (8, 5), (8, 3), (8, 2), (2, 5),
+            (2, 3), (2, 2)]
+
+
+def _a7_cols(w):
     """Every (unsampled) aXb occurrence of lookup1's result, plus random
-    lanes that run into corpus and sentence edges."""
-    w = world
+    lanes that run into corpus and sentence edges -> (cs, first_end, sl,
+    el), int32."""
     s, og, pc = w["tsearch"], w["tog"], w["tpc"]
     ids, css, fes = tdev._onegap_occurrences(s, og, pc, 0, False)
     sls = s.qrystart_len[ids].astype(np.int64)
@@ -143,23 +151,134 @@ def test_plain_a7_equals_onegap_batch(world):
     r_cs = np.concatenate([rng.integers(0, 4, 20),
                            rng.integers(reflen - 20, reflen, 20),
                            rng.integers(0, reflen, extra - 40)])
-    cols = [np.concatenate([x, y]).astype(np.int32)
+    return [np.concatenate([x, y]).astype(np.int32)
             for x, y in ((css, r_cs), (fes, r_fe), (sls, r_sl), (els, r_el))]
-    cfg = w["jcfg"]
-    ix = w["jidx"]
-    want = jdev._onegap_batch(ix.refstr_padded, ix.rlp, ix.lr_tar,
-                              *(jnp.asarray(c) for c in cols), ix.offs0,
-                              cfg.max_rule_span, cfg.max_rule_symbols)
+
+
+def _a7_jax(w, mrs, msym):
+    """The JAX ``_onegap_batch`` on ``_a7_cols``, six numpy columns (kept
+    per world and setting)."""
+    memo = w.setdefault("a7_jax", {})
+    if (mrs, msym) not in memo:
+        ix = w["jidx"]
+        memo[(mrs, msym)] = [np.asarray(c) for c in jdev._onegap_batch(
+            ix.refstr_padded, ix.rlp, ix.lr_tar,
+            *(jnp.asarray(c) for c in _a7_cols(w)), ix.offs0, mrs, msym)]
+    return memo[(mrs, msym)]
+
+
+@pytest.mark.parametrize("mrs,msym", SETTINGS)
+def test_plain_a7_equals_onegap_batch(world, mrs, msym):
+    """Every (unsampled) aXb occurrence of lookup1's result, plus random
+    lanes that run into corpus and sentence edges."""
+    w = world
+    cols = _a7_cols(w)
+    want = _a7_jax(w, mrs, msym)
     t = w["tidx"]
     got = tdev.onegap(t.refstr_padded, t.rlp, t.lr_tar,
-                      *(torch.from_numpy(c) for c in cols),
-                      cfg.max_rule_span, cfg.max_rule_symbols)
+                      *(torch.from_numpy(c) for c in cols), mrs, msym)
     assert got.shape == (6, len(cols[0])) and got.dtype == torch.int32
     for col, wcol in enumerate(want):
-        np.testing.assert_array_equal(got[col].numpy(), np.asarray(wcol),
+        np.testing.assert_array_equal(got[col].numpy(), wcol,
                                       err_msg=f"column {col}")
-    for col in (1, 3, 5):                         # every family emits
-        assert (got[col].numpy() & 1).any(), col
+    if mrs > 2:                           # aXb, and with msym 5 every
+        for col in (1, 3, 5) if msym == 5 else (1,):      # family, emits
+            assert (got[col].numpy() & 1).any(), col
+
+
+def _side_tables(need, s, mrs):
+    """One side's [N, IMAX] step tables from ``_onegap_body``'s record:
+    has, al, spank, nxt (past the X gap check), wkill, w_ok and the
+    values an emission carries (w_ts, w_te, pmin, pmax)."""
+    t = {f: need[f"{s}_{f}"].numpy() for f in
+         ("has", "al", "pmin", "pmax", "gap", "wts", "wte", "wok")}
+    t["spank"] = t["pmax"] - t["pmin"] >= mrs
+    t["nxt"] = t["has"] & t["al"] & ~t["spank"] & t["gap"]
+    t["wkill"] = t["wte"] - t["wts"] >= mrs
+    return t
+
+
+def _coupled_loop(tabs, left, right, first_end, mrs):
+    """A transcription of the JAX outer loop (cgx_tpu/extract/device.py
+    :556-605) on the step tables, both sides under one ``active`` ->
+    {side: (emitted, step of the emission)}."""
+    n = len(first_end)
+    flag = {"l": left.copy(), "r": right.copy()}
+    res = {s: (np.zeros(n, bool), np.zeros(n, np.int64)) for s in "lr"}
+    for i in range(1, tdev.IMAX + 1):
+        i0 = i - 1
+        active = (first_end + 1 + i <= mrs) & (flag["l"] | flag["r"])
+        for s in "lr":
+            t = tabs[s]
+            proc = active & flag[s] & t["has"][:, i0]
+            dead = (active & ~t["has"][:, i0]) \
+                | (proc & ~t["al"][:, i0] & (i == 1)) \
+                | (proc & t["spank"][:, i0])
+            nxt = proc & t["nxt"][:, i0]
+            wkill = nxt & t["wkill"][:, i0]
+            emit = nxt & ~wkill & t["wok"][:, i0]
+            res[s][0][emit] = True
+            res[s][1][emit] = i0
+            flag[s] = flag[s] & ~dead & ~wkill & ~emit
+    return res
+
+
+@pytest.mark.parametrize("mrs,msym", SETTINGS)
+def test_a7_first_event_decides_each_side(world, mrs, msym):
+    """Kernel A7's premise (csrc/onegap.cu): each growth side's family
+    emits exactly when its first event (death or emission) among the steps
+    within the span limit is an emission, with that step's values; and the
+    two sides decide independently, though the JAX loop runs them under
+    one ``active = ... & (left | right)``.  Held against the JAX function
+    on every aXb occurrence and the random edge lanes of
+    ``test_plain_a7_equals_onegap_batch``."""
+    w = world
+    cols = _a7_cols(w)
+    want = _a7_jax(w, mrs, msym)
+    t = w["tidx"]
+    need: dict = {}
+    tdev._onegap_body(t.refstr_padded, t.rlp, t.lr_tar,
+                      *(torch.from_numpy(c) for c in cols), mrs, msym, need)
+    fe = cols[1].astype(np.int64)
+    n = len(fe)
+    rows = np.arange(n)
+    k = np.arange(tdev.IMAX)
+    lim = np.minimum(mrs - fe - 1, tdev.IMAX)
+    stb = need["stb"].numpy()
+    tabs = {s: _side_tables(need, s, mrs) for s in "lr"}
+    alive = {s: need[f"{s}_alive"].numpy() for s in "lr"}
+    coupled = _coupled_loop(tabs, alive["l"], alive["r"], fe, mrs)
+    for s, col in (("l", 2), ("r", 4)):
+        tb = tabs[s]
+        emit = tb["nxt"] & ~tb["wkill"] & tb["wok"]
+        event = (k < lim[:, None]) & (
+            ~tb["has"] | ((k == 0) & ~tb["al"]) | tb["spank"]
+            | (tb["nxt"] & (tb["wkill"] | tb["wok"])))
+        first = event.argmax(axis=1)
+        v = alive[s] & event.any(axis=1) & emit[rows, first]
+        got = tdev.unpack_family(want[col], want[col + 1], two_gaps=True)
+        np.testing.assert_array_equal(got[0], v, err_msg=f"{s}: emits")
+        assert not want[col][~v].any() and not want[col + 1][~v].any()
+        x0, x1 = (got[3], got[4]) if s == "l" else (got[5], got[6])
+        for name, g, e in (("ts", got[1], tb["wts"][rows, first]),
+                           ("te", got[2], tb["wte"][rows, first]),
+                           ("X start", x0, stb + tb["pmin"][rows, first]),
+                           ("X end", x1, stb + tb["pmax"][rows, first])):
+            np.testing.assert_array_equal(g[v], e[v], err_msg=f"{s}: {name}")
+        # the transcription of the coupled loop gives the JAX function's
+        # emissions at the first event's step
+        np.testing.assert_array_equal(coupled[s][0], v)
+        np.testing.assert_array_equal(coupled[s][1][v], first[v])
+    # each side alone: the other side's flag false from the start changes
+    # nothing on this side
+    none = np.zeros(n, bool)
+    alone_l = _coupled_loop(tabs, alive["l"], none, fe, mrs)["l"]
+    alone_r = _coupled_loop(tabs, none, alive["r"], fe, mrs)["r"]
+    for s, alone in (("l", alone_l), ("r", alone_r)):
+        np.testing.assert_array_equal(alone[0], coupled[s][0])
+        np.testing.assert_array_equal(alone[1], coupled[s][1])
+    if mrs > 2 and msym == 5:
+        assert coupled["l"][0].any() and coupled["r"][0].any()
 
 
 @pytest.mark.parametrize("sample", [True, False])

@@ -1,5 +1,6 @@
 """The words the kernels' bounds count (``cgx_tpu_torch.tools.reads``): for
-the fused gap check, A5's body, A6's body and A10's probes, the words each
+the fused gap check, A5's body, A6's, A7's and A8's bodies and A10's
+probes, the words each
 counter marks as needed decide the plain version's output.  Redrawing every
 other word of the index arrays (from the same array, so that the words stay
 plausible) changes no output, so the bounds, which count only the needed
@@ -71,11 +72,18 @@ def _starts(rng, ix, n):
         [[0, 1, r - 2, r - 1], rng.integers(0, r, n - 4)]).astype(np.int32))
 
 
-def _check(rng, arrays, need, n, fn, batch=4, rounds=8):
+def _check(rng, arrays, need, n, fn, batch=4, rounds=8, pool=None):
     """``fn(arrays, rows)`` is unchanged on every batch of rows when the
-    words no row of the batch needs are redrawn."""
+    words no row of the batch needs are redrawn; half of each batch from
+    ``pool`` (row indices) where one is given."""
     for _ in range(rounds):
-        rows = torch.from_numpy(rng.choice(n, batch, replace=False))
+        if pool is None or len(pool) < batch:
+            rows = rng.choice(n, batch, replace=False)
+        else:
+            rows = np.unique(np.concatenate([
+                rng.choice(pool, batch // 2, replace=False),
+                rng.choice(n, batch - batch // 2, replace=False)]))
+        rows = torch.from_numpy(rows)
         want = fn(arrays, rows)
         got = fn(_redrawn(rng, arrays, need, rows), rows)
         assert torch.equal(got, want)
@@ -147,6 +155,72 @@ def test_contig_need_decides_the_output(index, mrs, msym):
     if mrs > 2:
         assert (out[3] & 1).any() or (out[5] & 1).any()
         assert int(need["steps"].sum()) > 0
+
+
+def _gap_items(rng, ix, n, mrs):
+    """aXb(Xc) occurrences at corpus positions (``_starts``): a and b (and
+    c) 1-3 tokens, the span mostly within the span limit, so that the
+    growth steps run."""
+    cs = _starts(rng, ix, n)
+    sl, el, cl = (rng.integers(1, 4, n) for _ in range(3))
+    fe = sl + el + rng.integers(0, max(mrs - 2, 1), n) - 1
+    se = fe + 1 + cl + rng.integers(0, 4, n)
+    return [cs] + [torch.from_numpy(x.astype(np.int32))
+                   for x in (fe, sl, el, se, cl)]
+
+
+@pytest.mark.parametrize("mrs,msym", [(15, 5), (8, 5), (15, 3), (4, 4)])
+def test_onegap_need_decides_the_output(index, mrs, msym):
+    """Half of each batch from the items whose sides reach their X gap
+    check (about 15% of random items at mrs 15), where the side windows
+    and the whole-span checks decide the grown families."""
+    rng = np.random.default_rng(20 + mrs + msym)
+    arrays = _arrays(index)
+    n = 2000
+    cs, fe, sl, el, _, _ = _gap_items(rng, index, n, mrs)
+    need = reads.onegap_need(*arrays.values(), cs, fe, sl, el, mrs, msym)
+
+    def fn(a, rows):
+        return xdev.onegap_plain(*a.values(), cs[rows], fe[rows], sl[rows],
+                                 el[rows], mrs, msym)
+    out = fn(arrays, torch.arange(n))
+    body: dict = {}
+    xdev._onegap_body(*arrays.values(), cs, fe, sl, el, mrs, msym, body)
+    checked = sum(body[f"{s}_run"] & body[f"{s}_has"] & body[f"{s}_al"]
+                  for s in "lr").any(dim=1)
+    pool = torch.nonzero(checked).flatten().numpy()
+    _check(rng, arrays, need, n, fn, rounds=16, pool=pool)
+    assert (out[1] & 1).any()
+    words, steps = reads.onegap_reads(*arrays.values(), cs, fe, sl, el, mrs,
+                                      msym)
+    # the spans' words at least; the body gathers up to 16 + 16 + 2 + 56
+    # RLP/refstr words and 16 + 6 x 15 lr_tar words an item
+    assert 2 * n <= words < n * (90 + 106)
+    if msym >= 4:
+        assert (out[3] & 1).any() or (out[5] & 1).any()
+        assert 0 < steps <= 2 * xdev.IMAX * n
+
+
+@pytest.mark.parametrize("mrs", [15, 8, 2])
+def test_twogap_need_decides_the_output(index, mrs):
+    rng = np.random.default_rng(30 + mrs)
+    arrays = _arrays(index)
+    n = 400
+    cs, fe, sl, el, se, cl = _gap_items(rng, index, n, mrs)
+    need = reads.twogap_need(*arrays.values(), cs, fe, se, sl, el, cl, mrs)
+
+    def fn(a, rows):
+        return xdev.twogap_plain(*a.values(), cs[rows], fe[rows], se[rows],
+                                 sl[rows], el[rows], cl[rows], mrs)
+    _check(rng, arrays, need, n, fn, rounds=12)
+    words, valid = reads.twogap_reads(*arrays.values(), cs, fe, se, sl, el,
+                                      cl, mrs)
+    assert valid == int((fn(arrays, torch.arange(n))[1] & 1).sum())
+    # the whole span's word 0 and anchor at least; the body gathers three
+    # 16-word spans, three anchors and 16 lr_tar words an item
+    assert n <= words < n * (3 * 16 + 3 + 16)
+    if mrs == 15:
+        assert valid > 0
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
