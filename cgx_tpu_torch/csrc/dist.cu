@@ -8,25 +8,25 @@
 // extraction over its (sa_pos, lms) items with cs = refsa[sa_pos] (a vmap
 // of device._extract_contig_item), and the shard's two partial counts that
 // the JAX step psums: sum(p1[0] > 0) and the valid bits (bit 0) of the four
-// families' packed words.  The bodies are B1's pass-1 lane (lcp.cuh), one
-// thread per lane, and A6's warp body (contig.cuh), 32 items a warp; each
-// warp sums its partial count with __reduce_add_sync and one lane adds it
-// atomically into the shard's int32 [2] counter, which the wrapper zeroes
-// before the launch.
+// families' packed words.  The bodies are B1's pass-1 warp (lcp.cuh), a
+// warp per lane, and A6's warp body (contig.cuh), 32 items a warp; a
+// pass-1 warp adds its one hit, an extraction warp its partial count summed
+// with __reduce_add_sync, atomically into the shard's int32 [2] counter,
+// which the wrapper zeroes before the launch.
 // The adds are unsigned, so the counts wrap as the JAX int32 sums do.  The
 // wrapper sums the S shards' counters (the psum).
 //
 // Two __global__s rather than one grid with two lane ranges: A6's warp body
 // needs blocks of kContigThreads with a shared record per warp
-// (contig.cuh), and the pass-1 lanes need neither; as two launches each body
+// (contig.cuh), and the pass-1 warps need neither; as two launches each body
 // keeps its own block shape and registers.
 //
-// Bound on the H100: as B1 pass 1 (O(log2 reflen) dependent scattered reads
-// per lane) plus A6 (the words its function needs per item, tools/reads.py,
-// and the packed row).  The pass-1 half is a latency-bound chain of one lane per token,
-// unchanged; the extraction half is A6's body (contig.cuh: half-warp
-// gathers into a shared record, then a lane per item's growth), see
-// contig.cu's note.
+// Bound on the H100: as B1 pass 1 (a chain of dependent scattered reads per
+// lane; lcp.cu's note) plus A6 (the words its function needs per item,
+// tools/reads.py, and the packed row).  The pass-1 half is B1's warp body
+// (rounds of independent reads, the walks side by side); the extraction
+// half is A6's body (contig.cuh: half-warp gathers into a shared record,
+// then a lane per item's growth), see contig.cu's note.
 #include "contig.cuh"
 #include "lcp.cuh"
 
@@ -39,15 +39,14 @@ __device__ __forceinline__ void add_count(unsigned v,
     if ((threadIdx.x & 31) == 0 && v != 0u) atomicAdd(counter, v);
 }
 
-__global__ void dp_pass1_kernel(Index x, const int* __restrict__ toks,
-                                const int* __restrict__ suffixlens, int n,
-                                int reflen, int* __restrict__ out,
-                                unsigned* __restrict__ counts) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    unsigned hit = 0;
-    if (i < n)
-        hit = pass1_lane(x, toks[i], suffixlens[i], reflen, n, i, out) > 0;
-    add_count(hit, counts);
+__global__ void __launch_bounds__(kLcpThreads)
+dp_pass1_kernel(Index x, const int* __restrict__ toks,
+                const int* __restrict__ suffixlens, int n, int reflen,
+                int* __restrict__ out, unsigned* __restrict__ counts) {
+    const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    if (i >= n) return;    // the whole warp
+    const int lm = pass1_warp(x, toks[i], suffixlens[i], reflen, n, i, out);
+    if (lane_id() == 0 && lm > 0) atomicAdd(counts, 1u);
 }
 
 // a warp wholly past m returns at once (before any shuffle)
@@ -85,13 +84,13 @@ CGX_EXPORT int cgx_dp_step(const int* refstr, int ref_len, const int* sa,
     if (reflen < 1 || reflen > sa_len || lcp_len < 1 || q_len < 1 || mrs < 1
         || mrs - 1 > HMAX)
         return (int)cudaErrorInvalidValue;
-    const int threads = 128;
     cudaStream_t s = (cudaStream_t)stream;
     if (n > 0) {
         const Index x = {refstr, ref_len, sa, sa_len, lcpleft, lcpright,
                          lcp_len, qtok, q_len};
-        dp_pass1_kernel<<<cgx_grid(n, threads), threads, 0, s>>>(
-            x, toks, suffixlens, n, reflen, p1, (unsigned*)counts);
+        dp_pass1_kernel<<<cgx_grid(n, kLcpThreads / 32), kLcpThreads, 0,
+                          s>>>(x, toks, suffixlens, n, reflen, p1,
+                               (unsigned*)counts);
     }
     if (m > 0) {
         const Arrays a = {identity_view(refstr, ref_len),

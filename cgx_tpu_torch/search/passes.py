@@ -180,8 +180,22 @@ def refine_chunk(sa, refstr, qtok, toks, sls, lo, hi, d0: int, depths: int):
 # Plain versions: every lane of the JAX vmap is one row, and each JAX
 # while_loop is a Python loop that runs until no lane is active, updating
 # only the active lanes.
+#
+# Given a ``need`` dict, they also record what each lane reads and needs
+# (``tools/reads.py`` counts it, the tests check the kernel's rounds against
+# it): per array, (positions, needed) pairs of [n] tensors, one per read;
+# per search step the active lanes and their window ("search": (active, L,
+# R)), likewise per walk step ("walk_up", "walk_down"); and per search step
+# the lanes that compare and how far each got past ll0 ("compare": (eq,
+# ll - ll0)).
 
 PASS2_SUFFIXLEN = 2 ** 30   # pass 2 never stops at the end of the suffix
+
+
+def _note(need, name: str, pos, keep):
+    """Records a read of array ``name`` at ``pos`` (needed where ``keep``)."""
+    if need is not None:
+        need.setdefault(name, []).append((pos, keep))
 
 
 def _skip_at(lcpleft, lcpright, other, M, direct):
@@ -193,7 +207,8 @@ def _skip_at(lcpleft, lcpright, other, M, direct):
     return torch.where((other - M).abs() == 1, direct, tree)
 
 
-def _bound_walk(lcpleft, lcpright, ffh, ffl, ffr, match, go_up: bool):
+def _bound_walk(lcpleft, lcpright, ffh, ffl, ffr, match, go_up: bool,
+                need=None):
     """Final up/down bound walk (SuffixArray.cu:714-763): narrow from the
     firstfindhit window to the outermost SA index whose skip >= match."""
     L = (ffl if go_up else ffh).clone()
@@ -205,6 +220,14 @@ def _bound_walk(lcpleft, lcpright, ffh, ffl, ffr, match, go_up: bool):
         if not bool(act.any()):
             return longest
         M = (L + R) >> 1
+        if need is not None:
+            need.setdefault("walk_up" if go_up else "walk_down", []).append(
+                (act, L, R))
+            other = R if go_up else L
+            adj = (other - M).abs() == 1
+            _note(need, "lcpr" if go_up else "lcpl", M, act & adj)
+            for name in ("lcpl", "lcpr"):
+                _note(need, name, (other + M) >> 1, act & ~adj)
         if go_up:
             skip = _skip_at(lcpleft, lcpright, R, M, take(lcpright, M))
         else:
@@ -221,7 +244,7 @@ def _bound_walk(lcpleft, lcpright, ffh, ffl, ffr, match, go_up: bool):
 
 
 def _lcp_search(refstr, sa, lcpleft, lcpright, qtok, tok, suffixlen, L, R,
-                require_match, pin):
+                require_match, pin, need=None):
     """The LCP binary search for every lane until it narrows to adjacent
     bounds or finds its answer (``_search_body`` under the JAX while_loop).
     Pass 1: ``require_match`` None (record firstfindhit on the first matched
@@ -238,10 +261,14 @@ def _lcp_search(refstr, sa, lcpleft, lcpright, qtok, tok, suffixlen, L, R,
     found = take(qtok, tok) == -1
     if not pass1:
         found = torch.zeros_like(found)
+    else:
+        _note(need, "qtok", tok, torch.ones_like(found))
     while True:
         active = (R - L > 1) & ~found
         if not bool(active.any()):
             return longlen, ffh, ffl, ffr
+        if need is not None:
+            need.setdefault("search", []).append((active, L, R))
         M = (L + R) >> 1
         if pin is not None:
             LL, MM, RR = pin
@@ -260,6 +287,18 @@ def _lcp_search(refstr, sa, lcpleft, lcpright, qtok, tok, suffixlen, L, R,
         b = take(refstr, sref)
         pre_break = (a == -1) | (pass1 & (ll0 >= suffixlen))
         enter = active & eq & ~pre_break & (a != -1) & (b != SEP)
+        if need is not None:
+            # the used flavour's skip words, and the compare's where eq
+            adj = torch.where(use_l, (L - M).abs() == 1, (R - M).abs() == 1)
+            _note(need, "lcpl", M, active & use_l & adj)
+            _note(need, "lcpr", M, active & ~use_l & adj)
+            ht = torch.where(use_l, (L + M) >> 1, (R + M) >> 1)
+            for name in ("lcpl", "lcpr"):
+                _note(need, name, ht, active & ~adj)
+            _note(need, "sa", M, active & eq)
+            _note(need, "qtok", tok + ll0,
+                  active & eq & ~(pass1 & (ll0 >= suffixlen)))
+            _note(need, "refstr", sref, active & eq & ~pre_break)
         tp = torch.where(enter, a - b, temp)
         ll = ll0
         fh, fl, fr = ffh, ffl, ffr
@@ -280,14 +319,18 @@ def _lcp_search(refstr, sa, lcpleft, lcpright, qtok, tok, suffixlen, L, R,
             fl = torch.where(rec, L, fl)
             fr = torch.where(rec, R, fr)
             step = act & ~brk
-            a = torch.where(step, take(qtok, tok + torch.minimum(
-                ll, suffixlen + QPAD - 1)), a)
+            qpos = tok + torch.minimum(ll, suffixlen + QPAD - 1)
+            a = torch.where(step, take(qtok, qpos), a)
             b = torch.where(step, take(refstr, sref), b)
+            _note(need, "qtok", qpos, step)
+            _note(need, "refstr", sref, step & (a != -1))
             a_end = step & (a == -1)
             ifound = ifound | brk | a_end
             upd = step & ~a_end & (a != -1) & (b != SEP)
             tp = torch.where(upd, a - b, tp)
         found_eq = eq & (pre_break | ifound)
+        if need is not None:
+            need.setdefault("compare", []).append((active & eq, ll - ll0))
         # post-compare branch (SuffixArray.cu:598-610) for eq lanes that did
         # not break
         post = eq & ~found_eq
@@ -314,18 +357,19 @@ def _lcp_search(refstr, sa, lcpleft, lcpright, qtok, tok, suffixlen, L, R,
 
 
 def pass1_plain(refstr, sa, lcpleft, lcpright, qtok, toks, suffixlens,
-                reflen: int):
+                reflen: int, need=None):
     """Plain PyTorch version of kernel B1's pass 1 -> six int32 [T]
     (longestmatch, up, down, firstfindhit, firstfindhitL, firstfindhitR)."""
     oov = take(qtok, toks) == -1
     longlen, ffh, ffl, ffr = _lcp_search(
         refstr, sa, lcpleft, lcpright, qtok, toks, suffixlens,
-        torch.zeros_like(toks), torch.full_like(toks, reflen - 1), None, None)
+        torch.zeros_like(toks), torch.full_like(toks, reflen - 1), None, None,
+        need)
     hit = ~oov & (ffh != -1) & (longlen > 0)
     neg = torch.full_like(toks, -1)
     ffh_s = torch.where(hit, ffh, neg)
-    up = _bound_walk(lcpleft, lcpright, ffh_s, ffl, ffr, 1, True)
-    down = _bound_walk(lcpleft, lcpright, ffh_s, ffl, ffr, 1, False)
+    up = _bound_walk(lcpleft, lcpright, ffh_s, ffl, ffr, 1, True, need)
+    down = _bound_walk(lcpleft, lcpright, ffh_s, ffl, ffr, 1, False, need)
     lm = torch.where(oov | (longlen <= 0), 0, longlen)
     return (lm, torch.where(hit, up, neg), torch.where(hit, down, neg),
             torch.where(hit, ffh, neg), torch.where(hit, ffl, neg),
@@ -333,15 +377,16 @@ def pass1_plain(refstr, sa, lcpleft, lcpright, qtok, toks, suffixlens,
 
 
 def pass2_plain(refstr, sa, lcpleft, lcpright, qtok, toks, matches, LLs, MMs,
-                RRs):
+                RRs, need=None):
     """Plain PyTorch version of kernel B1's pass 2 -> (up, down) int32 [I]."""
     _, ffh, ffl, ffr = _lcp_search(
         refstr, sa, lcpleft, lcpright, qtok, toks,
         torch.full_like(toks, PASS2_SUFFIXLEN), LLs, RRs, matches,
-        (LLs, MMs, RRs))
+        (LLs, MMs, RRs), need)
     neg = torch.full_like(toks, -1)
-    up = _bound_walk(lcpleft, lcpright, ffh, ffl, ffr, matches, True)
-    down = _bound_walk(lcpleft, lcpright, ffh, ffl, ffr, matches, False)
+    up = _bound_walk(lcpleft, lcpright, ffh, ffl, ffr, matches, True, need)
+    down = _bound_walk(lcpleft, lcpright, ffh, ffl, ffr, matches, False,
+                       need)
     ok = ffh != -1
     return torch.where(ok, up, neg), torch.where(ok, down, neg)
 

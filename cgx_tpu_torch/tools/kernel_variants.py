@@ -1,23 +1,30 @@
-"""Variants of the extraction kernels side by side on the card.
+"""Variants of the port's kernels side by side on the card.
 
     python3 -m cgx_tpu_torch.tools.kernel_variants NAME=DIR [NAME=DIR ...]
 
 Each DIR holds a full copy of ``cgx_tpu_torch/csrc`` (one variant's
-sources).  The tool builds each variant's ``onegap.cu``, ``twogap.cu`` and
-``contig.cu`` with the port's nvcc flags and prints ptxas's report and an
-opcode histogram of each kernel's SASS (``cuobjdump -sass``).  It then runs
-``chip_smoke.py``'s medium run and its europarl run over four shards,
-keeping each kernel's largest launch, and times every variant on them, in
-turns (the variants in order, then in reverse), by CUDA events and by the
-device's own clock (``chip_smoke._device_ms``): A7, A7 on a shard's views
-(A7v), A8, A8v, A8 on one item, A6 and B3c.  Every output is checked
-against the plain version first; a variant that differs is reported and
-dropped.  Run from the repository root on a machine with a card.
+sources).  The tool builds each variant's ``onegap.cu``, ``twogap.cu``,
+``contig.cu``, ``lcp.cu``, ``maxlex.cu`` and ``dist.cu`` with the port's
+nvcc flags and prints ptxas's report and an opcode histogram of each
+library's SASS (``cuobjdump -sass``) and each kernel's static SASS
+instruction count (for a body without loops, such as A9's, about what one
+warp issues).  It then runs ``chip_smoke.py``'s
+medium run, its europarl run with the LCP passes, the query-DP step and A9
+on europarl's lexicon as dense tables (A9L), and its europarl run over four
+shards, keeping each kernel's largest launch, and times every variant on
+them, in turns (the variants in order, then in reverse), by CUDA events and
+by the device's own clock (``chip_smoke._device_ms``): A7, A7 on a shard's
+views (A7v), A8, A8v, A8 on one item, A6, B3c, B1p1, B1p2, B4, A9, A9 on
+one rule (the launch's fixed cost), A9L and A10.  Each row runs through the port's own wrapper with the variant's
+library in place of the built one.  Every output is checked against the
+plain version first; a variant that differs is reported and dropped.  Run
+from the repository root on a machine with a card.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import json
 import os
@@ -28,9 +35,28 @@ import sys
 import torch
 
 from cgx_tpu_torch.extract import device as xdev
+from cgx_tpu_torch.features import maxlex as ml
 from cgx_tpu_torch.kernels import build as kb
+from cgx_tpu_torch.parallel import dist
+from cgx_tpu_torch.search import passes
 
-SOURCES = ("onegap", "twogap", "contig")
+SOURCES = ("onegap", "twogap", "contig", "lcp", "maxlex", "dist")
+# row -> (the port's wrapper, its plain version); A7v, A8v, A8@1 and A9@1
+# run A7's, A8's and A9's
+ROWS = {"A7": (xdev.onegap, xdev.onegap_plain),
+        "A7v": (xdev.onegap, xdev.onegap_plain),
+        "A8": (xdev.twogap, xdev.twogap_plain),
+        "A8v": (xdev.twogap, xdev.twogap_plain),
+        "A8@1": (xdev.twogap, xdev.twogap_plain),
+        "A6": (xdev.contig, xdev.contig_plain),
+        "B3c": (xdev.contig_pos, xdev.contig_pos_plain),
+        "B1p1": (passes.pass1, passes.pass1_plain),
+        "B1p2": (passes.pass2, passes.pass2_plain),
+        "B4": (dist.dp_step, dist.dp_step_plain),
+        "A9": (ml.accum_dense, ml.accum_dense_plain),
+        "A9@1": (ml.accum_dense, ml.accum_dense_plain),
+        "A9L": (ml.accum_dense, ml.accum_dense_plain),
+        "A10": (ml.accum_range, ml.accum_range_plain)}
 
 
 def build(name: str, src: str, out: str) -> dict:
@@ -50,59 +76,64 @@ def build(name: str, src: str, out: str) -> dict:
         sass = subprocess.run(
             [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", so],
             capture_output=True, text=True).stdout
+        op = re.compile(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
         ops = collections.Counter(
-            m.group(1).split(".")[0] for m in re.finditer(
-                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
-                sass))
+            m.group(1).split(".")[0] for m in op.finditer(sass))
+        # per kernel: the text from its "Function :" line to the next
+        parts = re.split(r"Function : (\S+)", sass)[1:]
+        per_kernel = {
+            (re.findall(r"[a-z][a-z0-9_]*_kernel", fn) or [fn])[0]:
+            len(op.findall(body)) for fn, body in zip(parts[::2], parts[1::2])}
         print(json.dumps({"variant": name, "source": f, "ptxas": [
             ln.strip() for ln in txt.splitlines()
             if "registers" in ln or "spill" in ln],
-            "sass_total": sum(ops.values()),
+            "sass_total": sum(ops.values()), "sass_kernels": per_kernel,
             "sass_top": ops.most_common(14)}), flush=True)
         lib = ctypes.CDLL(so)
         for fn, argt in kb.SIGNATURES[f].items():
             getattr(lib, fn).argtypes = argt
             getattr(lib, fn).restype = ctypes.c_int
+        lib.cgx_error_string.argtypes = [ctypes.c_int]
+        lib.cgx_error_string.restype = ctypes.c_char_p
         libs[f] = lib
     return libs
 
 
-def launch(libs: dict, k: str, args) -> torch.Tensor:
-    """Kernel ``k`` of one variant on a captured call's arguments."""
-    if k == "A6":
-        ref, sa, rlp, lr, pos, lm, mrs, msym = args
-        out = torch.empty((8, pos.shape[0]), dtype=torch.int32,
-                          device=pos.device)
-        rc = libs["contig"].cgx_contig(
-            kb.ptr(ref), ref.shape[0], kb.ptr(sa), sa.shape[0], kb.ptr(rlp),
-            rlp.shape[0], kb.ptr(lr), lr.shape[0], kb.ptr(pos), kb.ptr(lm),
-            pos.shape[0], mrs, msym, kb.ptr(out), kb.stream(pos.device))
-    elif k == "B3c":
-        ref, rlp, lr, cs, lm, mrs, msym = args
-        out = torch.empty((8, cs.shape[0]), dtype=torch.int32,
-                          device=cs.device)
-        rc = libs["contig"].cgx_contig_pos(
-            *kb.view(ref), *kb.view(rlp), *kb.view(lr), kb.ptr(cs),
-            kb.ptr(lm), cs.shape[0], mrs, msym, kb.ptr(out),
-            kb.stream(cs.device))
-    elif k.startswith("A7"):
-        ref, rlp, lr, cs, fe, sl, el, mrs, msym = args
-        out = torch.empty((6, cs.shape[0]), dtype=torch.int32,
-                          device=cs.device)
-        rc = libs["onegap"].cgx_onegap(
-            *kb.view(ref), *kb.view(rlp), *kb.view(lr), kb.ptr(cs),
-            kb.ptr(fe), kb.ptr(sl), kb.ptr(el), cs.shape[0], mrs, msym,
-            kb.ptr(out), kb.stream(cs.device))
-    else:
-        ref, rlp, lr, cs, fe, se, sl, el, cl, mrs = args
-        out = torch.empty((2, cs.shape[0]), dtype=torch.int32,
-                          device=cs.device)
-        rc = libs["twogap"].cgx_twogap(
-            *kb.view(ref), *kb.view(rlp), *kb.view(lr), kb.ptr(cs),
-            kb.ptr(fe), kb.ptr(se), kb.ptr(sl), kb.ptr(el), kb.ptr(cl),
-            cs.shape[0], mrs, kb.ptr(out), kb.stream(cs.device))
-    kb.check(k, rc)
-    return out
+@contextlib.contextmanager
+def installed(libs: dict):
+    """The port's wrappers launch the variant's libraries inside."""
+    saved = dict(kb._libs)
+    kb._libs.update(libs)
+    try:
+        yield
+    finally:
+        kb._libs.clear()
+        kb._libs.update(saved)
+
+
+def capture_rows() -> dict:
+    """Each row's captured arguments from ``chip_smoke.py``'s runs."""
+    import chip_smoke as cs
+    with open(cs.GOLDEN, encoding="utf-8") as fh:
+        golden = json.load(fh)
+    with cs.Capture() as cap:
+        for size, lcp, shards, cols, expect, forbid in cs.RUNS[:3]:
+            _, res, _ = cs.run_e2e(size, "cuda", cap, golden, expect, lcp,
+                                   forbid, shards, cols)
+            if size == "europarl" and not shards:
+                cs.check_lcp_passes(res)
+                cs.check_query_dp(res, cap)
+                cs.check_dense_large(res, cap)
+            del res
+    rows = {k: cap.calls[k][1] for k in ROWS if k in cap.calls}
+    one = list(rows["A8"])
+    one[3:9] = [a[:1].contiguous() for a in one[3:9]]
+    rows["A8@1"] = tuple(one)
+    one = list(rows["A9"])
+    one[4:11] = [a[:1].contiguous() for a in one[4:11]]
+    rows["A9@1"] = tuple(one)
+    return rows
 
 
 def main(argv=None) -> int:
@@ -111,22 +142,22 @@ def main(argv=None) -> int:
     variants = [a.split("=", 1) for a in (argv or sys.argv[1:])]
     libs = {name: build(name, src, f"build/kernel_variants/{name}")
             for name, src in variants}
-    with open(cs.GOLDEN, encoding="utf-8") as fh:
-        golden = json.load(fh)
-    with cs.Capture() as cap:
-        for size, lcp, shards, cols, expect, forbid in (cs.RUNS[0],
-                                                        cs.RUNS[2]):
-            cs.run_e2e(size, "cuda", cap, golden, expect, lcp, forbid,
-                       shards, cols)
-    rows = {k: cap.calls[k][1] for k in ("A7", "A7v", "A8", "A8v")}
-    one = list(rows["A8"])
-    one[3:9] = [a[:1].contiguous() for a in one[3:9]]
-    rows["A8@1"] = tuple(one)
-    rows["A6"], rows["B3c"] = cap.calls["A6"][1], cap.calls["B3c"][1]
-    plains = {"A6": xdev.contig_plain, "B3c": xdev.contig_pos_plain}
-    want = {k: plains.get(k, xdev.onegap_plain if k.startswith("A7")
-                          else xdev.twogap_plain)(*a)
-            for k, a in rows.items()}
+    # the device clock reads every variant's kernels, whatever their names
+    kernels = set(cs._kernel_names())
+    for _, src in variants:
+        for f in os.listdir(src):
+            if f.endswith(".cu"):
+                with open(os.path.join(src, f), encoding="utf-8") as fh:
+                    kernels |= set(re.findall(r"(\w+)\s*<<<", fh.read()))
+    cs._kernel_names = lambda: sorted(kernels)
+    rows = capture_rows()
+
+    def outputs(fn, args):
+        out = fn(*args)
+        out = out if isinstance(out, (tuple, list)) else (out,)
+        return [o.view(torch.int32) if o.dtype == torch.float32 else o
+                for o in out]
+    want = {k: outputs(ROWS[k][1], a) for k, a in rows.items()}
     dropped = set()
     names = [name for name, _ in variants]
     for turn, order in enumerate((names, names[::-1])):
@@ -134,20 +165,21 @@ def main(argv=None) -> int:
             if name in dropped:
                 continue
             res = {}
-            for k, args in rows.items():
-                got = launch(libs[name], k, args)
-                torch.cuda.synchronize()
-                if not torch.equal(got, want[k]):
-                    print(json.dumps({"variant": name, "row": k,
-                                      "bit_equal": False}), flush=True)
-                    dropped.add(name)
-                    break
-                ms, reps = cs._time_ms(lambda: launch(libs[name], k, args),
-                                       "cuda")
-                dev = cs._device_ms(lambda: launch(libs[name], k, args),
-                                    reps)
-                res[k] = {"items": int(got.shape[1]), "ms": ms,
-                          "device_ms": dev["device_ms"]}
+            with installed(libs[name]):
+                for k, args in rows.items():
+                    kernel = ROWS[k][0]
+                    got = outputs(kernel, args)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(g, w)
+                               for g, w in zip(got, want[k])):
+                        print(json.dumps({"variant": name, "row": k,
+                                          "bit_equal": False}), flush=True)
+                        dropped.add(name)
+                        break
+                    ms, reps = cs._time_ms(lambda: kernel(*args), "cuda")
+                    dev = cs._device_ms(lambda: kernel(*args), reps)
+                    res[k] = {"items": int(got[0].shape[-1]), "ms": ms,
+                              "device_ms": dev["device_ms"]}
             if name not in dropped:
                 print(json.dumps({"variant": name, "turn": turn, **res}),
                       flush=True)

@@ -6,10 +6,11 @@ state machine at its first inactive step, the gap check when no move
 passes its first test) needs only the words that decide its result.  Each
 counter here takes them from the plain version's own flags, maps them to
 the slots of the arrays that the reads land in (clamped as the plain
-version clamps them), and counts each distinct slot of an item once,
-summed over the items.  ``*_need`` returns the slots and which of them are
-needed, so that a test can redraw every other word and find the result
-unchanged.
+version clamps them), and counts each distinct slot once over the whole
+launch: a word that several items read (a shared table's, the corpus
+around overlapping occurrences) is one word to move.  ``*_need`` returns
+the slots and which of them are needed, so that a test can redraw every
+other word and find the result unchanged.
 
 * ``contig_reads``: A6, B3c and B4's extraction (``_extract_contig_item``);
 * ``onegap_reads``: A7 on the whole arrays or a shard's views
@@ -19,7 +20,11 @@ unchanged.
 * ``gap_reads``: the fused gap check alone (A4, and lookup1's scans for
   the items with a candidate);
 * ``scan_reads``: lookup1's scans (A2, B3f/B3b, C1f/C1b);
-* ``maxlex_reads``: A10 (``_accum_batch_range``).
+* ``maxlex_reads``: A10 (``_accum_batch_range``);
+* ``maxlex_dense_reads``: A9 (``_accum_batch_dense``);
+* ``lcp_reads``: B1's passes (``_search_body`` and ``_bound_walk``), with
+  the chain of dependent read rounds that the kernel's warp body takes;
+* ``dp_reads``: B4, B1's pass 1 on its lanes and A6's body on its items.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 
 from cgx_tpu_torch.extract import device as xdev
 from cgx_tpu_torch.features import maxlex as ml
-from cgx_tpu_torch.search import lookup
+from cgx_tpu_torch.search import lookup, passes
 from cgx_tpu_torch.utils.views import as_view, take
 
 
@@ -42,18 +47,18 @@ def _slots(arr, pos, bounded: bool = True):
     return (pos - v.off).clamp(0, v.arr.shape[0] - 1)
 
 
-def _distinct(slots, keep) -> int:
-    """Distinct kept slots per row of [N, K], summed over the rows."""
-    s = torch.where(keep, slots, -1).sort(dim=1).values
-    new = torch.ones_like(keep)
-    new[:, 1:] = s[:, 1:] != s[:, :-1]
-    return int(((s >= 0) & new).sum())
+def _distinct(pairs) -> int:
+    """Distinct kept slots of (slots, keep) pairs of [N, K], over all rows
+    and pairs."""
+    return int(torch.unique(torch.cat(
+        [slots[keep].reshape(-1) for slots, keep in pairs])).numel())
 
 
-def count(need: dict, arrays=("refstr", "rlp", "lr_tar")) -> int:
-    """The words of a ``*_need`` record, each array's distinct slots of an
-    item counted once."""
-    return sum(_distinct(*need[a]) for a in arrays if a in need)
+def count(*needs: dict, arrays=("refstr", "rlp", "lr_tar")) -> int:
+    """The words of ``*_need`` records of one launch: each array's distinct
+    slots over all the records' rows counted once."""
+    return sum(_distinct([n[a] for n in needs if a in n]) for a in arrays
+               if any(a in n for n in needs))
 
 
 def _range(lo, hi, looked, H: int):
@@ -359,7 +364,15 @@ def scan_reads(refstr, rlp, lr_tar, gostart, sl, el, want, mrs: int,
     has = cand.any(dim=1)
     fixed = (gostart + sl if fwd else gostart - 1)[has]
     gap_words, gap_ok = gap_reads(rlp, lr_tar, fixed, mgs - 1, mrs, fwd)
-    return int(has.sum()), int(read.sum()), gap_words, gap_ok
+    ks = torch.arange(lookup.MMOV + 2, dtype=torch.int32,
+                      device=gostart.device)
+    if fwd:
+        pos = (gostart + sl + mgs)[:, None] + ks
+    else:
+        pos = (gostart - 1 - mgs)[:, None] - ks
+        read = read & (pos >= 0)      # off the corpus start: no read
+    window = _distinct([(_slots(refstr, pos), read)])
+    return int(has.sum()), window, gap_words, gap_ok
 
 
 MAXLEX_ARRAYS = ("rs", "re", "lt", "lnv1", "lnv2")
@@ -437,5 +450,119 @@ def maxlex_reads(rs, re, lt, lnv1, lnv2, tgt_str, sp, t0, tend, g1, g11, g2,
     (``maxlex_need``)."""
     need = maxlex_need(rs, re, lt, lnv1, lnv2, tgt_str, sp, t0, tend, g1, g11,
                        g2, g21, steps)
-    return (count(need, MAXLEX_ARRAYS), int(need["searches"].sum()),
+    return (count(need, arrays=MAXLEX_ARRAYS), int(need["searches"].sum()),
             int(need["steps_run"].sum()))
+
+
+def maxlex_dense_need(L1, L2, tgt_str, sp, t0, tend, g1, g11, g2,
+                      g21) -> dict:
+    """What ``_accum_batch_dense`` needs per rule -> {table: (slots,
+    keep)}, slots into the flattened [ns * nt] tables.
+
+    L2 (the P(t|s) side): each source row counted in ``nsrc`` at each kept
+    target position, and its NULL column where any position is kept; L1
+    (P(s|t)): each valid source row at each kept position, and the NULL
+    row there.  A probe off the table (an invalid id) reads nothing."""
+    ttok, tmask, any_t = ml._probe_masks(tgt_str, t0, tend, g1, g11, g2, g21)
+    T = sp.shape[0]
+    ns, nt = L1.shape
+    si, ti = (sp + 1).long(), (ttok + 1).long()
+    oks = (si >= 0) & (si < ns)
+    okt = (ti >= 0) & (ti < nt) & tmask
+    counted = (sp != -99).sum(dim=1, keepdim=True) > torch.arange(
+        ml.SRCW, device=sp.device)
+    pair = oks[:, :, None] & okt[:, None, :]
+    at = (si[:, :, None] * nt + ti[:, None, :]).reshape(T, -1)
+    l2_pos = torch.cat([at, si * nt], dim=1)
+    l2_keep = torch.cat([(pair & counted[:, :, None]).reshape(T, -1),
+                         oks & counted & any_t[:, None]], dim=1)
+    l1_pos = torch.cat([at, ti], dim=1)
+    l1_keep = torch.cat([pair.reshape(T, -1), okt], dim=1)
+    return {"L1": (_slots(L1.reshape(-1), l1_pos), l1_keep),
+            "L2": (_slots(L2.reshape(-1), l2_pos), l2_keep)}
+
+
+def maxlex_dense_reads(L1, L2, tgt_str, sp, t0, tend, g1, g11, g2,
+                       g21) -> int:
+    """The table words that ``_accum_batch_dense`` needs over the rules
+    beyond each rule's fixed input, target and output words
+    (``maxlex_dense_need``)."""
+    return count(maxlex_dense_need(L1, L2, tgt_str, sp, t0, tend, g1, g11,
+                                   g2, g21), arrays=("L1", "L2"))
+
+
+LCP_ARRAYS = ("refstr", "sa", "lcpl", "lcpr", "qtok")
+# kernel B1's warp body (csrc/lcp.cuh kSearchLevels, kWalkLevels): a round
+# of the search loads the words of the next SEARCH_LEVELS levels (31 nodes),
+# one of a bound walk WALK_LEVELS (15); a compare round COMPARE_WIDTH tokens
+SEARCH_LEVELS = 5
+WALK_LEVELS = 4
+COMPARE_WIDTH = 32
+
+
+def lcp_need(refstr, sa, lcpleft, lcpright, qtok, *lanes) -> dict:
+    """What B1's lanes need: pass 1 for ``lanes`` = (toks, suffixlens,
+    reflen), pass 2 for (toks, matches, LLs, MMs, RRs) -> {array: (slots,
+    keep)}, and per lane its search steps (``steps``), both walks' steps
+    (``walk_steps``) and the chain of dependent read rounds that the
+    kernel's warp body takes (``chain``).
+
+    Per search step the skip words of the flavour it uses (the direct word
+    where the bound is adjacent, else the midpoint tree's two words), and
+    where the step compares (eq): its SA word and the query and corpus
+    tokens up to where the compare stops; per walk step its skip words;
+    pass 1 also the lane's first query token (the OOV test).  The chain:
+    one round a ``SEARCH_LEVELS`` search steps, one a ``COMPARE_WIDTH``
+    positions of each compare, and one a ``WALK_LEVELS`` steps of the
+    longer walk (the two run side by side)."""
+    need: dict = {}
+    if len(lanes) == 3:
+        passes.pass1_plain(refstr, sa, lcpleft, lcpright, qtok, *lanes,
+                           need=need)
+    else:
+        passes.pass2_plain(refstr, sa, lcpleft, lcpright, qtok, *lanes,
+                           need=need)
+    arrays = dict(zip(LCP_ARRAYS, (refstr, sa, lcpleft, lcpright, qtok)))
+    out = {name: (_slots(arr, torch.stack([p for p, _ in need[name]], 1)),
+                  torch.stack([k for _, k in need[name]], 1))
+           for name, arr in arrays.items() if name in need}
+    zero = torch.zeros_like(lanes[0])
+
+    def steps(key):
+        return sum((act.to(zero.dtype) for act, _, _ in need.get(key, [])),
+                   zero)
+    up, down = steps("walk_up"), steps("walk_down")
+    out["steps"] = steps("search")
+    out["walk_steps"] = up + down
+    compares = sum((torch.where(eq, d // COMPARE_WIDTH + 1, 0)
+                    for eq, d in need.get("compare", [])), zero)
+    out["chain"] = (-(-out["steps"] // SEARCH_LEVELS) + compares
+                    + -(-torch.maximum(up, down) // WALK_LEVELS))
+    return out
+
+
+def lcp_reads(refstr, sa, lcpleft, lcpright, qtok, *lanes) -> tuple:
+    """(words, search and walk steps, longest chain, mean chain) of B1's
+    lanes (``lcp_need``)."""
+    need = lcp_need(refstr, sa, lcpleft, lcpright, qtok, *lanes)
+    chain = need["chain"]
+    return (count(need, arrays=LCP_ARRAYS),
+            int(need["steps"].sum() + need["walk_steps"].sum()),
+            int(chain.max()) if chain.numel() else 0,
+            float(chain.double().mean()) if chain.numel() else 0.0)
+
+
+def dp_reads(refstr, sa, lcpleft, lcpright, qtok, toks, sls, reflen: int,
+             cs, lm, rlp, lr_tar, mrs: int, msym: int) -> tuple:
+    """B4's launch: B1's pass 1 on the lanes (``toks``, ``sls``) and A6's
+    body on the items at corpus positions ``cs`` -> (words, lane search and
+    walk steps, outer and inner growth steps, longest and mean chain); a
+    corpus word that both halves read is one word."""
+    lanes = lcp_need(refstr, sa, lcpleft, lcpright, qtok, toks, sls, reflen)
+    items = contig_need(refstr, rlp, lr_tar, cs, lm, mrs, msym)
+    chain = lanes["chain"]
+    return (count(lanes, items, arrays=LCP_ARRAYS + ("rlp", "lr_tar")),
+            int(lanes["steps"].sum() + lanes["walk_steps"].sum()),
+            int(items["steps"].sum()), int(items["inner"].sum()),
+            int(chain.max()) if chain.numel() else 0,
+            float(chain.double().mean()) if chain.numel() else 0.0)

@@ -26,15 +26,21 @@ Phases, one line each on stdout:
    JAX package's and its grammar hash the golden in
    tests/golden_torch_hashes.json (the JAX package's full grammar).  On
    europarl's index and queries both LCP passes must then give the
-   refinement's up, down and longestmatch; the sharded run prints each
-   shard's bytes and its peak device memory beside the replicated run's;
+   refinement's up, down and longestmatch (their launches, B1's largest,
+   counted with the launch counts reset just before them); the sharded run
+   prints each shard's bytes and its peak device memory beside the
+   replicated run's;
 4. query_dp -- ``parallel.dist.run_sharded_search`` on the europarl run's
    index, pass-1 tokens and sampled block occurrences, over four shards on
    the one card (kernel B4, one launch per shard, and nothing else):
    longestmatch must equal the refinement's, the match count the number of
    tokens that match, every shard's outputs and counts its plain
    version's, the extraction of the real items A6's on the same SA
-   positions, and the rule count the plain shards' sum;
+   positions, and the rule count the plain shards' sum; then (4b,
+   dense_large) kernel A9 on europarl's lexicon as dense tables (20,001^2
+   floats each, past DEV_DENSE_LIMIT, which no pipeline run builds: the
+   A9L row) on the rules of A10's largest launch, whose features must be
+   A10's bit for bit;
 5. columns -- kernel C1p (``lookup.pcs_cols``, which no pipeline path
    calls, as in the JAX package) on the items of A3's largest launch,
    materialised into columns on the host: its ok bits must equal A3's;
@@ -46,7 +52,8 @@ Phases, one line each on stdout:
 7. kernels -- each kernel against its plain PyTorch version on the card, on
    the inputs of its largest launch in phases 3 to 6 (A2 and C1 once per
    direction, B1 once per pass, A4, A7 and A8 also on a shard's views, as
-   A4v, A7v and A8v), and every kernel that reads a shard's views (A4v,
+   A4v, A7v and A8v, and A9 on the dense europarl tables as A9L), and
+   every kernel that reads a shard's views (A4v,
    A7v, A8v, B3f, B3b, B3p, B3t, B3c) also on its largest launch on each
    shard, the first (negative global offset) and the last (reads clamped to
    the global end) included: the outputs must be bit-equal (float32
@@ -68,12 +75,18 @@ Phases, one line each on stdout:
    ``_extract_contig_item`` up to each loop's exit; A7 and A7v each side's
    step words up to its first event and the window entries its checks look
    up; A8 and A8v the gaps' words only where the rule is valid; A10 the
-   bisection path and found words of each distinct search), and the time
+   bisection path and found words of each distinct search; A9 the table
+   words of each kept position and NULL probe; B1 and B4's lanes each
+   search and walk step's skip words and the compares' SA, corpus and
+   query words, with the chain of read rounds of the warp body), and the
+   time
    of one launch of A8 on one item (by the device's clock A8's own
    one-item chain, ``launch_floor``).  Then the warp and half-warp kernels
    (A1, A2f, A2b, A4, A4v, C1f, C1b, B3f, B3b, A6, B3c, A5, C1t, B3t, A7,
-   A7v, A8, A8v, A10) against their plain versions on synthetic edge inputs
-   over europarl's index arrays and tables (``check_edges``).
+   A7v, A8, A8v, A10, A9, B1p1, B1p2) against their plain versions on
+   synthetic edge inputs over europarl's index arrays and tables (A9 over
+   medium's dense tables; B1 also over a small index of 70-token
+   sentences, for matches past 32 tokens) (``check_edges``).
 
 Then a JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -115,6 +128,7 @@ KERNELS = {
     "A7": ("cgx_tpu_torch/csrc/onegap.cu", "cgx_tpu/extract/device.py:616"),
     "A8": ("cgx_tpu_torch/csrc/twogap.cu", "cgx_tpu/extract/device.py:744"),
     "A9": ("cgx_tpu_torch/csrc/maxlex.cu", "cgx_tpu/features/maxlex.py:161"),
+    "A9L": ("cgx_tpu_torch/csrc/maxlex.cu", "cgx_tpu/features/maxlex.py:161"),
     "A10": ("cgx_tpu_torch/csrc/maxlex.cu", "cgx_tpu/features/maxlex.py:216"),
     "B1p1": ("cgx_tpu_torch/csrc/lcp.cu", "cgx_tpu/search/passes.py:221"),
     "B1p2": ("cgx_tpu_torch/csrc/lcp.cu", "cgx_tpu/search/passes.py:229"),
@@ -147,9 +161,11 @@ VIEW_ROWS = {"A4v": "A4", "A7v": "A7", "A8v": "A8"}
 PATH_KERNELS = ("A4", "A2f", "A2b", "A3", "A5", "A6", "A7", "A8")
 SHARDED_KERNELS = ("B2r", "B2g", "B3f", "B3b", "B3p", "B3t", "B3c", "A4v",
                    "A7v", "A8v")
-# the column path's scans, and the kernels no end-to-end run launches
+# the column path's scans, and the kernels no end-to-end run launches (A9L:
+# kernel A9 on europarl's lexicon as dense tables of 20,001^2 floats each,
+# past DEV_DENSE_LIMIT, so no pipeline run builds them; phase 4b)
 COLS_KERNELS = ("C1f", "C1b", "C1t")
-OFF_PATH = ("C1p", "B4", "P1", "P2")
+OFF_PATH = ("C1p", "B4", "P1", "P2", "A9L")
 # the end-to-end runs: (size, lcp_passes, sa_shards, scan_cols, must launch,
 # must not)
 RUNS = (
@@ -195,7 +211,8 @@ WORK = {
     "A6": (2, 1, 8, 0),          # SA word (+ contig_reads)
     "A7": (4, 0, 6, 200),        # (+ onegap_reads)
     "A8": (6, 0, 2, 150),        # (+ twogap_reads)
-    "A9": (11, 48, 2, 200),      # 16 target tokens, 2 x 16 table probes
+    "A9": (11, 16, 2, 200),      # 16 target tokens (+ maxlex_dense_reads)
+    "A9L": (11, 16, 2, 200),
     "A10": (11, 16, 2, 200),     # 16 target tokens (+ maxlex_reads)
     "B2g": (1, 1, 1, 10),        # the owner's SA word (meta rows in L1)
     "B3f": (4, 4, 1, 300),       # 3 query tokens, gap-0 token (+ window)
@@ -221,6 +238,8 @@ CONTIG_ROWS = ("A6", "B3c", "B4")
 ONEGAP_ROWS = ("A7", "A7v")
 TWOGAP_ROWS = ("A8", "A8v")
 MAXLEX_ROWS = ("A10",)
+DENSE_ROWS = ("A9", "A9L")
+LCP_ROWS = ("B1p1", "B1p2")
 # integer operations: the gap check's RLP window, prefix scan and first test
 # per item, and its 16 x 16 fold over the lr_tar window per item where some
 # move passes the first test; A6's body per needed word (unpack, compare,
@@ -233,6 +252,9 @@ CONTIG_WORD_OPS, CONTIG_STEP_OPS, CONTIG_INNER_OPS = 10, 100, 30
 ONEGAP_STEP_OPS = 50
 # A10 per bisection step: midpoint, compare, two selects
 MAXLEX_STEP_OPS = 4
+# B1 per search or walk step: the midpoint, the skip and its compares, the
+# state updates (the compare's per-token work is in its words)
+LCP_STEP_OPS = 30
 # ``check_edges``: item counts that leave partial half-warps and warps, and
 # span limits from the narrowest to the default
 EDGE_ITEMS = (1, 15, 17, 33)
@@ -446,19 +468,25 @@ def check_launches(what: str, expect, forbid) -> dict:
     return launches
 
 
-def check_lcp_passes(res):
+def check_lcp_passes(res) -> dict:
     """Both LCP passes on a run's index and queries give the refinement's
-    up, down and longestmatch (pass 2: every range)."""
+    up, down and longestmatch (pass 2: every range) -> the passes' launch
+    counts (B1p1, B1p2: the launches of europarl's largest ones)."""
     import numpy as np
     import torch
+    from cgx_tpu_torch.kernels import build as kb
     from cgx_tpu_torch.search import passes
     t0 = time.perf_counter()
     r1, r2 = passes.refine_passes(res.index, res.queries)
+    torch.cuda.synchronize()
     t1 = time.perf_counter()
+    kb.LAUNCHES.clear()
     l1 = passes.pass1_lcp(res.index, res.queries)
     l2 = passes.pass2_lcp(res.index, res.queries, l1)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    launches = check_launches("lcp_passes", LCP_ROWS,
+                              [k for k in KERNELS if k not in LCP_ROWS])
     off = [f for f in ("up", "down", "longestmatch")
            if not np.array_equal(getattr(l1, f), getattr(r1, f))]
     off += [f"pass2.{f}" for f in ("connectoffset", "up", "down")
@@ -466,10 +494,60 @@ def check_lcp_passes(res):
     print(json.dumps({
         "phase": "lcp_passes", "reflen": res.index.reflen,
         "pass1_tokens": len(l1.up), "pass2_items": len(l2.up),
-        "refine_s": t1 - t0, "lcp_s": t2 - t1, "equal": not off}),
-        flush=True)
+        "refine_s": t1 - t0, "lcp_s": t2 - t1, "equal": not off,
+        "launches": {k: v for k, v in launches.items() if v}}), flush=True)
     if off:
         fail(f"LCP passes differ from the refinement in {off}")
+    return launches
+
+
+def check_dense_large(res, capture: Capture) -> dict:
+    """Phase 4b: kernel A9 over europarl's lexicon as dense [ns, nt] tables
+    (built by ``lex_tables`` with DEV_DENSE_LIMIT lifted past ns * nt; no
+    pipeline run builds them) on the rules of A10's largest launch: its
+    features must be A10's, bit for bit -> its launch counts (as A9L)."""
+    import types
+    import torch
+    from cgx_tpu_torch.features import maxlex as ml
+    from cgx_tpu_torch.kernels import build as kb
+    index = res.index
+    lex = types.SimpleNamespace(lex_key=index.lex_key,
+                                lex_val1_host=index.lex_val1_host,
+                                lex_val2_host=index.lex_val2_host,
+                                device=torch.device("cuda"),
+                                maxlex_tables=None)
+    t0 = time.perf_counter()
+    limit = ml.DEV_DENSE_LIMIT
+    ml.DEV_DENSE_LIMIT = 1 << 62
+    try:
+        mode, (L1, L2) = ml.lex_tables(lex)
+    finally:
+        ml.DEV_DENSE_LIMIT = limit
+    build_s = time.perf_counter() - t0
+    _, rng_args = capture.calls["A10"]
+    args = (L1, L2, *rng_args[5:14])
+    dense = capture.originals[(ml, "accum_dense")]     # not captured again
+    kb.LAUNCHES.clear()
+    fge, egf = dense(*args)
+    torch.cuda.synchronize()
+    launches = check_launches("dense_large", ("A9",),
+                              [k for k in KERNELS if k != "A9"])
+    want = capture.originals[(ml, "accum_range")](*rng_args)
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip((fge, egf), want))
+    capture.calls["A9L"] = (len(fge), args)
+    print(json.dumps({
+        "phase": "dense_large", "mode": mode, "ns": L1.shape[0],
+        "nt": L1.shape[1], "table_bytes": 2 * L1.numel() * 4,
+        "dense_limit": limit, "rules": len(fge), "build_s": build_s,
+        "equals_A10": same}), flush=True)
+    if mode != "dense" or L1.numel() <= limit:
+        fail(f"dense_large: tables {mode} {tuple(L1.shape)} are not dense "
+             f"past the limit {limit}")
+    if not same:
+        fail("dense_large: A9's features on the dense tables differ from "
+             "A10's on the row ranges")
+    return {"A9L": launches["A9"]}
 
 
 def check_query_dp(res, capture: Capture) -> dict:
@@ -729,6 +807,16 @@ def data_reads(k: str, n: int, args) -> tuple:
         return (words, CONTIG_WORD_OPS * words,
                 {"words": words, "words_per_item": words / max(n, 1),
                  "valid_rules": valid})
+    if k in DENSE_ROWS:
+        words = reads.maxlex_dense_reads(*args[:3], *args[4:])
+        return (words, 0, {"words": words,
+                           "words_per_rule": words / max(n, 1)})
+    if k in LCP_ROWS:
+        words, steps, chain_max, chain_mean = reads.lcp_reads(*args)
+        return (words, LCP_STEP_OPS * steps,
+                {"words": words, "words_per_lane": words / max(n, 1),
+                 "steps": steps, "chain_max": chain_max,
+                 "chain_mean": chain_mean})
     if k in MAXLEX_ROWS:
         words, searches, steps = reads.maxlex_reads(*args[:6], *args[7:])
         return (words, MAXLEX_STEP_OPS * steps,
@@ -753,18 +841,26 @@ def data_reads(k: str, n: int, args) -> tuple:
             refstr, rlp, lr_tar, pstart, plen, mrs, mgs = args
             items = (pstart, plen)
         words, ok = reads.two_reads(refstr, rlp, lr_tar, *items, mrs, mgs)
+    elif k == "B4":     # B1's pass 1 on the lanes, A6's body on the items
+        refstr, sa, lcpl, lcpr, rlp, lr_tar, qtok, toks, sls, sa_pos, lm, \
+            reflen, mrs, msym = args[:14]
+        words, lsteps, steps, inner, chain_max, chain_mean = reads.dp_reads(
+            refstr, sa, lcpl, lcpr, qtok, toks, sls, reflen,
+            take(sa, sa_pos), lm, rlp, lr_tar, mrs, msym)
+        n = sa_pos.shape[0]
+        return (words, CONTIG_WORD_OPS * words + CONTIG_STEP_OPS * steps
+                + CONTIG_INNER_OPS * inner + LCP_STEP_OPS * lsteps,
+                {"words": words, "words_per_item": words / max(n, 1),
+                 "growth_steps": steps, "inner_steps": inner,
+                 "lane_steps": lsteps, "chain_max": chain_max,
+                 "chain_mean": chain_mean})
     else:
         if k == "A6":
             refstr, sa, rlp, lr_tar, sa_pos, lm, mrs, msym = args
             items = (take(sa, sa_pos), lm)
-        elif k == "B3c":
+        else:
             refstr, rlp, lr_tar, cs, lm, mrs, msym = args
             items = (cs, lm)
-        else:
-            refstr, sa, rlp, lr_tar = args[0], args[1], args[4], args[5]
-            items = (take(sa, args[9]), args[10])
-            mrs, msym = args[12], args[13]
-            n = args[9].shape[0]
         words, steps, inner = reads.contig_reads(refstr, rlp, lr_tar, *items,
                                                  mrs, msym)
         return (words, CONTIG_WORD_OPS * words + CONTIG_STEP_OPS * steps
@@ -788,23 +884,15 @@ def work(k: str, n: int, args, words: int = 0, ops: int = 0) -> tuple:
         gathered = float((depths + 2 * steps).sum())
         nbytes = 4 * (n * (4 + 2 * depths + 2) + gathered)
         return nbytes, 8 * gathered
-    if k in ("B1p1", "B1p2"):   # ~5 words per search step, both walks
-        if k == "B1p1":
-            steps = _log2(args[0].new_full((n,), args[7]))
-            io = 2 + 6
-        else:
-            steps = _log2(args[9] - args[7])
-            io = 5 + 2
-        gathered = float((5 * steps + 2 * 2 * steps).sum())
-        return 4 * (n * io + gathered), 10 * gathered
-    if k == "B4":    # B1 pass 1 on the lanes, A6 on the items
+    if k in LCP_ROWS:   # the lanes' columns and outputs (+ lcp_reads)
+        io = 2 + 6 if k == "B1p1" else 5 + 2
+        return 4 * (n * io + words), ops
+    if k == "B4":    # B1 pass 1 on the lanes, A6 on the items (+ both
+        # bodies' words, data_reads)
         lanes, items = args[7].shape[0], args[9].shape[0]
-        steps = _log2(args[7].new_full((lanes,), args[11]))
-        gathered = float((5 * steps + 2 * 2 * steps).sum())
         w_in, w_gather, w_out, _ = WORK["A6"]
-        return (4 * (lanes * 8 + gathered
-                     + items * (w_in + w_gather + w_out) + words + 2),
-                10 * gathered + ops)
+        return (4 * (lanes * 8 + items * (w_in + w_gather + w_out) + words
+                     + 2), ops)
     w_in, w_gather, w_out, per_item = WORK[k]
     tables = sum(args[i].numel() for i in TABLE_ARGS.get(k, ()))
     nbytes = 4 * (n * (w_in + w_gather + w_out) + tables + words)
@@ -862,6 +950,7 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
              "A7": (xdev.onegap, xdev.onegap_plain),
              "A8": (xdev.twogap, xdev.twogap_plain),
              "A9": (ml.accum_dense, ml.accum_dense_plain),
+             "A9L": (ml.accum_dense, ml.accum_dense_plain),
              "A10": (ml.accum_range, ml.accum_range_plain),
              "B1p1": (passes.pass1, passes.pass1_plain),
              "B1p2": (passes.pass2, passes.pass2_plain),
@@ -917,7 +1006,7 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
         words = ops = 0
         extra = {}
         if k in (SCAN_ROWS + GAP_ROWS + TWO_ROWS + CONTIG_ROWS + ONEGAP_ROWS
-                 + TWOGAP_ROWS + MAXLEX_ROWS):
+                 + TWOGAP_ROWS + MAXLEX_ROWS + DENSE_ROWS + LCP_ROWS):
             words, ops, extra = data_reads(k, n, args)
         nbytes, ops = work(k, n, args, words, ops)
         bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
@@ -1049,36 +1138,51 @@ def refine_edges(capture: Capture, rng, reflen: int, sent) -> dict:
     return stats
 
 
-def maxlex_edges(capture: Capture, rng) -> dict:
-    """A10 against its plain version on edge rules over europarl's tables
-    and target corpus: nsrc 0 and 5, the NULL source (-1), sources with no
-    rows and ids past every row, the source with the most rows (its range
-    is exactly max_rows long; steps = bit_length(max_rows)) with target
-    spans that hold its first and its last row's target, every target
-    position kept and none, spans at and past both ends of the target
-    corpus; the rest the main path's own rules; 1-33 rules a launch ->
-    counts (rules with a probe found and none)."""
+def maxlex_edges(capture: Capture, rng, k: str) -> dict:
+    """A10 (``k``, over europarl's row-range tables) or A9 (over medium's
+    dense tables) against its plain version on edge rules over the tables
+    and the target corpus of its largest launch: nsrc 0 and 5, the NULL
+    source (-1), sources with no rows and ids past every row, the source
+    with the most rows (A10: its range is exactly max_rows long; steps =
+    bit_length(max_rows)) with target spans that hold its first and its
+    last row's target, every target position kept and none, spans at and
+    past both ends of the target corpus; the rest the main path's own
+    rules; 1-33 rules a launch -> counts (rules with a probe found and
+    none)."""
     import numpy as np
     import torch
     from cgx_tpu_torch.features import maxlex as ml
-    args = capture.calls["A10"][1]
-    rs, re, lt, lnv1, lnv2, tgt, maxscore = args[:7]
-    real = [a.cpu().numpy() for a in args[7:14]]
-    steps = args[14]
-    rows = (re - rs).cpu().numpy()
-    big = int(rows.argmax())
-    if steps != max(int(rows.max()).bit_length(), 1):
-        fail(f"A10@edge: steps {steps} is not bit_length(max_rows "
-             f"{int(rows.max())})")
+    args = capture.calls[k][1]
+    if k == "A10":
+        rs, re, lt, lnv1, lnv2, tgt, maxscore = args[:7]
+        tables, real = args[:7], [a.cpu().numpy() for a in args[7:14]]
+        steps = args[14]
+        rows = (re - rs).cpu().numpy()
+        big = int(rows.argmax())
+        if steps != max(int(rows.max()).bit_length(), 1):
+            fail(f"A10@edge: steps {steps} is not bit_length(max_rows "
+                 f"{int(rows.max())})")
+        lt_h = lt.cpu().numpy()
+        # the targets of its first and last row
+        big_tgt = [lt_h[int(rs[big])], lt_h[int(re[big]) - 1]]
+        kernel, plain, tail = ml.accum_range, ml.accum_range_plain, (steps,)
+    else:
+        L2, tgt, maxscore = args[1], args[2], args[3]
+        tables, real, tail = args[:4], [a.cpu().numpy()
+                                        for a in args[4:11]], ()
+        found = torch.isfinite(L2).cpu().numpy()
+        rows = found.sum(axis=1)                # row s + 1: source id s
+        big = int(rows.argmax())
+        cols = np.flatnonzero(found[big])       # column t + 1: target t
+        big_tgt = [cols[0] - 1, cols[-1] - 1]
+        kernel, plain = ml.accum_dense, ml.accum_dense_plain
     tgt_h = tgt.cpu().numpy()
     nt = len(tgt_h)
 
     def first_at(t):        # a span start that holds target t at position 3
         hit = np.flatnonzero(tgt_h == t)
         return int(hit[0]) - 3 if len(hit) else 0
-    lt_h = lt.cpu().numpy()
-    big_t0 = [first_at(lt_h[int(rs[big])]),
-              first_at(lt_h[int(re[big]) - 1])]
+    big_t0 = [first_at(t) for t in big_tgt]
     empty_src = np.flatnonzero(rows == 0)
     srcs = [big - 1, -1, len(rows) - 1, len(rows) + 5] + (
         [int(empty_src[0]) - 1] if len(empty_src) else [])
@@ -1105,16 +1209,110 @@ def maxlex_edges(capture: Capture, rng) -> dict:
             pick = rng.integers(0, len(real[1]), n)
             cols = [np.concatenate([np.roll(e, -(n + 7 * turn), 0), r[pick]])
                     [:n] for e, r in zip(edge, real)]
-            call = (*args[:7], *map(dev, cols), steps)
-            _bit_equal(f"A10@edge(n={n},turn={turn})", ml.accum_range,
-                       ml.accum_range_plain, call, "cuda")
-            fge, egf = (x.cpu().numpy() for x in ml.accum_range_plain(*call))
+            call = (*tables, *map(dev, cols), *tail)
+            _bit_equal(f"{k}@edge(n={n},turn={turn})", kernel, plain, call,
+                       "cuda")
+            fge, egf = (x.cpu().numpy() for x in plain(*call))
             hit = ((fge % np.float32(maxscore) != 0)
                    | (egf % np.float32(maxscore) != 0))
             stats["launches"] += 1
             stats["rules"] += n
             stats["found"] += int(hit.sum())
             stats["none_found"] += int((~hit).sum())
+    return stats
+
+
+def lcp_edges(capture: Capture, rng) -> dict:
+    """B1p1 and B1p2 against their plain versions on edge lanes, over
+    europarl's index and queries and over a small index of 70-token
+    sentences (``long_corpus``: matches past 32 tokens, the warp's compare
+    round): ``lcp_edge_lanes``, the rest the queries' own lanes; pass-2
+    items of those lanes (``lcp_edge_items``), all from
+    ``cgx_tpu_torch.tools.edges``; 1-33 lanes a launch
+    -> counts per pass (lanes OOV, missing, hit, matched to the suffix end,
+    stopped by an OOV token inside, past 32 tokens; items found and not,
+    pinned off the midpoint, on width-2 windows, past 32 tokens)."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.config import ExtractorConfig
+    from cgx_tpu_torch.index import container as tic
+    from cgx_tpu_torch.preproc import corpus as tcp
+    from cgx_tpu_torch.preproc import suffix_array as tsab
+    from cgx_tpu_torch.search import passes
+    from cgx_tpu_torch.tools import edges
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+    refstr, sa, lcpl, lcpr, qtok, toks, sls, reflen = \
+        capture.calls["B1p1"][1]
+    worlds = [("europarl", (refstr, sa, lcpl, lcpr, qtok, reflen), toks,
+               sls)]
+    f, e, a, lex, qlines = edges.long_corpus()
+    src, tgt = tcp.load_source_corpus(f), tcp.load_target_corpus(e)
+    idx = tic.build_index(src, tgt, tsab.build_index(src.str_),
+                          tcp.load_alignment_fast(a, src, tgt),
+                          tcp.load_lex_table(lex, src.vocab, tgt.vocab),
+                          ExtractorConfig(), "cuda")
+    qs = tcp.load_queries(qlines, src.vocab)
+    worlds.append(("long", (idx.refstr_padded, idx.sa, *idx.lcp_tables(),
+                            idx.query_tokens(qs), idx.reflen),
+                   dev(np.arange(qs.totaltokens)),
+                   dev(passes._suffix_lens(qs))))
+    stats = {k: {"launches": 0, "lanes": 0} for k in LCP_ROWS}
+
+    def add(k, name, count):
+        stats[k][name] = stats[k].get(name, 0) + int(count)
+    for name, arrays, toks, sls in worlds:
+        q, edge_t, edge_sl = edges.lcp_edge_lanes(rng, arrays, toks,
+                                                     sls)
+        refstr, sa, lcpl, lcpr, _, reflen = arrays
+        qd = dev(q)
+        all_t = np.concatenate([edge_t, toks.cpu().numpy()])
+        all_sl = np.concatenate([edge_sl, sls.cpu().numpy()])
+        n_edge, n_fill = len(edge_t), len(toks)
+        for n in EDGE_ITEMS:
+            for turn in range(len(EDGE_MRS)):
+                for pick in _edge_picks(rng, n_edge, n_fill, n, turn):
+                    args = (refstr, sa, lcpl, lcpr, qd, dev(all_t[pick]),
+                            dev(all_sl[pick]), reflen)
+                    _bit_equal(f"B1p1@edge({name},n={n},first="
+                               f"{all_t[pick[0]]})", passes.pass1,
+                               passes.pass1_plain, args, "cuda")
+                    lm = passes.pass1_plain(*args)[0].cpu().numpy()
+                    t, sl = all_t[pick], all_sl[pick]
+                    oov = q[t] == -1
+                    add("B1p1", "launches", 1)
+                    add("B1p1", "lanes", n)
+                    add("B1p1", "oov", oov.sum())
+                    add("B1p1", "missing", (~oov & (lm == 0)).sum())
+                    add("B1p1", "hit", (lm > 0).sum())
+                    add("B1p1", "suffix_end", ((lm > 0) & (lm == sl)).sum())
+                    add("B1p1", "oov_inside",
+                        ((lm > 0) & (lm < sl)
+                         & (q[np.minimum(t + lm, len(q) - 1)] == -1)).sum())
+                    add("B1p1", "past_32", (lm > 32).sum())
+        p1 = [x.cpu().numpy() for x in passes.pass1_plain(
+            refstr, sa, lcpl, lcpr, qd, dev(all_t), dev(all_sl), reflen)]
+        edge, real = edges.lcp_edge_items(rng, all_t, p1)
+        items = np.concatenate([edge, real])
+        for n in EDGE_ITEMS:
+            for turn in range(len(EDGE_MRS)):
+                for pick in _edge_picks(rng, len(edge), len(real), n, turn):
+                    it = items[pick]
+                    args = (refstr, sa, lcpl, lcpr, qd,
+                            *(dev(it[:, c]) for c in range(5)))
+                    _bit_equal(f"B1p2@edge({name},n={n},first={it[0]})",
+                               passes.pass2, passes.pass2_plain, args,
+                               "cuda")
+                    up = passes.pass2_plain(*args)[0].cpu().numpy()
+                    add("B1p2", "launches", 1)
+                    add("B1p2", "lanes", n)
+                    add("B1p2", "found", (up >= 0).sum())
+                    add("B1p2", "missing", (up == -1).sum())
+                    add("B1p2", "pin_off_mid",
+                        (it[:, 3] != (it[:, 2] + it[:, 4]) >> 1).sum())
+                    add("B1p2", "width_2", (it[:, 4] - it[:, 2] == 2).sum())
+                    add("B1p2", "past_32", (it[:, 1] > 32).sum())
     return stats
 
 
@@ -1269,9 +1467,9 @@ def gap_edges(rng, launches) -> dict:
 
 
 def check_edges(capture: Capture):
-    """The half-warp kernels against their plain versions on synthetic
-    inputs over europarl's index arrays, item counts 1, 15, 17 and 33
-    (partial half-warps and warps) and mrs 1, 2, 8 and 15:
+    """The warp and half-warp kernels against their plain versions on
+    synthetic inputs over europarl's index arrays, item counts 1, 15, 17
+    and 33 (partial half-warps and warps) and mrs 1, 2, 8 and 15:
 
     * A2f, A2b: occurrences at 0, 1, glen - 2 and glen - 1, per-pattern
       tables whose first, last and some inner patterns are empty; the
@@ -1298,7 +1496,10 @@ def check_edges(capture: Capture):
       shard's views: ``gap_edges`` (occurrences at the corpus, sentence
       and shard ends, the gaps in another sentence than cs, msym 2, 3 and
       5);
-    * A1 and A10: ``refine_edges`` and ``maxlex_edges``.
+    * A1, A10 and A9: ``refine_edges`` and ``maxlex_edges`` (A9 over
+      medium's dense tables);
+    * B1p1, B1p2: ``lcp_edges`` (over europarl's index and a small index of
+      70-token sentences).
 
     Fails unless every output is bit-equal, the inputs of A2, A4, C1f, C1b,
     B3f and B3b reach the gap check (lookup1's scans: items with a
@@ -1308,7 +1509,11 @@ def check_edges(capture: Capture):
     that emit after step 0 and that meet no event within the span limit,
     A8's items have every checkBoundary code (0-4), A1's lanes hold empty
     intervals, lanes past the query's end, and lanes that collapse and
-    narrow, and A10's rules with a probe found and none."""
+    narrow, A10's and A9's rules with a probe found and none, B1p1's
+    lanes OOV, missing, hit, matched to the suffix end, stopped by an OOV
+    token inside and matched past 32 tokens, and B1p2's items found and
+    missing, pinned off the midpoint, on width-2 windows and past 32
+    tokens."""
     import functools
 
     import numpy as np
@@ -1559,14 +1764,17 @@ def check_edges(capture: Capture):
         + [("A8v", a) for a in first_last("A8v")]))
     t4 = time.perf_counter()
     stats["A1"] = refine_edges(capture, rng, reflen, sent)
-    stats["A10"] = maxlex_edges(capture, rng)
+    stats["A10"] = maxlex_edges(capture, rng, "A10")
+    stats["A9"] = maxlex_edges(capture, rng, "A9")
     t5 = time.perf_counter()
+    stats.update(lcp_edges(capture, rng))
+    t6 = time.perf_counter()
     print(json.dumps({"phase": "edges", "items": EDGE_ITEMS,
                       "mrs": EDGE_MRS, "msym": EDGE_MSYM, **stats,
                       "seconds_a2_a4": t1 - t0, "seconds_c1_b3": t2 - t1,
                       "seconds_a6_a5": t3 - t2, "seconds_a7_a8": t4 - t3,
-                      "seconds_a1_a10": t5 - t4, "bit_equal": True}),
-          flush=True)
+                      "seconds_a1_a10_a9": t5 - t4, "seconds_b1": t6 - t5,
+                      "bit_equal": True}), flush=True)
     idle = [k for k in scans + ("A4", "A4v")
             if stats[k]["mask_items"] == 0
             or stats[k].get("candidate_items") == 0]
@@ -1577,8 +1785,14 @@ def check_edges(capture: Capture):
         for f in fams if stats[k][f] == 0]
     silent += [f"A1.{f}" for f in ("empty_lanes", "past_end", "collapsed",
                                     "narrowed") if stats["A1"][f] == 0]
-    silent += [f"A10.{f}" for f in ("found", "none_found")
-               if stats["A10"][f] == 0]
+    silent += [f"{k}.{f}" for k in ("A10", "A9")
+               for f in ("found", "none_found") if stats[k][f] == 0]
+    silent += [f"B1p1.{f}" for f in ("oov", "missing", "hit", "suffix_end",
+                                      "oov_inside", "past_32")
+               if stats["B1p1"].get(f, 0) == 0]
+    silent += [f"B1p2.{f}" for f in ("found", "missing", "pin_off_mid",
+                                      "width_2", "past_32")
+               if stats["B1p2"].get(f, 0) == 0]
     silent += [f"A7.{f}" for f in ("aXb", "XaXb", "aXbX",
                                     "side_dies_at_step_0",
                                     "side_emits_after_step_0",
@@ -1654,9 +1868,11 @@ def main():
                 size, "cuda", cap, golden, expect, lcp, forbid, shards, cols)
             count(launches)
             if size == "europarl" and not shards and not cols:
-                check_lcp_passes(res)
-                # 4. query-DP on the same index, queries and blocks
+                count(check_lcp_passes(res))
+                # 4. query-DP on the same index, queries and blocks; 4b.
+                # A9 on its lexicon as dense tables
                 count(check_query_dp(res, cap))
+                count(check_dense_large(res, cap))
             if shards:
                 shard_offsets = [int(o) for o in res.index.src_off]
                 print(json.dumps({

@@ -184,3 +184,48 @@ def test_make_mesh_without_a_card_raises(monkeypatch):
         dist.make_mesh(2)
     with pytest.raises(RuntimeError, match="CUDA devices"):
         dist.make_mesh()
+
+
+def test_plain_b4_edge_lanes_equal_jax(world):
+    """B4's pass-1 lanes (kernel B1's warp body in csrc/dist.cu) on the
+    hazard lanes of that body, against ``make_sharded_search_step`` on the
+    8 virtual devices: OOV tokens (found before the first step), suffixlen
+    1, each query's last token, and a lane count that leaves shards with a
+    partial warp; the hit count covers the OOV lanes too."""
+    w = world
+    qs = w["jqs"]
+    n = qs.totaltokens
+    ends = np.array([qs.query_end(int(t)) for t in qs.tok_to_qry], np.int32)
+    sls = ends - np.arange(n, dtype=np.int32)
+    last = np.unique(ends - 1)
+    toks = np.concatenate([np.arange(n), last, np.arange(n)])[:2 * n - 3]
+    suff = np.concatenate([sls, np.ones(len(last) + n)])[:2 * n - 3]
+    qtok = np.asarray(w["jidx"].device_query_tokens(qs)).copy()
+    qtok[[0, 5, n // 2]] = -1
+    _, sa_pos, lms = jdist.contig_occurrences(w["jblocks"], w["jcfg"])
+    lanes = (toks.astype(np.int32), suff.astype(np.int32), sa_pos[:17],
+             lms[:17])
+    j, t, cfg = w["jidx"], w["tidx"], w["tcfg"]
+    mesh = jdist.make_mesh(8)
+    step = jdist.make_sharded_search_step(mesh, j.reflen, cfg.max_rule_span,
+                                          cfg.max_rule_symbols)
+    jp1, _, jn_match, _ = step(
+        *[jdist.replicate(mesh, x) for x in (
+            j.refstr_padded, j.sa, j.lcpleft, j.lcpright, j.rlp, j.lr_tar,
+            qtok)], *(jdist.shard_items(mesh, x) for x in lanes))
+    devices = [CPU] * 8
+    pstep = dist.make_sharded_search_step(devices, t.reflen,
+                                          cfg.max_rule_span,
+                                          cfg.max_rule_symbols)
+    p1, _, n_match, _ = pstep(
+        *[dist.replicate(devices, x) for x in (
+            t.refstr_padded, t.sa, *t.lcp_tables(), t.rlp, t.lr_tar,
+            torch.from_numpy(qtok))],
+        *(dist.shard_items(devices, x) for x in lanes))
+    m = len(toks)
+    for k in range(6):
+        np.testing.assert_array_equal(p1[k][:m].numpy(),
+                                      np.asarray(jp1[k])[:m], err_msg=k)
+    assert n_match == int(jn_match)
+    lm = p1[0][:m].numpy()
+    assert (lm == 0).any() and (lm[suff == 1] <= 1).all() and (lm > 1).any()

@@ -118,11 +118,13 @@ def test_plain_a6_equals_contig_batch(world, mrs, msym):
 
 def test_contig_reads_counts_distinct_words(world):
     """``tools.reads.contig_reads`` (the words the bound of A6, B3c and B4
-    counts) is each item's distinct needed slots per array, summed: it
-    equals a walk over ``contig_need``'s slots, and lies under a word-by-word
-    walk of everything ``_extract_contig_item`` gathers (the base span, its
-    sentence anchor, each side's 14 steps, three whole target windows), on
-    random occurrences and the corpus ends.  ``tests/test_torch_reads.py``
+    counts) is the distinct needed slots per array over all the items (a
+    word that several items read is moved once): it equals a walk over
+    ``contig_need``'s slots, lies under the sum of each item's own distinct
+    slots, and each item's lie under a word-by-word walk of everything
+    ``_extract_contig_item`` gathers (the base span, its sentence anchor,
+    each side's 14 steps, three whole target windows), on random
+    occurrences and the corpus ends.  ``tests/test_torch_reads.py``
     shows that the needed words decide the output."""
     t = world["tidx"]
     rlp = t.rlp.numpy().view(np.uint32).astype(np.int64)
@@ -172,7 +174,10 @@ def test_contig_reads_counts_distinct_words(world):
                           for slots, keep in (need["refstr"], need["rlp"],
                                               need["lr_tar"])))
     words, steps, inner = reads.contig_reads(*args)
-    assert words == sum(needed)
+    assert words == sum(len(set(slots[keep].tolist()))
+                        for slots, keep in (need["refstr"], need["rlp"],
+                                            need["lr_tar"]))
+    assert words <= sum(needed)
     assert all(0 < w <= g for w, g in zip(needed, gathered))
     assert words < sum(gathered)
     assert 0 < steps <= 14 * len(cs) and 0 <= inner <= 14 * steps

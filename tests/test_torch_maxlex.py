@@ -245,31 +245,48 @@ _EDGE_TGT = np.array([7, 2, 49, 0, 11, 30, -1, 4, 7, 13, 45, 52, 60, 7, 2,
                       11, 23, 37, 41, 1, 3, 5, 7], np.int32)
 
 
-@pytest.mark.parametrize("case", ["sources", "tmask", "absent_dup",
-                                  "max_rows"])
-def test_plain_a10_edge_rules_equal_jax(case, monkeypatch):
-    """A10's plain version against the JAX ``_accum_batch_range`` on edge
-    rules: nsrc 0 and 5 with the NULL source, every target position kept
-    and none, targets absent from a row and duplicate (src, tgt) rows, and
-    a range of exactly ``max_rows`` rows with ``steps =
-    bit_length(max_rows)``; float32 compared by bit pattern."""
-    monkeypatch.setattr(jml, "DEV_DENSE_LIMIT", 0)
-    monkeypatch.setattr(tml, "DEV_DENSE_LIMIT", 0)
+_EDGE_CASES = ["sources", "tmask", "absent_dup", "max_rows"]
+
+
+@pytest.mark.parametrize("mode,case", [
+    pytest.param("range", c, id=c) for c in _EDGE_CASES] + [
+    pytest.param("dense", c, id=f"dense-{c}") for c in _EDGE_CASES])
+def test_plain_a10_edge_rules_equal_jax(mode, case, monkeypatch):
+    """A10's plain version against the JAX ``_accum_batch_range`` (and, for
+    ``mode`` dense, A9's against ``_accum_batch_dense``) on edge rules: nsrc
+    0 and 5 with the NULL source, every target position kept and none,
+    targets absent from a row and duplicate (src, tgt) rows, and a range of
+    exactly ``max_rows`` rows with ``steps = bit_length(max_rows)`` (dense:
+    the same source's whole row); float32 compared by bit pattern."""
+    if mode == "range":
+        monkeypatch.setattr(jml, "DEV_DENSE_LIMIT", 0)
+        monkeypatch.setattr(tml, "DEV_DENSE_LIMIT", 0)
     lex = _edge_lex()
-    jmode, (*jarr, steps) = jml._device_lex_tables(copy.copy(lex))
+    jmode, jtabs = jml._device_lex_tables(copy.copy(lex))
     tix = types.SimpleNamespace(**vars(lex), device=torch.device("cpu"),
                                 maxlex_tables=None)
-    tmode, (rs, re, lt, lnv1, lnv2, tsteps) = tml.lex_tables(tix)
-    assert jmode == tmode == "range" and steps == tsteps
-    rows = (re - rs).numpy()
-    assert rows.max() == rows[4] == TV + 3 and steps == (TV + 3).bit_length()
+    tmode, ttabs = tml.lex_tables(tix)
+    assert jmode == tmode == mode
     cols = _edge_rules(case, np.random.default_rng(len(case)))
-    want = jml._accum_batch_range(*jarr, jnp.asarray(_EDGE_TGT),
-                                  jnp.float32(99.0),
-                                  *(jnp.asarray(c) for c in cols),
-                                  steps=steps)
-    got = tml.accum_range(rs, re, lt, lnv1, lnv2, torch.from_numpy(_EDGE_TGT),
-                          99.0, *(torch.from_numpy(c) for c in cols), steps)
+    jcols = [jnp.asarray(c) for c in cols]
+    tcols = [torch.from_numpy(c) for c in cols]
+    if mode == "dense":
+        want = jml._accum_batch_dense(*jtabs, jnp.asarray(_EDGE_TGT),
+                                      jnp.float32(99.0), *jcols)
+        got = tml.accum_dense(*ttabs, torch.from_numpy(_EDGE_TGT), 99.0,
+                              *tcols)
+    else:
+        *jarr, steps = jtabs
+        rs, re, lt, lnv1, lnv2, tsteps = ttabs
+        assert steps == tsteps
+        rows = (re - rs).numpy()
+        assert rows.max() == rows[4] == TV + 3
+        assert steps == (TV + 3).bit_length()
+        want = jml._accum_batch_range(*jarr, jnp.asarray(_EDGE_TGT),
+                                      jnp.float32(99.0), *jcols, steps=steps)
+        got = tml.accum_range(rs, re, lt, lnv1, lnv2,
+                              torch.from_numpy(_EDGE_TGT), 99.0, *tcols,
+                              steps)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(_bits(g.numpy()), _bits(w))
     fge, egf = (g.numpy() for g in got)
@@ -277,7 +294,7 @@ def test_plain_a10_edge_rules_equal_jax(case, monkeypatch):
         assert (fge[::2] == 0).all() and (fge[1::2] > 0).all()
     elif case == "tmask":
         assert (egf[32:] == 0).all() and (egf[:32] > 0).all()
-    elif case == "absent_dup":
+    elif case == "absent_dup" and mode == "range":
         # the first (5, 7) row's P(t|s) wins over the later duplicates
         first = int(rs[6]) + int((lt[rs[6]:re[6]] == 7).int().argmax())
         assert int(lt[first]) == int(lt[first + 1]) == 7
@@ -285,5 +302,37 @@ def test_plain_a10_edge_rules_equal_jax(case, monkeypatch):
                                  steps)
         assert _bits(got7.numpy()) == _bits(lnv2[first].numpy())
         assert float(lnv2[first]) != float(lnv2[first + 1])
+    elif case == "absent_dup":
+        # the dense cell (5, 7) holds the first duplicate row's value
+        src = (lex.lex_key >> 32).astype(np.int64)
+        tgt = ((lex.lex_key & 0xFFFFFFFF) - 2**31).astype(np.int64)
+        first = int(np.flatnonzero((src == 5) & (tgt == 7))[0])
+        assert _bits(ttabs[1][6, 8].numpy()) == _bits(
+            tml._neglog(lex.lex_val2_host[first:first + 1]))[0]
     # some probes found a table entry in every case but the empty rules
     assert ((egf > 0) & (egf % np.float32(99.0) != 0)).any()
+
+
+@pytest.mark.parametrize("fixture", ["toy", "real"])
+def test_dense_tables_hold_no_nan_or_negative_zero(fixture, request):
+    """The premise that lets kernels A9 and A10 take their minimums in any
+    order: ``lex_tables``' dense neg-log tables (the fixture's own lexicon)
+    hold no NaN and no -0.0, only non-negative values and +inf, so two
+    entries that compare equal are the same bits."""
+    d = request.getfixturevalue(f"{fixture}_fixture")
+    f, e, a = (tcp.read_lines(str(d / n))
+               for n in ("corpus.f", "corpus.e", "corpus.a"))
+    src, tgt = tcp.load_source_corpus(f), tcp.load_target_corpus(e)
+    idx = tic.build_index(src, tgt, tsab.build_index(src.str_),
+                          tcp.load_alignment_fast(a, src, tgt),
+                          tcp.load_lex_table(tcp.read_tokens(
+                              str(d / "lex.txt")), src.vocab, tgt.vocab),
+                          ExtractorConfig(), "cpu")
+    mode, tables = tml.lex_tables(idx)
+    assert mode == "dense"
+    for t in tables:
+        v = t.numpy()
+        assert not np.isnan(v).any()
+        assert not (np.signbit(v) & (v == 0)).any()
+        assert (v >= 0).all()
+        assert np.isinf(v).any() and np.isfinite(v).any()

@@ -1,7 +1,9 @@
 """Pass 1 / pass 2 in the port: kernel A1's plain version against the JAX
 ``_refine_chunk_local``, ``refine_passes`` against the JAX package's, kernel
-B1's plain passes against ``_pass1_batch``/``_pass2_batch``, and the LCP
-passes against the refinement, bit for bit."""
+B1's plain passes against ``_pass1_batch``/``_pass2_batch`` (also on edge
+lanes), the LCP passes against the refinement, bit for bit, and kernel
+B1's rounds (csrc/lcp.cuh) against every LCP-tree and SA read of the
+plain search."""
 
 import dataclasses
 import pathlib
@@ -23,10 +25,13 @@ from cgx_tpu_torch.index import container as tic  # noqa: E402
 from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
 from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
 from cgx_tpu_torch.search import passes as tpasses  # noqa: E402
+from cgx_tpu_torch.tools import edges, reads  # noqa: E402
 from cgx_tpu_torch.utils.views import take  # noqa: E402
 
 
 def _inputs(name, request):
+    if name == "long":   # 70-token sentences: matches past 32 tokens
+        return edges.long_corpus()
     if name.startswith("random"):  # small vocabularies: deep, long matches
         sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
         from tools.make_bigcorpus import make_big_queries, make_hard_corpus
@@ -302,3 +307,191 @@ def test_plain_a1_edge_lanes_equal_jax(toy_fixture, case, request):
             assert (got[2][:8] == got[3][:8]).all()    # collapsed
         if case == "sa_ends":
             assert ups[0, 0] == 0 and got[1][3, 0] == reflen - 1
+
+
+def _node_windows(L, R, pin, levels):
+    """Per heap node of ``levels`` levels below the windows (L, R) [n]:
+    its window and midpoint (csrc/lcp.cuh ``node_window``: the bits of j + 1
+    after the leading one are the path, 1: L = M, 0: R = M; pass 2's pin
+    ``(LL, MM, RR)`` replaces the midpoint of the window (LL, RR))."""
+    def mid(lo, hi):
+        m = (lo + hi) >> 1
+        if pin is None:
+            return m
+        LL, MM, RR = pin
+        return torch.where((lo == LL) & (hi == RR) & (MM >= 0), MM, m)
+    nodes = []
+    for j in range(2 ** levels - 1):
+        n = j + 1
+        lo, hi = L.clone(), R.clone()
+        for k in range(n.bit_length() - 2, -1, -1):
+            m = mid(lo, hi)
+            if (n >> k) & 1:
+                lo = m
+            else:
+                hi = m
+        nodes.append((n.bit_length() - 1, lo, hi, mid(lo, hi)))
+    return nodes
+
+
+def _round_words(phase, L, R, pin, lcp_len, sa_len):
+    """{array: [n, K] addresses} that kernel B1's round from the windows
+    (L, R) loads, and [(level, L_j, R_j)] of its nodes: per search node its
+    lcpleft and lcpright words at M and at the midpoint-tree slots of both
+    bounds, and sa[M]; per walk node the walk's direct word at M and both
+    tree words at the midpoint of M and the walk's other bound (R up, L
+    down).  Addresses clamped as the kernel clamps them."""
+    levels = (reads.SEARCH_LEVELS if phase == "search"
+              else reads.WALK_LEVELS)
+    nodes = _node_windows(L, R, pin if phase == "search" else None, levels)
+    words = {"lcpl": [], "lcpr": [], "sa": []}
+    for _, lo, hi, m in nodes:
+        if phase == "search":
+            for name in ("lcpl", "lcpr"):
+                words[name] += [m, (lo + m) >> 1, (hi + m) >> 1]
+            words["sa"].append(m)
+        else:
+            other = hi if phase == "walk_up" else lo
+            direct = "lcpr" if phase == "walk_up" else "lcpl"
+            words[direct].append(m)
+            for name in ("lcpl", "lcpr"):
+                words[name].append((other + m) >> 1)
+    size = {"lcpl": lcp_len, "lcpr": lcp_len, "sa": sa_len}
+    return ({k: torch.stack(v, 1).clamp(0, size[k] - 1)
+             for k, v in words.items() if v},
+            [(lv, lo, hi) for lv, lo, hi, _ in nodes])
+
+
+def _check_rounds(need, log, pin, lcp_len, sa_len) -> dict:
+    """Every traced LCP-tree and SA read of an active lane lies in the words
+    of its step's round, and each step's window is a node of the round at
+    the step's level -> reads checked per phase."""
+    checked = {}
+    for name, phase, it, idx in log:
+        steps = need[phase]
+        levels = (reads.SEARCH_LEVELS if phase == "search"
+                  else reads.WALK_LEVELS)
+        act, L, R = steps[it]
+        _, L0, R0 = steps[it - it % levels]
+        words, nodes = _round_words(phase, L0, R0, pin, lcp_len, sa_len)
+        size = sa_len if name == "sa" else lcp_len
+        got = idx.clamp(0, size - 1)
+        inside = (got[:, None] == words[name]).any(dim=1)
+        assert bool((inside | ~act).all()), (phase, it, name)
+        at_node = torch.zeros_like(act)
+        for lv, lo, hi in nodes:
+            if lv == it % levels:
+                at_node |= (lo == L) & (hi == R)
+        assert bool((at_node | ~act).all()), (phase, it)
+        checked[phase] = checked.get(phase, 0) + int(act.sum())
+    return checked
+
+
+@pytest.mark.parametrize("corpus", ["toy", "real", "hard", "adversarial"])
+@pytest.mark.parametrize("which", ["pass1", "pass2"])
+def test_b1_round_loads_cover_every_read(corpus, which, request,
+                                         monkeypatch):
+    """Kernel B1's warp body loads, per round, the LCP-tree and SA words of
+    the next SEARCH_LEVELS levels' nodes (31, with pass 2's pin at the
+    root) and per walk round those of WALK_LEVELS levels (15), from the
+    round's first window; then it decides the levels in order.  That is
+    exact only if every word the sequential search and walks read lies in
+    its round's set: checked against a trace of every read of
+    ``_lcp_search`` and ``_bound_walk``."""
+    tidx, tqs = _torch_world(*_inputs(corpus, request))
+    lcpl, lcpr = tidx.lcp_tables()
+    qtok = tidx.query_tokens(tqs)
+    p1 = tpasses.pass1_lcp(tidx, tqs)
+    names = {id(lcpl): "lcpl", id(lcpr): "lcpr", id(tidx.sa): "sa"}
+    need, log = {}, []
+
+    def traced(arr, idx):
+        name = names.get(id(arr))
+        if name is not None:
+            phase = next((p for p in ("walk_down", "walk_up")
+                          if need.get(p)), "search")
+            log.append((name, phase, len(need[phase]) - 1, idx.clone()))
+        return take(arr, idx)
+    if which == "pass1":
+        n = tqs.totaltokens
+        args = (torch.arange(n, dtype=torch.int32),
+                torch.from_numpy(tpasses._suffix_lens(tqs)), tidx.reflen)
+        pin = None
+        monkeypatch.setattr(tpasses, "take", traced)
+        tpasses.pass1_plain(tidx.refstr_padded, tidx.sa, lcpl, lcpr, qtok,
+                            *args, need=need)
+    else:
+        # the real items, then the same with the pin off the midpoint (at
+        # LL + 1 where the window allows it), so that the root's M is MM
+        _, it_toks, it_match = tpasses.pass2_work_items(p1)
+        LL, MM, RR = (f[it_toks] for f in (
+            p1.firstfindhitL, p1.firstfindhit, p1.firstfindhitR))
+        MM = np.concatenate([MM, np.where(RR - LL >= 2, LL + 1, MM)])
+        cols = [torch.from_numpy(np.ascontiguousarray(c, np.int32)) for c in (
+            np.tile(it_toks, 2), np.tile(it_match, 2), np.tile(LL, 2), MM,
+            np.tile(RR, 2))]
+        pin = (cols[2], cols[3], cols[4])
+        monkeypatch.setattr(tpasses, "take", traced)
+        tpasses.pass2_plain(tidx.refstr_padded, tidx.sa, lcpl, lcpr, qtok,
+                            *cols, need=need)
+    monkeypatch.undo()
+    checked = _check_rounds(need, log, pin, lcpl.shape[0], tidx.sa.shape[0])
+    # every phase ran, over more than one round
+    assert set(checked) == {"search", "walk_up", "walk_down"}
+    assert len(need["search"]) > reads.SEARCH_LEVELS
+    assert max(len(need["walk_up"]), len(need["walk_down"])) \
+        > reads.WALK_LEVELS
+
+
+@pytest.mark.parametrize("corpus", ["toy", "long"])
+def test_plain_b1_edge_lanes_equal_jax(corpus, request):
+    """B1's plain passes against ``_pass1_batch`` / ``_pass2_batch`` on the
+    hazard lanes of its warp body, the lanes and items that
+    ``chip_smoke.py`` runs the kernel on: OOV tokens (a lane's first token,
+    found before the first step, and inside the longest matches), suffixlen
+    1, each query's last token before the -2 padding, tokens that match
+    the SA's first and last rows, the sentinel and an id past it (no
+    match), pass-2 pins at LL + 1 and RR - 1, windows with RR - LL == 2
+    (where the skip is the direct word), and (``long``) matches longer
+    than 32 tokens."""
+    jidx, jqs, tidx, tqs = _worlds(*_inputs(corpus, request))
+    rng = np.random.default_rng(len(corpus))
+    lcpl, lcpr = tidx.lcp_tables()
+    n = tqs.totaltokens
+    real_t = np.arange(n, dtype=np.int32)
+    real_sl = tpasses._suffix_lens(tqs)
+    # the edge lanes and items (``tools.edges``, which chip_smoke.py's
+    # ``lcp_edges`` runs the kernel on), then the queries' own lanes
+    q, edge_t, edge_sl = edges.lcp_edge_lanes(
+        rng, (tidx.refstr_padded, tidx.sa, lcpl, lcpr,
+              tidx.query_tokens(tqs), tidx.reflen),
+        torch.from_numpy(real_t), torch.from_numpy(real_sl))
+    qtok = torch.from_numpy(q)
+    toks = torch.from_numpy(np.concatenate([edge_t, real_t]))
+    sls = torch.from_numpy(np.concatenate([edge_sl, real_sl]))
+    jarr = (jidx.refstr_padded, jidx.sa, jidx.lcpleft, jidx.lcpright,
+            jnp.asarray(q))
+    want1 = jpasses._pass1_batch(*jarr, jnp.asarray(toks.numpy()),
+                                 jnp.asarray(sls.numpy()),
+                                 jnp.int32(jidx.reflen))
+    got1 = tpasses.pass1_plain(tidx.refstr_padded, tidx.sa, lcpl, lcpr, qtok,
+                               toks, sls, tidx.reflen)
+    for g, w in zip(got1, want1):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    lm = got1[0].numpy()
+    assert (lm == 0).any() and (sls.numpy() == 1).any() and (lm > 0).any()
+    assert (q[toks.numpy()] == -1).any()
+    if corpus == "long":
+        assert lm.max() > 32
+    edge, real = edges.lcp_edge_items(
+        rng, toks.numpy(), [g.numpy() for g in got1])
+    cols = list(np.concatenate([edge, real]).T)
+    assert (cols[3] != (cols[2] + cols[4]) >> 1).any()
+    assert (cols[4] - cols[2] == 2).any()
+    want2 = jpasses._pass2_batch(*jarr, *(jnp.asarray(c) for c in cols))
+    got2 = tpasses.pass2_plain(tidx.refstr_padded, tidx.sa, lcpl, lcpr, qtok,
+                               *(torch.from_numpy(np.ascontiguousarray(c))
+                                 for c in cols))
+    for g, w in zip(got2, want2):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert (got2[0].numpy() >= 0).any() and (got2[0].numpy() == -1).any()

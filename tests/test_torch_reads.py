@@ -22,7 +22,7 @@ from cgx_tpu_torch.features import maxlex as ml  # noqa: E402
 from cgx_tpu_torch.index import container as tic  # noqa: E402
 from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
 from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
-from cgx_tpu_torch.search import lookup  # noqa: E402
+from cgx_tpu_torch.search import lookup, passes  # noqa: E402
 from cgx_tpu_torch.tools import reads  # noqa: E402
 
 
@@ -193,9 +193,12 @@ def test_onegap_need_decides_the_output(index, mrs, msym):
     assert (out[1] & 1).any()
     words, steps = reads.onegap_reads(*arrays.values(), cs, fe, sl, el, mrs,
                                       msym)
-    # the spans' words at least; the body gathers up to 16 + 16 + 2 + 56
-    # RLP/refstr words and 16 + 6 x 15 lr_tar words an item
-    assert 2 * n <= words < n * (90 + 106)
+    # each item's own words: the spans' words at least; the body gathers
+    # up to 16 + 16 + 2 + 56 RLP/refstr words and 16 + 6 x 15 lr_tar words
+    # an item; the launch's words, each once, at most their sum
+    per_item = _per_row(need, [a for a in _arrays(index) if a in need])
+    assert 2 * n <= per_item < n * (90 + 106)
+    assert 0 < words <= per_item
     if msym >= 4:
         assert (out[3] & 1).any() or (out[5] & 1).any()
         assert 0 < steps <= 2 * xdev.IMAX * n
@@ -269,3 +272,182 @@ def test_maxlex_need_decides_the_features(index, seed):
     assert 0 < searches <= T * 101
     assert bisect <= searches * steps
     assert words < 2 * (ml.SRCW + 1) * T + (bisect + searches) * 3
+
+
+@pytest.mark.parametrize("which", ["pass1", "pass2"])
+def test_lcp_need_decides_the_passes(index, which):
+    """B1's passes over the index's SA and LCP tree, the padded corpus as the
+    query tokens (a few made OOV): lanes at random corpus positions with the
+    suffix to their sentence end, and pass 2's items from pass 1's windows.
+    Redrawing every corpus, SA, LCP-tree and query word that no lane of a
+    batch needs changes no output; the needed words are fewer than the
+    plain version's gathers, and the warp body's chain of read rounds is
+    shorter than the sequential one's dependent reads."""
+    rng = np.random.default_rng(21 if which == "pass1" else 22)
+    lcpl, lcpr = index.lcp_tables()
+    ref = index.refstr_padded
+    reflen = int(index.reflen)
+    qtok = ref.clone()
+    sep = torch.nonzero(ref[:reflen] <= 1).flatten()
+    toks = torch.from_numpy(rng.integers(0, reflen - 1, 200).astype(np.int32))
+    toks = toks[ref[toks.long()] > 1]
+    nxt = sep[torch.searchsorted(sep, toks)]
+    sls = (nxt - toks).to(torch.int32)
+    qtok[torch.from_numpy(rng.choice(reflen, 20, replace=False))] = -1
+    arrays = {"refstr": ref, "sa": index.sa, "lcpl": lcpl, "lcpr": lcpr,
+              "qtok": qtok}
+    p1 = passes.pass1_plain(ref, index.sa, lcpl, lcpr, qtok, toks, sls,
+                            reflen)
+    if which == "pass1":
+        lanes = (toks, sls)
+        n = len(toks)
+
+        def fn(a, rows):
+            return torch.stack(passes.pass1_plain(
+                a["refstr"], a["sa"], a["lcpl"], a["lcpr"], a["qtok"],
+                toks[rows], sls[rows], reflen))
+        need = reads.lcp_need(ref, index.sa, lcpl, lcpr, qtok, *lanes,
+                              reflen)
+        args = (*lanes, reflen)
+    else:
+        lm = p1[0].numpy()
+        hit = np.flatnonzero(lm > 1)
+        tok_i = np.repeat(hit, lm[hit] - 1)
+        match = np.concatenate([np.arange(2, m + 1) for m in lm[hit]])
+        cols = [toks[tok_i], torch.from_numpy(match.astype(np.int32)),
+                *(p1[k][tok_i] for k in (4, 3, 5))]
+        n = len(tok_i)
+
+        def fn(a, rows):
+            return torch.stack(passes.pass2_plain(
+                a["refstr"], a["sa"], a["lcpl"], a["lcpr"], a["qtok"],
+                *(c[rows] for c in cols)))
+        need = reads.lcp_need(ref, index.sa, lcpl, lcpr, qtok, *cols)
+        args = cols
+    assert n > 20
+    _check(rng, arrays, need, n, fn, batch=6, rounds=10)
+    words, steps, chain_max, chain_mean = reads.lcp_reads(
+        ref, index.sa, lcpl, lcpr, qtok, *args)
+    # each step needs at most 2 skip words, an SA word and the compare's
+    assert steps > n and words < 6 * steps + n * 70
+    # the warp body: one round a 5 search steps, one a compare, one a 4
+    # steps of the longer walk; the one-thread body ~2 dependent reads a
+    # step plus both walks one after the other
+    assert 0 < chain_mean < 2 * float(need["steps"].double().mean())
+    assert chain_max >= chain_mean
+
+
+def _dense_rules(rng, index, T: int):
+    """The index's lexical table as dense [ns, nt] tables (L1, L2) and T
+    synthetic rules' columns over them: NULL, unknown and pad source ids,
+    target spans over the index's target corpus."""
+    lex = types.SimpleNamespace(lex_key=index.lex_key,
+                                lex_val1_host=index.lex_val1_host,
+                                lex_val2_host=index.lex_val2_host,
+                                device=torch.device("cpu"),
+                                maxlex_tables=None)
+    mode, (L1, L2) = ml.lex_tables(lex)
+    assert mode == "dense"
+    ns = L1.shape[0]
+    nsrc = rng.integers(0, ml.SRCW + 1, T)
+    sp = rng.integers(-1, ns + 2, (T, ml.SRCW))
+    sp[np.arange(ml.SRCW)[None, :] >= nsrc[:, None]] = -99
+    t0 = rng.integers(0, index.tgt_str.shape[0] + 4, T)
+    tend = rng.integers(0, ml.TPOSW, T)
+    g1 = np.where(rng.random(T) < 0.5, -1, rng.integers(0, 8, T))
+    g11 = np.where(g1 < 0, -1, g1 + rng.integers(0, 4, T))
+    cols = [torch.from_numpy(np.ascontiguousarray(c, np.int32))
+            for c in (sp, t0, tend, g1, g11, np.full(T, -1), np.full(T, -1))]
+    return L1, L2, cols
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_maxlex_dense_need_decides_the_features(index, seed):
+    """A9's probes over the index's own lexical table as dense [ns, nt]
+    tables, for synthetic rules (NULL, unknown and pad source ids, target
+    spans over the index's target corpus).  Redrawing every L1 and L2 word
+    that no rule of a batch needs changes no feature bit."""
+    rng = np.random.default_rng(seed)
+    T = 300
+    L1, L2, cols = _dense_rules(rng, index, T)
+    ns, nt = L1.shape
+    tgt_str = index.tgt_str
+    arrays = {"L1": L1.reshape(-1), "L2": L2.reshape(-1)}
+    need = reads.maxlex_dense_need(L1, L2, tgt_str, *cols)
+
+    def fn(a, rows):
+        out = ml.accum_dense_plain(a["L1"].view(ns, nt), a["L2"].view(ns, nt),
+                                   tgt_str, 99.0, *(c[rows] for c in cols))
+        return torch.stack(out).view(torch.int32)
+    _check(rng, arrays, need, T, fn, batch=8, rounds=12)
+    words = reads.maxlex_dense_reads(L1, L2, tgt_str, *cols)
+    # at most 2 x 5 x 16 probes, 5 NULL columns and 16 NULL rows a rule
+    assert 0 < words <= T * (2 * ml.SRCW * ml.TPOSW + ml.SRCW + ml.TPOSW)
+
+
+def _per_row(need, arrays) -> int:
+    """Each row's distinct kept slots, summed over the rows."""
+    total = 0
+    for a in arrays:
+        slots, keep = need[a]
+        for row, k in zip(slots, keep):
+            total += len(set(row[k].tolist()))
+    return total
+
+
+@pytest.mark.parametrize("kind", ["A9", "B1"])
+def test_count_moves_each_shared_word_once(index, kind):
+    """The bounds count a word that several rules or lanes read once: A9's
+    rules probe the same small tables, B1's lanes start at the same root
+    and walk the same upper levels of the LCP tree.  The count is the
+    distinct kept slots over the whole launch, at most every word of the
+    arrays, and fewer than each row's own distinct slots summed."""
+    rng = np.random.default_rng(31)
+    if kind == "A9":
+        L1, L2, cols = _dense_rules(rng, index, 3000)
+        need = reads.maxlex_dense_need(L1, L2, index.tgt_str, *cols)
+        words = reads.maxlex_dense_reads(L1, L2, index.tgt_str, *cols)
+        arrays, size = ("L1", "L2"), L1.numel() + L2.numel()
+    else:
+        lcpl, lcpr = index.lcp_tables()
+        ref, reflen = index.refstr_padded, int(index.reflen)
+        toks = torch.arange(reflen - 1, dtype=torch.int32)
+        toks = toks[ref[toks.long()] > 1]
+        sep = torch.nonzero(ref[:reflen] <= 1).flatten()
+        sls = (sep[torch.searchsorted(sep, toks)] - toks).to(torch.int32)
+        args = (ref, index.sa, lcpl, lcpr, ref, toks, sls, reflen)
+        need = reads.lcp_need(*args)
+        words = reads.lcp_reads(*args)[0]
+        arrays = [a for a in reads.LCP_ARRAYS if a in need]
+        size = sum(x.shape[0] for x in (ref, index.sa, lcpl, lcpr, ref))
+    union = sum(len(set(need[a][0][need[a][1]].tolist())) for a in arrays)
+    assert 0 < words == union <= size
+    assert words < _per_row(need, arrays)
+
+
+def test_dp_reads_count_a_word_of_both_halves_once(index):
+    """B4's words: B1's pass 1 on the lanes and A6's body on the items,
+    each array's distinct slots over both halves: at least each half's own
+    count, at most their sum, and the corpus words that both read once."""
+    rng = np.random.default_rng(32)
+    lcpl, lcpr = index.lcp_tables()
+    ref, reflen = index.refstr_padded, int(index.reflen)
+    toks = torch.from_numpy(rng.integers(0, reflen - 1, 300).astype(np.int32))
+    toks = toks[ref[toks.long()] > 1]
+    sep = torch.nonzero(ref[:reflen] <= 1).flatten()
+    sls = (sep[torch.searchsorted(sep, toks)] - toks).to(torch.int32)
+    cs = _starts(rng, index, 200)
+    lm = torch.from_numpy(rng.integers(1, 8, 200).astype(np.int32))
+    lane_args = (ref, index.sa, lcpl, lcpr, ref, toks, sls, reflen)
+    words, lsteps, steps, inner, chain_max, chain_mean = reads.dp_reads(
+        *lane_args, cs, lm, index.rlp, index.lr_tar, 15, 5)
+    lw, ls, lmax, lmean = reads.lcp_reads(*lane_args)
+    cw, cst, cin = reads.contig_reads(ref, index.rlp, index.lr_tar, cs, lm,
+                                      15, 5)
+    assert (lsteps, steps, inner, chain_max, chain_mean) == (
+        ls, cst, cin, lmax, lmean)
+    lanes = reads.lcp_need(*lane_args)
+    items = reads.contig_need(ref, index.rlp, index.lr_tar, cs, lm, 15, 5)
+    shared = (set(lanes["refstr"][0][lanes["refstr"][1]].tolist())
+              & set(items["refstr"][0][items["refstr"][1]].tolist()))
+    assert max(lw, cw) <= words == lw + cw - len(shared)
