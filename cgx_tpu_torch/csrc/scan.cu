@@ -1,7 +1,6 @@
 // lookup1's and lookup2's device kernels: lookup1's scan (A2, B3f/B3b,
-// C1f/C1b) and lookup2's second-gap scan (A5, C1t, B3t) a warp per 32 items,
-// each on one warp body; the verifications (A3, B3p, C1p) one thread per
-// item.
+// C1f/C1b), lookup2's second-gap scan (A5, C1t, B3t) and the verifications
+// (A3, B3p, C1p) a warp per 32 items, each family on one warp body.
 //
 // lookup1's scan, `scan_warp`: the forward/backward aXb occurrence scan of
 //   cgx_tpu/search/lookup.py:_fwd_item (:110) and _bwd_item (:161) with the
@@ -38,13 +37,21 @@
 //   replaces _two_batch_packed (:650-658), the same word over (pstart,
 //   plen) columns; B3t (cgx_two_items) replaces _two_batch (:643) on a
 //   shard's views and returns cand and gc as two words.
-// The verifications: A3 (cgx_pcs) replaces lookup.py:_pcs_batch_exp (:315)
-//   with _pcs_item (:203): the span budget, up to 2 prefix and 2 suffix
-//   tokens per precomputed occurrence, the ok bits packed 32 per word by a
-//   warp ballot; B3p (cgx_pcs_items) replaces _pcs_batch (:255) on a
-//   shard's views; C1p (cgx_pcs_cols) replaces _pcs_batch_cols (:285-295)
-//   over (pstart, plen, sl, el, pa1, pa2, pb2, pb3) columns, packed as A3
-//   (any n: the last word's tail bits are 0).
+// The verifications, `pcs_warp`: _pcs_item (:203): the span budget, up to
+//   2 prefix and 2 suffix tokens per precomputed occurrence, a lane per
+//   item reading only the corpus words its item needs, all in one round.
+//   Its three kernels differ only in how lane i finds its item:
+//   A3 (cgx_pcs) replaces lookup.py:_pcs_batch_exp (:315) with
+//     _cumsum_expand (:298): the warp resolves its 32 consecutive items'
+//     patterns together (`pcs_kernel`: a 32-ary search near its first
+//     item, then windows of 32 patterns a round), then reads each item's
+//     precomputed row; the ok bits packed 32 per word by a warp ballot;
+//   B3p (cgx_pcs_items) replaces _pcs_batch (:255) on a shard's views: one
+//     item per input row, its four compared query tokens gathered from the
+//     padded query tokens; one word per item;
+//   C1p (cgx_pcs_cols) replaces _pcs_batch_cols (:285-295) over (pstart,
+//     plen, sl, el, pa1, pa2, pb2, pb3) columns, packed as A3 (any n: the
+//     last word's tail bits are 0).
 //
 // Every body reads the corpus through views with the JAX bounds: a read the
 // JAX body bounds explicitly (jnp.minimum / jnp.maximum / jnp.clip against
@@ -58,9 +65,12 @@
 // 18-word corpus window, and the gap check's ~33 words only for the items
 // with a candidate (under 2% at europarl; chip_smoke.py prints the share),
 // all scattered (occurrences of a pattern are SA-ordered, not
-// corpus-ordered); A3 reads ~8 words; A5 one offs search, one pattab row,
-// one occurrence row, a 17-word corpus window and the gap check's ~33 words
-// for every item (A5 cannot skip it: its word carries gc).  All are
+// corpus-ordered); A3 a warp's share of one offs search, its window of
+// offs words and pattab rows, one precomputed row and up to 4 corpus words
+// per item (the rounds of that chain bound it: see pcs_kernel); A5 one
+// offs search, one pattab row, one occurrence row, a 17-word corpus window
+// and the gap check's ~33 words for every item (A5 cannot skip it: its
+// word carries gc).  All are
 // latency-bound gathers with a few hundred integer ops per item at most.
 // The half-warp windows make each window one 64-byte request.  The bounds
 // count only the words the functions need (tools/reads.py): the window
@@ -84,24 +94,70 @@ __device__ __forceinline__ int find_pattern(const int* __restrict__ offs,
     return min(lo, D - 1);
 }
 
-// _pcs_item: one precomputed occurrence (pstart, plen) against the span
-// budget, up to 2 prefix tokens (pa1, pa2) and 2 suffix tokens (pb2, pb3)
-__device__ bool pcs_item(const View& ref, int pstart, int plen, int sl,
-                         int el, int pa1, int pa2, int pb2, int pb3,
-                         int mrs) {
-    bool ok = plen + 1 + sl - 1 + el - 1 <= mrs;
-    // prefix: backoff k = 1, 2 (sl <= 3); refstr[jnp.maximum(p, 0)]
-    for (int k = 1; k <= 2; ++k) {
-        const int p0 = pstart - k;
-        const bool good = p0 >= 0 && ref.at(max(p0, 0)) == (k == 1 ? pa1 : pa2);
-        if (sl > k) ok = ok && good;
+// _pcs_item for a warp's 32 items, lane i holding item i's precomputed
+// occurrence (pstart, plen), sl, el and the four compared query tokens (a
+// lane that holds no item, `valid` false, any values: its bit is 0).  Each
+// lane reads only the corpus words its item needs, as independent loads (one
+// round): none where the span budget fails; prefix word k =
+// refstr[jnp.maximum(pstart - k, 0)] (k = 1, 2) only where sl > k and
+// pstart - k >= 0 (below the corpus start the prefix fails unread); suffix
+// word k = refstr[pstart + plen + k - 1] (k = 2, 3, unbounded but clamped
+// into the view, View::at) only where el >= k.  Returns lane i's ok bit.
+// Every lane of the warp calls this.
+__device__ __forceinline__ bool pcs_warp(const View& ref, int pstart,
+                                         int plen, int sl, int el, int pa1,
+                                         int pa2, int pb2, int pb3,
+                                         bool valid, int mrs) {
+    const bool budget = valid && plen + 1 + sl - 1 + el - 1 <= mrs;
+    const bool pre1 = budget && sl > 1, pre2 = budget && sl > 2;
+    const bool suf2 = budget && el >= 2, suf3 = budget && el >= 3;
+    const int p1 = pstart - 1, p2 = pstart - 2, q = pstart + plen;
+    const int a1 = pre1 && p1 >= 0 ? ref.at(max(p1, 0)) : 0;
+    const int a2 = pre2 && p2 >= 0 ? ref.at(max(p2, 0)) : 0;
+    const int b2 = suf2 ? ref.at(q + 1) : 0;
+    const int b3 = suf3 ? ref.at(q + 2) : 0;
+    // bitwise, not short-circuit: every compared token is then needed on
+    // every path, so its gather is issued in the same round as the corpus
+    // words rather than after the first compare (the compiler sinks a load
+    // that only a later && term reads into a branch)
+    return budget & (!pre1 | ((p1 >= 0) & (a1 == pa1)))
+           & (!pre2 | ((p2 >= 0) & (a2 == pa2))) & (!suf2 | (b2 == pb2))
+           & (!suf3 | (b3 == pb3));
+}
+
+// A3's item resolution (tools/reads.py PCS_PIVOTS, PCS_WINDOW): the first
+// item's search probes kPcsPivots pivots a round, and a window holds
+// kPcsWindow patterns a round, a lane each
+constexpr int kPcsPivots = 32;
+constexpr int kPcsWindow = 32;
+constexpr int kPcsThreads = 128;
+constexpr int kOffsPast = 0x7FFFFFFF;   // offs past D: above every item
+
+// The start w of the first window for item j (offs non-decreasing): w <=
+// p(j), offs[w] <= j where any offs word is, and p(j) < w + kPcsWindow,
+// p(j) being the last p with offs[p] <= j.  A 32-ary search by the whole
+// warp: per round lane k reads pivot k of the open range [a, b) that holds
+// the first index whose word is > j, until the range holds fewer than
+// kPcsWindow words.  Returns it on every lane.
+__device__ __forceinline__ int window_start_warp(const int* __restrict__ offs,
+                                                 int D, int j) {
+    const int k = lane_id();
+    int a = 0, b = D + 1;
+    while (b - a >= kPcsWindow) {
+        const int n = b - a;
+        const int M = a + (int)(((long long)k * n) / kPcsPivots);
+        const unsigned bits = __ballot_sync(kFull, offs[M] > j);
+        if (bits == 0) {                  // every pivot's word is <= j
+            a = __shfl_sync(kFull, M, kPcsPivots - 1) + 1;
+            continue;
+        }
+        const int f = __ffs(bits) - 1;
+        if (f == 0) break;                // the first word > j is offs[a]
+        const int prev = __shfl_sync(kFull, M, f - 1);
+        b = __shfl_sync(kFull, M, f);     // offs[b] > j: the bracket's end
+        a = prev + 1;
     }
-    // suffix: forward k = 2, 3 (el <= 3); refstr[pstart + plen + k - 1]
-    for (int k = 2; k <= 3; ++k) {
-        const bool good = ref.at(pstart + plen + k - 1) == (k == 2 ? pb2 : pb3);
-        if (el >= k) ok = ok && good;
-    }
-    return ok;
+    return max(a - 1, 0);
 }
 
 __device__ __forceinline__ int qt(const int* __restrict__ qtok, int q_len,
@@ -309,23 +365,90 @@ __device__ __forceinline__ void two_warp(const View& ref, const View& rlp,
     }
 }
 
-__global__ void pcs_kernel(View ref, const int* __restrict__ pcrows,
-                           int m_rows, const int* __restrict__ pattab,
-                           const int* __restrict__ offs, int D, int n,
-                           int mrs, int* __restrict__ out) {
+// A3: a warp per 32 consecutive items j0 .. j0 + 31.  Item j's pattern is
+// find_pattern's: the last p in [0, D] with offs[p] <= j, clamped to D - 1.
+// 1. The first window's start (window_start_warp): a 32-ary search over
+//    offs for the warp's first item j0 that stops once its range holds
+//    under 32 words; 0 rounds for D <= 30, 1 up to D = 1,023, 2 up to
+//    ~32,800.
+// 2. The window: lane k reads offs[base + k] and pattab row base + k (and
+//    lane 31 offs[base + 32]) in one round, as independent loads; lane i
+//    finds its item's pattern among those 32 by a 5-step bisection over the
+//    shuffled offs words, and takes its pattab fields and offs word by
+//    shuffle from the lane that loaded them.
+// 3. A lane whose item lies past the window (offs[base + 32] <= j: the
+//    window started up to 31 patterns before j0's, or the warp's items span
+//    more than 32 patterns) stays open, and the next window starts at base
+//    + 32, where every open item's pattern lies.
+// 4. The precomputed row at clip(f[0] + j - offs[p], 0, m_rows - 1), then
+//    pcs_warp, then one ballot word.
+// The chain is about log32(D) + 3 dependent rounds, against log2(D) + 3 for
+// a per-thread bisection; the rounds a warp takes are counted by
+// tools/reads.py pcs_rounds.  Every lane stays to the end (tail lanes past n
+// hold no item), since the shuffles and ballots name the whole warp.
+__global__ void __launch_bounds__(kPcsThreads)
+pcs_kernel(View ref, const int* __restrict__ pcrows, int m_rows,
+           const int* __restrict__ pattab, const int* __restrict__ offs,
+           int D, int n, int mrs, int* __restrict__ out) {
+    const int lane = lane_id();
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    bool ok = false;
-    if (j < n) {
-        const int p = find_pattern(offs, D, j);
-        const int* f = pattab + 8 * p;
-        const int row = clip(f[0] + j - offs[p], 0, m_rows - 1);
-        ok = pcs_item(ref, pcrows[2 * row], pcrows[2 * row + 1], f[1], f[2],
-                      f[3], f[4], f[5], f[6], mrs);
+    const int j0 = j - lane;
+    if (j0 >= n) return;                  // the whole warp
+    const bool valid = j < n;
+    // 1. the first window's start, at most 31 patterns before j0's
+    int base = window_start_warp(offs, D, j0);
+    // 2-3. lane i's pattern row fields and offs word, window by window
+    int f0 = 0, sl = 0, el = 0, pa1 = 0, pa2 = 0, pb2 = 0, pb3 = 0, po = 0;
+    bool open = valid;
+    while (__any_sync(kFull, open)) {
+        const int q = base + lane;
+        const int lo = q <= D ? offs[q] : kOffsPast;
+        const int past = lane == kPcsWindow - 1 && q < D ? offs[q + 1]
+                                                           : kOffsPast;
+        const int* r = pattab + 8 * min(q, D - 1);
+        const int r0 = r[0], r1 = r[1], r2 = r[2], r3 = r[3], r4 = r[4],
+                  r5 = r[5], r6 = r[6];
+        // lane k's successor word offs[base + k + 1]
+        const int next = __shfl_down_sync(kFull, lo, 1);
+        const int hi = lane == kPcsWindow - 1 ? past : next;
+        // the last window slot k with offs[base + k] <= j (slot 0 if none)
+        int k = 0;
+#pragma unroll
+        for (int s = kPcsWindow / 2; s >= 1; s >>= 1)
+            if (__shfl_sync(kFull, lo, k + s) <= j) k += s;
+        const bool here = __shfl_sync(kFull, hi, k) > j;
+        const int g0 = __shfl_sync(kFull, r0, k);
+        const int g1 = __shfl_sync(kFull, r1, k);
+        const int g2 = __shfl_sync(kFull, r2, k);
+        const int g3 = __shfl_sync(kFull, r3, k);
+        const int g4 = __shfl_sync(kFull, r4, k);
+        const int g5 = __shfl_sync(kFull, r5, k);
+        const int g6 = __shfl_sync(kFull, r6, k);
+        const int go = __shfl_sync(kFull, lo, k);
+        if (open && here) {
+            // pattern base + k, its row clamped to D - 1 (the row lane k
+            // loaded); past D - 1 (only items at or past offs[D]) its offs
+            // word is offs[D - 1]
+            f0 = g0;
+            sl = g1;
+            el = g2;
+            pa1 = g3;
+            pa2 = g4;
+            pb2 = g5;
+            pb3 = g6;
+            po = base + k < D ? go : offs[D - 1];
+            open = false;
+        }
+        base += kPcsWindow;
     }
-    // bit (j % 32) of word j / 32; blockDim is a multiple of 32, so lane
-    // (threadIdx.x & 31) == j % 32
-    const unsigned word = __ballot_sync(0xFFFFFFFFu, ok);
-    if ((threadIdx.x & 31) == 0 && j < n) out[j >> 5] = (int)word;
+    // 4. the precomputed occurrence (a tail lane's row is clamped too, and
+    // its bit masked), the verification, one word per warp
+    const int row = clip(f0 + j - po, 0, m_rows - 1);
+    const int pstart = pcrows[2 * row], plen = pcrows[2 * row + 1];
+    const unsigned word = __ballot_sync(
+        kFull, pcs_warp(ref, pstart, plen, sl, el, pa1, pa2, pb2, pb3, valid,
+                        mrs));
+    if (lane == 0) out[j0 >> 5] = (int)word;
 }
 
 // A5: a warp per 32 consecutive items (two_warp); a warp wholly past n
@@ -376,21 +499,24 @@ scan_cols_kernel(View ref, View rlp, View lr_tar,
     if (valid) out[j] = (int)mask;
 }
 
-__global__ void pcs_cols_kernel(View ref, const int* __restrict__ pstart,
-                                const int* __restrict__ plen,
-                                const int* __restrict__ sl,
-                                const int* __restrict__ el,
-                                const int* __restrict__ pa1,
-                                const int* __restrict__ pa2,
-                                const int* __restrict__ pb2,
-                                const int* __restrict__ pb3, int n, int mrs,
-                                int* __restrict__ out) {
+// C1p: a warp per 32 consecutive rows, lane i loading row i's eight columns
+// (one coalesced load each; a tail lane the last row's, its bit masked,
+// so that no branch holds the loads back), then pcs_warp and one ballot
+// word
+__global__ void __launch_bounds__(kPcsThreads)
+pcs_cols_kernel(View ref, const int* __restrict__ pstart,
+                const int* __restrict__ plen, const int* __restrict__ sl,
+                const int* __restrict__ el, const int* __restrict__ pa1,
+                const int* __restrict__ pa2, const int* __restrict__ pb2,
+                const int* __restrict__ pb3, int n, int mrs,
+                int* __restrict__ out) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool ok = j < n && pcs_item(ref, pstart[j], plen[j], sl[j], el[j],
-                                      pa1[j], pa2[j], pb2[j], pb3[j], mrs);
-    // as pcs_kernel: lane (threadIdx.x & 31) == j % 32
-    const unsigned word = __ballot_sync(0xFFFFFFFFu, ok);
-    if ((threadIdx.x & 31) == 0 && j < n) out[j >> 5] = (int)word;
+    if (j - lane_id() >= n) return;       // the whole warp
+    const int r = min(j, n - 1);          // a tail lane reads the last row
+    const unsigned word = __ballot_sync(
+        kFull, pcs_warp(ref, pstart[r], plen[r], sl[r], el[r], pa1[r],
+                        pa2[r], pb2[r], pb3[r], j < n, mrs));
+    if (lane_id() == 0) out[j >> 5] = (int)word;
 }
 
 __global__ void __launch_bounds__(kScanThreads)
@@ -439,22 +565,26 @@ scan_items_kernel(View ref, View rlp, View lr_tar,
     if (valid) out[j] = (int)mask;
 }
 
-__global__ void pcs_items_kernel(View ref, const int* __restrict__ qtok,
-                                 int q_len, const int* __restrict__ pstart,
-                                 const int* __restrict__ plen,
-                                 const int* __restrict__ sl,
-                                 const int* __restrict__ el,
-                                 const int* __restrict__ tok,
-                                 const int* __restrict__ stok, int n, int mrs,
-                                 int* __restrict__ out) {
+// B3p: a warp per 32 consecutive rows, lane i loading row i's six columns
+// (a tail lane the last row's, its bit masked) and gathering its four
+// compared query tokens (a's last two before b, _pcs_batch's clamped
+// gathers; b's second and third), then pcs_warp; one word per item
+__global__ void __launch_bounds__(kPcsThreads)
+pcs_items_kernel(View ref, const int* __restrict__ qtok, int q_len,
+                 const int* __restrict__ pstart, const int* __restrict__ plen,
+                 const int* __restrict__ sl, const int* __restrict__ el,
+                 const int* __restrict__ tok, const int* __restrict__ stok,
+                 int n, int mrs, int* __restrict__ out) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n) return;
-    const int s = sl[j], t = tok[j], st = stok[j];
-    out[j] = (int)pcs_item(ref, pstart[j], plen[j], s, el[j],
-                           qt(qtok, q_len, t + max(s - 2, 0)),
-                           qt(qtok, q_len, t + max(s - 3, 0)),
-                           qt(qtok, q_len, st + 1), qt(qtok, q_len, st + 2),
-                           mrs);
+    if (j - lane_id() >= n) return;       // the whole warp
+    const int r = min(j, n - 1);          // a tail lane reads the last row
+    const int t = tok[r], st = stok[r], s = sl[r];
+    const bool ok = pcs_warp(ref, pstart[r], plen[r], s, el[r],
+                             qt(qtok, q_len, t + max(s - 2, 0)),
+                             qt(qtok, q_len, t + max(s - 3, 0)),
+                             qt(qtok, q_len, st + 1), qt(qtok, q_len, st + 2),
+                             j < n, mrs);
+    if (j < n) out[j] = (int)ok;
 }
 
 __global__ void __launch_bounds__(kScanThreads)
@@ -500,8 +630,8 @@ CGX_EXPORT int cgx_pcs(const int* refstr, int ref_len, const int* pcrows,
                        int m_rows, const int* pattab, const int* offs, int D,
                        int n, int mrs, int* out, void* stream) {
     if (m_rows < 1 || D < 1) return (int)cudaErrorInvalidValue;
-    const int threads = 128;
-    pcs_kernel<<<cgx_grid(n, threads), threads, 0, (cudaStream_t)stream>>>(
+    pcs_kernel<<<cgx_grid(n, kPcsThreads), kPcsThreads, 0,
+                 (cudaStream_t)stream>>>(
         identity_view(refstr, ref_len), pcrows, m_rows, pattab, offs, D, n,
         mrs, out);
     return (int)cudaGetLastError();
@@ -579,8 +709,7 @@ CGX_EXPORT int cgx_pcs_items(const int* ref, int ref_len, int ref_off,
                              const int* stok, int n, int mrs, int* out,
                              void* stream) {
     if (q_len < 1) return (int)cudaErrorInvalidValue;
-    const int threads = 128;
-    pcs_items_kernel<<<cgx_grid(n, threads), threads, 0,
+    pcs_items_kernel<<<cgx_grid(n, kPcsThreads), kPcsThreads, 0,
                        (cudaStream_t)stream>>>(
         View{ref, ref_len, ref_off, ref_glen}, qtok, q_len, pstart, plen, sl,
         el, tok, stok, n, mrs, out);
@@ -632,8 +761,7 @@ CGX_EXPORT int cgx_pcs_cols(const int* refstr, int ref_len,
                             const int* el, const int* pa1, const int* pa2,
                             const int* pb2, const int* pb3, int n, int mrs,
                             int* out, void* stream) {
-    const int threads = 128;
-    pcs_cols_kernel<<<cgx_grid(n, threads), threads, 0,
+    pcs_cols_kernel<<<cgx_grid(n, kPcsThreads), kPcsThreads, 0,
                       (cudaStream_t)stream>>>(
         identity_view(refstr, ref_len), pstart, plen, sl, el, pa1, pa2, pb2,
         pb3, n, mrs, out);

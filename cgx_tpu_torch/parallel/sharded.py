@@ -286,16 +286,23 @@ def _g_ref(sidx, p):
 
 
 def refine_sharded_plain(sidx, qtok, toks, sls, lo, hi, d0: int,
-                         depths: int):
+                         depths: int, need: dict = None):
     """Plain PyTorch version of kernel B2r: ``passes.refine_chunk_plain``
-    with every probe read through the shard gathers."""
+    with every probe read through the shard gathers.  Given a ``need``
+    dict, it records each bisection step's global ranks (``sa``) and key
+    positions (``refstr``) and each depth's query token (``qtok``), as
+    ``refine_chunk_plain`` does (``tools/reads.py`` ``refine_need``)."""
     def lower_bound(l, h, key, depth):
         while True:
             act = h > l
             if not bool(act.any()):
                 return l
             M = (l + h) >> 1
-            t = _g_ref(sidx, _g_sa(sidx, M) + depth)
+            pos = _g_sa(sidx, M) + depth
+            if need is not None:
+                need.setdefault("sa", []).append((M, act))
+                need.setdefault("refstr", []).append((pos, act))
+            t = _g_ref(sidx, pos)
             ge = t >= key
             l = torch.where(act & ~ge, M + 1, l)
             h = torch.where(act & ge, M, h)
@@ -305,6 +312,9 @@ def refine_sharded_plain(sidx, qtok, toks, sls, lo, hi, d0: int,
         depth = d0 + c
         qt = torch.where(depth < sls, take(qtok, toks + depth),
                          torch.full_like(toks, -1))
+        if need is not None:
+            need.setdefault("qtok", []).append((toks + depth,
+                                                (depth < sls) & (hi > lo)))
         nlo = lower_bound(lo, hi, qt, depth)
         nhi = lower_bound(nlo, hi, qt + 1, depth)
         ups.append(nlo)
@@ -313,11 +323,30 @@ def refine_sharded_plain(sidx, qtok, toks, sls, lo, hi, d0: int,
     return (torch.stack(ups, dim=1), torch.stack(downs, dim=1), lo, hi)
 
 
+# Kernel B2r copies each shard's row into a block's shared memory: its two
+# slice pointers, rmeta's 2 words and smeta's 3 (csrc/sharded.cu
+# kShardRowBytes), 48 KiB at most without an opt-in.
+B2R_SHARD_ROW_BYTES = 2 * 8 + 5 * 4
+B2R_SHARED_BYTES = 48 * 1024
+
+
+def check_b2r_shards(S: int) -> None:
+    """Refuses a shard count whose rows do not fit in kernel B2r's shared
+    memory (over a thousand shards)."""
+    if S * B2R_SHARD_ROW_BYTES > B2R_SHARED_BYTES:
+        raise ValueError(
+            f"B2r: the rows of {S} shards ({S * B2R_SHARD_ROW_BYTES} bytes) "
+            f"do not fit in the kernel's {B2R_SHARED_BYTES} bytes of shared "
+            f"memory (at most "
+            f"{B2R_SHARED_BYTES // B2R_SHARD_ROW_BYTES} shards)")
+
+
 def refine_sharded(sidx, qtok, toks, sls, lo, hi, d0: int, depths: int):
     """Kernel B2r (``csrc/sharded.cu``, ``cgx_refine_sharded``): ``depths``
-    refinement levels from depth ``d0`` for every lane (as kernel A1) over
-    the sharded index ``sidx``.  Returns (ups, downs) int32 [n, depths] and
-    the final (lo, hi) int32 [n].
+    refinement levels from depth ``d0`` for every lane over the sharded
+    index ``sidx``, on kernel A1's warp body (``csrc/refine.cuh``) with the
+    shards' rows in shared memory (``check_b2r_shards``).  Returns (ups,
+    downs) int32 [n, depths] and the final (lo, hi) int32 [n].
 
     Replaces ``_refine_chunk`` (cgx_tpu/parallel/sharded.py:261).  On CUDA
     tensors it launches the kernel; on CPU tensors it runs
@@ -326,6 +355,7 @@ def refine_sharded(sidx, qtok, toks, sls, lo, hi, d0: int, depths: int):
     if not kb.route("B2r", device):
         return refine_sharded_plain(sidx, qtok, toks, sls, lo, hi, d0,
                                     depths)
+    check_b2r_shards(sidx.S)
     sa_ptrs, ref_ptrs, rmeta, smeta = sidx.device_tables()
     kb.check_inputs("B2r", device, torch.int32, rmeta=rmeta, smeta=smeta,
                     qtok=qtok, toks=toks, sls=sls, lo=lo, hi=hi,

@@ -113,17 +113,26 @@ def seed_intervals(seed_lo1, seed_hi1, seed_pk, seed_pk3, reflen,
 
 
 def refine_chunk_plain(sa, refstr, qtok, toks, sls, lo, hi, d0: int,
-                       depths: int):
+                       depths: int, need: dict = None):
     """Plain PyTorch version of kernel A1, vectorized over lanes like the JAX
     ``vmap``: each lower-bound search iterates until every lane converged,
-    updating only the lanes still searching."""
+    updating only the lanes still searching.  Given a ``need`` dict, it
+    also records what each bisection step reads (``tools/reads.py``
+    ``refine_need``): per array, (positions, needed) pairs of [n] tensors
+    (``sa``: the rows, ``refstr``: the key positions, ``qtok``: each
+    depth's query token, needed where the depth is inside the query and
+    the interval is not empty)."""
     def lower_bound(l, h, key, depth):
         while True:
             act = h > l
             if not bool(act.any()):
                 return l
             M = (l + h) >> 1
-            t = take(refstr, take(sa, M) + depth)
+            pos = take(sa, M) + depth
+            if need is not None:
+                need.setdefault("sa", []).append((M, act))
+                need.setdefault("refstr", []).append((pos, act))
+            t = take(refstr, pos)
             ge = t >= key
             l = torch.where(act & ~ge, M + 1, l)
             h = torch.where(act & ge, M, h)
@@ -133,6 +142,9 @@ def refine_chunk_plain(sa, refstr, qtok, toks, sls, lo, hi, d0: int,
         depth = d0 + c
         qt = torch.where(depth < sls, take(qtok, toks + depth),
                          torch.full_like(toks, -1))
+        if need is not None:
+            need.setdefault("qtok", []).append((toks + depth,
+                                                (depth < sls) & (hi > lo)))
         nlo = lower_bound(lo, hi, qt, depth)
         nhi = lower_bound(nlo, hi, qt + 1, depth)
         ups.append(nlo)

@@ -3,22 +3,24 @@
     python3 -m cgx_tpu_torch.tools.kernel_variants NAME=DIR [NAME=DIR ...]
 
 Each DIR holds a full copy of ``cgx_tpu_torch/csrc`` (one variant's
-sources).  The tool builds each variant's ``onegap.cu``, ``twogap.cu``,
-``contig.cu``, ``lcp.cu``, ``maxlex.cu`` and ``dist.cu`` with the port's
-nvcc flags and prints ptxas's report and an opcode histogram of each
-library's SASS (``cuobjdump -sass``) and each kernel's static SASS
-instruction count (for a body without loops, such as A9's, about what one
-warp issues).  It then runs ``chip_smoke.py``'s
+sources). The tool builds each variant's ``onegap.cu``, ``twogap.cu``,
+``contig.cu``, ``lcp.cu``, ``maxlex.cu``, ``dist.cu``, ``refine.cu``,
+``sharded.cu`` and ``scan.cu`` with the port's nvcc flags and prints ptxas's
+report and an opcode histogram of each library's SASS (``cuobjdump -sass``)
+and each kernel's static SASS instruction count (for a body without loops,
+such as A9's, about what one warp issues). It then runs ``chip_smoke.py``'s
 medium run, its europarl run with the LCP passes, the query-DP step and A9
-on europarl's lexicon as dense tables (A9L), and its europarl run over four
-shards, keeping each kernel's largest launch, and times every variant on
-them, in turns (the variants in order, then in reverse), by CUDA events and
-by the device's own clock (``chip_smoke._device_ms``): A7, A7 on a shard's
-views (A7v), A8, A8v, A8 on one item, A6, B3c, B1p1, B1p2, B4, A9, A9 on
-one rule (the launch's fixed cost), A9L and A10.  Each row runs through the port's own wrapper with the variant's
-library in place of the built one.  Every output is checked against the
-plain version first; a variant that differs is reported and dropped.  Run
-from the repository root on a machine with a card.
+on europarl's lexicon as dense tables (A9L), its europarl run over four
+shards and C1p on A3's items as columns, keeping each kernel's largest
+launch, and times every variant on them, in turns (the variants in order,
+then in reverse), by CUDA events and by the device's own clock
+(``chip_smoke._device_ms``): A7, A7 on a shard's views (A7v), A8, A8v, A8 on
+one item, A6, B3c, B1p1, B1p2, B4, A9, A9 on one rule (the launch's fixed
+cost), A9L, A10, A1, B2r, A3, A3 on one item, B3p and C1p. Each row runs
+through the port's own wrapper with the variant's library in place of the
+built one. Every output is checked against the plain version first; a
+variant that differs is reported and dropped. Run from the repository root
+on a machine with a card.
 """
 
 from __future__ import annotations
@@ -38,11 +40,13 @@ from cgx_tpu_torch.extract import device as xdev
 from cgx_tpu_torch.features import maxlex as ml
 from cgx_tpu_torch.kernels import build as kb
 from cgx_tpu_torch.parallel import dist
-from cgx_tpu_torch.search import passes
+from cgx_tpu_torch.parallel import sharded as shx
+from cgx_tpu_torch.search import lookup, passes
 
-SOURCES = ("onegap", "twogap", "contig", "lcp", "maxlex", "dist")
-# row -> (the port's wrapper, its plain version); A7v, A8v, A8@1 and A9@1
-# run A7's, A8's and A9's
+SOURCES = ("onegap", "twogap", "contig", "lcp", "maxlex", "dist", "refine",
+           "sharded", "scan")
+# row -> (the port's wrapper, its plain version); A7v, A8v, A8@1, A9@1 and
+# A3@1 run A7's, A8's, A9's and A3's
 ROWS = {"A7": (xdev.onegap, xdev.onegap_plain),
         "A7v": (xdev.onegap, xdev.onegap_plain),
         "A8": (xdev.twogap, xdev.twogap_plain),
@@ -56,7 +60,13 @@ ROWS = {"A7": (xdev.onegap, xdev.onegap_plain),
         "A9": (ml.accum_dense, ml.accum_dense_plain),
         "A9@1": (ml.accum_dense, ml.accum_dense_plain),
         "A9L": (ml.accum_dense, ml.accum_dense_plain),
-        "A10": (ml.accum_range, ml.accum_range_plain)}
+        "A10": (ml.accum_range, ml.accum_range_plain),
+        "A1": (passes.refine_chunk, passes.refine_chunk_plain),
+        "B2r": (shx.refine_sharded, shx.refine_sharded_plain),
+        "A3": (lookup.pcs, lookup.pcs_plain),
+        "A3@1": (lookup.pcs, lookup.pcs_plain),
+        "B3p": (lookup.pcs_items, lookup.pcs_items_plain),
+        "C1p": (lookup.pcs_cols, lookup.pcs_cols_plain)}
 
 
 def build(name: str, src: str, out: str) -> dict:
@@ -113,7 +123,8 @@ def installed(libs: dict):
 
 
 def capture_rows() -> dict:
-    """Each row's captured arguments from ``chip_smoke.py``'s runs."""
+    """Each row's items and captured arguments from ``chip_smoke.py``'s
+    runs -> {row: (items, args)}."""
     import chip_smoke as cs
     with open(cs.GOLDEN, encoding="utf-8") as fh:
         golden = json.load(fh)
@@ -126,13 +137,17 @@ def capture_rows() -> dict:
                 cs.check_query_dp(res, cap)
                 cs.check_dense_large(res, cap)
             del res
-    rows = {k: cap.calls[k][1] for k in ROWS if k in cap.calls}
-    one = list(rows["A8"])
+        cs.check_pcs_cols(cap)
+    rows = {k: cap.calls[k] for k in ROWS if k in cap.calls}
+    one = list(rows["A8"][1])
     one[3:9] = [a[:1].contiguous() for a in one[3:9]]
-    rows["A8@1"] = tuple(one)
-    one = list(rows["A9"])
+    rows["A8@1"] = (1, tuple(one))
+    one = list(rows["A9"][1])
     one[4:11] = [a[:1].contiguous() for a in one[4:11]]
-    rows["A9@1"] = tuple(one)
+    rows["A9@1"] = (1, tuple(one))
+    one = list(rows["A3"][1])
+    one[4] = 1
+    rows["A3@1"] = (1, tuple(one))
     return rows
 
 
@@ -157,7 +172,7 @@ def main(argv=None) -> int:
         out = out if isinstance(out, (tuple, list)) else (out,)
         return [o.view(torch.int32) if o.dtype == torch.float32 else o
                 for o in out]
-    want = {k: outputs(ROWS[k][1], a) for k, a in rows.items()}
+    want = {k: outputs(ROWS[k][1], a) for k, (_, a) in rows.items()}
     dropped = set()
     names = [name for name, _ in variants]
     for turn, order in enumerate((names, names[::-1])):
@@ -166,7 +181,7 @@ def main(argv=None) -> int:
                 continue
             res = {}
             with installed(libs[name]):
-                for k, args in rows.items():
+                for k, (items, args) in rows.items():
                     kernel = ROWS[k][0]
                     got = outputs(kernel, args)
                     torch.cuda.synchronize()
@@ -178,7 +193,7 @@ def main(argv=None) -> int:
                         break
                     ms, reps = cs._time_ms(lambda: kernel(*args), "cuda")
                     dev = cs._device_ms(lambda: kernel(*args), reps)
-                    res[k] = {"items": int(got[0].shape[-1]), "ms": ms,
+                    res[k] = {"items": items, "ms": ms,
                               "device_ms": dev["device_ms"]}
             if name not in dropped:
                 print(json.dumps({"variant": name, "turn": turn, **res}),

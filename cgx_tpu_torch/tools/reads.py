@@ -24,15 +24,21 @@ other word and find the result unchanged.
 * ``maxlex_dense_reads``: A9 (``_accum_batch_dense``);
 * ``lcp_reads``: B1's passes (``_search_body`` and ``_bound_walk``), with
   the chain of dependent read rounds that the kernel's warp body takes;
-* ``dp_reads``: B4, B1's pass 1 on its lanes and A6's body on its items.
+* ``dp_reads``: B4, B1's pass 1 on its lanes and A6's body on its items;
+* ``refine_reads``: A1 and B2r, the seeded refinement's binary lower
+  bounds (B2r also the shards' meta rows);
+* ``pcs_reads``: A3, B3p and C1p (``_pcs_item``), with ``pcs_rounds``, the
+  rounds in which A3's warp resolves its items' patterns.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from cgx_tpu_torch.extract import device as xdev
 from cgx_tpu_torch.features import maxlex as ml
+from cgx_tpu_torch.parallel import sharded as shx
 from cgx_tpu_torch.search import lookup, passes
 from cgx_tpu_torch.utils.views import as_view, take
 
@@ -566,3 +572,213 @@ def dp_reads(refstr, sa, lcpleft, lcpright, qtok, toks, sls, reflen: int,
             int(items["steps"].sum()), int(items["inner"].sum()),
             int(chain.max()) if chain.numel() else 0,
             float(chain.double().mean()) if chain.numel() else 0.0)
+
+
+REFINE_ARRAYS = ("sa", "refstr", "qtok", "rmeta", "smeta")
+# B2r's meta words a shard whose row it reads: rmeta's 2 and the rank
+# slice's pointer (2 words), smeta's 3 and the token slice's pointer
+RMETA_WORDS, SMETA_WORDS = 4, 5
+
+
+def refine_need(*args) -> dict:
+    """What the seeded refinement needs: A1 for ``args`` = (sa, refstr,
+    qtok, toks, sls, lo, hi, d0, depths), B2r for (sidx, qtok, toks, sls,
+    lo, hi, d0, depths) -> {array: (slots, keep)} and ``steps`` (int [n],
+    the bisection steps of each lane).
+
+    The words that the plain version's binary lower bounds read: each
+    step's SA row and key token, and each depth's query token where the
+    depth is inside the query and the interval is not empty.  The kernels'
+    16-ary searches read more pivots; that is their choice, not the
+    function's need.  On the sharded index the slots are those of the
+    shards' slices (``sa``: shard s's rank slice at s * BR + loc,
+    ``refstr``: its token slice), an index no shard owns reads nothing, and
+    each read also needs its owner's meta row and slice pointer
+    (``rmeta``, ``smeta``: ``RMETA_WORDS``, ``SMETA_WORDS`` a shard)."""
+    need: dict = {}
+    sharded = isinstance(args[0], shx.ShardedGrammarIndex)
+    if sharded:
+        shx.refine_sharded_plain(*args, need=need)
+        qtok = args[1]
+    else:
+        passes.refine_chunk_plain(*args, need=need)
+        sa, refstr, qtok = args[:3]
+    rows = {name: (torch.stack([p for p, _ in need[name]], 1),
+                   torch.stack([k for _, k in need[name]], 1))
+            for name in need}
+    qpos, qkeep = rows["qtok"]
+    out = {"qtok": (_slots(qtok, qpos), qkeep),
+           "steps": rows["sa"][1].sum(dim=1)}
+    if not sharded:
+        out["sa"] = (_slots(sa, rows["sa"][0]), rows["sa"][1])
+        out["refstr"] = (_slots(refstr, rows["refstr"][0]),
+                         rows["refstr"][1])
+        return out
+    sidx = args[0]
+    S = sidx.S
+    for name, per, meta, words in (("sa", sidx.BR, sidx.rmeta, RMETA_WORDS),
+                                   ("refstr", sidx.B, sidx.smeta,
+                                    SMETA_WORDS)):
+        pos, keep = rows[name]
+        length = (sidx.sa_l if name == "sa" else sidx.ref_l)[0].shape[0]
+        m = torch.from_numpy(np.asarray(meta, np.int64)).to(pos.device)
+        s = (pos.long() // per).clamp(max=S - 1).clamp(min=0)
+        if name == "sa":     # (rank_start, rank_count)
+            loc = pos.long() - m[s, 0]
+            owned = (pos >= 0) & (loc >= 0) & (loc < m[s, 1])
+        else:                # (src_off, own_lo, own_hi)
+            loc = pos.long() - m[s, 0]
+            owned = (pos >= 0) & (pos >= m[s, 1]) & (pos < m[s, 2])
+        out[name] = (s * length + loc.clamp(0, length - 1), keep & owned)
+        k = torch.arange(words, device=pos.device)
+        meta_name = "rmeta" if name == "sa" else "smeta"
+        out[meta_name] = ((s[..., None] * words + k).reshape(len(s), -1),
+                          (keep & (pos >= 0))[..., None].expand(
+                              *keep.shape, words).reshape(len(s), -1))
+    return out
+
+
+def refine_reads(*args) -> tuple:
+    """(words, bisection steps) of the refinement's launch
+    (``refine_need``)."""
+    need = refine_need(*args)
+    return (count(need, arrays=REFINE_ARRAYS), int(need["steps"].sum()))
+
+
+def _pcs_words(refstr, pstart, plen, sl, el, mrs: int) -> tuple:
+    """The corpus words ``_pcs_item`` needs, as the kernels' ``pcs_warp``
+    reads them -> (positions, keep) [N, 4] for prefix words 1, 2 and suffix
+    words 2, 3: none where the span budget fails, prefix word k
+    (refstr[max(pstart - k, 0)]) where sl > k and pstart - k >= 0, suffix
+    word k (refstr[pstart + plen + k - 1]) where el >= k."""
+    budget = plen + 1 + sl - 1 + el - 1 <= mrs
+    end = pstart + plen
+    pos = torch.stack([pstart - 1, pstart - 2, end + 1, end + 2], dim=1)
+    keep = torch.stack([budget & (sl > 1) & (pstart >= 1),
+                        budget & (sl > 2) & (pstart >= 2),
+                        budget & (el >= 2), budget & (el >= 3)], dim=1)
+    return pos, keep
+
+
+def pcs_need(kernel: str, *args) -> dict:
+    """What the verification needs for one launch of ``kernel``: A3 with
+    ``args`` = (refstr, pcrows, pattab, offs, n, mrs), B3p with (refstr,
+    qtok, pstart, plen, sl, el, tok, stok, mrs), C1p with (refstr, pstart,
+    plen, sl, el, pa1, pa2, pb2, pb3, mrs) -> {array: (slots, keep)}:
+
+    * refstr: the corpus words ``_pcs_words`` names;
+    * A3: every offs word (D + 1), the pattab rows (their 7 fields) of the
+      patterns the items belong to, each item's precomputed row (2 words);
+    * B3p: the query tokens compared with the needed corpus words.
+
+    The item-axis columns (B3p's and C1p's) are each item's own inputs."""
+    if kernel == "A3":
+        refstr, pcrows, pattab, offs, n, mrs = args
+        j = torch.arange(n, dtype=torch.int32, device=offs.device)
+        p = (torch.searchsorted(offs, j, right=True) - 1).clamp(
+            0, pattab.shape[0] - 1)
+        f = pattab[p]
+        row = (f[:, 0] + j - offs[p]).clamp(0, pcrows.shape[0] - 1)
+        pstart, plen = pcrows[row, 0], pcrows[row, 1]
+        sl, el = f[:, 1], f[:, 2]
+        dev = offs.device
+        offs_slots = torch.arange(offs.shape[0], device=dev)[None, :]
+        need = {"offs": (offs_slots, torch.ones_like(offs_slots,
+                                                     dtype=torch.bool)),
+                "pattab": (p[:, None] * 8 + torch.arange(7, device=dev),
+                           torch.ones((n, 7), dtype=torch.bool, device=dev)),
+                "pcrows": (row[:, None].long() * 2
+                           + torch.arange(2, device=dev),
+                           torch.ones((n, 2), dtype=torch.bool, device=dev))}
+    elif kernel == "B3p":
+        refstr, qtok, pstart, plen, sl, el, tok, stok, mrs = args
+        need = {}
+    else:
+        refstr, pstart, plen, sl, el = args[:5]
+        mrs = args[9]
+        need = {}
+    pos, keep = _pcs_words(refstr, pstart, plen, sl, el, mrs)
+    need["refstr"] = (_slots(refstr, pos, bounded=False), keep)
+    if kernel == "B3p":
+        qpos = torch.stack([tok + (sl - 2).clamp(min=0),
+                            tok + (sl - 3).clamp(min=0), stok + 1, stok + 2],
+                           dim=1)
+        need["qtok"] = (_slots(qtok, qpos), keep)
+    return need
+
+
+PCS_ARRAYS = ("refstr", "offs", "pattab", "pcrows", "qtok")
+
+
+def pcs_reads(kernel: str, *args) -> int:
+    """The words the verification needs over one launch of ``kernel``
+    (``pcs_need``), each distinct slot once."""
+    return count(pcs_need(kernel, *args), arrays=PCS_ARRAYS)
+
+
+# kernel A3's item resolution (csrc/scan.cu kPcsPivots, kPcsWindow): the
+# warp's first item's search probes PCS_PIVOTS pivots a round, a window
+# holds PCS_WINDOW patterns a round
+PCS_PIVOTS = 32
+PCS_WINDOW = 32
+_OFFS_PAST = 2**31 - 1
+
+
+def _window_start(offs, D: int, j: int) -> tuple:
+    """``window_start_warp``: (the first window's start for item j, the
+    search rounds it took): a 32-ary search over offs for the first word
+    > j that stops once its range holds under PCS_WINDOW words."""
+    a, b, rounds = 0, D + 1, 0
+    while b - a >= PCS_WINDOW:
+        rounds += 1
+        piv = a + np.arange(PCS_PIVOTS) * (b - a) // PCS_PIVOTS
+        gt = offs[piv] > j
+        if not gt.any():
+            a = int(piv[-1]) + 1
+            continue
+        f = int(gt.argmax())
+        if f == 0:
+            break
+        a, b = int(piv[f - 1]) + 1, int(piv[f])
+    return max(a - 1, 0), rounds
+
+
+def pcs_rounds(offs, n: int) -> tuple:
+    """A model of kernel A3's item resolution (``pcs_kernel``) on a
+    launch's count prefix ``offs`` (int [D + 1]) and ``n`` items -> (the
+    pattern row of each item, int64 [n]; the search rounds of each warp;
+    the window rounds of each warp).  Per warp of 32 consecutive items: a
+    32-ary search near its first item j0 gives the first window's start,
+    at most 31 patterns before j0's; each window round holds the patterns
+    base .. base + 31, and every item finds the last of them whose offs
+    word is <= j by a bisection over the window; an item whose next word
+    offs[base + 32] is still <= j waits for the next window, from base +
+    32."""
+    offs = np.asarray(offs, np.int64)
+    D = len(offs) - 1
+    pat = np.zeros(n, np.int64)
+    searches, windows = [], []
+    slot = np.arange(PCS_WINDOW)
+    for j0 in range(0, n, 32):
+        base, rounds = _window_start(offs, D, j0)
+        js = np.arange(j0, min(j0 + 32, n))
+        open_ = np.ones(len(js), bool)
+        w = 0
+        while open_.any():
+            w += 1
+            q = base + slot
+            lo = np.where(q <= D, offs[np.minimum(q, D)], _OFFS_PAST)
+            last = base + PCS_WINDOW
+            hi = np.append(lo[1:], offs[last] if last <= D else _OFFS_PAST)
+            k = np.zeros(len(js), np.int64)
+            s = PCS_WINDOW // 2
+            while s >= 1:
+                k = np.where(lo[k + s] <= js, k + s, k)
+                s //= 2
+            here = open_ & (hi[k] > js)
+            pat[js[here]] = np.minimum(base + k[here], D - 1)
+            open_ &= ~here
+            base += PCS_WINDOW
+        searches.append(rounds)
+        windows.append(w)
+    return pat, np.array(searches), np.array(windows)

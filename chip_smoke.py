@@ -78,15 +78,20 @@ Phases, one line each on stdout:
    bisection path and found words of each distinct search; A9 the table
    words of each kept position and NULL probe; B1 and B4's lanes each
    search and walk step's skip words and the compares' SA, corpus and
-   query words, with the chain of read rounds of the warp body), and the
-   time
+   query words, with the chain of read rounds of the warp body; A1 and
+   B2r the binary searches' SA, corpus and query words, B2r also the
+   shards' meta rows; A3, B3p and C1p the corpus words each item's
+   verification compares, A3 also its offs words, pattern rows and
+   precomputed rows, with the rounds a warp takes to resolve its items'
+   patterns), and the time
    of one launch of A8 on one item (by the device's clock A8's own
    one-item chain, ``launch_floor``).  Then the warp and half-warp kernels
-   (A1, A2f, A2b, A4, A4v, C1f, C1b, B3f, B3b, A6, B3c, A5, C1t, B3t, A7,
-   A7v, A8, A8v, A10, A9, B1p1, B1p2) against their plain versions on
-   synthetic edge inputs over europarl's index arrays and tables (A9 over
-   medium's dense tables; B1 also over a small index of 70-token
-   sentences, for matches past 32 tokens) (``check_edges``).
+   (A1, B2r, A2f, A2b, A3, A4, A4v, C1f, C1b, C1p, B3f, B3b, B3p, A6, B3c,
+   A5, C1t, B3t, A7, A7v, A8, A8v, A10, A9, B1p1, B1p2) against their plain
+   versions on synthetic edge inputs over europarl's index arrays and
+   tables (A9 over medium's dense tables; B1 also over a small index of
+   70-token sentences, for matches past 32 tokens; B2r also on 1 and 3
+   shards) (``check_edges``).
 
 Then a JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -191,8 +196,9 @@ RUNS = (
 # per item, integer operations per item), each counted once from the
 # kernel's loops (the csrc notes); the per-pattern tables are counted once
 # whole.  The searches' gathers depend on the data and are counted from
-# this run's inputs in ``work``, and so are the words of the functions that
-# stop early (``tools.reads``, ``data_reads``): lookup1's scans count the
+# this run's inputs (``tools.reads``, ``data_reads``: A1's and B2r's binary
+# searches, A3's, B3p's and C1p's verification words), and so are the
+# words of the functions that stop early: lookup1's scans count the
 # corpus words that decide a candidate (up to the first dead move and the
 # span limit), and the gap check only for an item whose candidate mask is
 # non-zero; the gap check (A4, and in A2, A5, B3, C1) its RLP window up to
@@ -206,7 +212,7 @@ WORK = {
     "A4": (1, 0, 1, 0),          # (+ the gap check's words)
     "A2f": (0, 2, 1, 300),       # SA word, gap-0 token (+ the window)
     "A2b": (0, 2, 1, 300),
-    "A3": (0, 6, 1 / 32, 40),    # one occurrence row, 4 corpus words
+    "A3": (0, 0, 1 / 32, 40),    # (+ pcs_reads: offs, pattab, rows, corpus)
     "A5": (0, 2, 1, 150),        # occurrence row (+ scan, gap check)
     "A6": (2, 1, 8, 0),          # SA word (+ contig_reads)
     "A7": (4, 0, 6, 200),        # (+ onegap_reads)
@@ -217,12 +223,12 @@ WORK = {
     "B2g": (1, 1, 1, 10),        # the owner's SA word (meta rows in L1)
     "B3f": (4, 4, 1, 300),       # 3 query tokens, gap-0 token (+ window)
     "B3b": (4, 4, 1, 300),
-    "B3p": (6, 8, 1, 40),        # 4 query tokens, 4 corpus words
+    "B3p": (6, 0, 1, 40),        # (+ pcs_reads: query tokens, corpus)
     "B3t": (2, 0, 2, 150),       # (+ scan, gap check)
     "B3c": (2, 0, 8, 0),         # A6 without its SA word
     "C1f": (6, 1, 1, 300),       # 6 columns, gap-0 token (+ the window)
     "C1b": (6, 1, 1, 300),
-    "C1p": (8, 4, 1 / 32, 40),   # 8 columns, 4 corpus words
+    "C1p": (8, 0, 1 / 32, 40),   # 8 columns (+ pcs_reads: corpus words)
     "C1t": (2, 0, 1, 150),       # (+ scan, gap check)
     "P1": (1, 32, 0, 32),        # the position, the 32-word window
     "P2": (1, 32, 32, 0),        # and the row written
@@ -240,6 +246,8 @@ TWOGAP_ROWS = ("A8", "A8v")
 MAXLEX_ROWS = ("A10",)
 DENSE_ROWS = ("A9", "A9L")
 LCP_ROWS = ("B1p1", "B1p2")
+REFINE_ROWS = ("A1", "B2r")
+PCS_ROWS = ("A3", "B3p", "C1p")
 # integer operations: the gap check's RLP window, prefix scan and first test
 # per item, and its 16 x 16 fold over the lr_tar window per item where some
 # move passes the first test; A6's body per needed word (unpack, compare,
@@ -255,13 +263,18 @@ MAXLEX_STEP_OPS = 4
 # B1 per search or walk step: the midpoint, the skip and its compares, the
 # state updates (the compare's per-token work is in its words)
 LCP_STEP_OPS = 30
+# A1 and B2r per bisection step: the midpoint, the compare, two selects
+REFINE_STEP_OPS = 8
 # ``check_edges``: item counts that leave partial half-warps and warps, and
 # span limits from the narrowest to the default
 EDGE_ITEMS = (1, 15, 17, 33)
 EDGE_MRS = (1, 2, 8, 15)
 EDGE_MSYM = (2, 3, 5)    # A6, B3c, A7, A7v
-# argument positions of the per-pattern table and count prefix
-TABLE_ARGS = {"A2f": (4, 5), "A2b": (4, 5), "A3": (2, 3), "A5": (5, 6)}
+# argument positions of the per-pattern table and count prefix (A3's:
+# pcs_reads)
+TABLE_ARGS = {"A2f": (4, 5), "A2b": (4, 5), "A5": (5, 6)}
+# A3's, B3p's and C1p's edge launches: item counts around a warp
+PCS_EDGE_ITEMS = (1, 15, 17, 31, 32, 33)
 
 
 def fail(msg: str):
@@ -763,12 +776,6 @@ def _device_ms(fn, reps: int) -> dict:
             "device_windows": windows}
 
 
-def _log2(x):
-    """ceil(log2(x + 1)) per element of an int tensor: bisection steps."""
-    import torch
-    return torch.ceil(torch.log2(x.double().clamp(min=0) + 1))
-
-
 def data_reads(k: str, n: int, args) -> tuple:
     """(words, integer operations, printed counts) that the data of one
     launch of kernel ``k`` decides, beyond ``WORK``'s fixed counts per item
@@ -811,6 +818,23 @@ def data_reads(k: str, n: int, args) -> tuple:
         words = reads.maxlex_dense_reads(*args[:3], *args[4:])
         return (words, 0, {"words": words,
                            "words_per_rule": words / max(n, 1)})
+    if k in REFINE_ROWS:
+        words, steps = reads.refine_reads(*args)
+        return (words, REFINE_STEP_OPS * steps,
+                {"words": words, "words_per_lane": words / max(n, 1),
+                 "bisection_steps": steps})
+    if k in PCS_ROWS:
+        words = reads.pcs_reads(k, *args)
+        extra = {"words": words, "words_per_item": words / max(n, 1)}
+        if k == "A3":   # the rounds a warp takes to resolve its patterns
+            _, search, windows = reads.pcs_rounds(args[3].cpu().numpy(), n)
+            rounds = search + windows
+            extra.update(rounds_mean=float(rounds.mean()),
+                         rounds_max=int(rounds.max()),
+                         windows_max=int(windows.max()),
+                         wide_warps=int((windows > 1).sum()),
+                         warps=len(windows))
+        return words, 0, extra
     if k in LCP_ROWS:
         words, steps, chain_max, chain_mean = reads.lcp_reads(*args)
         return (words, LCP_STEP_OPS * steps,
@@ -877,13 +901,9 @@ def work(k: str, n: int, args, words: int = 0, ops: int = 0) -> tuple:
     the inputs of one launch over ``n`` items: ``WORK``'s counts per item,
     and ``words`` gathered and ``ops`` done in all as the data decides
     (``data_reads``)."""
-    if k in ("A1", "B2r"):   # per depth a query token, two bisections
-        lo, hi, depths = (args[5], args[6], args[8]) if k == "A1" \
-            else (args[4], args[5], args[7])
-        steps = 2 * _log2(hi - lo)
-        gathered = float((depths + 2 * steps).sum())
-        nbytes = 4 * (n * (4 + 2 * depths + 2) + gathered)
-        return nbytes, 8 * gathered
+    if k in REFINE_ROWS:   # the lanes' columns and outputs (+ refine_reads)
+        depths = args[8] if k == "A1" else args[7]
+        return 4 * (n * (4 + 2 * depths + 2) + words), ops
     if k in LCP_ROWS:   # the lanes' columns and outputs (+ lcp_reads)
         io = 2 + 6 if k == "B1p1" else 5 + 2
         return 4 * (n * io + words), ops
@@ -1006,7 +1026,8 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
         words = ops = 0
         extra = {}
         if k in (SCAN_ROWS + GAP_ROWS + TWO_ROWS + CONTIG_ROWS + ONEGAP_ROWS
-                 + TWOGAP_ROWS + MAXLEX_ROWS + DENSE_ROWS + LCP_ROWS):
+                 + TWOGAP_ROWS + MAXLEX_ROWS + DENSE_ROWS + LCP_ROWS
+                 + REFINE_ROWS + PCS_ROWS):
             words, ops, extra = data_reads(k, n, args)
         nbytes, ops = work(k, n, args, words, ops)
         bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
@@ -1076,65 +1097,164 @@ def _sentence_edges(refstr, reflen: int):
     return np.concatenate([pick - 1, pick + 1])
 
 
-def refine_edges(capture: Capture, rng, reflen: int, sent) -> dict:
-    """A1 against its plain version on edge lanes over europarl's SA, the
-    padded corpus as the query tokens: lanes at the corpus ends, either side
-    of sentence separators and at the suffixes of the SA's first and last
-    rows, empty intervals ([0, 0), [reflen, reflen) and inside), query
-    tokens replaced by the largest token id, the sentinel and an id past
-    both, and the query's end at and before d0; d0 0 (the whole SA) and 3
-    (each lane's own interval, from the plain version), 4 and 16 depths,
-    1-33 lanes -> counts.  Every interval is an SA interval of suffixes
-    that share their first d0 tokens, as on the main path (csrc/refine.cu's
-    premise)."""
+def _b2r_views(sidx, sa, refstr, reflen: int) -> dict:
+    """B2r's tables of the europarl sharded index ``sidx`` laid out again
+    for 1, 3 and 4 shards over the replicated SA and padded corpus (its
+    first ``ref_glen`` words), as ``build_sharded_index`` lays out the rank
+    and token slices (fails unless the 4-shard layout equals ``sidx``'s)
+    -> {S: index}."""
+    import dataclasses
     import numpy as np
     import torch
+    dev = sa.device
+    BH = sidx.BH
+    FH = sidx.ref_l[0].shape[0] - sidx.B - BH
+    glen = sidx.ref_glen     # the replicated index pads its copy further
+    refstr = refstr[:glen]
+    views = {}
+    for S in (1, 3, 4):
+        B, BR = -(-glen // S), -(-reflen // S)
+        own_lo = np.arange(S, dtype=np.int64) * B
+        own_hi = np.minimum(own_lo + B, glen)
+        cols = torch.from_numpy(own_lo - BH).to(dev)[:, None] + torch.arange(
+            B + BH + FH, device=dev)
+        ref_l = torch.where((cols >= 0) & (cols < glen),
+                            refstr[cols.clamp(0, glen - 1)], 0).int()
+        rstart = np.arange(S, dtype=np.int64) * BR
+        rcount = np.minimum(rstart + BR, reflen) - rstart
+        rcols = torch.from_numpy(rstart).to(dev)[:, None] + torch.arange(
+            BR, device=dev)
+        sa_l = sa[rcols.clamp(0, reflen - 1)]
+        views[S] = dataclasses.replace(
+            sidx, S=S, B=B, BR=BR, sa_l=list(sa_l.contiguous()),
+            ref_l=list(ref_l.contiguous()), rlp_l=[], lrt_l=[],
+            src_off=own_lo - BH,
+            rmeta=np.stack([rstart, rcount], 1).astype(np.int32),
+            smeta=np.stack([own_lo - BH, own_lo, own_hi], 1).astype(np.int32),
+            _tables=None)
+    v = views[4]
+    same = (v.B == sidx.B and v.BR == sidx.BR
+            and np.array_equal(v.rmeta, sidx.rmeta)
+            and np.array_equal(v.smeta, sidx.smeta)
+            and all(torch.equal(x, y) for x, y in zip(v.sa_l, sidx.sa_l))
+            and all(torch.equal(x, y) for x, y in zip(v.ref_l, sidx.ref_l)))
+    if not same:
+        fail("B2r@edge: the 4-shard layout over the replicated arrays "
+             "differs from the sharded run's index")
+    views[4] = sidx
+    return views
+
+
+def refine_edges(capture: Capture, rng, reflen: int, sent) -> dict:
+    """A1 and B2r against their plain versions on edge lanes over europarl's
+    SA, the padded corpus as the query tokens: lanes at the corpus ends,
+    either side of sentence separators and at the suffixes of the SA's
+    first and last rows, empty intervals ([0, 0), [reflen, reflen) and
+    inside), query tokens replaced by the largest token id, the sentinel and
+    an id past both, and the query's end at and before d0; d0 0 (the whole
+    SA) and 3 (each lane's own interval, from the plain version), 4 and 16
+    depths, 1-33 lanes.  B2r runs the same lanes on the sharded run's index
+    and on its layout for 1 and 3 shards (``_b2r_views``), with lanes also
+    at the suffixes of the rows either side of each rank-shard boundary and
+    at the positions just before each token-shard boundary, so that
+    intervals' rows and their positions straddle shards -> counts per
+    kernel (B2r's per shard count too).  Every interval is an SA interval
+    of suffixes that share their first d0 tokens, as on the main path
+    (csrc/refine.cuh's premise)."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.parallel import sharded as shx
     from cgx_tpu_torch.search import passes
     sa, refstr = capture.calls["A1"][1][:2]
     top = int(refstr[:reflen - 1].max())
     head = sa[:reflen].cpu().numpy()
     edges = np.concatenate([[0, 1, reflen - 2, reflen - 1], sent,
                             head[[0, 1, reflen - 2, reflen - 1]]])
+    views = _b2r_views(capture.calls["B2r"][1][0], sa[:reflen].contiguous(),
+                       refstr, reflen)
     # some lanes' tokens replaced (at the lane's own depth d0 .. d0 + 2)
     swaps = np.array([top, top + 1, top + 2, top, 0])
-    stats = {"launches": 0, "lanes": 0, "empty_lanes": 0, "past_end": 0,
-             "collapsed": 0, "narrowed": 0}
+    names = ("launches", "lanes", "empty_lanes", "past_end", "collapsed",
+             "narrowed")
+    stats = {"A1": dict.fromkeys(names, 0),
+             "B2r": dict.fromkeys(names + ("rows_straddle",
+                                           "positions_straddle"), 0)}
+    stats["B2r"]["shards"] = {S: 0 for S in views}
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+
+    def run(k, kernel, plain, args, lanes, what):
+        outs = []
+
+        def plain_once(*a):
+            outs.append(plain(*a))
+            return outs[-1]
+        _bit_equal(f"{k}@edge({what})", kernel, plain_once, args, "cuda")
+        toks, sls, lo, hi, d0, depths = lanes
+        lo_f, hi_f = outs[-1][2].cpu().numpy(), outs[-1][3].cpu().numpy()
+        live = hi > lo
+        st = stats[k]
+        st["launches"] += 1
+        st["lanes"] += len(toks)
+        st["empty_lanes"] += int((~live).sum())
+        st["past_end"] += int((live & (sls < d0 + depths)).sum())
+        st["collapsed"] += int((live & (hi_f <= lo_f)).sum())
+        st["narrowed"] += int((live & (hi_f > lo_f)
+                               & (hi_f - lo_f < hi - lo)).sum())
+        return live
+
     for d0 in (0, 3):
         q = refstr.clone()
         for k, t in enumerate(swaps):
             q[int(min(edges[k] + d0 + k % 3, q.shape[0] - 1))] = int(t)
         for n in EDGE_ITEMS:
             for depths in (4, 16):
-                toks = np.concatenate([np.roll(edges, -n),
-                                       rng.integers(0, reflen, n)])[:n]
-                lo, hi = np.zeros(n), np.full(n, reflen)
-                if d0:
-                    _, _, lo_d, hi_d = passes.refine_chunk_plain(
-                        sa, refstr, q, dev(toks), dev(np.full(n, 99)),
-                        dev(lo), dev(hi), 0, d0)
-                    lo, hi = lo_d.cpu().numpy(), hi_d.cpu().numpy()
-                sls = rng.choice([d0 - 1, d0, d0 + 1, d0 + 3, 40], n)
-                empty = rng.random(n) < 0.2
-                at = rng.choice([0, reflen, int(rng.integers(0, reflen))], n)
-                lo, hi = np.where(empty, at, lo), np.where(empty, at, hi)
-                args = (sa, refstr, q, dev(toks), dev(sls), dev(lo),
-                        dev(hi), d0, depths)
-                _bit_equal(f"A1@edge(n={n},d0={d0},depths={depths})",
-                           passes.refine_chunk, passes.refine_chunk_plain,
-                           args, "cuda")
-                out = passes.refine_chunk_plain(*args)
-                lo_f, hi_f = out[2].cpu().numpy(), out[3].cpu().numpy()
-                live = hi > lo
-                stats["launches"] += 1
-                stats["lanes"] += n
-                stats["empty_lanes"] += int((~live).sum())
-                stats["past_end"] += int((live & (sls < d0 + depths)).sum())
-                stats["collapsed"] += int((live & (hi_f <= lo_f)).sum())
-                stats["narrowed"] += int((live & (hi_f > lo_f)
-                                          & (hi_f - lo_f < hi - lo)).sum())
+                for S in (None,) + tuple(views):
+                    lane_edges = edges
+                    if S is not None:   # rows and positions at the shards'
+                        v = views[S]    # boundaries
+                        rb = np.arange(1, S) * v.BR
+                        tb = np.arange(1, S) * v.B
+                        lane_edges = np.concatenate([
+                            head[np.concatenate([rb - 1, rb])],
+                            tb - 1, tb - 2, edges])
+                    toks = np.concatenate([np.roll(lane_edges, -n),
+                                           rng.integers(0, reflen, n)])[:n]
+                    lo = np.zeros(n, np.int64)
+                    hi = np.full(n, reflen, np.int64)
+                    if d0:
+                        _, _, lo_d, hi_d = passes.refine_chunk_plain(
+                            sa, refstr, q, dev(toks), dev(np.full(n, 99)),
+                            dev(lo), dev(hi), 0, d0)
+                        lo, hi = lo_d.cpu().numpy(), hi_d.cpu().numpy()
+                    sls = rng.choice([d0 - 1, d0, d0 + 1, d0 + 3, 40], n)
+                    empty = rng.random(n) < 0.2
+                    at = rng.choice([0, reflen, int(rng.integers(0, reflen))],
+                                    n)
+                    lo, hi = np.where(empty, at, lo), np.where(empty, at, hi)
+                    lanes = (toks, sls, lo, hi, d0, depths)
+                    lane_args = (dev(toks), dev(sls), dev(lo), dev(hi), d0,
+                                 depths)
+                    what = f"n={n},d0={d0},depths={depths}"
+                    if S is None:
+                        run("A1", passes.refine_chunk,
+                            passes.refine_chunk_plain,
+                            (sa, refstr, q, *lane_args), lanes, what)
+                        continue
+                    live = run("B2r", shx.refine_sharded,
+                               shx.refine_sharded_plain,
+                               (views[S], q, *lane_args), lanes,
+                               f"S={S},{what}")
+                    st = stats["B2r"]
+                    st["shards"][S] += 1
+                    for b in np.arange(1, S) * views[S].BR:
+                        st["rows_straddle"] += int(
+                            (live & (lo < b) & (hi > b)).sum())
+                    first = head[np.clip(lo, 0, reflen - 1)]
+                    last = head[np.clip(hi - 1, 0, reflen - 1)]
+                    st["positions_straddle"] += int((live & (
+                        first // views[S].B != last // views[S].B)).sum())
     return stats
 
 
@@ -1313,6 +1433,179 @@ def lcp_edges(capture: Capture, rng) -> dict:
                         (it[:, 3] != (it[:, 2] + it[:, 4]) >> 1).sum())
                     add("B1p2", "width_2", (it[:, 4] - it[:, 2] == 2).sum())
                     add("B1p2", "past_32", (it[:, 1] > 32).sum())
+    return stats
+
+
+def _pcs_exits(cols, ok, mrs: int) -> dict:
+    """The exits of ``pcs_warp`` that items (columns pstart, plen, sl, el)
+    reach, from the plain version's ok bits -> counts."""
+    import numpy as np
+    ps, pl, sl, el = (np.asarray(c, np.int64) for c in cols[:4])
+    budget = pl + sl + el - 1 <= mrs
+    before = budget & (((sl > 1) & (ps < 1)) | ((sl > 2) & (ps < 2)))
+    return {"items": len(ps), "budget_fail": int((~budget).sum()),
+            "budget_exact": int((pl + sl + el - 1 == mrs).sum()),
+            "before_start": int(before.sum()),
+            "mismatch": int((budget & ~before & ~ok).sum()),
+            "ok": int(ok.sum()),
+            "suffix_3": int((budget & (el == 3) & ok).sum())}
+
+
+def pcs_edges(capture: Capture, rng, refstr, reflen: int, sent,
+              first_last) -> dict:
+    """A3, C1p and B3p against their plain versions on edge items over
+    europarl's padded corpus: occurrences at 0, 1, the corpus end and either
+    side of sentence separators, the rest drawn from the corpus; sl and el
+    1-3; occurrence lengths that make the span budget just fit and just fail
+    (mrs 2, 5, 8, 15); the compared tokens read from the corpus around each
+    pattern's first item, so that some items match, some shifted to
+    mismatch.  A3 on count prefixes of D = 1, of runs of empty patterns,
+    of one pattern an item between empty ones (a warp's items span more
+    than 32 patterns), and of fewer items than n (items past offs[D]); n =
+    1, 15, 17, 31, 32 and 33.  C1p on A3's items as columns, which must
+    also give A3's bits; B3p on the first and the last shard's views (from
+    ``first_last``), at their own ends too, the padded corpus as the query
+    tokens -> counts of each kernel's exits (``_pcs_exits``) and A3's
+    layouts."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.search import lookup
+    from cgx_tpu_torch.tools import reads
+    ref_h = refstr.cpu().numpy().astype(np.int64)
+    glen = len(ref_h)
+    ends = np.concatenate([[0, 1, 2, reflen - 2, reflen - 1, glen - 2,
+                            glen - 1], sent])
+    stats = {k: {"launches": 0} for k in ("A3", "C1p", "B3p")}
+    for k in ("wide_warps", "d1_launches", "empty_runs", "past_offs"):
+        stats["A3"][k] = 0
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+
+    def bits(words, n):
+        return np.unpackbits(words.cpu().numpy().view(np.uint8),
+                             bitorder="little")[:n].astype(bool)
+
+    def add(k, counts):
+        st = stats[k]
+        st["launches"] += 1
+        for name, v in counts.items():
+            st[name] = st.get(name, 0) + v
+
+    def lengths(sl, el, mrs):
+        """occurrence lengths that just fit the budget, just fail, or
+        fit with room (plen >= 1)"""
+        d = rng.choice([0, 0, 1, -1, -3], len(sl))
+        return np.maximum(mrs - sl - el + 1 + d, 1)
+
+    def tokens(ps, pl):
+        """the corpus words pcs_warp compares, some shifted to mismatch"""
+        toks = [ref_h[np.clip(ps - 1, 0, glen - 1)],
+                ref_h[np.clip(ps - 2, 0, glen - 1)],
+                ref_h[np.clip(ps + pl + 1, 0, glen - 1)],
+                ref_h[np.clip(ps + pl + 2, 0, glen - 1)]]
+        return [np.where(rng.random(len(ps)) < 0.15, t + 1, t) for t in toks]
+
+    def layout(kind, n):
+        """the count prefix of n items: one pattern (d1); a few patterns,
+        each after a run of 1-3 empty ones (runs); one item a pattern, each
+        after 1-2 empty ones (wide); patterns holding n - 2 items, so that
+        the last two items lie past offs[D] (past)"""
+        if kind == "d1":
+            counts = [n]
+        elif kind == "past":
+            counts = [0, n // 2, 0, n - n // 2 - 2, 0]
+        else:
+            if kind == "wide":
+                sizes = [1] * n
+            else:
+                cuts = np.sort(rng.choice(np.arange(1, n), min(n - 1, 5),
+                                          replace=False))
+                sizes = np.diff(np.concatenate([[0], cuts, [n]]))
+            counts = []
+            for c in sizes:
+                gap = int(rng.integers(1, 4 if kind == "runs" else 3))
+                counts += [0] * gap + [int(c)]
+            counts.append(0)
+        return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+    for n in PCS_EDGE_ITEMS:
+        for turn, mrs in enumerate((2, 5, 8, 15)):
+            kinds = ["d1", "runs", "wide"] + (["past"] if n >= 4 else [])
+            kind = kinds[(n + turn) % len(kinds)]
+            offs = layout(kind, n)
+            D = len(offs) - 1
+            # the items' occurrences: the edges rotated first, then random
+            ps = np.concatenate([np.roll(ends, -(n + turn)),
+                                 rng.integers(0, reflen, n)])[:n]
+            sl, el = rng.integers(1, 4, D), rng.integers(1, 4, D)
+            j = np.arange(n)
+            p = np.clip(np.searchsorted(offs, j, side="right") - 1, 0, D - 1)
+            pl = lengths(sl[p], el[p], mrs)
+            rows = np.stack([ps, pl], axis=1)
+            # pattern p's rows from offs[p] on (a few bases past the rows)
+            base = offs[:D].copy()
+            base[rng.random(D) < 0.1] += n + 3
+            first = np.clip(offs[:D], 0, n - 1)
+            toks = tokens(ps[first], pl[first])
+            pattab = np.stack([base, sl, el, *toks, np.zeros(D)],
+                              axis=1).astype(np.int32)
+            args = (refstr, dev(rows), dev(pattab), dev(offs), n, mrs)
+            what = f"n={n},mrs={mrs},layout={kind}"
+            got = lookup.pcs(*args)
+            _bit_equal(f"A3@edge({what})", lookup.pcs, lookup.pcs_plain,
+                       args, "cuda")
+            # the items as columns (the rows read as A3 reads them)
+            tab = pattab[p]
+            occ = rows[np.clip(tab[:, 0] + j - offs[p], 0, n - 1)]
+            cols = [occ[:, 0], occ[:, 1]] + [tab[:, c] for c in range(1, 7)]
+            ok = bits(got, n)
+            add("A3", _pcs_exits(cols, ok, mrs))
+            _, _, windows = reads.pcs_rounds(offs, n)
+            st = stats["A3"]
+            st["wide_warps"] += int((windows > 1).sum())
+            st["d1_launches"] += int(D == 1)
+            st["empty_runs"] += int(((np.diff(offs)[:-1] == 0)
+                                     & (np.diff(offs)[1:] == 0)).any())
+            st["past_offs"] += int(max(n - int(offs[-1]), 0))
+            c1p = (refstr, *map(dev, cols), mrs)
+            got_c = lookup.pcs_cols(*c1p)
+            _bit_equal(f"C1p@edge({what})", lookup.pcs_cols,
+                       lookup.pcs_cols_plain, c1p, "cuda")
+            if not np.array_equal(bits(got_c, n), ok):
+                fail(f"C1p@edge({what}): A3's items as columns give other "
+                     f"bits than A3")
+            add("C1p", _pcs_exits(cols, ok, mrs))
+    # B3p on the first and the last shard's views: occurrences at the
+    # corpus ends and the shard's own ends; the padded corpus as the query
+    # tokens, so that tok = pstart - sl + 1 and stok = pstart + plen compare
+    # each item with its own neighbours (some shifted to mismatch)
+    for args in first_last("B3p"):
+        vr = args[0]
+        lo, hi = int(vr.off), int(vr.off) + vr.arr.shape[0]
+        shard_ends = np.array([0, 1, 2, glen - 2, glen - 1, lo, lo + 1,
+                               hi - 2, hi - 1])
+        for n in PCS_EDGE_ITEMS:
+            for turn, mrs in enumerate((2, 5, 8, 15)):
+                ps = np.concatenate([np.roll(shard_ends, -(n + turn)),
+                                     rng.integers(max(lo, 0),
+                                                  min(hi, reflen), n)])[:n]
+                sl, el = rng.integers(1, 4, n), rng.integers(1, 4, n)
+                pl = lengths(sl, el, mrs)
+                shift = (rng.random(n) < 0.15).astype(np.int64)
+                tok = np.maximum(ps - sl + 1 + shift, 0)
+                stok = ps + pl - (rng.random(n) < 0.15).astype(np.int64)
+                call = (vr, refstr, *map(dev, (ps, pl, sl, el, tok, stok)),
+                        mrs)
+                outs = []
+
+                def plain_once(*a):
+                    outs.append(lookup.pcs_items_plain(*a))
+                    return outs[-1]
+                _bit_equal(f"B3p@edge(off={lo},n={n},mrs={mrs})",
+                           lookup.pcs_items, plain_once, call, "cuda")
+                add("B3p", _pcs_exits((ps, pl, sl, el),
+                                      outs[-1].cpu().numpy() != 0, mrs))
     return stats
 
 
@@ -1496,24 +1789,30 @@ def check_edges(capture: Capture):
       shard's views: ``gap_edges`` (occurrences at the corpus, sentence
       and shard ends, the gaps in another sentence than cs, msym 2, 3 and
       5);
-    * A1, A10 and A9: ``refine_edges`` and ``maxlex_edges`` (A9 over
-      medium's dense tables);
+    * A1, B2r, A10 and A9: ``refine_edges`` (B2r on the sharded run's
+      index and on 1 and 3 shards) and ``maxlex_edges`` (A9 over medium's
+      dense tables);
     * B1p1, B1p2: ``lcp_edges`` (over europarl's index and a small index of
-      70-token sentences).
+      70-token sentences);
+    * A3, C1p, B3p: ``pcs_edges`` (1, 15, 17, 31, 32 and 33 items; D = 1,
+      runs of empty patterns, warps over more than 32 patterns; span
+      budgets that just fit and just fail).
 
     Fails unless every output is bit-equal, the inputs of A2, A4, C1f, C1b,
-    B3f and B3b reach the gap check (lookup1's scans: items with a
-    candidate and items with a non-zero mask), A6's emit each of its four
-    families, A5's set both halves of its word (cand and gc), A7's emit
-    each of its three families and have growth sides that die at step 0,
-    that emit after step 0 and that meet no event within the span limit,
-    A8's items have every checkBoundary code (0-4), A1's lanes hold empty
+    B3f and B3b reach the gap check (lookup1's scans: items with a candidate
+    and items with a non-zero mask), A6's emit each of its four families,
+    A5's set both halves of its word (cand and gc), A7's emit each of its
+    three families and have growth sides that die at step 0, that emit after
+    step 0 and that meet no event within the span limit, A8's items have
+    every checkBoundary code (0-4), A1's and B2r's lanes hold empty
     intervals, lanes past the query's end, and lanes that collapse and
-    narrow, A10's and A9's rules with a probe found and none, B1p1's
-    lanes OOV, missing, hit, matched to the suffix end, stopped by an OOV
-    token inside and matched past 32 tokens, and B1p2's items found and
-    missing, pinned off the midpoint, on width-2 windows and past 32
-    tokens."""
+    narrow (B2r's also intervals whose rows and whose positions straddle
+    shards), A10's and A9's rules with a probe found and none, B1p1's lanes
+    OOV, missing, hit, matched to the suffix end, stopped by an OOV token
+    inside and matched past 32 tokens, and B1p2's items found and missing,
+    pinned off the midpoint, on width-2 windows and past 32 tokens, and
+    A3's, C1p's and B3p's items reach every exit of ``pcs_warp``
+    (``_pcs_exits``), A3's on every layout."""
     import functools
 
     import numpy as np
@@ -1763,17 +2062,21 @@ def check_edges(capture: Capture):
         + [("A8", capture.calls["A8"][1])]
         + [("A8v", a) for a in first_last("A8v")]))
     t4 = time.perf_counter()
-    stats["A1"] = refine_edges(capture, rng, reflen, sent)
+    stats.update(refine_edges(capture, rng, reflen, sent))
     stats["A10"] = maxlex_edges(capture, rng, "A10")
     stats["A9"] = maxlex_edges(capture, rng, "A9")
     t5 = time.perf_counter()
     stats.update(lcp_edges(capture, rng))
     t6 = time.perf_counter()
+    stats.update(pcs_edges(capture, rng, refstr, reflen, sent, first_last))
+    t7 = time.perf_counter()
     print(json.dumps({"phase": "edges", "items": EDGE_ITEMS,
+                      "pcs_items": PCS_EDGE_ITEMS,
                       "mrs": EDGE_MRS, "msym": EDGE_MSYM, **stats,
                       "seconds_a2_a4": t1 - t0, "seconds_c1_b3": t2 - t1,
                       "seconds_a6_a5": t3 - t2, "seconds_a7_a8": t4 - t3,
-                      "seconds_a1_a10_a9": t5 - t4, "seconds_b1": t6 - t5,
+                      "seconds_a1_b2r_a10_a9": t5 - t4, "seconds_b1": t6 - t5,
+                      "seconds_a3_c1p_b3p": t7 - t6,
                       "bit_equal": True}), flush=True)
     idle = [k for k in scans + ("A4", "A4v")
             if stats[k]["mask_items"] == 0
@@ -1783,8 +2086,10 @@ def check_edges(capture: Capture):
     silent = [f"{k}.{f}" for k, fams in (
         ("A6", ("ab", "Xab", "abX", "XabX")), ("A5", ("cand_items", "gc_items")))
         for f in fams if stats[k][f] == 0]
-    silent += [f"A1.{f}" for f in ("empty_lanes", "past_end", "collapsed",
-                                    "narrowed") if stats["A1"][f] == 0]
+    silent += [f"{k}.{f}" for k in ("A1", "B2r")
+               for f in ("empty_lanes", "past_end", "collapsed", "narrowed",
+                         "rows_straddle", "positions_straddle")
+               if stats[k].get(f, 1) == 0]
     silent += [f"{k}.{f}" for k in ("A10", "A9")
                for f in ("found", "none_found") if stats[k][f] == 0]
     silent += [f"B1p1.{f}" for f in ("oov", "missing", "hit", "suffix_end",
@@ -1800,6 +2105,12 @@ def check_edges(capture: Capture):
                if stats["A7"].get(f, 0) == 0]
     silent += [f"A8.code_{c}" for c in range(5)
                if stats["A8"].get(f"code_{c}", 0) == 0]
+    silent += [f"{k}.{f}" for k in ("A3", "C1p", "B3p")
+               for f in ("budget_fail", "budget_exact", "before_start",
+                         "mismatch", "ok", "suffix_3")
+               if stats[k].get(f, 0) == 0]
+    silent += [f"A3.{f}" for f in ("wide_warps", "d1_launches", "empty_runs",
+                                    "past_offs") if stats["A3"][f] == 0]
     if silent:
         fail(f"edges: the inputs never set {silent}")
 

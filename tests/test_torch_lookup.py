@@ -1,8 +1,12 @@
 """lookup1 in the port: the item expansion, kernel A2's plain version (both
 directions) against the JAX ``_scan_batch_exp`` with the fused gap check and
 its candidate masks (``gap=False``) against ``do_gap=False``, the window
-words that decide the candidates (what the scans' bounds count), kernel A3's plain version against ``_pcs_batch_exp``, and ``one_gap_lookup``
-against the JAX package's ``one_gap_lookup_tpu``, bit for bit."""
+words that decide the candidates (what the scans' bounds count), kernel A3's
+plain version against ``_pcs_batch_exp`` (also on the layouts of its warp's
+item resolution: one pattern, runs of empty patterns, warps over more than
+32 patterns), the model of that resolution (``tools/reads.py``
+``pcs_rounds``), and ``one_gap_lookup`` against the JAX package's
+``one_gap_lookup_tpu``, bit for bit."""
 
 import copy
 import pathlib
@@ -279,6 +283,113 @@ def test_plain_a3_equals_pcs_batch_exp(world):
     wb = bits(np.asarray(want, np.uint32))
     np.testing.assert_array_equal(bits(got.numpy()), wb)
     assert wb.any() and not wb.all()
+
+
+def _warp_layout(rng, kind, n):
+    """Per-pattern item counts of n items for A3's warp resolution: one
+    pattern (d1); a few patterns each after a run of 1-3 empty ones (runs);
+    one item a pattern after 1-2 empty ones, so that a warp's 32 items span
+    more than 32 patterns (wide); random counts (random)."""
+    if kind == "d1":
+        return np.array([n])
+    if kind == "random":
+        counts = rng.integers(0, 9, max(n // 3, 1))
+        counts[-1] += n - counts.sum() if counts.sum() < n else 0
+        while counts.sum() > n:
+            counts[np.argmax(counts)] -= 1
+        return counts
+    if kind == "wide":
+        sizes = [1] * n
+    else:
+        cuts = np.sort(rng.choice(np.arange(1, n), min(n - 1, 5),
+                                  replace=False))
+        sizes = np.diff(np.concatenate([[0], cuts, [n]]))
+    counts = []
+    for c in sizes:
+        counts += [0] * int(rng.integers(1, 4 if kind == "runs" else 3))
+        counts.append(int(c))
+    return np.array(counts + [0])
+
+
+@pytest.mark.parametrize("kind", ["d1", "runs", "wide", "random"])
+def test_pcs_rounds_resolve_every_item(kind):
+    """The model of kernel A3's item resolution (a 32-ary search for each
+    warp's first item, then windows of 32 patterns) gives every item the
+    pattern of ``_expand``: the last p with offs[p] <= j, clamped to
+    D - 1, for 1-200 items (n not a multiple of 32 included) and for
+    items past offs[D]."""
+    rng = np.random.default_rng(["d1", "runs", "wide", "random"].index(kind))
+    windows_seen = 0
+    for n in (1, 15, 17, 31, 32, 33, 64, 95, 200):
+        counts = _warp_layout(rng, kind, n)
+        offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+        D = len(counts)
+        rounds = 1                   # ceil(log32(D + 1))
+        while 32 ** rounds < D + 1:
+            rounds += 1
+        for extra in (0, 2):         # two items past offs[D]
+            pat, search, windows = reads.pcs_rounds(offs, n + extra)
+            f, _ = tlk._expand(torch.arange(D, dtype=torch.int32)[:, None]
+                               .expand(D, 8).contiguous(),
+                               torch.from_numpy(offs), n + extra)
+            np.testing.assert_array_equal(pat, f[:, 0].numpy())
+            assert len(search) == len(windows) == -(-(n + extra) // 32)
+            assert search.max() <= rounds
+            windows_seen = max(windows_seen, int(windows.max()))
+    if kind == "wide":               # a warp over more than 32 patterns
+        assert windows_seen >= 2
+    else:
+        assert windows_seen >= 1
+
+
+@pytest.mark.parametrize("kind", ["d1", "runs", "wide"])
+def test_plain_a3_warp_layouts_equal_jax(world, kind):
+    """A3's plain version against ``_pcs_batch_exp`` on the layouts of the
+    kernel's warp resolution, n = 1, 15, 17, 31, 32 and 33 items, with
+    occurrences at the corpus start and end, sl and el 1-3 and span budgets
+    that just fit and just fail."""
+    w = world
+    cfg = w["jcfg"]
+    mrs = cfg.max_rule_span
+    refstr = np.asarray(w["jidx"].refstr_padded)
+    last = len(refstr) - 1
+    reflen = int(w["jidx"].reflen)
+    rng = np.random.default_rng(40 + ["d1", "runs", "wide"].index(kind))
+    got_any = False
+    for n in (1, 15, 17, 31, 32, 33):
+        counts = _warp_layout(rng, kind, n)
+        D = len(counts)
+        offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        sl, el = rng.integers(1, 4, D), rng.integers(1, 4, D)
+        j = np.arange(n)
+        p = np.clip(np.searchsorted(offs, j, side="right") - 1, 0, D - 1)
+        ps = np.concatenate([[0, 1, 2, reflen - 1, last],
+                             rng.integers(0, reflen, n)])[:n]
+        pl = np.maximum(mrs - sl[p] - el[p] + 1 + rng.choice([0, 1, -2], n),
+                        1)
+        rows = np.zeros((bucket_size(n), 2), np.int32)
+        rows[:n, 0], rows[:n, 1] = ps, pl
+        first = np.clip(offs[:D], 0, n - 1)
+        a, e = ps[first], ps[first] + pl[first]
+        toks = [refstr[np.clip(p, 0, last)]
+                for p in (a - 1, a - 2, e + 1, e + 2)]
+        pattab = np.stack([offs[:D], sl, el] + toks + [np.zeros(D)],
+                          axis=1).astype(np.int32)
+        tab, offs_pad, pat0 = _jax_tables(pattab, offs)
+        (want,) = jlk._pcs_batch_exp(
+            w["jidx"].refstr_padded, jnp.asarray(rows), tab, offs_pad,
+            jnp.int32(0), jnp.int32(pat0), jnp.int32(D), w["jidx"].offs0,
+            mrs, bucket_size(n))
+        got = tlk.pcs(w["tidx"].refstr_padded, torch.from_numpy(rows),
+                      torch.from_numpy(pattab),
+                      torch.from_numpy(offs.astype(np.int32)), n, mrs)
+        bits = np.unpackbits(np.asarray(want, np.uint32).view(np.uint8),
+                             bitorder="little")[:n]
+        np.testing.assert_array_equal(
+            np.unpackbits(got.numpy().view(np.uint8), bitorder="little")[:n],
+            bits)
+        got_any |= bool(bits.any())
+    assert got_any
 
 
 def test_one_gap_lookup_equals_jax(world, monkeypatch):

@@ -1,13 +1,15 @@
-"""The words the kernels' bounds count (``cgx_tpu_torch.tools.reads``): for
-the fused gap check, A5's body, A6's, A7's and A8's bodies and A10's
-probes, the words each
-counter marks as needed decide the plain version's output.  Redrawing every
+"""The words the kernels' bounds count (``cgx_tpu_torch.tools.reads``): for the
+fused gap check, A5's body, A6's, A7's and A8's bodies, A10's probes, the
+refinement (A1, B2r) and the verification (A3, B3p, C1p), the words each
+counter marks as needed decide the plain version's output. Redrawing every
 other word of the index arrays (from the same array, so that the words stay
 plausible) changes no output, so the bounds, which count only the needed
 words, count all that the functions need; and the needed words are fewer
 than the gathers."""
 
+import dataclasses
 import pathlib
+import re
 import sys
 import types
 
@@ -20,6 +22,7 @@ from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
 from cgx_tpu_torch.extract import device as xdev  # noqa: E402
 from cgx_tpu_torch.features import maxlex as ml  # noqa: E402
 from cgx_tpu_torch.index import container as tic  # noqa: E402
+from cgx_tpu_torch.parallel import sharded as shx  # noqa: E402
 from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
 from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
 from cgx_tpu_torch.search import lookup, passes  # noqa: E402
@@ -451,3 +454,214 @@ def test_dp_reads_count_a_word_of_both_halves_once(index):
     shared = (set(lanes["refstr"][0][lanes["refstr"][1]].tolist())
               & set(items["refstr"][0][items["refstr"][1]].tolist()))
     assert max(lw, cw) <= words == lw + cw - len(shared)
+
+
+CSRC = pathlib.Path(__file__).parent.parent / "cgx_tpu_torch" / "csrc"
+
+
+@pytest.mark.parametrize("source,name,value", [
+    ("scan.cu", "kPcsPivots", reads.PCS_PIVOTS),
+    ("scan.cu", "kPcsWindow", reads.PCS_WINDOW),
+    ("lcp.cuh", "kSearchLevels", reads.SEARCH_LEVELS),
+    ("lcp.cuh", "kWalkLevels", reads.WALK_LEVELS)])
+def test_models_use_the_kernels_constants(source, name, value):
+    """The counters' models of the warp bodies (``pcs_rounds``, ``lcp_need``)
+    use the kernels' own constants."""
+    text = (CSRC / source).read_text(encoding="utf-8")
+    found = re.findall(rf"constexpr int {name} = (\d+);", text)
+    assert found == [str(value)]
+
+
+def _lanes(rng, ix, n, d0):
+    """Refinement lanes over the index: query tokens the padded corpus (a
+    few replaced), each lane at a corpus position with the rest of its
+    sentence as its query, the whole SA at d0 0 or its own interval at d0
+    (from the plain version); some lanes empty."""
+    ref = ix.refstr_padded
+    reflen = int(ix.reflen)
+    qtok = ref.clone()
+    qtok[torch.from_numpy(rng.choice(reflen, 10, replace=False))] = 0
+    toks = torch.from_numpy(rng.integers(0, reflen - 1, n).astype(np.int32))
+    sep = torch.nonzero(ref[:reflen] <= 1).flatten()
+    sls = (sep[torch.searchsorted(sep, toks)] - toks).to(torch.int32)
+    lo = torch.zeros(n, dtype=torch.int32)
+    hi = torch.full((n,), reflen, dtype=torch.int32)
+    if d0:
+        _, _, lo, hi = passes.refine_chunk_plain(ix.sa, ref, qtok, toks, sls,
+                                                 lo, hi, 0, d0)
+    lo[:5] = hi[:5] = torch.from_numpy(rng.integers(0, reflen, 5)
+                                       .astype(np.int32))
+    return qtok, toks, sls, lo, hi
+
+
+@pytest.fixture(scope="module")
+def sharded(index):
+    """The index's corpus again as a sharded index of 3 shards."""
+    sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
+    from tools.make_bigcorpus import make_hard_corpus
+    f, e, a, _ = make_hard_corpus(400, vocab=200, seed=11)
+    src, tgt = (tcp.load_source_corpus(f.split("\n")),
+                tcp.load_target_corpus(e.split("\n")))
+    sidx = shx.build_sharded_index(src, tgt, tsab.build_index(src.str_),
+                                   tcp.load_alignment_fast(a, src, tgt),
+                                   ExtractorConfig(), 3, "cpu")
+    rep = tic.build_index(src, tgt, tsab.build_index(src.str_),
+                          tcp.load_alignment_fast(a, src, tgt),
+                          tcp.load_lex_table([], src.vocab, tgt.vocab),
+                          ExtractorConfig(), "cpu")
+    return sidx, rep
+
+
+def _slices(sidx, name):
+    return torch.stack(sidx.sa_l if name == "sa" else sidx.ref_l).reshape(-1)
+
+
+@pytest.mark.parametrize("kernel", ["A1", "B2r"])
+@pytest.mark.parametrize("d0", [0, 2])
+def test_refine_need_decides_the_refinement(index, sharded, kernel, d0):
+    """The refinement's binary lower bounds (A1 on the replicated index,
+    B2r on 3 shards of the same kind of corpus): redrawing every SA,
+    corpus and query word that no lane of a batch needs changes no output,
+    and redrawing the needed ones changes some; the needed words are fewer
+    than one SA word and one token a bisection step, and B2r's meta words
+    are those of the shards it reads."""
+    rng = np.random.default_rng(50 + d0 + (kernel == "B2r"))
+    n, depths = 60, 4
+    if kernel == "A1":
+        ix = index
+        qtok, toks, sls, lo, hi = _lanes(rng, ix, n, d0)
+        arrays = {"sa": ix.sa, "refstr": ix.refstr_padded, "qtok": qtok}
+
+        def fn(a, rows):
+            return torch.stack(passes.refine_chunk_plain(
+                a["sa"], a["refstr"], a["qtok"], toks[rows], sls[rows],
+                lo[rows], hi[rows], d0, depths)[:2])
+        args = (ix.sa, ix.refstr_padded, qtok, toks, sls, lo, hi, d0, depths)
+    else:
+        sidx, rep = sharded
+        qtok, toks, sls, lo, hi = _lanes(rng, rep, n, d0)
+        arrays = {"sa": _slices(sidx, "sa"), "refstr": _slices(sidx, "ref"),
+                  "qtok": qtok}
+
+        def fn(a, rows):
+            S = sidx.S
+            t = dataclasses.replace(
+                sidx, sa_l=list(a["sa"].view(S, -1)),
+                ref_l=list(a["refstr"].view(S, -1)), _tables=None)
+            return torch.stack(shx.refine_sharded_plain(
+                t, a["qtok"], toks[rows], sls[rows], lo[rows], hi[rows], d0,
+                depths)[:2])
+        args = (sidx, qtok, toks, sls, lo, hi, d0, depths)
+    need = reads.refine_need(*args)
+    _check(rng, arrays, need, n, fn, batch=6, rounds=8)
+    rows = torch.arange(n)
+    flipped = {}
+    for name, arr in arrays.items():
+        a = arr.clone()
+        slots, keep = need[name]
+        a[slots[keep]] += 1
+        flipped[name] = a
+    assert not torch.equal(fn(flipped, rows), fn(arrays, rows))
+    words, steps = reads.refine_reads(*args)
+    assert steps == int(need["steps"].sum()) > n
+    assert 0 < words < 2 * steps + n * depths
+    if kernel == "B2r":
+        meta = reads.count(need, arrays=("rmeta", "smeta"))
+        assert meta <= sidx.S * (reads.RMETA_WORDS + reads.SMETA_WORDS)
+        assert meta >= reads.RMETA_WORDS + reads.SMETA_WORDS
+
+
+def _pcs_items(rng, ix, n, mrs):
+    """Precomputed occurrences over the index's corpus: at both corpus ends
+    and random, sl and el 1-3, lengths that make the span budget just fit,
+    just fail or leave room, the compared tokens read beside each occurrence
+    (some shifted to mismatch)."""
+    ref = ix.refstr_padded.numpy()
+    last = len(ref) - 1
+    ps = _starts(rng, ix, n).numpy()
+    sl, el = rng.integers(1, 4, n), rng.integers(1, 4, n)
+    plen = np.maximum(mrs - sl - el + 1 + rng.choice([0, 1, -2], n), 1)
+    pe = ps + plen
+    toks = [ref[np.clip(ps - 1, 0, last)], ref[np.clip(ps - 2, 0, last)],
+            ref[np.clip(pe + 1, 0, last)], ref[np.clip(pe + 2, 0, last)]]
+    toks = [np.where(rng.random(n) < 0.15, t + 1, t) for t in toks]
+    return [torch.from_numpy(np.asarray(c, np.int32))
+            for c in (ps, plen, sl, el, *toks)]
+
+
+@pytest.mark.parametrize("kernel", ["A3", "B3p", "C1p"])
+def test_pcs_need_decides_the_verification(index, kernel):
+    """The verification's words (``pcs_need``): redrawing every corpus word
+    (and A3's table and row words, B3p's query tokens) that no item of the
+    launch needs changes no ok bit, and redrawing the needed corpus words
+    changes some; only the budget's items need corpus words, at most four
+    each."""
+    rng = np.random.default_rng(60 + ["A3", "B3p", "C1p"].index(kernel))
+    n, mrs = 300, 8
+    ps, plen, sl, el, pa1, pa2, pb2, pb3 = _pcs_items(rng, index, n, mrs)
+    ref = index.refstr_padded
+    if kernel == "A3":
+        # each item its own row; patterns of 1-6 items (some empty) whose
+        # sl, el and compared tokens are their first item's
+        counts = rng.integers(0, 7, n)
+        counts[np.cumsum(counts) > n] = 0
+        counts[-1] += n - counts.sum()
+        offs = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)])
+                                .astype(np.int32))
+        first = offs[:-1].clamp(max=n - 1).long()
+        pattab = torch.stack([offs[:-1], sl[first], el[first], pa1[first],
+                              pa2[first], pb2[first], pb3[first],
+                              torch.zeros_like(first, dtype=torch.int32)], 1)
+        arrays = {"refstr": ref, "pcrows": torch.stack([ps, plen], 1)
+                  .reshape(-1), "pattab": pattab.reshape(-1).clone()}
+
+        def fn(a):
+            return lookup.pcs_plain(a["refstr"], a["pcrows"].view(-1, 2),
+                                    a["pattab"].view(-1, 8), offs, n, mrs)
+        args = (ref, arrays["pcrows"].view(-1, 2), pattab, offs, n, mrs)
+        # the items' sl and el are their pattern's
+        p = (torch.searchsorted(offs, torch.arange(n, dtype=torch.int32),
+                                right=True) - 1).clamp(0, len(first) - 1)
+        sl, el = pattab[p, 1], pattab[p, 2]
+    elif kernel == "B3p":
+        # the padded corpus as the query tokens: tok, stok beside each
+        # occurrence, some shifted
+        qtok = ref.clone()
+        tok = (ps - sl + 1 + torch.from_numpy(
+            (rng.random(n) < 0.15).astype(np.int32))).clamp(min=0)
+        stok = ps + plen
+        arrays = {"refstr": ref, "qtok": qtok}
+
+        def fn(a):
+            return lookup.pcs_items_plain(a["refstr"], a["qtok"], ps, plen,
+                                          sl, el, tok, stok, mrs)
+        args = (ref, qtok, ps, plen, sl, el, tok, stok, mrs)
+    else:
+        arrays = {"refstr": ref}
+
+        def fn(a):
+            return lookup.pcs_cols_plain(a["refstr"], ps, plen, sl, el, pa1,
+                                         pa2, pb2, pb3, mrs)
+        args = (ref, ps, plen, sl, el, pa1, pa2, pb2, pb3, mrs)
+    need = reads.pcs_need(kernel, *args)
+    want = fn(arrays)
+    for _ in range(4):
+        redrawn = {}
+        for name, arr in arrays.items():
+            b = arr[torch.from_numpy(rng.integers(0, len(arr), len(arr)))]
+            if name in need:
+                slots, keep = need[name]
+                kept = slots[keep]
+                b[kept] = arr[kept]
+            redrawn[name] = b
+        assert torch.equal(fn(redrawn), want)
+    flipped = dict(arrays)
+    slots, keep = need["refstr"]
+    flipped["refstr"] = ref.clone()
+    flipped["refstr"][slots[keep]] += 1
+    assert not torch.equal(fn(flipped), want)
+    words = reads.pcs_reads(kernel, *args)
+    budget = plen + sl + el - 1 <= mrs
+    assert bool(keep[~budget].any()) is False
+    corpus = reads.count({"refstr": need["refstr"]}, arrays=("refstr",))
+    assert 0 < corpus <= 4 * int(budget.sum()) and words >= corpus

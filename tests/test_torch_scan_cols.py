@@ -167,6 +167,41 @@ def test_plain_c1p_equals_pcs_batch_cols(arrays):
         assert not _bits(got.numpy(), len(got) * 32)[k:].any()
 
 
+@pytest.mark.parametrize("mrs", [2, 5, 15])
+def test_plain_c1p_edges_equal_pcs_batch_cols(arrays, mrs):
+    """The exits of the kernels' verification body (csrc/scan.cu
+    ``pcs_warp``): occurrences at the corpus start (the prefix words before
+    it fail unread) and end, sl and el 1-3 (each prefix and suffix word
+    needed or not), occurrence lengths that make the span budget just fit,
+    just fail or leave room; against ``_pcs_batch_cols`` on 64 items."""
+    w = arrays
+    rng = np.random.default_rng(16 + mrs)
+    n = 64
+    ref = w["refstr"]
+    last = len(ref) - 1
+    reflen = int(w["jidx"].reflen)
+    ps = _positions(rng, reflen, n)
+    ps[:3] = [0, 1, 2]
+    sl, el = rng.integers(1, 4, n), rng.integers(1, 4, n)
+    sl[:3] = 3
+    plen = np.maximum(mrs - sl - el + 1 + rng.choice([0, 0, 1, -2], n), 1)
+    pe = ps + plen
+    toks = [ref[np.clip(ps - 1, 0, last)], ref[np.clip(ps - 2, 0, last)],
+            ref[np.clip(pe + 1, 0, last)], ref[np.clip(pe + 2, 0, last)]]
+    toks[3] = np.where(rng.random(n) < 0.2, toks[3] + 1, toks[3])
+    cols = (ps, plen, sl, el, *toks)
+    (want,) = jlk._pcs_batch_cols(w["jidx"].refstr_padded, *_jax_cols(*cols),
+                                  w["jidx"].offs0, mrs)
+    wb = _bits(np.asarray(want, np.uint32), n)
+    got = tlk.pcs_cols(w["tidx"].refstr_padded, *_torch_cols(*cols), mrs)
+    np.testing.assert_array_equal(_bits(got.numpy(), n), wb)
+    budget = plen + sl + el - 1 <= mrs
+    assert (~budget).any() and (plen + sl + el - 1 == mrs).any()
+    assert not wb[~budget].any() and not wb[:2].any()   # before 0
+    if mrs > 2:
+        assert wb.any()
+
+
 def test_plain_c1t_equals_two_batch_packed(arrays):
     w, cfg = arrays, arrays["cfg"]
     rng = np.random.default_rng(15)

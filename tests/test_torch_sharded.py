@@ -4,12 +4,16 @@ the per-shard arrays, kernel B2's plain versions (refinement, SA gather),
 kernel B3's (per-item scans, verification, second-gap scan, contiguous
 extraction) and A4, A7, A8 on shard views, the passes, the pipeline and the
 CLI with ``sa_shards``, the build that never places a replicated index,
-the per-shard memory accounting and the host MaxLex backend.  The JAX side
-runs on the 8 virtual CPU devices of tests/conftest.py; the port side on
-the CPU, that is, on the kernels' plain versions."""
+the per-shard memory accounting and the host MaxLex backend, the premise
+of kernel B2r's search read through the shards, and B2r's limit on the
+shard count.  The JAX side runs on the 8 virtual CPU devices of
+tests/conftest.py; the port side on the CPU, that is, on the kernels'
+plain versions."""
 
 import copy
 import dataclasses
+import pathlib
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +47,7 @@ from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
 from cgx_tpu_torch.search import lookup as tlk  # noqa: E402
 from cgx_tpu_torch.search import passes as tpasses  # noqa: E402
 from cgx_tpu_torch.search import precompute as tpcx  # noqa: E402
+from cgx_tpu_torch.utils.views import take  # noqa: E402
 
 SHARDS = (3, 8)          # 3: uneven shards; 8: the whole virtual mesh
 MRS, MGS, MSYM = 15, 1, 5
@@ -308,6 +313,129 @@ def test_sharded_passes_equal_jax_and_refine_passes(world, S):
         for f in ("connectoffset", "up", "down"):
             np.testing.assert_array_equal(getattr(p2, f), getattr(ref2, f))
     assert p1.longestmatch.max() > 1
+
+
+def _premise_world(corpus, world, S):
+    """(the port's sharded index of S shards, its replicated index, its
+    queries) over the toy corpus or a small-vocabulary one with deep
+    intervals."""
+    if corpus == "toy":
+        w = world
+        src, tgt, sa, al = w["tsrc"], w["ttgt"], w["tsa"], w["tal"]
+        tidx, tqs, cfg = w["tidx"], w["tqs"], w["tcfg"]
+    else:
+        sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
+        from tools.make_bigcorpus import make_big_queries, make_hard_corpus
+        f, e, a, lex_t = make_hard_corpus(400, vocab=3, seed=11)
+        q = make_big_queries(f, 6, seed=3)
+        f, e = f.split("\n"), e.split("\n")
+        q += f[:2]
+        cfg = _cfgs()[1]
+        src, tgt = tcp.load_source_corpus(f), tcp.load_target_corpus(e)
+        sa, al = tsab.build_index(src.str_), tcp.load_alignment_fast(a, src,
+                                                                      tgt)
+        tidx = tic.build_index(src, tgt, sa, al,
+                               tcp.load_lex_table(lex_t, src.vocab,
+                                                  tgt.vocab), cfg, "cpu")
+        tqs = tcp.load_queries(q, src.vocab)
+    return (tshx.build_sharded_index(src, tgt, sa, al, cfg, S, "cpu"), tidx,
+            tqs)
+
+
+@pytest.mark.parametrize("corpus", ["toy", "deep"])
+@pytest.mark.parametrize("S", [1, 3, 4])
+def test_shard_reads_keep_the_keys_sorted(world, corpus, S):
+    """The premise of kernel B2r's 16-ary search (csrc/refine.cuh): over
+    every interval that ``sharded_passes`` searches, at every depth, the key
+    column read through the shards, ``_g_ref(_g_sa(M) + depth)``, is
+    non-decreasing and equals the replicated key ``refstr[sa[M] + depth]``
+    (every row and position read lies inside the SA and the corpus, so one
+    shard owns it).  The lanes run one depth at a time through
+    ``refine_sharded`` (the plain version here), and the passes must come
+    out as the replicated refinement's."""
+    t, tidx, tqs = _premise_world(corpus, world, S)
+    qtok = t.query_tokens(tqs)
+    seen = {"intervals": 0, "rows": 0, "rows_straddle": 0}
+
+    def dispatch(toks, sls, lo, hi, depth, dchunk):
+        toks, sls, l, h = (torch.from_numpy(x) for x in (toks, sls, lo, hi))
+        ups, downs = [], []
+        for c in range(dchunk):
+            d = depth + c
+            live = h > l
+            lens = (h - l)[live].long()
+            lane = torch.repeat_interleave(torch.arange(len(lens)), lens)
+            first = torch.cumsum(lens, 0) - lens
+            M = (l[live].long()[lane] + torch.arange(int(lens.sum()))
+                 - first[lane]).int()
+            keys = tshx._g_ref(t, tshx._g_sa(t, M) + d)
+            assert torch.equal(keys, take(tidx.refstr_padded,
+                                          take(tidx.sa, M) + d)), (S, d)
+            same = lane[1:] == lane[:-1]
+            assert bool((keys[1:] >= keys[:-1])[same].all()), (S, d)
+            seen["intervals"] += int(live.sum())
+            seen["rows"] += int(lens.sum())
+            for b in range(1, S):
+                seen["rows_straddle"] += int(
+                    (live & (l < b * t.BR) & (h > b * t.BR)).sum())
+            u, dn, l, h = tshx.refine_sharded(t, qtok, toks, sls, l, h, d, 1)
+            ups.append(u)
+            downs.append(dn)
+        return (torch.cat(ups, 1).numpy(), torch.cat(downs, 1).numpy(),
+                l.numpy(), h.numpy())
+    got = tpasses.drive_refinement(
+        tqs, t.reflen, (t.seed_lo1, t.seed_hi1, t.seed_pk, t.seed_pk3),
+        dispatch)
+    want = tpasses.refine_passes(tidx, tqs)
+    for g, wv in zip(got, want):
+        for f in dataclasses.fields(wv):
+            np.testing.assert_array_equal(getattr(g, f.name),
+                                          getattr(wv, f.name), err_msg=f.name)
+    assert seen["intervals"] > 0 and seen["rows"] > seen["intervals"]
+    if corpus == "deep" and S > 1:   # intervals across a rank-shard boundary
+        assert seen["rows_straddle"] > 0
+
+
+def _div_magic(d):
+    """csrc/sharded.cu ``div_magic``: (m, l) with l = ceil(log2 d), m =
+    floor(2^32 (2^l - d) / d) + 1, as unsigned 32-bit."""
+    l = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << l) - d)) // d + 1, l
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_b2r_owner_division_is_exact(seed):
+    """Kernel B2r finds a read's owner shard as x / BR (ranks) and x / B
+    (positions) by a multiply and a shift, ``(umulhi(m, x) + x) >> l``: it
+    must equal x // d for 0 <= x < 2^31 and 1 <= d < 2^31 (m fits 32 bits,
+    and t + x, with t < x, does not overflow them)."""
+    rng = np.random.default_rng(seed)
+    ds = np.concatenate([np.arange(1, 2049), [2**31 - 1, 2**30, 2**30 + 1],
+                         rng.integers(1, 2**31, 3000)])
+    for d in ds.tolist():
+        m, l = _div_magic(d)
+        assert 0 < m < 2**32
+        x = np.concatenate([[0, 1, d - 1, d, 2**31 - 1],
+                            rng.integers(0, 2**31, 64),
+                            np.arange(1, 5) * d - 1, np.arange(1, 5) * d])
+        x = x[(x >= 0) & (x < 2**31)].astype(np.uint64)
+        t = (x * np.uint64(m)) >> np.uint64(32)
+        np.testing.assert_array_equal((t + x) >> np.uint64(l),
+                                      x // np.uint64(d))
+
+
+@pytest.mark.parametrize("S,fits", [(1, True), (4, True), (1365, True),
+                                    (1366, False), (5000, False)])
+def test_b2r_refuses_shard_rows_past_shared_memory(S, fits):
+    """Kernel B2r holds every shard's row (two slice pointers, rmeta's 2
+    words and smeta's 3: 36 bytes) in a block's 48 KiB of shared memory; the
+    wrapper refuses a shard count whose rows do not fit, naming B2r."""
+    assert tshx.B2R_SHARD_ROW_BYTES == 36
+    if fits:
+        tshx.check_b2r_shards(S)
+    else:
+        with pytest.raises(ValueError, match="B2r"):
+            tshx.check_b2r_shards(S)
 
 
 _JAX_RUNS = {}
