@@ -6,7 +6,8 @@
 //   half-warps), each pivot's key read as g_ref(g_sa(M) + depth) from the
 //   rank-sharded SA and the token-sharded corpus (`ShardKey`).
 // B2g (cgx_gather_sa_sharded) replaces _gather_sa_chunk (sharded.py:324-333):
-//   the SA value at each global rank, one thread per row.
+//   the SA value at each global rank, one thread per row, with B2r's owner
+//   division.
 //
 // JAX runs each gather on every shard and sums with psum: a shard whose rank
 // range [rank_start, rank_start + rank_count) (or owned token range
@@ -47,18 +48,11 @@ struct Shards {
     int S, BR, sa_len, B, ref_len;
 };
 
-// The owner of an index is min(index / width, S - 1).  B2g divides with the
-// division operator; B2r's pivots, two a key, by a multiply and a shift
-// (Granlund and Montgomery: m = floor(2^32 (2^l - d) / d) + 1 with l =
-// ceil(log2 d), then (umulhi(m, x) + x) >> l, exact for 0 <= x < 2^31 and
-// 1 <= d < 2^31, where t + x < 2^32), which spares the ~20 instructions of
-// the emulated division on each read's dependent chain.
-struct DivOp {
-    int d;
-
-    __device__ __forceinline__ int operator()(int x) const { return x / d; }
-};
-
+// The owner of an index is min(index / width, S - 1), the division done by
+// a multiply and a shift (Granlund and Montgomery: m = floor(2^32 (2^l - d)
+// / d) + 1 with l = ceil(log2 d), then (umulhi(m, x) + x) >> l, exact for
+// 0 <= x < 2^31 and 1 <= d < 2^31, where t + x < 2^32), which spares the
+// ~20 instructions of the emulated division on each read's dependent chain.
 struct DivMagic {
     unsigned m;
     int l;
@@ -78,8 +72,7 @@ static DivMagic div_magic(int d) {
 }
 
 // the SA value at global rank r, or 0 when no shard owns r (div: / BR)
-template <class Div>
-__device__ __forceinline__ int g_sa(const Shards& x, Div div, int r) {
+__device__ __forceinline__ int g_sa(const Shards& x, DivMagic div, int r) {
     if (r < 0) return 0;
     const int s = min(div(r), x.S - 1);
     const int loc = r - x.rmeta[2 * s];
@@ -89,8 +82,7 @@ __device__ __forceinline__ int g_sa(const Shards& x, Div div, int r) {
 
 // the corpus token at global position p, or 0 when no shard owns p (div:
 // / B)
-template <class Div>
-__device__ __forceinline__ int g_ref(const Shards& x, Div div, int p) {
+__device__ __forceinline__ int g_ref(const Shards& x, DivMagic div, int p) {
     if (p < 0) return 0;
     const int s = min(div(p), x.S - 1);
     const int* m = x.smeta + 3 * s;
@@ -111,8 +103,10 @@ struct ShardKey {
 
 // one shard's row in shared memory: two slice pointers, rmeta's 2 words and
 // smeta's 3 (parallel/sharded.py B2R_SHARD_ROW_BYTES)
-constexpr int kShardRowBytes = 2 * (int)sizeof(void*) + 5 * (int)sizeof(int);
-constexpr int kShardRowsLimit = 48 * 1024;   // bytes, without an opt-in
+constexpr int kShardRowBytes = 36;
+static_assert((size_t)kShardRowBytes == 2 * sizeof(void*) + 5 * sizeof(int),
+              "a shard row: two pointers and five int32 words");
+constexpr int kShardRowsLimit = 49152;   // 48 KiB, without an opt-in
 
 __global__ void __launch_bounds__(kRefineThreads)
 refine_sharded_kernel(Shards x, const int* __restrict__ qtok, int q_len,
@@ -151,10 +145,11 @@ refine_sharded_kernel(Shards x, const int* __restrict__ qtok, int q_len,
 
 __global__ void gather_sa_sharded_kernel(Shards x,
                                          const int* __restrict__ rows, int n,
-                                         int* __restrict__ out) {
+                                         int* __restrict__ out,
+                                         DivMagic by_br) {
     const int i = blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    out[i] = g_sa(x, DivOp{x.BR}, rows[i]);
+    out[i] = g_sa(x, by_br, rows[i]);
 }
 
 bool valid(int S, int BR, int sa_len, int B, int ref_len) {
@@ -200,6 +195,7 @@ CGX_EXPORT int cgx_gather_sa_sharded(const int* const* sa_ptrs,
     const Shards x{sa_ptrs, nullptr, rmeta, nullptr, S, BR, sa_len, 1, 1};
     const int threads = 256;
     gather_sa_sharded_kernel<<<cgx_grid(n, threads), threads, 0,
-                               (cudaStream_t)stream>>>(x, rows, n, out);
+                               (cudaStream_t)stream>>>(x, rows, n, out,
+                                                       div_magic(BR));
     return (int)cudaGetLastError();
 }

@@ -142,6 +142,34 @@ def _one_device(device) -> torch.device:
     return torch.device(device)
 
 
+def rank_token_slices(refstr_padded: np.ndarray, sa: np.ndarray,
+                      reflen: int, S: int, BH: int, FH: int) -> dict:
+    """The rank-sharded SA and the token-sharded corpus of an ``S``-shard
+    index: shard s owns the ranks [s BR, s BR + BR) and the positions
+    [s B, s B + B) of the padded corpus, its token slice reaching ``BH``
+    tokens back and ``FH`` on (0 outside the corpus), its rank slice padded
+    with the last SA word -> {B, BR, sa_l [S, BR], ref_l [S, B + BH + FH],
+    src_off [S], rmeta [S, 2] (rank_start, rank_count), smeta [S, 3]
+    (src_off, own_lo, own_hi)}."""
+    ref_glen = len(refstr_padded)
+    B = -(-ref_glen // S)
+    own_lo = np.arange(S, dtype=np.int64) * B
+    own_hi = np.minimum(own_lo + B, ref_glen)
+    src_off = own_lo - BH
+    cols = src_off[:, None] + np.arange(B + BH + FH)[None, :]
+    inb = (cols >= 0) & (cols < ref_glen)
+    ref_l = np.where(inb, refstr_padded[np.clip(cols, 0, ref_glen - 1)],
+                     0).astype(np.int32)
+    BR = -(-reflen // S)
+    rstart = np.arange(S, dtype=np.int64) * BR
+    rcount = np.minimum(rstart + BR, reflen) - rstart
+    rcols = rstart[:, None] + np.arange(BR)[None, :]
+    sa_l = np.asarray(sa, np.int32)[np.clip(rcols, 0, reflen - 1)]
+    return dict(B=B, BR=BR, sa_l=sa_l, ref_l=ref_l, src_off=src_off,
+                rmeta=np.stack([rstart, rcount], axis=1),
+                smeta=np.stack([src_off, own_lo, own_hi], axis=1))
+
+
 def build_sharded_index(source, target, sa, align, cfg: ExtractorConfig,
                         n_shards: int, device="cuda") -> ShardedGrammarIndex:
     """Slice the corpus index into ``n_shards`` shards on ``device``, word
@@ -166,18 +194,14 @@ def build_sharded_index(source, target, sa, align, cfg: ExtractorConfig,
     rlp_glen = len(rlp_padded)
     tgt_glen = len(lr_tar)
 
-    # ---- token-sharded source slices (uniform length, bounded halos)
+    # ---- rank-sharded SA, token-sharded source slices (bounded halos)
     BH = 256 + mrs + 16                 # sentence-anchor walk + span + slack
     FH = mrs + MMOV + 2 * mrs + 32      # scans + growth windows + slack
-    B = -(-ref_glen // S)
-    own_lo = np.arange(S, dtype=np.int64) * B
-    own_hi = np.minimum(own_lo + B, ref_glen)
-    src_off = own_lo - BH
-    tlen = B + BH + FH
-    cols = src_off[:, None] + np.arange(tlen)[None, :]
-    inb = (cols >= 0) & (cols < ref_glen)
-    ref_l = np.where(inb, refstr_padded[np.clip(cols, 0, ref_glen - 1)],
-                     0).astype(np.int32)
+    sa_np = np.asarray(sa.sa, dtype=np.int32)
+    sl = rank_token_slices(refstr_padded, sa_np, reflen, S, BH, FH)
+    src_off = sl["src_off"]
+    own_lo, own_hi = sl["smeta"][:, 1], sl["smeta"][:, 2]
+    cols = src_off[:, None] + np.arange(sl["ref_l"].shape[1])[None, :]
     inb_r = (cols >= 0) & (cols < rlp_glen)
     rlp_l = np.where(inb_r, rlp_padded[np.clip(cols, 0, rlp_glen - 1)],
                      np.uint32(0xFFFF0000)).astype(np.uint32)
@@ -203,22 +227,11 @@ def build_sharded_index(source, target, sa, align, cfg: ExtractorConfig,
     lrt_l = np.where(tinb, lr_tar[np.clip(tcols, 0, tgt_glen - 1)],
                      (255 << 8) | 255).astype(np.int32)
 
-    # ---- rank-sharded global SA
-    BR = -(-reflen // S)
-    rstart = np.arange(S, dtype=np.int64) * BR
-    rcount = np.minimum(rstart + BR, reflen) - rstart
-    rcols = rstart[:, None] + np.arange(BR)[None, :]
-    sa_np = np.asarray(sa.sa, dtype=np.int32)
-    sa_l = sa_np[np.clip(rcols, 0, reflen - 1)]
-
     seed = passes.build_seed_tables(refstr_padded, sa_np.astype(np.int64))
     return _make(dict(
         S=S, reflen=reflen, ref_glen=ref_glen, rlp_glen=rlp_glen,
-        tgt_glen=tgt_glen, B=B, BR=BR, BH=BH, sa_l=sa_l, ref_l=ref_l,
-        rlp_l=rlp_l, lrt_l=lrt_l, src_off=src_off, tgt_off=tgt_lo,
-        rmeta=np.stack([rstart, rcount], axis=1),
-        smeta=np.stack([src_off, own_lo, own_hi], axis=1),
-        seed_lo1=seed[0], seed_hi1=seed[1], seed_pk=seed[2],
+        tgt_glen=tgt_glen, BH=BH, **sl, rlp_l=rlp_l, lrt_l=lrt_l,
+        tgt_off=tgt_lo, seed_lo1=seed[0], seed_hi1=seed[1], seed_pk=seed[2],
         seed_pk3=seed[3]), device)
 
 

@@ -1100,38 +1100,30 @@ def _sentence_edges(refstr, reflen: int):
 def _b2r_views(sidx, sa, refstr, reflen: int) -> dict:
     """B2r's tables of the europarl sharded index ``sidx`` laid out again
     for 1, 3 and 4 shards over the replicated SA and padded corpus (its
-    first ``ref_glen`` words), as ``build_sharded_index`` lays out the rank
-    and token slices (fails unless the 4-shard layout equals ``sidx``'s)
-    -> {S: index}."""
+    first ``ref_glen`` words) by ``build_sharded_index``'s own slicing,
+    ``rank_token_slices`` (fails unless the 4-shard layout equals
+    ``sidx``'s) -> {S: index}."""
     import dataclasses
     import numpy as np
     import torch
+    from cgx_tpu_torch.parallel.sharded import rank_token_slices
     dev = sa.device
     BH = sidx.BH
     FH = sidx.ref_l[0].shape[0] - sidx.B - BH
-    glen = sidx.ref_glen     # the replicated index pads its copy further
-    refstr = refstr[:glen]
+    # the replicated index pads its copy further
+    refstr = refstr[:sidx.ref_glen].cpu().numpy()
+    sa = sa.cpu().numpy()
+
+    def rows(x):
+        return [torch.from_numpy(r).to(dev) for r in x]
     views = {}
     for S in (1, 3, 4):
-        B, BR = -(-glen // S), -(-reflen // S)
-        own_lo = np.arange(S, dtype=np.int64) * B
-        own_hi = np.minimum(own_lo + B, glen)
-        cols = torch.from_numpy(own_lo - BH).to(dev)[:, None] + torch.arange(
-            B + BH + FH, device=dev)
-        ref_l = torch.where((cols >= 0) & (cols < glen),
-                            refstr[cols.clamp(0, glen - 1)], 0).int()
-        rstart = np.arange(S, dtype=np.int64) * BR
-        rcount = np.minimum(rstart + BR, reflen) - rstart
-        rcols = torch.from_numpy(rstart).to(dev)[:, None] + torch.arange(
-            BR, device=dev)
-        sa_l = sa[rcols.clamp(0, reflen - 1)]
+        sl = rank_token_slices(refstr, sa, reflen, S, BH, FH)
         views[S] = dataclasses.replace(
-            sidx, S=S, B=B, BR=BR, sa_l=list(sa_l.contiguous()),
-            ref_l=list(ref_l.contiguous()), rlp_l=[], lrt_l=[],
-            src_off=own_lo - BH,
-            rmeta=np.stack([rstart, rcount], 1).astype(np.int32),
-            smeta=np.stack([own_lo - BH, own_lo, own_hi], 1).astype(np.int32),
-            _tables=None)
+            sidx, S=S, B=sl["B"], BR=sl["BR"], sa_l=rows(sl["sa_l"]),
+            ref_l=rows(sl["ref_l"]), rlp_l=[], lrt_l=[],
+            src_off=sl["src_off"], rmeta=sl["rmeta"].astype(np.int32),
+            smeta=sl["smeta"].astype(np.int32), _tables=None)
     v = views[4]
     same = (v.B == sidx.B and v.BR == sidx.BR
             and np.array_equal(v.rmeta, sidx.rmeta)
@@ -1157,8 +1149,9 @@ def refine_edges(capture: Capture, rng, reflen: int, sent) -> dict:
     and on its layout for 1 and 3 shards (``_b2r_views``), with lanes also
     at the suffixes of the rows either side of each rank-shard boundary and
     at the positions just before each token-shard boundary, so that
-    intervals' rows and their positions straddle shards -> counts per
-    kernel (B2r's per shard count too).  Every interval is an SA interval
+    intervals' rows and their positions straddle shards; B2g on the same
+    1, 3 and 4 shards, at ranks either side of each boundary and past both
+    ends -> counts per kernel (B2r's per shard count too).  Every interval is an SA interval
     of suffixes that share their first d0 tokens, as on the main path
     (csrc/refine.cuh's premise)."""
     import numpy as np
@@ -1183,6 +1176,22 @@ def refine_edges(capture: Capture, rng, reflen: int, sent) -> dict:
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
+
+    # B2g, which shares B2r's owner division: ranks either side of every
+    # rank-shard boundary, at both ends of the SA, past them (the last
+    # shard's padding and beyond) and at int32's ends
+    stats["B2g"] = {"launches": 0, "rows": 0, "unowned": 0}
+    for S, v in views.items():
+        rb = np.arange(1, S + 1) * v.BR
+        rows = np.concatenate([
+            [-2**31, -1, 0, 1, reflen - 1, reflen, 2**31 - 1],
+            rb - 1, rb, rb + 1, rng.integers(0, reflen, 64)])
+        _bit_equal(f"B2g@edge(S={S})", shx.gather_sa_sharded,
+                   shx.gather_sa_sharded_plain, (v, dev(rows)), "cuda")
+        st = stats["B2g"]
+        st["launches"] += 1
+        st["rows"] += len(rows)
+        st["unowned"] += int(((rows < 0) | (rows >= reflen)).sum())
 
     def run(k, kernel, plain, args, lanes, what):
         outs = []
@@ -1789,9 +1798,9 @@ def check_edges(capture: Capture):
       shard's views: ``gap_edges`` (occurrences at the corpus, sentence
       and shard ends, the gaps in another sentence than cs, msym 2, 3 and
       5);
-    * A1, B2r, A10 and A9: ``refine_edges`` (B2r on the sharded run's
-      index and on 1 and 3 shards) and ``maxlex_edges`` (A9 over medium's
-      dense tables);
+    * A1, B2r, B2g, A10 and A9: ``refine_edges`` (B2r and B2g on the
+      sharded run's index and on 1 and 3 shards) and ``maxlex_edges`` (A9
+      over medium's dense tables);
     * B1p1, B1p2: ``lcp_edges`` (over europarl's index and a small index of
       70-token sentences);
     * A3, C1p, B3p: ``pcs_edges`` (1, 15, 17, 31, 32 and 33 items; D = 1,

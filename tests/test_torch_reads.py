@@ -463,10 +463,13 @@ CSRC = pathlib.Path(__file__).parent.parent / "cgx_tpu_torch" / "csrc"
     ("scan.cu", "kPcsPivots", reads.PCS_PIVOTS),
     ("scan.cu", "kPcsWindow", reads.PCS_WINDOW),
     ("lcp.cuh", "kSearchLevels", reads.SEARCH_LEVELS),
-    ("lcp.cuh", "kWalkLevels", reads.WALK_LEVELS)])
+    ("lcp.cuh", "kWalkLevels", reads.WALK_LEVELS),
+    ("sharded.cu", "kShardRowBytes", shx.B2R_SHARD_ROW_BYTES),
+    ("sharded.cu", "kShardRowsLimit", shx.B2R_SHARED_BYTES)])
 def test_models_use_the_kernels_constants(source, name, value):
     """The counters' models of the warp bodies (``pcs_rounds``, ``lcp_need``)
-    use the kernels' own constants."""
+    and B2r's shard-row check in its wrapper (``check_b2r_shards``) use the
+    kernels' own constants."""
     text = (CSRC / source).read_text(encoding="utf-8")
     found = re.findall(rf"constexpr int {name} = (\d+);", text)
     assert found == [str(value)]

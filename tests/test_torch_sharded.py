@@ -131,6 +131,29 @@ def test_build_sharded_index_equals_jax(world, S):
     assert len(t.sa_l) == S and all(x.device.type == "cpu" for x in t.ref_l)
 
 
+@pytest.mark.parametrize("S", (1, 3, 4, 8))
+def test_rank_token_slices_of_the_replicated_index(world, S):
+    """``rank_token_slices`` over the replicated index's SA and padded
+    corpus (cut to the sharded index's ``ref_glen``) gives the sharded
+    index's rank and token slices and meta rows, as ``chip_smoke.py`` uses
+    it to lay out B2r's and B2g's edge inputs on other shard counts."""
+    w = world
+    t = tshx.build_sharded_index(w["tsrc"], w["ttgt"], w["tsa"], w["tal"],
+                                 w["tcfg"], S, "cpu")
+    tidx, reflen = w["tidx"], int(w["tidx"].reflen)
+    FH = t.ref_l[0].shape[0] - t.B - t.BH
+    sl = tshx.rank_token_slices(tidx.refstr_padded[:t.ref_glen].numpy(),
+                                tidx.sa[:reflen].numpy(), reflen, S, t.BH,
+                                FH)
+    assert (sl["B"], sl["BR"]) == (t.B, t.BR)
+    for f in ("sa_l", "ref_l"):
+        np.testing.assert_array_equal(
+            sl[f], torch.stack(getattr(t, f)).numpy(), err_msg=f)
+    np.testing.assert_array_equal(sl["src_off"], t.src_off)
+    np.testing.assert_array_equal(sl["rmeta"], t.rmeta)
+    np.testing.assert_array_equal(sl["smeta"], t.smeta)
+
+
 def test_shards_on_several_devices_are_refused(world):
     w = world
     with pytest.raises(ValueError, match="ROADMAP queue A item 10b"):
@@ -408,7 +431,10 @@ def test_b2r_owner_division_is_exact(seed):
     """Kernel B2r finds a read's owner shard as x / BR (ranks) and x / B
     (positions) by a multiply and a shift, ``(umulhi(m, x) + x) >> l``: it
     must equal x // d for 0 <= x < 2^31 and 1 <= d < 2^31 (m fits 32 bits,
-    and t + x, with t < x, does not overflow them)."""
+    and t + x, with t < x, does not overflow them).  This checks the
+    formula, through a Python copy of ``div_magic`` (``_div_magic``); the
+    compiled one is held to the plain versions on the card by
+    ``chip_smoke.py`` (B2r and B2g, on 1, 3 and 4 shards)."""
     rng = np.random.default_rng(seed)
     ds = np.concatenate([np.arange(1, 2049), [2**31 - 1, 2**30, 2**30 + 1],
                          rng.integers(1, 2**31, 3000)])
