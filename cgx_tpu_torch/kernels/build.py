@@ -101,8 +101,8 @@ SIGNATURES = {
                         _P, _P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     },
     "probe": {
-        "cgx_gather_sum": [_P, _I, _P, _I, _P, _P],
-        "cgx_gather_rows": [_P, _I, _P, _I, _P, _P],
+        "cgx_probe_sum": [_P, _I, _P, _I, _I, _P, _P],
+        "cgx_probe_rows": [_P, _I, _P, _I, _I, _P, _P],
     },
     "maxlex": {
         "cgx_maxlex_dense": [_P, _P, _I, _I, _P, _I, _F, _P, _P, _P, _P, _P,

@@ -13,7 +13,8 @@ become kernels P1 and P2 (``csrc/probe.cu``):
 Both follow the probe's ``xla_gather`` (the definition it asserts the
 Pallas checksums against): the window of the whole array with every read
 clamped into it, as a JAX gather clamps.  As the probe's 512-item grid
-does, both require ``n % 512 == 0``.  The probe's ``xla_gather`` and
+does, both require ``n % 512 == 0`` (``launch``, the kernels' own entry,
+takes any n and a grid).  The probe's ``xla_gather`` and
 ``xla_scalar_gather`` are plain gathers, not kernels: their counterparts
 are the plain versions here, ``gather_sum_plain`` and ``scalar_sum_plain``.
 
@@ -39,14 +40,21 @@ from cgx_tpu_torch.utils.views import take
 
 W = 32        # window width per item (MMOV + 2, rounded up)
 BLK = 512     # items per grid step of the TPU probe; n must be a multiple
+# csrc/probe.cu: a block's warps (kWarps), each walking chunks of W items;
+# the windows a warp loads before it uses one (kInFlight); the blocks an
+# SM holds at once, which the kernels' launch bound guarantees
+# (kBlocksPerSM)
+WARPS = 8
+IN_FLIGHT = 8
+BLOCKS_PER_SM = 8
 
 
-def _check(kernel, ref, pos):
+def _check(kernel, ref, pos, multiple: int = BLK):
     if ref.dim() != 1 or pos.dim() != 1 or ref.shape[0] < 1:
         raise ValueError(f"{kernel}: ref and pos must be int32 [L >= 1], [n]")
-    if pos.shape[0] % BLK:
+    if pos.shape[0] % multiple:
         raise ValueError(f"{kernel}: n = {pos.shape[0]} items is not a "
-                         f"multiple of {BLK}")
+                         f"multiple of {multiple}")
     kb.check_count(kernel, pos.shape[0])
 
 
@@ -57,11 +65,17 @@ def checksum(x: torch.Tensor) -> torch.Tensor:
     return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
 
 
+def windows(ref, pos):
+    """Each item's window ``ref[pos[i] + 0 .. pos[i] + 31]``, reads clamped,
+    for any n -> int32 [n, 32]."""
+    return take(ref, pos[:, None] + torch.arange(W, dtype=pos.dtype,
+                                                 device=pos.device))
+
+
 def gather_rows_plain(ref, pos):
     """Plain PyTorch version of kernel P2 -> int32 [n, 32]."""
     _check("P2", ref, pos)
-    return take(ref, pos[:, None] + torch.arange(W, dtype=pos.dtype,
-                                                 device=pos.device))
+    return windows(ref, pos)
 
 
 def gather_sum_plain(ref, pos):
@@ -76,8 +90,52 @@ def scalar_sum_plain(ref, pos):
     return checksum(take(ref, pos))
 
 
+def resident_blocks(device: torch.device) -> int:
+    """The blocks of P1 or P2 that the card runs at once: every SM's
+    ``BLOCKS_PER_SM``."""
+    return torch.cuda.get_device_properties(
+        device).multi_processor_count * BLOCKS_PER_SM
+
+
+def grid(n: int, blocks: int) -> int:
+    """The blocks that P1 and P2 launch for ``n >= 1`` items: ``blocks``,
+    capped by the blocks whose warps have a chunk of 32 items."""
+    return max(1, min(blocks, -(-n // (W * WARPS))))
+
+
+def launch(kernel: str, ref, pos, blocks=None):
+    """Kernel P1 (``kernel="P1"``: the checksum, 0-dim int32) or P2 (the
+    rows, int32 [n, 32]) on CUDA tensors, for any ``n >= 0`` (the probe's
+    functions take multiples of 512), on ``grid(n, blocks)`` blocks
+    (default: ``resident_blocks``)."""
+    _check(kernel, ref, pos, 1)
+    device = pos.device
+    if not kb.route(kernel, device):
+        raise ValueError(f"{kernel}: launch takes CUDA tensors")
+    kb.check_inputs(kernel, device, torch.int32, ref=ref, pos=pos)
+    n = pos.shape[0]
+    if not n:
+        return (torch.zeros((), dtype=torch.int32, device=device)
+                if kernel == "P1" else
+                torch.empty((0, W), dtype=torch.int32, device=device))
+    g = grid(n, resident_blocks(device) if blocks is None else blocks)
+    lib = kb.library("probe")
+    if kernel == "P1":
+        out = torch.empty(g + 1, dtype=torch.int32, device=device)
+        rc = lib.cgx_probe_sum(kb.ptr(ref), ref.shape[0], kb.ptr(pos), n, g,
+                               kb.ptr(out), kb.stream(device))
+        res = out[g]
+    else:
+        res = out = torch.empty((n, W), dtype=torch.int32, device=device)
+        rc = lib.cgx_probe_rows(kb.ptr(ref), ref.shape[0], kb.ptr(pos), n, g,
+                                kb.ptr(out), kb.stream(device))
+    kb.check("probe", rc)
+    kb.LAUNCHES[kernel] += 1
+    return res
+
+
 def gather_sum(ref, pos):
-    """Kernel P1 (``csrc/probe.cu``, ``cgx_gather_sum``): the wrapped int32
+    """Kernel P1 (``csrc/probe.cu``, ``cgx_probe_sum``): the wrapped int32
     sum over items of ``ref[pos[i] + 0 .. pos[i] + 31]`` (reads clamped
     into ``ref``) -> 0-dim int32.
 
@@ -85,42 +143,22 @@ def gather_sum(ref, pos):
     tensors it launches the kernel; on CPU tensors it runs
     ``gather_sum_plain``."""
     _check("P1", ref, pos)
-    device = pos.device
-    if not kb.route("P1", device):
+    if not kb.route("P1", pos.device):
         return gather_sum_plain(ref, pos)
-    kb.check_inputs("P1", device, torch.int32, ref=ref, pos=pos)
-    out = torch.zeros(1, dtype=torch.int32, device=device)
-    n = pos.shape[0]
-    if n:
-        lib = kb.library("probe")
-        kb.check("probe", lib.cgx_gather_sum(
-            kb.ptr(ref), ref.shape[0], kb.ptr(pos), n, kb.ptr(out),
-            kb.stream(device)))
-        kb.LAUNCHES["P1"] += 1
-    return out[0]
+    return launch("P1", ref, pos)
 
 
 def gather_rows(ref, pos):
-    """Kernel P2 (``csrc/probe.cu``, ``cgx_gather_rows``): row i holds
+    """Kernel P2 (``csrc/probe.cu``, ``cgx_probe_rows``): row i holds
     ``ref[pos[i] + 0 .. pos[i] + 31]`` (reads clamped) -> int32 [n, 32].
 
     Replaces ``pallas_pipelined_fn`` (tools/pallas_probe.py:97).  On CUDA
     tensors it launches the kernel; on CPU tensors it runs
     ``gather_rows_plain``."""
     _check("P2", ref, pos)
-    device = pos.device
-    if not kb.route("P2", device):
+    if not kb.route("P2", pos.device):
         return gather_rows_plain(ref, pos)
-    kb.check_inputs("P2", device, torch.int32, ref=ref, pos=pos)
-    n = pos.shape[0]
-    out = torch.empty((n, W), dtype=torch.int32, device=device)
-    if n:
-        lib = kb.library("probe")
-        kb.check("probe", lib.cgx_gather_rows(
-            kb.ptr(ref), ref.shape[0], kb.ptr(pos), n, kb.ptr(out),
-            kb.stream(device)))
-        kb.LAUNCHES["P2"] += 1
-    return out
+    return launch("P2", ref, pos)
 
 
 def library_rows(ref, pos):

@@ -5,10 +5,10 @@
 Each DIR holds a full copy of ``cgx_tpu_torch/csrc`` (one variant's
 sources). The tool builds each variant's ``onegap.cu``, ``twogap.cu``,
 ``contig.cu``, ``lcp.cu``, ``maxlex.cu``, ``dist.cu``, ``refine.cu``,
-``sharded.cu`` and ``scan.cu`` with the port's nvcc flags and prints ptxas's
-report and an opcode histogram of each library's SASS (``cuobjdump -sass``)
-and each kernel's static SASS instruction count (for a body without loops,
-such as A9's, about what one warp issues). It then runs ``chip_smoke.py``'s
+``sharded.cu``, ``scan.cu`` and ``probe.cu`` with the port's nvcc flags and
+prints ptxas's report and an opcode histogram of each library's SASS
+(``cuobjdump -sass``) and each kernel's static SASS instruction count (for
+a body without loops, such as A9's, about what one warp issues). It then runs ``chip_smoke.py``'s
 medium run, its europarl run with the LCP passes, the query-DP step and A9
 on europarl's lexicon as dense tables (A9L), its europarl run over four
 shards and C1p on A3's items as columns, keeping each kernel's largest
@@ -16,9 +16,10 @@ launch, and times every variant on them, in turns (the variants in order,
 then in reverse), by CUDA events and by the device's own clock
 (``chip_smoke._device_ms``): A7, A7 on a shard's views (A7v), A8, A8v, A8 on
 one item, A6, B3c, B1p1, B1p2, B4, A9, A9 on one rule (the launch's fixed
-cost), A9L, A10, A1, B2r, A3, A3 on one item, B3p and C1p. Each row runs
-through the port's own wrapper with the variant's library in place of the
-built one. Every output is checked against the plain version first; a
+cost), A9L, A10, A1, B2r, A3, A3 on one item, B3p, C1p, and the gather
+probe's P1 and P2 on its two inputs (europarl's A2b scan starts, and its
+defaults as P1@d and P2@d). Each row runs through the port's own wrapper
+with the variant's library in place of the built one. Every output is checked against the plain version first; a
 variant that differs is reported and dropped. Run from the repository root
 on a machine with a card.
 """
@@ -42,9 +43,10 @@ from cgx_tpu_torch.kernels import build as kb
 from cgx_tpu_torch.parallel import dist
 from cgx_tpu_torch.parallel import sharded as shx
 from cgx_tpu_torch.search import lookup, passes
+from cgx_tpu_torch.tools import gather_probe as gp
 
 SOURCES = ("onegap", "twogap", "contig", "lcp", "maxlex", "dist", "refine",
-           "sharded", "scan")
+           "sharded", "scan", "probe")
 # row -> (the port's wrapper, its plain version); A7v, A8v, A8@1, A9@1 and
 # A3@1 run A7's, A8's, A9's and A3's
 ROWS = {"A7": (xdev.onegap, xdev.onegap_plain),
@@ -66,7 +68,31 @@ ROWS = {"A7": (xdev.onegap, xdev.onegap_plain),
         "A3": (lookup.pcs, lookup.pcs_plain),
         "A3@1": (lookup.pcs, lookup.pcs_plain),
         "B3p": (lookup.pcs_items, lookup.pcs_items_plain),
-        "C1p": (lookup.pcs_cols, lookup.pcs_cols_plain)}
+        "C1p": (lookup.pcs_cols, lookup.pcs_cols_plain),
+        "P1": (lambda r, p: probe("P1", r, p), gp.gather_sum_plain),
+        "P1@d": (lambda r, p: probe("P1", r, p), gp.gather_sum_plain),
+        "P2": (lambda r, p: probe("P2", r, p), gp.gather_rows_plain),
+        "P2@d": (lambda r, p: probe("P2", r, p), gp.gather_rows_plain)}
+
+
+def probe(kernel: str, ref, pos):
+    """P1 or P2 through the port's wrapper, or, for a variant whose probe
+    library predates ``cgx_probe_sum`` (``csrc/`` before the persistent
+    walk: one warp an item, P1 adding into a zeroed word), through its own
+    C entries as its wrapper called them."""
+    lib = kb.library("probe")
+    if hasattr(lib, "cgx_probe_sum"):
+        return (gp.gather_sum if kernel == "P1" else gp.gather_rows)(ref,
+                                                                     pos)
+    n, dev = pos.shape[0], pos.device
+    out = (torch.zeros(1, dtype=torch.int32, device=dev) if kernel == "P1"
+           else torch.empty((n, gp.W), dtype=torch.int32, device=dev))
+    fn = lib.cgx_gather_sum if kernel == "P1" else lib.cgx_gather_rows
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    kb.check("probe", fn(kb.ptr(ref), ref.shape[0], kb.ptr(pos), n,
+                         kb.ptr(out), kb.stream(dev)))
+    return out[0] if kernel == "P1" else out
 
 
 def build(name: str, src: str, out: str) -> dict:
@@ -102,6 +128,8 @@ def build(name: str, src: str, out: str) -> dict:
             "sass_top": ops.most_common(14)}), flush=True)
         lib = ctypes.CDLL(so)
         for fn, argt in kb.SIGNATURES[f].items():
+            if not hasattr(lib, fn):    # an older probe library: probe()
+                continue
             getattr(lib, fn).argtypes = argt
             getattr(lib, fn).restype = ctypes.c_int
         lib.cgx_error_string.argtypes = [ctypes.c_int]
@@ -139,6 +167,11 @@ def capture_rows() -> dict:
             del res
         cs.check_pcs_cols(cap)
     rows = {k: cap.calls[k] for k in ROWS if k in cap.calls}
+    probes = cs.probe_inputs(cap)
+    for k in ("P1", "P2"):
+        for suffix, name in (("", "europarl_A2b"), ("@d", "defaults")):
+            ref, pos = probes[name]
+            rows[k + suffix] = (pos.shape[0], (ref, pos))
     one = list(rows["A8"][1])
     one[3:9] = [a[:1].contiguous() for a in one[3:9]]
     rows["A8@1"] = (1, tuple(one))

@@ -28,7 +28,9 @@ other word and find the result unchanged.
 * ``refine_reads``: A1 and B2r, the seeded refinement's binary lower
   bounds (B2r also the shards' meta rows);
 * ``pcs_reads``: A3, B3p and C1p (``_pcs_item``), with ``pcs_rounds``, the
-  rounds in which A3's warp resolves its items' patterns.
+  rounds in which A3's warp resolves its items' patterns;
+* ``probe_reads``: P1 and P2, the corpus words under the union of the
+  probe's windows.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from cgx_tpu_torch.extract import device as xdev
 from cgx_tpu_torch.features import maxlex as ml
 from cgx_tpu_torch.parallel import sharded as shx
 from cgx_tpu_torch.search import lookup, passes
+from cgx_tpu_torch.tools import gather_probe as gp
 from cgx_tpu_torch.utils.views import as_view, take
 
 
@@ -782,3 +785,17 @@ def pcs_rounds(offs, n: int) -> tuple:
         searches.append(rounds)
         windows.append(w)
     return pat, np.array(searches), np.array(windows)
+
+
+def probe_reads(ref_len: int, pos) -> int:
+    """P1 and P2: the distinct words of a ``ref_len``-word corpus that the
+    windows ``pos[i] + 0 .. pos[i] + 31``, each read clamped into it, cover.
+    Clamping keeps a window one run of words, [clamp(p), clamp(p + 31)],
+    and both ends grow with p, so the union is summed over the runs in
+    the order of their positions: each run adds the words past the ends of
+    the runs before it."""
+    p = torch.sort(pos.long().reshape(-1)).values
+    lo = p.clamp(0, ref_len - 1)
+    hi = (p + gp.W - 1).clamp(0, ref_len - 1)
+    before = torch.cat([hi.new_full((1,), -1), hi[:-1]])
+    return int((hi - torch.maximum(lo, before + 1) + 1).clamp(min=0).sum())

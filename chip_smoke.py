@@ -83,7 +83,8 @@ Phases, one line each on stdout:
    shards' meta rows; A3, B3p and C1p the corpus words each item's
    verification compares, A3 also its offs words, pattern rows and
    precomputed rows, with the rounds a warp takes to resolve its items'
-   patterns), and the time
+   patterns; P1 and P2 the corpus words under the union of their windows,
+   each once), and the time
    of one launch of A8 on one item (by the device's clock A8's own
    one-item chain, ``launch_floor``).  Then the warp and half-warp kernels
    (A1, B2r, A2f, A2b, A3, A4, A4v, C1f, C1b, C1p, B3f, B3b, B3p, A6, B3c,
@@ -91,7 +92,8 @@ Phases, one line each on stdout:
    versions on synthetic edge inputs over europarl's index arrays and
    tables (A9 over medium's dense tables; B1 also over a small index of
    70-token sentences, for matches past 32 tokens; B2r also on 1 and 3
-   shards) (``check_edges``).
+   shards), and P1 and P2 on short corpora, ragged item counts and grids
+   (``check_edges``).
 
 Then a JSON line with every kernel's numbers, and last the line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
@@ -197,11 +199,12 @@ RUNS = (
 # kernel's loops (the csrc notes); the per-pattern tables are counted once
 # whole.  The searches' gathers depend on the data and are counted from
 # this run's inputs (``tools.reads``, ``data_reads``: A1's and B2r's binary
-# searches, A3's, B3p's and C1p's verification words), and so are the
-# words of the functions that stop early: lookup1's scans count the
-# corpus words that decide a candidate (up to the first dead move and the
-# span limit), and the gap check only for an item whose candidate mask is
-# non-zero; the gap check (A4, and in A2, A5, B3, C1) its RLP window up to
+# searches, A3's, B3p's and C1p's verification words, and the corpus words
+# under the union of P1's and P2's windows), and so are the words of the
+# functions that stop early: lookup1's scans count the corpus words that
+# decide a candidate (up to the first dead move and the span limit), and
+# the gap check only for an item whose candidate mask is non-zero; the gap
+# check (A4, and in A2, A5, B3, C1) its RLP window up to
 # the widest span, and its lr_tar words only where some move passes the
 # first test; A5's scan its move words up to the first stop; A6's and A7's
 # bodies the words of each growth step that runs and each window entry
@@ -230,8 +233,8 @@ WORK = {
     "C1b": (6, 1, 1, 300),
     "C1p": (8, 0, 1 / 32, 40),   # 8 columns (+ pcs_reads: corpus words)
     "C1t": (2, 0, 1, 150),       # (+ scan, gap check)
-    "P1": (1, 32, 0, 32),        # the position, the 32-word window
-    "P2": (1, 32, 32, 0),        # and the row written
+    "P1": (1, 0, 0, 32),         # the position (+ probe_reads), 32 adds
+    "P2": (1, 0, 32, 0),         # and the row written
 }
 for _v, _k in VIEW_ROWS.items():
     WORK[_v] = WORK[_k]
@@ -248,6 +251,7 @@ DENSE_ROWS = ("A9", "A9L")
 LCP_ROWS = ("B1p1", "B1p2")
 REFINE_ROWS = ("A1", "B2r")
 PCS_ROWS = ("A3", "B3p", "C1p")
+PROBE_ROWS = ("P1", "P2")
 # integer operations: the gap check's RLP window, prefix scan and first test
 # per item, and its 16 x 16 fold over the lr_tar window per item where some
 # move passes the first test; A6's body per needed word (unpack, compare,
@@ -658,13 +662,13 @@ def check_pcs_cols(capture: Capture) -> dict:
     return launches
 
 
-def check_probe(capture: Capture) -> dict:
-    """Phase 6: the gather probe at its defaults and on europarl's corpus
-    at the scan starts of A2b's largest launch -> its launch counts."""
+def probe_inputs(capture: Capture) -> dict:
+    """The gather probe's inputs on the card: its defaults, and europarl's
+    corpus at the scan starts of A2b's largest launch -> {name: (ref,
+    pos)}."""
     import numpy as np
     import torch
     from cgx_tpu_torch.engine import materialize_items
-    from cgx_tpu_torch.kernels import build as kb
     from cgx_tpu_torch.tools import gather_probe as gp
     refstr, _, _, sa, pattab, offs = capture.calls["A2b"][1][:6]
     tab, sa_h = pattab.cpu().numpy(), sa.cpu().numpy()
@@ -672,9 +676,18 @@ def check_probe(capture: Capture) -> dict:
     starts = sa_h[np.clip(tab[item_pat, 0] + tx, 0, len(sa_h) - 1)]
     starts = np.minimum(starts[:len(starts) // gp.BLK * gp.BLK],
                         refstr.shape[0] - gp.W).astype(np.int32)
-    inputs = {"defaults": [torch.from_numpy(a).cuda() for a in
-                           gp.probe_data(131072, 1_000_000)],
-              "europarl_A2b": [refstr, torch.from_numpy(starts).cuda()]}
+    return {"defaults": tuple(torch.from_numpy(a).cuda() for a in
+                              gp.probe_data(131072, 1_000_000)),
+            "europarl_A2b": (refstr, torch.from_numpy(starts).cuda())}
+
+
+def check_probe(capture: Capture) -> dict:
+    """Phase 6: the gather probe at its defaults and on europarl's corpus
+    at the scan starts of A2b's largest launch -> its launch counts."""
+    import torch
+    from cgx_tpu_torch.kernels import build as kb
+    from cgx_tpu_torch.tools import gather_probe as gp
+    inputs = probe_inputs(capture)
     kb.LAUNCHES.clear()
     capture.items.clear()
     results = {name: gp.run_probe(ref, pos, reps=10)
@@ -835,6 +848,10 @@ def data_reads(k: str, n: int, args) -> tuple:
                          wide_warps=int((windows > 1).sum()),
                          warps=len(windows))
         return words, 0, extra
+    if k in PROBE_ROWS:     # the corpus words under the windows' union
+        ref, pos = args[:2]
+        words = reads.probe_reads(ref.shape[0], pos)
+        return words, 0, {"words": words, "words_per_item": words / max(n, 1)}
     if k in LCP_ROWS:
         words, steps, chain_max, chain_mean = reads.lcp_reads(*args)
         return (words, LCP_STEP_OPS * steps,
@@ -1027,7 +1044,7 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
         extra = {}
         if k in (SCAN_ROWS + GAP_ROWS + TWO_ROWS + CONTIG_ROWS + ONEGAP_ROWS
                  + TWOGAP_ROWS + MAXLEX_ROWS + DENSE_ROWS + LCP_ROWS
-                 + REFINE_ROWS + PCS_ROWS):
+                 + REFINE_ROWS + PCS_ROWS + PROBE_ROWS):
             words, ops, extra = data_reads(k, n, args)
         nbytes, ops = work(k, n, args, words, ops)
         bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
@@ -1768,6 +1785,57 @@ def gap_edges(rng, launches) -> dict:
     return stats
 
 
+def probe_edges(rng) -> dict:
+    """P1 and P2 (``gather_probe.launch``, the kernels' own entry) against
+    their plain versions on corpora of 1, 31, 32, 33 and 4,096 words
+    (shorter than a window, one window, one word more), item counts 512
+    and 1,536 and ragged counts 1, 31, 33, 257 and 700 (a chunk of 32
+    items cut short; not a multiple of a block's 256), positions at len -
+    32 .. len - 1 among random ones and past both ends, words near 2^31
+    and -2^31 (so that the sums wrap), on grids of 1, 2 and 3 blocks, one
+    block fewer than the items fill (capped below: warps that walk more
+    chunks than others), the card's resident blocks and 5 more than the
+    items fill (capped above) -> counts (launches, sums that wrapped,
+    grids below and above the items)."""
+    import functools
+
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.tools import gather_probe as gp
+    stats = {"P1": {"launches": 0, "wrapped": 0, "grid_below": 0,
+                    "grid_above": 0}, "P2": {"launches": 0}}
+    plain = {"P1": lambda r, p: gp.checksum(gp.windows(r, p)),
+             "P2": gp.windows}
+    for length in (1, 31, 32, 33, 4096):
+        words = rng.integers(2**31 - 2**16, 2**31, length)
+        ref_h = np.where(rng.random(length) < 0.25, -words, words - 1)
+        ref = torch.from_numpy(ref_h.astype(np.int32)).cuda()
+        for n in (512, 1536, 1, 31, 33, 257, 700):
+            pos_h = rng.integers(-8, length + 8, n)
+            at = rng.choice(n, min(n, 36), replace=False)
+            pos_h[at] = np.concatenate([np.arange(length - 32, length),
+                                        [-40, 0, length, length + 40]])[
+                                            :len(at)]
+            pos = torch.from_numpy(pos_h.astype(np.int32)).cuda()
+            exact = int(ref_h[np.clip(pos_h[:, None] + np.arange(gp.W), 0,
+                                      length - 1)].sum())
+            fill = -(-n // (gp.W * gp.WARPS))
+            blocks = {gp.grid(n, b): b for b in
+                      (1, 2, 3, fill - 1, gp.resident_blocks(ref.device),
+                       fill + 5) if b >= 1}
+            for g, b in blocks.items():
+                for k in ("P1", "P2"):
+                    _bit_equal(f"{k}@edge(len={length},n={n},blocks={b})",
+                               functools.partial(gp.launch, k, blocks=b),
+                               plain[k], (ref, pos), "cuda")
+                    stats[k]["launches"] += 1
+                st = stats["P1"]
+                st["grid_below"] += g < fill
+                st["grid_above"] += b > fill
+                st["wrapped"] += int(gp.launch("P1", ref, pos, b)) != exact
+    return stats
+
+
 def check_edges(capture: Capture):
     """The warp and half-warp kernels against their plain versions on
     synthetic inputs over europarl's index arrays, item counts 1, 15, 17
@@ -1805,7 +1873,10 @@ def check_edges(capture: Capture):
       70-token sentences);
     * A3, C1p, B3p: ``pcs_edges`` (1, 15, 17, 31, 32 and 33 items; D = 1,
       runs of empty patterns, warps over more than 32 patterns; span
-      budgets that just fit and just fail).
+      budgets that just fit and just fail);
+    * P1, P2: ``probe_edges`` (corpora of 1, 31, 32 and 33 words, ragged
+      item counts, positions at and past the corpus end, sums that wrap,
+      grids capped below and above the items).
 
     Fails unless every output is bit-equal, the inputs of A2, A4, C1f, C1b,
     B3f and B3b reach the gap check (lookup1's scans: items with a candidate
@@ -1821,7 +1892,8 @@ def check_edges(capture: Capture):
     inside and matched past 32 tokens, and B1p2's items found and missing,
     pinned off the midpoint, on width-2 windows and past 32 tokens, and
     A3's, C1p's and B3p's items reach every exit of ``pcs_warp``
-    (``_pcs_exits``), A3's on every layout."""
+    (``_pcs_exits``), A3's on every layout, and P1's sums wrap and its
+    grids fall below and above the items."""
     import functools
 
     import numpy as np
@@ -2079,6 +2151,8 @@ def check_edges(capture: Capture):
     t6 = time.perf_counter()
     stats.update(pcs_edges(capture, rng, refstr, reflen, sent, first_last))
     t7 = time.perf_counter()
+    stats.update(probe_edges(rng))
+    t8 = time.perf_counter()
     print(json.dumps({"phase": "edges", "items": EDGE_ITEMS,
                       "pcs_items": PCS_EDGE_ITEMS,
                       "mrs": EDGE_MRS, "msym": EDGE_MSYM, **stats,
@@ -2086,6 +2160,7 @@ def check_edges(capture: Capture):
                       "seconds_a6_a5": t3 - t2, "seconds_a7_a8": t4 - t3,
                       "seconds_a1_b2r_a10_a9": t5 - t4, "seconds_b1": t6 - t5,
                       "seconds_a3_c1p_b3p": t7 - t6,
+                      "seconds_p1_p2": t8 - t7,
                       "bit_equal": True}), flush=True)
     idle = [k for k in scans + ("A4", "A4v")
             if stats[k]["mask_items"] == 0
@@ -2120,6 +2195,8 @@ def check_edges(capture: Capture):
                if stats[k].get(f, 0) == 0]
     silent += [f"A3.{f}" for f in ("wide_warps", "d1_launches", "empty_runs",
                                     "past_offs") if stats["A3"][f] == 0]
+    silent += [f"P1.{f}" for f in ("wrapped", "grid_below", "grid_above")
+               if stats["P1"][f] == 0]
     if silent:
         fail(f"edges: the inputs never set {silent}")
 

@@ -26,6 +26,7 @@ from cgx_tpu_torch.parallel import sharded as shx  # noqa: E402
 from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
 from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
 from cgx_tpu_torch.search import lookup, passes  # noqa: E402
+from cgx_tpu_torch.tools import gather_probe as gp  # noqa: E402
 from cgx_tpu_torch.tools import reads  # noqa: E402
 
 
@@ -465,11 +466,16 @@ CSRC = pathlib.Path(__file__).parent.parent / "cgx_tpu_torch" / "csrc"
     ("lcp.cuh", "kSearchLevels", reads.SEARCH_LEVELS),
     ("lcp.cuh", "kWalkLevels", reads.WALK_LEVELS),
     ("sharded.cu", "kShardRowBytes", shx.B2R_SHARD_ROW_BYTES),
-    ("sharded.cu", "kShardRowsLimit", shx.B2R_SHARED_BYTES)])
+    ("sharded.cu", "kShardRowsLimit", shx.B2R_SHARED_BYTES),
+    ("probe.cu", "kWin", gp.W),
+    ("probe.cu", "kWarps", gp.WARPS),
+    ("probe.cu", "kInFlight", gp.IN_FLIGHT),
+    ("probe.cu", "kBlocksPerSM", gp.BLOCKS_PER_SM)])
 def test_models_use_the_kernels_constants(source, name, value):
-    """The counters' models of the warp bodies (``pcs_rounds``, ``lcp_need``)
-    and B2r's shard-row check in its wrapper (``check_b2r_shards``) use the
-    kernels' own constants."""
+    """The counters' models of the warp bodies (``pcs_rounds``, ``lcp_need``),
+    B2r's shard-row check in its wrapper (``check_b2r_shards``) and the
+    probe's grid and walk (``gather_probe.grid``, and its model in
+    ``tests/test_torch_probe.py``) use the kernels' own constants."""
     text = (CSRC / source).read_text(encoding="utf-8")
     found = re.findall(rf"constexpr int {name} = (\d+);", text)
     assert found == [str(value)]
@@ -668,3 +674,32 @@ def test_pcs_need_decides_the_verification(index, kernel):
     assert bool(keep[~budget].any()) is False
     corpus = reads.count({"refstr": need["refstr"]}, arrays=("refstr",))
     assert 0 < corpus <= 4 * int(budget.sum()) and words >= corpus
+
+
+@pytest.mark.parametrize("length,n,seed", [
+    (1, 40, 0),          # a one-word corpus: every read is word 0
+    (20, 100, 1),        # a corpus shorter than a window
+    (32, 64, 2), (33, 64, 3),
+    (5000, 700, 4),      # windows clamped at the end, duplicates
+    (100_000, 2048, 5)])
+def test_probe_reads_count_the_windows_union(length, n, seed):
+    """P1's and P2's corpus words (``probe_reads``) are the brute-force
+    union of the clamped windows, and they decide the windows: redrawing
+    every other word of the corpus changes no row."""
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(-40, length + 40, n)
+    pos[: min(n, 32)] = np.arange(length - 32, length)[: min(n, 32)]
+    pos[-8:] = pos[:8]                              # duplicate positions
+    slots = np.clip(pos[:, None] + np.arange(gp.W), 0, length - 1)
+    need = np.unique(slots)
+    tpos = torch.from_numpy(pos.astype(np.int32))
+    assert reads.probe_reads(length, tpos) == len(need)
+    ref = rng.integers(2, 1000, length).astype(np.int32)
+    other = ref.copy()
+    free = np.setdiff1d(np.arange(length), need)
+    other[free] = rng.integers(1000, 2000, len(free))
+    np.testing.assert_array_equal(
+        gp.windows(torch.from_numpy(ref), tpos).numpy(),
+        gp.windows(torch.from_numpy(other), tpos).numpy())
+    if length > 1000:       # sparse windows: fewer words than gathers
+        assert len(need) < n * gp.W
