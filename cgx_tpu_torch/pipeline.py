@@ -1,8 +1,8 @@
 """The extractor's main path on one PyTorch device.
 
-Port of ``cgx_tpu/pipeline.py`` (``build_artifact``, ``run_pipeline``,
-``run_pipeline_files`` and the front/back stage split) for every rule
-family:
+Port of ``cgx_tpu/pipeline.py`` (``build_artifact`` with its persisted
+index, ``run_pipeline``, ``run_pipeline_overlap``, ``run_pipeline_files``,
+``_make_context`` and the front/back stage split) for every rule family:
 
 * build: corpus loading and the suffix array (host), the index on the
   device, the frequent-pair precompute (kernel A4);
@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import operator
+import os
 import sys
 
 import numpy as np
@@ -49,23 +50,17 @@ from cgx_tpu_torch.grammar import writer as gw
 from cgx_tpu_torch.index import container as ic
 from cgx_tpu_torch.parallel import sharded as shx
 from cgx_tpu_torch.preproc import corpus as cp
+from cgx_tpu_torch.preproc import index_io
 from cgx_tpu_torch.preproc import suffix_array as sab
 from cgx_tpu_torch.search import enumerate_fast as ef
 from cgx_tpu_torch.search import lookup, passes
 from cgx_tpu_torch.search import precompute as pcx
-from cgx_tpu_torch.types import GapRules, Precomp
+from cgx_tpu_torch.types import GapRules
 from cgx_tpu_torch.utils.timing import PhaseTimer
 
 
-@dataclasses.dataclass
-class Artifact:
-    """One-time corpus preprocessing (host side)."""
-    source: cp.SourceCorpus
-    target: cp.TargetCorpus
-    align: cp.Alignment
-    lex: cp.LexTable
-    sa: sab.SAIndex
-    precomp: Precomp
+# the one-time corpus preprocessing (host side), as index_io persists it
+Artifact = index_io.CorpusIndexArtifact
 
 
 @dataclasses.dataclass
@@ -110,15 +105,29 @@ def _check_shards(sa_shards, lcp_passes=False, scan_cols=False) -> int:
 def build_artifact(f_lines, e_lines, a_lines, lex_tokens,
                    cfg: ExtractorConfig = DEFAULT_CONFIG,
                    timing: PhaseTimer = None, device="cuda",
-                   sa_shards: int = 0):
+                   sa_shards: int = 0, index_dir: str = None):
     """Corpus preprocessing -> (Artifact, index on ``device``, timing).
     Texts given as one string take the native tokenizer.  The index is a
     TorchGrammarIndex, or with ``sa_shards > 0`` a ShardedGrammarIndex of
     that many shards, whose build places no replicated O(corpus) array on
-    the device: its precompute gap checks run owner-computes."""
+    the device: its precompute gap checks run owner-computes.
+
+    With ``index_dir`` (build once, query many; ``preproc.index_io``): a
+    directory that holds a ``meta.json`` is loaded (phase ``indexload``) and
+    only the device index is built from it, so no corpus is parsed, no
+    suffix array built and no precompute run; its persisted precompute is
+    used whatever config it was built with, as in the JAX package.  Any
+    other directory receives the fresh build (phase ``indexsave``)."""
     sa_shards = _check_shards(sa_shards)
     device = torch.device(device)
     t = timing or PhaseTimer(device)
+    if index_dir and os.path.exists(os.path.join(index_dir, "meta.json")):
+        with t.phase("indexload"):
+            art, _built_cfg = index_io.load(index_dir)
+        with t.phase("qrysin"):
+            index = _device_index(art.source, art.target, art.sa, art.align,
+                                  art.lex, cfg, sa_shards, device)
+        return art, index, t
     with t.phase("refsin"):
         source = (cp.load_source_corpus_text(f_lines) if isinstance(f_lines, str)
                   else cp.load_source_corpus(f_lines))
@@ -129,41 +138,43 @@ def build_artifact(f_lines, e_lines, a_lines, lex_tokens,
     with t.phase("suffixarray"):
         sa = sab.build_index(source.str_)
     with t.phase("qrysin"):
-        if sa_shards:
-            index = shx.build_sharded_index(source, target, sa, align, cfg,
-                                            sa_shards, device)
-        else:
-            index = ic.build_index(source, target, sa, align, lex, cfg,
-                                   device)
+        index = _device_index(source, target, sa, align, lex, cfg, sa_shards,
+                              device)
     with t.phase("precompute"):
         pc = pcx.precompute(make_engine(index, cfg), source, sa, cfg)
-    return Artifact(source, target, align, lex, sa, pc), index, t
+    art = Artifact(source, target, align, lex, sa, pc)
+    if index_dir:
+        with t.phase("indexsave"):
+            index_io.save(index_dir, art, cfg)
+    return art, index, t
+
+
+def _device_index(source, target, sa, align, lex, cfg, sa_shards, device):
+    if sa_shards:
+        return shx.build_sharded_index(source, target, sa, align, cfg,
+                                       sa_shards, device)
+    return ic.build_index(source, target, sa, align, lex, cfg, device)
 
 
 def run_pipeline(f_lines, e_lines, a_lines, lex_tokens, q_lines,
                  cfg: ExtractorConfig = DEFAULT_CONFIG,
                  timing: PhaseTimer = None, device="cuda",
                  lcp_passes: bool = False, sa_shards: int = 0,
-                 scan_cols: bool = False) -> PipelineResult:
+                 scan_cols: bool = False,
+                 index_dir: str = None) -> PipelineResult:
     """Runs the main path with every device stage on ``device`` ("cuda": the
     hand-written kernels; "cpu": their plain PyTorch versions).
     ``lcp_passes`` runs pass 1/2 as the LCP-accelerated search (kernel B1)
     instead of the interval refinement (kernel A1); ``sa_shards > 0`` runs
     the sharded index of that many shards (all on ``device``);
     ``scan_cols`` runs lookup1's and lookup2's scans on host-materialised
-    item columns (kernels C1f, C1b, C1t).  The grammar is the same in every
+    item columns (kernels C1f, C1b, C1t); ``index_dir`` loads or persists
+    the corpus index (``build_artifact``).  The grammar is the same in every
     case; ``lcp_passes`` or ``scan_cols`` with ``sa_shards`` is refused."""
     sa_shards = _check_shards(sa_shards, lcp_passes, scan_cols)
     art, index, t = build_artifact(f_lines, e_lines, a_lines, lex_tokens, cfg,
-                                   timing, device, sa_shards)
-    ctx = dict(index=index, source=art.source, target=art.target, sa=art.sa,
-               pc=art.precomp,
-               engine=make_engine(index, cfg, scan_cols, art.sa.sa),
-               lex_index=index, sa_values=None)
-    if sa_shards:
-        with t.phase("qrysin"):
-            ctx["lex_index"] = ic.build_host_lex_index(art.target, art.lex)
-        ctx["sa_values"] = ctx["engine"].sa_values
+                                   timing, device, sa_shards, index_dir)
+    ctx = _make_context(art, index, t, cfg, sa_shards, scan_cols)
     with t.phase("qrysload"):
         queries = cp.load_queries(q_lines, art.source.vocab)
     front = _front_stages(ctx, queries, cfg, t, lcp_passes)
@@ -171,6 +182,20 @@ def run_pipeline(f_lines, e_lines, a_lines, lex_tokens, q_lines,
     return PipelineResult(queries=queries, per_query_lines=per_query_lines,
                           counters=counters, timing=t, index=index,
                           blocks=front["blocks"])
+
+
+def _make_context(art, index, t, cfg, sa_shards, scan_cols=False) -> dict:
+    """The engine and index handles that every query batch of one index
+    shares (``run_pipeline``, ``run_pipeline_overlap``, ``serve``)."""
+    ctx = dict(index=index, source=art.source, target=art.target,
+               sa=art.sa, pc=art.precomp,
+               engine=make_engine(index, cfg, scan_cols, art.sa.sa),
+               lex_index=index, sa_values=None)
+    if sa_shards:
+        with t.phase("qrysin"):
+            ctx["lex_index"] = ic.build_host_lex_index(art.target, art.lex)
+        ctx["sa_values"] = ctx["engine"].sa_values
+    return ctx
 
 
 def _concat_gaprules(a: GapRules, b: GapRules) -> GapRules:
@@ -237,12 +262,15 @@ def _front_stages(ctx, queries, cfg, t, lcp_passes=False):
 
 
 def _back_stages(ctx, queries, fr, cfg, t):
-    """Host half plus MaxLex: lexicon build, MaxLex, rule formatting."""
+    """Host half plus MaxLex: lexicon build, MaxLex, rule formatting.  With
+    a ``HostLexIndex`` in ``ctx`` it launches nothing and touches no device
+    tensor, so ``run_pipeline_overlap`` runs it on a worker thread; its host
+    phases then do not wait for the main thread's kernels."""
     source, target, pc = ctx["source"], ctx["target"], ctx["pc"]
     blocks, search1, enum1 = fr["blocks"], fr["search1"], fr["enum1"]
     search2, enum2 = fr["search2"], fr["enum2"]
     onegap_sa = fr["onegap_sa"]
-    with t.phase("lexicon"):
+    with t.phase("lexicon", sync=False):
         rules_one, tasks_one = lx.fast_create_lexicon_onegap(
             fr["rules1"], source, target, blocks, search1, enum1, onegap_sa,
             pc, fr["sep_onegap"], cfg)
@@ -251,11 +279,13 @@ def _back_stages(ctx, queries, fr, cfg, t):
             enum2, onegap_sa, pc, fr["sep1"], fr["sep2"], cfg)
         rules_contig, tasks_contig = lx.fast_create_lexicon_contig(
             fr["contig"], source, target, blocks, cfg)
-    with t.phase("maxlex"):
+    lex_index = ctx["lex_index"]
+    with t.phase("maxlex",
+                 sync=not isinstance(lex_index, ic.HostLexIndex)):
         ml.compute_maxlex(
             {"onegap": tasks_one, "twogap": tasks_two, "contig": tasks_contig},
-            ctx["lex_index"], rules_one, rules_two, rules_contig, cfg)
-    with t.phase("printout"):
+            lex_index, rules_one, rules_two, rules_contig, cfg)
+    with t.phase("printout", sync=False):
         G = len(blocks.start)
         D1 = len(search1.qrystart)
         D2 = len(search2.blockid)
@@ -286,18 +316,77 @@ def _back_stages(ctx, queries, fr, cfg, t):
     return per_query_lines, counters
 
 
+def run_pipeline_overlap(f_lines, e_lines, a_lines, lex_tokens, q_lines,
+                         cfg: ExtractorConfig = DEFAULT_CONFIG,
+                         timing: PhaseTimer = None, device="cuda",
+                         lcp_passes: bool = False, sa_shards: int = 0,
+                         scan_cols: bool = False, index_dir: str = None,
+                         query_batches: int = 2) -> PipelineResult:
+    """``--query-batches``: the queries split into contiguous batches; batch
+    i's host half (lexicon, MaxLex, formatting) runs on one worker thread
+    while the main thread runs batch i+1's device half.  MaxLex scores on
+    its host backend (a ``HostLexIndex``, as the JAX package's
+    ``maxlex_use_device = False``), so the worker launches no kernel and
+    touches no device tensor: this run launches no A9 or A10.  Each query's
+    lines equal the single-batch run's (a rule's features are intrinsic to
+    its pattern).  Counters are summed over the batches (the pattern-scoped
+    ones, such as ``blocks`` and ``distinct_*``, count a pattern once per
+    batch that holds it; ``precomp_rows`` belongs to the index and is not
+    summed), with the per-batch dicts in ``per_batch``."""
+    from concurrent.futures import ThreadPoolExecutor
+    sa_shards = _check_shards(sa_shards, lcp_passes, scan_cols)
+    art, index, t = build_artifact(f_lines, e_lines, a_lines, lex_tokens, cfg,
+                                   timing, device, sa_shards, index_dir)
+    ctx = _make_context(art, index, t, cfg, sa_shards, scan_cols)
+    if not sa_shards:
+        with t.phase("qrysin"):
+            ctx["lex_index"] = ic.build_host_lex_index(art.target, art.lex)
+    with t.phase("qrysload"):
+        all_q = list(q_lines)
+    n = max(1, min(query_batches, len(all_q)))
+    per = max(1, -(-len(all_q) // n))
+    chunks = [all_q[i:i + per] for i in range(0, len(all_q), per)]
+    futs = []
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        for chunk in chunks:
+            with t.phase("qrysload"):
+                qb = cp.load_queries(chunk, art.source.vocab)
+            front = _front_stages(ctx, qb, cfg, t, lcp_passes)
+            futs.append(pool.submit(_back_stages, ctx, qb, front, cfg, t))
+        outs = [f.result() for f in futs]
+    per_query_lines = []
+    counters: dict = {}
+    for lines, cnt in outs:
+        per_query_lines.extend(lines)
+        for k, v in cnt.items():
+            counters[k] = counters.get(k, 0) + v
+    counters["precomp_rows"] = art.precomp.count
+    counters["query_batches"] = len(outs)
+    counters["per_batch"] = [cnt for _, cnt in outs]
+    queries = cp.load_queries(all_q, art.source.vocab)
+    return PipelineResult(queries=queries, per_query_lines=per_query_lines,
+                          counters=counters, timing=t, index=index)
+
+
 def run_pipeline_files(reffile, qryfile, tarfile, alignfile, lexfile, dest_dir,
                        cfg: ExtractorConfig = DEFAULT_CONFIG, device="cuda",
                        lcp_passes: bool = False, sa_shards: int = 0,
-                       scan_cols: bool = False):
+                       scan_cols: bool = False, index_dir: str = None,
+                       query_batches: int = 0):
+    """The CLI's run over files; ``query_batches > 1`` runs
+    ``run_pipeline_overlap``."""
     with open(reffile, encoding="utf-8") as fh:
         f_text = fh.read()
     with open(tarfile, encoding="utf-8") as fh:
         e_text = fh.read()
-    res = run_pipeline(f_text, e_text, cp.read_lines(alignfile),
-                       cp.read_tokens(lexfile), cp.read_lines(qryfile), cfg,
-                       device=device, lcp_passes=lcp_passes,
-                       sa_shards=sa_shards, scan_cols=scan_cols)
+    args = (f_text, e_text, cp.read_lines(alignfile), cp.read_tokens(lexfile),
+            cp.read_lines(qryfile), cfg)
+    kw = dict(device=device, lcp_passes=lcp_passes, sa_shards=sa_shards,
+              scan_cols=scan_cols, index_dir=index_dir)
+    if query_batches > 1:
+        res = run_pipeline_overlap(*args, query_batches=query_batches, **kw)
+    else:
+        res = run_pipeline(*args, **kw)
     gw.write_grammars(dest_dir, res.queries.qryscount, cfg.is_sample,
                       res.per_query_lines)
     print(res.timing.report(), file=sys.stderr)

@@ -182,6 +182,53 @@ class Alignment:
     RLP: np.ndarray     # uint32 [source toklen]
 
 
+def load_alignment(lines, source: SourceCorpus, target: TargetCorpus) -> Alignment:
+    n_src = source.toklen
+    n_tar = target.toklen
+    L_src = np.full(n_src, UNALIGNED, dtype=np.int32)
+    R_src = np.full(n_src, UNALIGNED, dtype=np.int32)
+    L_tar = np.full(n_tar, UNALIGNED, dtype=np.uint8)
+    R_tar = np.full(n_tar, UNALIGNED, dtype=np.uint8)
+
+    for q, line in enumerate(lines):
+        # strtok(line, " -") == split on spaces and dashes -> flat int list.
+        nums = [int(t) for t in line.replace("-", " ").split()]
+        if len(nums) % 2 != 0:
+            raise ValueError(f"alignment line {q}: odd token count")
+        src_base = int(source.sentenceind[q])
+        tar_base = int(target.sentenceind[q])
+        for s_no, t_no in zip(nums[0::2], nums[1::2]):
+            if s_no >= 255 or t_no >= 255 or s_no < 0 or t_no < 0:
+                raise ValueError(f"alignment line {q}: sentence too long ({s_no}-{t_no})")
+            si = src_base + s_no
+            if L_src[si] == UNALIGNED or R_src[si] == UNALIGNED:
+                L_src[si] = t_no
+                R_src[si] = t_no
+            elif t_no > R_src[si]:
+                R_src[si] = t_no
+            elif t_no < L_src[si]:
+                L_src[si] = t_no
+            ti = tar_base + t_no
+            if L_tar[ti] == UNALIGNED or R_tar[ti] == UNALIGNED:
+                L_tar[ti] = s_no
+                R_tar[ti] = s_no
+            elif s_no > R_tar[ti]:
+                R_tar[ti] = s_no
+            elif s_no < L_tar[ti]:
+                L_tar[ti] = s_no
+
+    # RLP packing (ExtractPair.cu:2717-2731): vectorized; separator slots (the token
+    # *before* each sentence start) carry the target sentence start offset instead.
+    RLP = (
+        (L_src.astype(np.uint32) << 24)
+        | (R_src.astype(np.uint32) << 16)
+        | (source.P.astype(np.uint32) << 8)
+    )
+    sep_slots = source.sentenceind[1:] - 1          # end-separator of each sentence
+    RLP[sep_slots] = target.sentenceind[1:].astype(np.uint32)
+    return Alignment(L_tar=L_tar, R_tar=R_tar, RLP=RLP)
+
+
 @dataclasses.dataclass
 class LexTable:
     """Sorted (src_id, tgt_id) -> (P(s|t)=val1, P(t|s)=val2) table, float32."""

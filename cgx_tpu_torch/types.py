@@ -76,6 +76,16 @@ class Precomp:
     def P(self) -> int:
         return int(self.frequent_list.shape[0])
 
+    def cell_of(self, tok_a: int, tok_b: int) -> int:
+        """existPrecomputation (GappyLook.cu:5-40): -1 unless both tokens frequent."""
+        ia = int(np.searchsorted(self.frequent_list, tok_a))
+        if ia >= self.P or self.frequent_list[ia] != tok_a:
+            return -1
+        ib = int(np.searchsorted(self.frequent_list, tok_b))
+        if ib >= self.P or self.frequent_list[ib] != tok_b:
+            return -1
+        return ia * self.P + ib
+
 
 @dataclasses.dataclass
 class GapOnSA:
@@ -136,3 +146,36 @@ class GapRules:
     gap2: np.ndarray        # zeros for one-gap rules
     gap2_1: np.ndarray
     gappy_index: np.ndarray
+
+
+@dataclasses.dataclass
+class FastSpeed:
+    """One scored distinct rule (red_dup_t, ComTypes.h:244-255)."""
+
+    blocknumber: int
+    lexical: str
+    fsample: int              # all_suffix_fsample (clamped)
+    fsample_score: np.float32
+    f: int                    # pre-dedup instance count for this id
+    paircount: int
+    aa: np.float32 = np.float32(0)
+    bb: np.float32 = np.float32(0)
+    max_lex_fge: np.float32 = np.float32(0)
+    max_lex_egf: np.float32 = np.float32(0)
+
+
+@dataclasses.dataclass
+class LexTask:
+    """lexicalTask (ComTypes.h:376-389): MaxLex work item for one distinct rule."""
+
+    fast_speed_id: int
+    source_pattern: list      # real source token ids (no gaps)
+    target_start: int
+    end: int                  # offset of last target token
+    gap1: int = -1            # offsets relative to target_start; -1 = none
+    gap1_1: int = -1
+    gap2: int = -1
+    gap2_1: int = -1
+    kind: str = "contig"      # "onegap" | "twogap" | "contig"
+
+

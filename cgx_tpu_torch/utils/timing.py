@@ -6,6 +6,7 @@ recordTime, Start.cu:392-469).  The JAX package's counterpart is
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 
 import torch
@@ -14,11 +15,16 @@ import torch
 class PhaseTimer:
     """``phase(name)`` accumulates wall time per bucket.  On a CUDA device it
     synchronises at the end of each phase (so a phase's time includes its
-    kernels) and records the allocator's peak bytes since the timer began."""
+    kernels) and records the allocator's peak bytes since the timer began;
+    ``phase(name, sync=False)`` does neither, for a phase that launches
+    nothing (a host phase that another thread runs while the main thread's
+    kernels are in flight must not wait for them).  Phases may run on
+    several threads at once; each adds to its bucket under a lock."""
 
     def __init__(self, device=None):
         self.buckets: dict = {}
         self.mem_after: dict = {}
+        self._lock = threading.Lock()
         self.device = torch.device(device) if device is not None else None
         if self._cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
@@ -28,18 +34,21 @@ class PhaseTimer:
         return self.device is not None and self.device.type == "cuda"
 
     @contextlib.contextmanager
-    def phase(self, name: str):
+    def phase(self, name: str, sync: bool = True):
         t0 = time.perf_counter()
         try:
             yield
         finally:
-            if self._cuda:
+            on_card = self._cuda and sync
+            if on_card:
                 torch.cuda.synchronize(self.device)
-            self.buckets[name] = self.buckets.get(name, 0.0) + (
-                time.perf_counter() - t0)
-            if self._cuda:
-                self.mem_after[name] = torch.cuda.max_memory_allocated(
-                    self.device)
+            seconds = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated(self.device) if on_card
+                    else None)
+            with self._lock:
+                self.buckets[name] = self.buckets.get(name, 0.0) + seconds
+                if peak is not None:
+                    self.mem_after[name] = peak
 
     def peak_memory(self) -> int:
         """Peak device bytes allocated during the timed phases; -1 on the CPU."""
@@ -54,4 +63,5 @@ class PhaseTimer:
         return " , ".join(parts)
 
     def as_dict(self) -> dict:
-        return dict(self.buckets)
+        with self._lock:
+            return dict(self.buckets)

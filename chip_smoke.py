@@ -29,7 +29,34 @@ Phases, one line each on stdout:
    refinement's up, down and longestmatch (their launches, B1's largest,
    counted with the launch counts reset just before them); the sharded run
    prints each shard's bytes and its peak device memory beside the
-   replicated run's;
+   replicated run's.  Then, all under a scratch dir in ``build/`` that is
+   deleted at the end (``run_paths``):
+   3b. index_save -- europarl's default run above passes ``index_dir``, so
+       it persists its index (``preproc.index_io``): the ``indexsave``
+       seconds and the dir's bytes;
+   3c. the loaded runs (``LOAD_RUNS``) -- ``run_pipeline(...,
+       index_dir=...)`` on that dir, replicated and with ``sa_shards=4``:
+       no corpus parsed, no suffix array built, no precompute, so no A4 or
+       A4v; each must launch exactly its path's kernels and give the
+       golden hash and counters;
+   3d. serve -- europarl's corpus and two query files (all 64 queries;
+       the first 3) written out, ``serve.serve_loop`` over the index dir
+       with the default ``auto`` prewarm and three requests (all, first
+       3, all): every reply ``ok``, both full requests the golden hash,
+       the small one the first 3 queries' lines of 3c's run, each full
+       request the kernels of 3c's replicated run, the small one (no item
+       for A3) and the prewarm nothing else;
+       ``ready`` and each request's seconds and launches printed;
+   3e. medium with ``query_batches=4`` (``run_pipeline_overlap``): the
+       golden hash and line count, A4, A1, A2f, A2b, A3, A5, A6, A7 and A8
+       and no A9 or A10 (MaxLex on the host, on the worker thread);
+   3f. profile -- ``cli.main([..., "--profile", DIR])`` on medium's
+       files: the grammar files the golden hash, medium's path launched,
+       and DIR's ``torch.profiler`` trace naming each of that path's
+       ``__global__`` functions; the trace's csrc kernel time, its device
+       busy time (the union of kernels, copies and sets) and that busy
+       time's share of the run's wall and of its phases' sum printed,
+       beside the wall of the same CLI run without ``--profile``;
 4. query_dp -- ``parallel.dist.run_sharded_search`` on the europarl run's
    index, pass-1 tokens and sampled block occurrences, over four shards on
    the one card (kernel B4, one launch per shard, and nothing else):
@@ -95,7 +122,8 @@ Phases, one line each on stdout:
    shards), and P1 and P2 on short corpora, ragged item counts and grids
    (``check_edges``).
 
-Then a JSON line with every kernel's numbers, and last the line
+Then the script's total seconds, a JSON line with every kernel's numbers
+(``launches``: every phase's, 3b-3f included), and last the line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 The script imports neither JAX nor the JAX package.
 """
@@ -106,8 +134,10 @@ import hashlib
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -189,6 +219,29 @@ RUNS = (
     ("medium", True, 0, False, PATH_KERNELS + ("B1p1", "B1p2", "A9"),
      ("A1",) + SHARDED_KERNELS + COLS_KERNELS + OFF_PATH),
 )
+
+# the runs over europarl's persisted index (saved by RUNS' europarl run):
+# (sa_shards, must launch); each must launch nothing else, so no A4 or A4v
+# (the precompute is loaded, not run)
+LOAD_RUNS = (
+    (0, ("A1", "A2f", "A2b", "A3", "A5", "A6", "A7", "A8", "A10")),
+    (4, ("B2r", "B2g", "B3f", "B3b", "B3p", "B3t", "B3c", "A7v", "A8v")),
+)
+# medium with query_batches=4: MaxLex scores on the host, so no A9 or A10
+OVERLAP_KERNELS = PATH_KERNELS + ("A1",)
+# the __global__ functions of medium's default path (``cli --profile``),
+# by launch id
+PROFILE_GLOBALS = {
+    "A1": "refine_warp_kernel", "A4": "gap_check_kernel",
+    "A2f": "scan_kernel", "A2b": "scan_kernel", "A3": "pcs_kernel",
+    "A5": "two_kernel", "A6": "contig_kernel", "A7": "onegap_kernel",
+    "A8": "twogap_kernel", "A9": "dense_quad_kernel",
+}
+
+
+def others(expect) -> tuple:
+    """Every kernel id but those of ``expect``."""
+    return tuple(k for k in KERNELS if k not in expect)
 
 # The least time the card could take for a kernel's work: the larger of the
 # bytes it must move over the memory rate and its integer operations over the
@@ -412,14 +465,18 @@ _CORPORA = {}
 
 def run_e2e(size: str, device: str, capture: Capture, golden: dict,
             expect: tuple, lcp_passes: bool = False, forbid: tuple = (),
-            sa_shards: int = 0, scan_cols: bool = False):
+            sa_shards: int = 0, scan_cols: bool = False,
+            index_dir: str = None, query_batches: int = 0):
     """One end-to-end run -> (its launch counts, its PipelineResult, its
     own peak device bytes: the peak less what was allocated before it, such
-    as the earlier runs' tensors the capture holds)."""
+    as the earlier runs' tensors the capture holds).  ``index_dir``: the run
+    saves its index there, or loads it when the dir holds one;
+    ``query_batches``: ``run_pipeline_overlap`` over that many batches, whose
+    summed pattern counters are not the golden's (its lines are)."""
     import torch
     from cgx_tpu_torch.config import DEFAULT_CONFIG
     from cgx_tpu_torch.kernels import build as kb
-    from cgx_tpu_torch.pipeline import run_pipeline
+    from cgx_tpu_torch.pipeline import run_pipeline, run_pipeline_overlap
     t0 = time.perf_counter()
     if size not in _CORPORA:
         _CORPORA[size] = make_corpus(size)
@@ -430,26 +487,35 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     cuda = torch.device(device).type == "cuda"
     held = torch.cuda.memory_allocated() if cuda else 0
     t0 = time.perf_counter()
-    res = run_pipeline(*data, DEFAULT_CONFIG, device=device,
-                       lcp_passes=lcp_passes, sa_shards=sa_shards,
-                       scan_cols=scan_cols)
+    kw = dict(device=device, lcp_passes=lcp_passes, sa_shards=sa_shards,
+              scan_cols=scan_cols, index_dir=index_dir)
+    if query_batches:
+        res = run_pipeline_overlap(*data, DEFAULT_CONFIG,
+                                   query_batches=query_batches, **kw)
+    else:
+        res = run_pipeline(*data, DEFAULT_CONFIG, **kw)
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     run_peak = res.timing.peak_memory() - held
-    launches = check_launches(size, expect, forbid)
+    loaded = "indexload" in res.timing.as_dict()
+    what = size + (" (index loaded)" if loaded else "") + (
+        f" ({query_batches} query batches)" if query_batches else "")
+    launches = check_launches(what, expect, forbid)
     lines = res.per_query_lines
     ok_shape = len(lines) == len(data[4]) and all(
         ln.startswith("[X] ||| ") for q in lines for ln in q)
     ghash = grammar_hash(lines)
     want = golden[size]
     counters_off = {k: (res.counters[k], v) for k, v in want.items()
-                    if k in res.counters and res.counters[k] != v}
+                    if k in res.counters and res.counters[k] != v
+                    and not query_batches}
     lines_ok = res.counters["total_lines"] == want["lines"]
     print(json.dumps({
         "phase": "e2e", "size": size, "device": device,
         "lcp_passes": lcp_passes, "sa_shards": sa_shards,
-        "scan_cols": scan_cols,
+        "scan_cols": scan_cols, "index_dir": index_dir is not None,
+        "index_loaded": loaded, "query_batches": query_batches,
         "corpus_gen_s": gen_s, "wall_s": wall,
         "phases_s": res.timing.as_dict(),
         "peak_mem_bytes": res.timing.peak_memory(),
@@ -459,21 +525,23 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
         "grammar_sha256": ghash, "golden_ok": ghash == want["sha256"]}),
         flush=True)
     if not ok_shape:
-        fail(f"{size}: malformed grammar lines")
+        fail(f"{what}: malformed grammar lines")
     if counters_off or not lines_ok:
-        fail(f"{size}: counters (port, JAX) differ: {counters_off}, lines "
+        fail(f"{what}: counters (port, JAX) differ: {counters_off}, lines "
              f"{res.counters['total_lines']} vs {want['lines']}")
     if ghash != want["sha256"]:
-        fail(f"{size}: grammar hash {ghash[:16]} != golden "
+        fail(f"{what}: grammar hash {ghash[:16]} != golden "
              f"{want['sha256'][:16]}")
     return launches, res, run_peak
 
 
-def check_launches(what: str, expect, forbid) -> dict:
-    """The launch counts since the last reset; fails unless every kernel in
-    ``expect`` launched and none in ``forbid`` did."""
+def check_launches(what: str, expect, forbid, counts=None) -> dict:
+    """The launch counts since the last reset (or ``counts``, read
+    earlier); fails unless every kernel in ``expect`` launched and none in
+    ``forbid`` did."""
     from cgx_tpu_torch.kernels import build as kb
-    launches = {k: kb.LAUNCHES[k] for k in KERNELS}
+    counts = kb.LAUNCHES if counts is None else counts
+    launches = {k: counts.get(k, 0) for k in KERNELS}
     missing = [k for k in expect if launches[k] == 0]
     if missing:
         fail(f"{what}: kernels {missing} never launched on the main path "
@@ -2201,6 +2269,219 @@ def check_edges(capture: Capture):
         fail(f"edges: the inputs never set {silent}")
 
 
+def write_corpus_files(size: str, d: str, queries: dict) -> dict:
+    """A size's corpus as the CLI's files under ``d``, and each query file
+    of ``queries`` (name -> query lines) -> {file name: path}."""
+    f, e, a, lex, _ = _CORPORA[size]
+    os.makedirs(d, exist_ok=True)
+    bodies = {"corpus.f": f, "corpus.e": e, "corpus.a": a,
+              "lex.txt": [" ".join(lex)], **queries}
+    paths = {}
+    for name, body in bodies.items():
+        paths[name] = os.path.join(d, name)
+        with open(paths[name], "w", encoding="utf-8") as fh:
+            fh.write(body if isinstance(body, str)
+                     else "\n".join(body) + "\n")
+    return paths
+
+
+def read_grammars(d: str, n: int) -> list:
+    """The per-query lines of the ``grammar.<i>.s`` files under ``d``."""
+    out = []
+    for q in range(n):
+        with open(os.path.join(d, f"grammar.{q}.s"), encoding="utf-8") as fh:
+            out.append(fh.read().splitlines())
+    return out
+
+
+def dir_bytes(d: str) -> dict:
+    return {f: os.path.getsize(os.path.join(d, f))
+            for f in sorted(os.listdir(d))}
+
+
+def check_index_dir(res, index_dir: str):
+    """The europarl run saved its index: the ``indexsave`` seconds and the
+    dir's bytes."""
+    files = dir_bytes(index_dir)
+    if "meta.json" not in files or "arrays.npz" not in files:
+        fail(f"index dir {index_dir} holds {sorted(files)}")
+    print(json.dumps({"phase": "index_save", "size": "europarl",
+                      "indexsave_s": res.timing.as_dict()["indexsave"],
+                      "bytes": sum(files.values()), "files": files}),
+          flush=True)
+
+
+def check_serve(index_dir: str, work: str, golden: dict, first3: list,
+                expect: tuple, device: str = "cuda") -> dict:
+    """``serve.serve_loop`` over europarl's index dir with the default
+    ``auto`` prewarm and three requests (all 64 queries, the first 3, all
+    again): every reply ``ok``, the full requests' grammars the golden, the
+    small one the first 3 queries' lines of the one-shot run; each full
+    request launches exactly ``expect``, the small one and the prewarm
+    nothing else -> the launch counts of the prewarm and the requests."""
+    import io
+    from cgx_tpu_torch import serve
+    from cgx_tpu_torch.kernels import build as kb
+    q_lines = _CORPORA["europarl"][4]
+    paths = write_corpus_files("europarl", os.path.join(work, "serve"),
+                               {"all.q": q_lines, "first3.q": q_lines[:3]})
+    dests = [os.path.join(work, "serve", f"out{i}") for i in range(3)]
+    reqs = [(paths["all.q"], dests[0]), (paths["first3.q"], dests[1]),
+            (paths["all.q"], dests[2])]
+    counts = []
+
+    def requests():
+        # the launch counts of the prewarm, then of each request: read and
+        # reset before the next line is handed out, and after the last
+        for qry, dest in reqs:
+            counts.append(dict(kb.LAUNCHES))
+            kb.LAUNCHES.clear()
+            yield f"{qry} {dest}\n"
+        counts.append(dict(kb.LAUNCHES))
+
+    out = io.StringIO()
+    kb.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    served = serve.serve_loop(paths["corpus.f"], paths["corpus.e"],
+                              paths["corpus.a"], paths["lex.txt"],
+                              index_dir=index_dir, inp=requests(), out=out,
+                              device=device)
+    wall = time.perf_counter() - t0
+    replies = out.getvalue().splitlines()
+    ok = [r.split() for r in replies[1:]]
+    hashes = [grammar_hash(read_grammars(d, n)) for d, n in
+              ((dests[0], len(q_lines)), (dests[2], len(q_lines)))]
+    small = read_grammars(dests[1], 3)
+    print(json.dumps({
+        "phase": "serve", "size": "europarl", "served": served,
+        "replies": replies, "wall_s": wall,
+        "ready_s": float(replies[0].split()[1])
+        if replies and replies[0].startswith("ready ") else None,
+        "request_s": [float(r[3]) for r in ok if r and r[0] == "ok"],
+        "prewarm_launches": counts[0] if counts else None,
+        "request_launches": counts[1:],
+        "golden_ok": [h == golden["europarl"]["sha256"] for h in hashes],
+        "first3_ok": small == first3}), flush=True)
+    if served != 3 or not replies[0].startswith("ready ") or len(ok) != 3 \
+            or any(r[0] != "ok" for r in ok):
+        fail(f"serve: replies {replies}")
+    if [int(r[1]) for r in ok] != [len(q_lines), 3, len(q_lines)] or \
+            int(ok[0][2]) != golden["europarl"]["lines"]:
+        fail(f"serve: counts in the replies {replies}")
+    if any(h != golden["europarl"]["sha256"] for h in hashes):
+        fail(f"serve: grammar hashes {[h[:16] for h in hashes]} != golden")
+    if small != first3:
+        fail("serve: the first 3 queries' grammars differ from the one-shot "
+             "run's")
+    # the small request has no item for A3 (no precomputed pair), so it
+    # is held to the path's set, the full ones to all of it
+    per_request = [check_launches(f"serve request {i}",
+                                  () if qry == paths["first3.q"] else expect,
+                                  others(expect), c)
+                   for i, ((qry, _), c) in enumerate(zip(reqs, counts[1:]))]
+    prewarm = check_launches("serve prewarm", (), others(expect), counts[0])
+    return {k: prewarm[k] + sum(p[k] for p in per_request) for k in KERNELS}
+
+
+def check_profile(work: str, golden: dict, device: str = "cuda") -> dict:
+    """``cli.main([... "--profile", DIR])`` on medium's files: the
+    grammar files hash to the golden, the run launches medium's default
+    path (A9 for MaxLex), and DIR's trace names each of its __global__
+    functions; prints the trace's kernel time and busy share of the run,
+    and the wall of the same run without the profiler just before it
+    (not counted) -> the profiled run's launch counts."""
+    import re
+    from cgx_tpu_torch import cli
+    from cgx_tpu_torch.kernels import build as kb
+    q_lines = _CORPORA["medium"][4]
+    paths = write_corpus_files("medium", os.path.join(work, "profile_in"),
+                               {"query.f": q_lines})
+    prof = os.path.join(work, "profile")
+    out = os.path.join(work, "profile_out")
+    expect = PATH_KERNELS + ("A1", "A9")
+    files = [paths["corpus.f"], paths["query.f"], paths["corpus.e"],
+             paths["corpus.a"], paths["lex.txt"]]
+    # the same run without the profiler first: what the trace costs
+    timefile = os.path.join(work, "plain_times")
+    if cli.main(["--device", device, "-s", timefile, *files,
+                 os.path.join(work, "plain_out")]) != 0:
+        fail("cli without --profile failed")
+    with open(timefile, encoding="utf-8") as fh:
+        plain_line = fh.read().strip()
+    timefile = os.path.join(work, "profile_times")
+    kb.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rc = cli.main(["--device", device, "--profile", prof, "-s", timefile,
+                   *files, out])
+    call_s = time.perf_counter() - t0
+    with open(timefile, encoding="utf-8") as fh:
+        timeline = fh.read().strip()
+    # the run's wall as the CLI measured it, the trace's export excluded,
+    # and the sum of its phases (the pipeline's own time)
+    wall = float(timeline.split()[1].rstrip("s"))
+    phases_s = float(timeline.split("total: ")[1].split("s")[0])
+    launches = check_launches("medium (cli --profile)", expect,
+                              others(expect))
+    if rc != 0:
+        fail(f"cli --profile: exit code {rc}")
+    ghash = grammar_hash(read_grammars(out, len(q_lines)))
+    trace_path = os.path.join(prof, "trace.json")
+    if not os.path.exists(trace_path):
+        fail(f"cli --profile wrote no {trace_path}")
+    with open(trace_path, encoding="utf-8") as fh:
+        events = json.load(fh)["traceEvents"]
+    dev = [ev for ev in events if ev.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in ev]
+    pat = re.compile(r"\b(" + "|".join(_kernel_names()) + r")\b")
+    own = {}                     # csrc __global__ name -> its events
+    for ev in dev:
+        m = pat.search(ev["name"]) if ev.get("cat") == "kernel" else None
+        if m:
+            own.setdefault(m.group(1), []).append(ev)
+    seen = sorted(own)
+    timed = [ev for ev in events if "ts" in ev and "dur" in ev]
+    span_us = (max(ev["ts"] + ev["dur"] for ev in timed)
+               - min(ev["ts"] for ev in timed)) if timed else 0.0
+    busy_us, end = 0.0, None       # the union of the device intervals
+    for ts, dur in sorted((ev["ts"], ev["dur"]) for ev in dev):
+        if end is None or ts > end:
+            busy_us += dur
+            end = ts + dur
+        elif ts + dur > end:
+            busy_us += ts + dur - end
+            end = ts + dur
+    print(json.dumps({
+        "phase": "profile", "size": "medium", "wall_s": wall,
+        "with_export_s": call_s, "timefile": timeline,
+        "without_profile_wall_s": float(plain_line.split()[1].rstrip("s")),
+        "without_profile_timefile": plain_line,
+        "trace_bytes": os.path.getsize(trace_path),
+        "trace_span_s": span_us / 1e6,
+        "csrc_kernel_ms": sum(ev["dur"] for evs in own.values()
+                              for ev in evs) / 1e3,
+        "csrc_kernel_ms_by_name": {k: sum(ev["dur"] for ev in evs) / 1e3
+                                   for k, evs in own.items()},
+        "csrc_kernel_events": {k: len(evs) for k, evs in own.items()},
+        "all_kernel_ms": sum(ev["dur"] for ev in dev
+                             if ev.get("cat") == "kernel") / 1e3,
+        "memcpy_ms": sum(ev["dur"] for ev in dev
+                         if ev.get("cat") == "gpu_memcpy") / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "phases_total_s": phases_s,
+        "busy_share_of_wall": busy_us / 1e6 / wall,
+        "busy_share_of_phases": busy_us / 1e6 / phases_s,
+        "busy_share_of_trace": busy_us / span_us if span_us else None,
+        "launches": {k: v for k, v in launches.items() if v},
+        "grammar_sha256": ghash,
+        "golden_ok": ghash == golden["medium"]["sha256"]}), flush=True)
+    missing = sorted({PROFILE_GLOBALS[k] for k in expect} - set(seen))
+    if missing:
+        fail(f"cli --profile: the trace names no {missing}")
+    if ghash != golden["medium"]["sha256"]:
+        fail(f"cli --profile: grammar hash {ghash[:16]} != golden")
+    return launches
+
+
 def launch_floor(capture: Capture, device: str):
     """The time of one launch of A8 (plain C entry, ctypes) on the first
     item of its captured inputs: by CUDA events the floor that host issue
@@ -2219,6 +2500,7 @@ def launch_floor(capture: Capture, device: str):
 
 def main():
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     sys.path.insert(0, ROOT)
@@ -2254,36 +2536,23 @@ def main():
         golden = json.load(fh)
     totals = {k: 0 for k in KERNELS}
     peaks = {}
-    shard_offsets = []
 
     def count(launches):
         for k, v in launches.items():
             totals[k] += v
-    with Capture() as cap:
-        for size, lcp, shards, cols, expect, forbid in RUNS:
-            launches, res, peaks[(size, shards, cols)] = run_e2e(
-                size, "cuda", cap, golden, expect, lcp, forbid, shards, cols)
-            count(launches)
-            if size == "europarl" and not shards and not cols:
-                count(check_lcp_passes(res))
-                # 4. query-DP on the same index, queries and blocks; 4b.
-                # A9 on its lexicon as dense tables
-                count(check_query_dp(res, cap))
-                count(check_dense_large(res, cap))
-            if shards:
-                shard_offsets = [int(o) for o in res.index.src_off]
-                print(json.dumps({
-                    "phase": "sharded_memory", "size": size,
-                    "sa_shards": shards,
-                    "bytes_per_shard": res.index.memory_per_device(),
-                    "run_peak_mem_bytes": peaks[(size, shards, cols)],
-                    "replicated_run_peak_mem_bytes":
-                        peaks[(size, 0, False)]}),
-                    flush=True)
-            del res
-        # 5. C1p on A3's largest launch, as columns; 6. the gather probe
-        count(check_pcs_cols(cap))
-        count(check_probe(cap))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_",
+                            dir=os.path.join(ROOT, "build"))
+    index_dir = os.path.join(work, "europarl_index")
+    try:
+        with Capture() as cap:
+            shard_offsets = run_paths(cap, golden, count, peaks, work,
+                                      index_dir)
+            # 5. C1p on A3's largest launch, as columns; 6. the gather probe
+            count(check_pcs_cols(cap))
+            count(check_probe(cap))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # 7. kernels against their plain versions at the main path's shapes
     rows = compare_kernels(cap, "cuda", totals, shard_offsets)
@@ -2294,10 +2563,63 @@ def main():
                     if m.split(".")[0] in ("jax", "cgx_tpu"))
     if leaked:
         fail(f"the port imported {leaked[:5]}")
+    print(json.dumps({"total_s": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def run_paths(cap: Capture, golden: dict, count, peaks: dict, work: str,
+              index_dir: str) -> list:
+    """Phases 3 and 4 -> the shard offsets of the sharded run."""
+    shard_offsets = []
+    for size, lcp, shards, cols, expect, forbid in RUNS:
+        # europarl's default run also persists its index (phase 3b)
+        saves = size == "europarl" and not (shards or cols)
+        launches, res, peaks[(size, shards, cols)] = run_e2e(
+            size, "cuda", cap, golden, expect, lcp, forbid, shards, cols,
+            index_dir=index_dir if saves else None)
+        count(launches)
+        if saves:
+            check_index_dir(res, index_dir)
+            count(check_lcp_passes(res))
+            # 4. query-DP on the same index, queries and blocks; 4b.
+            # A9 on its lexicon as dense tables
+            count(check_query_dp(res, cap))
+            count(check_dense_large(res, cap))
+        if shards:
+            shard_offsets = [int(o) for o in res.index.src_off]
+            print(json.dumps({
+                "phase": "sharded_memory", "size": size,
+                "sa_shards": shards,
+                "bytes_per_shard": res.index.memory_per_device(),
+                "run_peak_mem_bytes": peaks[(size, shards, cols)],
+                "replicated_run_peak_mem_bytes":
+                    peaks[(size, 0, False)]}),
+                flush=True)
+        del res
+    # 3c. europarl from its persisted index, replicated and sharded
+    first3 = None
+    for shards, expect in LOAD_RUNS:
+        launches, res, _ = run_e2e("europarl", "cuda", cap, golden, expect,
+                                   forbid=others(expect), sa_shards=shards,
+                                   index_dir=index_dir)
+        count(launches)
+        if not shards:
+            first3 = res.per_query_lines[:3]
+        del res
+    # 3d. a server over that index; 3e. medium's queries in four batches;
+    # 3f. medium through the CLI under --profile
+    count(check_serve(index_dir, work, golden, first3, LOAD_RUNS[0][1]))
+    launches, res, _ = run_e2e("medium", "cuda", cap, golden,
+                               OVERLAP_KERNELS,
+                               forbid=others(OVERLAP_KERNELS),
+                               query_batches=4)
+    count(launches)
+    del res
+    count(check_profile(work, golden))
+    return shard_offsets
 
 
 if __name__ == "__main__":

@@ -162,7 +162,9 @@ def test_port_imports_without_jax():
             "cgx_tpu_torch.search.precompute, cgx_tpu_torch.search.lookup, "
             "cgx_tpu_torch.parallel.sharded, cgx_tpu_torch.engine, "
             "cgx_tpu_torch.parallel.dist, "
-            "cgx_tpu_torch.tools.gather_probe; "
+            "cgx_tpu_torch.tools.gather_probe, cgx_tpu_torch.serve, "
+            "cgx_tpu_torch.oracle.pipeline, "
+            "cgx_tpu_torch.preproc.index_io; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'cgx_tpu') "
             "and sys.modules[m] is not None); "
