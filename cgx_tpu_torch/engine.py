@@ -15,12 +15,19 @@ the same host logic drives both index layouts:
   shards; work items go to the shard that owns the corpus position they read
   around, and SA values come from the rank-sharded SA (kernels B2 and B3).
 
+* ``parallel.localdp.LocalDPEngine`` -- one ``ReplicatedEngine`` per
+  device over replicas of the index; every stage's items split across them.
+
 Methods (all take and return host numpy; device placement is the engine's
 business): ``sa_values``, ``pcs_expanded``, ``scan_expanded``,
-``two_expanded``, ``gap_check``, ``contig``, ``onegap``, ``twogap``.  The
-JAX engine's ``fetch``/``do_gap`` knobs and its dispatch pools have no
-counterpart: the port always fuses the gap check, and a kernel's result is
-read back when the engine returns.
+``two_expanded``, ``gap_check``, ``contig``, ``onegap``, ``twogap``.
+``ReplicatedEngine``'s kernel methods, and its ``pass1_items`` and
+``pass2_items`` (kernel B1 over explicit items), also take ``fetch``: with
+``fetch=False`` they launch and return a function that copies the result to
+the host and returns what ``fetch=True`` would have, so that a caller
+fanning over several devices launches on every one before the first copy
+(the JAX engine's ``Pending``).  The JAX engine's ``do_gap`` knob and its
+dispatch pools have no counterpart: the port always fuses the gap check.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 
 from cgx_tpu_torch.extract import device as xdev
 from cgx_tpu_torch.kernels import build as kb
-from cgx_tpu_torch.search import lookup
+from cgx_tpu_torch.search import lookup, passes
 from cgx_tpu_torch.search import precompute as pcx
 
 
@@ -79,6 +86,12 @@ def on(device, *cols):
             for c in cols]
 
 
+def _done(get, fetch: bool):
+    """``get()``, the result on the host, or with ``fetch=False`` ``get``
+    itself for the caller to call once it has launched elsewhere."""
+    return get() if fetch else get
+
+
 class ReplicatedEngine:
     """Single-device dispatch against a whole ``TorchGrammarIndex``.
     ``scan_cols=True`` runs ``scan_expanded`` and ``two_expanded`` on the
@@ -113,7 +126,28 @@ class ReplicatedEngine:
                 torch.from_numpy(offs.astype(np.int32)).to(dev),
                 int(offs[-1]))
 
-    def pcs_expanded(self, queries, pc, base, counts, sl, el, tok, stok):
+    def pass1_items(self, queries, toks, suffixlens, fetch=True):
+        """B1's pass 1 (``passes.pass1``) over explicit query-token items
+        -> its six numpy int32 columns."""
+        ix = self.index
+        lcpleft, lcpright = ix.lcp_tables()
+        out = passes.pass1(ix.refstr_padded, ix.sa, lcpleft, lcpright,
+                           ix.query_tokens(queries),
+                           *on(ix.device, toks, suffixlens), ix.reflen)
+        return _done(lambda: tuple(t.cpu().numpy() for t in out), fetch)
+
+    def pass2_items(self, queries, toks, matches, LLs, MMs, RRs, fetch=True):
+        """B1's pass 2 (``passes.pass2``) over explicit (token, match
+        length) items and their pass-1 windows -> (up, down) numpy int32."""
+        ix = self.index
+        lcpleft, lcpright = ix.lcp_tables()
+        out = passes.pass2(ix.refstr_padded, ix.sa, lcpleft, lcpright,
+                           ix.query_tokens(queries),
+                           *on(ix.device, toks, matches, LLs, MMs, RRs))
+        return _done(lambda: tuple(t.cpu().numpy() for t in out), fetch)
+
+    def pcs_expanded(self, queries, pc, base, counts, sl, el, tok, stok,
+                     fetch=True):
         """A3 over the precomputed occurrences -> numpy bool [sum(counts)]."""
         qtok = np.asarray(queries.padded_tokens()).astype(np.int64)
         pattab, offs, n = self._pattern_tables(counts, (
@@ -122,11 +156,13 @@ class ReplicatedEngine:
             qtok[stok + 2]))
         ix = self.index
         words = lookup.pcs(ix.refstr_padded, ix.precomp_rows(pc), pattab,
-                           offs, n, self.cfg.max_rule_span).cpu().numpy()
-        return np.unpackbits(words.view(np.uint8),
-                             bitorder="little")[:n].astype(bool)
+                           offs, n, self.cfg.max_rule_span)
+        return _done(lambda: np.unpackbits(
+            words.cpu().numpy().view(np.uint8),
+            bitorder="little")[:n].astype(bool), fetch)
 
-    def scan_expanded(self, queries, fwd, lo, counts, sl, el, side):
+    def scan_expanded(self, queries, fwd, lo, counts, sl, el, side,
+                      fetch=True):
         """A2 over the patterns' SA ranges (with ``scan_cols``: C1f/C1b over
         the items materialised on the host, each occurrence read from the
         host SA) -> numpy int32 [sum(counts)] masks."""
@@ -140,16 +176,19 @@ class ReplicatedEngine:
         if self.scan_cols:
             item_pat, tx = materialize_items(counts)
             cols = [c[item_pat] for c in (sl, el) + toks]
-            return lookup.scan_cols(
+            mask = lookup.scan_cols(
                 ix.refstr_padded, ix.rlp, ix.lr_tar,
                 *on(ix.device, self.sa_host[lo[item_pat] + tx], *cols),
-                cfg.max_rule_span, cfg.min_gap_size, fwd).cpu().numpy()
-        pattab, offs, n = self._pattern_tables(counts, (lo, sl, el) + toks)
-        return lookup.scan(ix.refstr_padded, ix.rlp, ix.lr_tar, ix.sa, pattab,
-                           offs, n, cfg.max_rule_span, cfg.min_gap_size,
-                           fwd).cpu().numpy()
+                cfg.max_rule_span, cfg.min_gap_size, fwd)
+        else:
+            pattab, offs, n = self._pattern_tables(counts,
+                                                   (lo, sl, el) + toks)
+            mask = lookup.scan(ix.refstr_padded, ix.rlp, ix.lr_tar, ix.sa,
+                               pattab, offs, n, cfg.max_rule_span,
+                               cfg.min_gap_size, fwd)
+        return _done(lambda: mask.cpu().numpy(), fetch)
 
-    def two_expanded(self, onegap_sa, pc, lo, counts, pcmode):
+    def two_expanded(self, onegap_sa, pc, lo, counts, pcmode, fetch=True):
         """A5 (or with ``scan_cols`` C1t) over every one-gap occurrence ->
         (cand, gc) numpy int32 [sum(counts)] masks."""
         ix, cfg = self.index, self.cfg
@@ -158,44 +197,47 @@ class ReplicatedEngine:
             words = lookup.two_packed(ix.refstr_padded, ix.rlp, ix.lr_tar,
                                       *on(ix.device, css, fes),
                                       cfg.max_rule_span, cfg.min_gap_size)
-            return split_two(words.cpu().numpy())
-        pattab, offs, n = self._pattern_tables(counts, (lo, pcmode), width=2)
-        rows = np.zeros((max(len(onegap_sa.str_position), 1), 2), np.int32)
-        rows[:len(onegap_sa.str_position), 0] = onegap_sa.str_position
-        rows[:len(onegap_sa.length), 1] = onegap_sa.length
-        words = lookup.two(ix.refstr_padded, ix.rlp, ix.lr_tar,
-                           torch.from_numpy(rows).to(ix.device),
-                           ix.precomp_rows(pc), pattab, offs, n,
-                           cfg.max_rule_span, cfg.min_gap_size)
-        return split_two(words.cpu().numpy())
+        else:
+            pattab, offs, n = self._pattern_tables(counts, (lo, pcmode),
+                                                   width=2)
+            rows = np.zeros((max(len(onegap_sa.str_position), 1), 2),
+                            np.int32)
+            rows[:len(onegap_sa.str_position), 0] = onegap_sa.str_position
+            rows[:len(onegap_sa.length), 1] = onegap_sa.length
+            words = lookup.two(ix.refstr_padded, ix.rlp, ix.lr_tar,
+                               torch.from_numpy(rows).to(ix.device),
+                               ix.precomp_rows(pc), pattab, offs, n,
+                               cfg.max_rule_span, cfg.min_gap_size)
+        return _done(lambda: split_two(words.cpu().numpy()), fetch)
 
-    def gap_check(self, gostart, fwd):
+    def gap_check(self, gostart, fwd, fetch=True):
         """A4 -> numpy int32 [n] move masks."""
         ix, cfg = self.index, self.cfg
         (g,) = on(ix.device, gostart)
-        return pcx.gap_check(ix.rlp, ix.lr_tar, g, cfg.max_rule_span,
-                             cfg.min_gap_size, fwd).cpu().numpy()
+        gc = pcx.gap_check(ix.rlp, ix.lr_tar, g, cfg.max_rule_span,
+                           cfg.min_gap_size, fwd)
+        return _done(lambda: gc.cpu().numpy(), fetch)
 
-    def contig(self, sa_pos, lm):
+    def contig(self, sa_pos, lm, fetch=True):
         """A6 -> the 8 numpy int32 columns (ts, packed) per family."""
         ix, cfg = self.index, self.cfg
         out = xdev.contig(ix.refstr_padded, ix.sa, ix.rlp, ix.lr_tar,
                           *on(ix.device, sa_pos, lm), cfg.max_rule_span,
                           cfg.max_rule_symbols)
-        return tuple(out.cpu().numpy())
+        return _done(lambda: tuple(out.cpu().numpy()), fetch)
 
-    def onegap(self, css, fes, sls, els):
+    def onegap(self, css, fes, sls, els, fetch=True):
         """A7 -> the 6 numpy int32 columns."""
         ix, cfg = self.index, self.cfg
         out = xdev.onegap(ix.refstr_padded, ix.rlp, ix.lr_tar,
                           *on(ix.device, css, fes, sls, els),
                           cfg.max_rule_span, cfg.max_rule_symbols)
-        return tuple(out.cpu().numpy())
+        return _done(lambda: tuple(out.cpu().numpy()), fetch)
 
-    def twogap(self, css, fes, ses, sls, els, cls):
+    def twogap(self, css, fes, ses, sls, els, cls, fetch=True):
         """A8 -> the 2 numpy int32 columns."""
         ix = self.index
         out = xdev.twogap(ix.refstr_padded, ix.rlp, ix.lr_tar,
                           *on(ix.device, css, fes, ses, sls, els, cls),
                           self.cfg.max_rule_span)
-        return tuple(out.cpu().numpy())
+        return _done(lambda: tuple(out.cpu().numpy()), fetch)

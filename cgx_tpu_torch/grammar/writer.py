@@ -111,12 +111,15 @@ def grammar_lines_for_query(q: int, qry_global, one_q_ids, two_q_ids,
     return lines
 
 
-def write_grammars(dest_dir: str, qryscount: int, is_sample: bool, per_query_lines):
+def write_grammars(dest_dir: str, qryscount: int, is_sample: bool,
+                   per_query_lines, first: int = 0):
+    """One ``grammar.<i>.{s,n}`` file per query, ``i`` counted from
+    ``first`` (a process's query slice keeps its global indices)."""
     os.makedirs(dest_dir, exist_ok=True)
     suffix = "s" if is_sample else "n"
     paths = []
     for q in range(qryscount):
-        path = os.path.join(dest_dir, f"grammar.{q}.{suffix}")
+        path = os.path.join(dest_dir, f"grammar.{first + q}.{suffix}")
         with open(path, "w", encoding="utf-8") as fh:
             fh.write("\n".join(per_query_lines[q]))
             if per_query_lines[q]:

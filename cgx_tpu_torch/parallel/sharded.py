@@ -41,6 +41,7 @@ from cgx_tpu_torch.extract import device as xdev
 from cgx_tpu_torch.kernels import build as kb
 from cgx_tpu_torch.search import lookup, passes
 from cgx_tpu_torch.search import precompute as pcx
+from cgx_tpu_torch.utils import budget
 from cgx_tpu_torch.utils.views import OffsetView, take
 
 MMOV = 16          # scan move width (search.lookup.MMOV)
@@ -227,6 +228,11 @@ def build_sharded_index(source, target, sa, align, cfg: ExtractorConfig,
     lrt_l = np.where(tinb, lr_tar[np.clip(tcols, 0, tgt_glen - 1)],
                      (255 << 8) | 255).astype(np.int32)
 
+    # every shard lies on the one device: the whole layout, halos included,
+    # is held to its budget before anything is placed (the shards' pointer
+    # and meta tables, a few words each, are left to the remaining share)
+    budget.check_fits(sum(a.nbytes for a in (sl["sa_l"], sl["ref_l"], rlp_l,
+                                             lrt_l)), device, f"{S}-shard")
     seed = passes.build_seed_tables(refstr_padded, sa_np.astype(np.int64))
     return _make(dict(
         S=S, reflen=reflen, ref_glen=ref_glen, rlp_glen=rlp_glen,

@@ -24,7 +24,13 @@ the target slices, all S shards on the one device): pass 1/2 runs on kernel
 B2r, SA values come from B2g, the scans and extractions run owner-computes
 on kernels B3f, B3b, B3p, B3t, B3c and A4, A7, A8 on the shards' views, and
 MaxLex scores on the host (a ``HostLexIndex``), as the JAX package's
-sharded path does.
+sharded path does.  ``sa_shards="auto"`` sizes the index against the
+device's memory first (``utils.budget``): replicated when it fits, else a
+one-line refusal, since every shard would share the one device.
+
+With ``dp_devices`` the index is replicated on several devices and every
+device stage's items split across them (``parallel.localdp``); MaxLex runs
+on the first replica.
 
 Every query's lines equal the JAX package's, byte for byte and in order.
 """
@@ -48,6 +54,7 @@ from cgx_tpu_torch.features import lexicon as lx
 from cgx_tpu_torch.features import maxlex as ml
 from cgx_tpu_torch.grammar import writer as gw
 from cgx_tpu_torch.index import container as ic
+from cgx_tpu_torch.parallel import localdp
 from cgx_tpu_torch.parallel import sharded as shx
 from cgx_tpu_torch.preproc import corpus as cp
 from cgx_tpu_torch.preproc import index_io
@@ -56,6 +63,7 @@ from cgx_tpu_torch.search import enumerate_fast as ef
 from cgx_tpu_torch.search import lookup, passes
 from cgx_tpu_torch.search import precompute as pcx
 from cgx_tpu_torch.types import GapRules
+from cgx_tpu_torch.utils.budget import resolve_shards
 from cgx_tpu_torch.utils.timing import PhaseTimer
 
 
@@ -85,11 +93,11 @@ def make_engine(index, cfg: ExtractorConfig, scan_cols: bool = False,
     return ReplicatedEngine(index, cfg, scan_cols, sa_host)
 
 
-def _check_shards(sa_shards, lcp_passes=False, scan_cols=False) -> int:
+def _check_shards(sa_shards, lcp_passes=False, scan_cols=False):
+    """``sa_shards`` checked: an int >= 0, or "auto" (resolved by
+    ``build_artifact``, and then checked again)."""
     if sa_shards == "auto":
-        raise ValueError("sa_shards='auto' sizes the index against the device "
-                         "budget (utils/budget.py), which is not ported yet: "
-                         "see ROADMAP queue A; give a shard count")
+        return sa_shards
     sa_shards = operator.index(sa_shards)
     if sa_shards < 0:
         raise ValueError(f"sa_shards must be >= 0, not {sa_shards}")
@@ -102,32 +110,57 @@ def _check_shards(sa_shards, lcp_passes=False, scan_cols=False) -> int:
     return sa_shards
 
 
+def _dp_devices(dp_devices, device, sa_shards) -> list:
+    """The replicas' devices of a run: None for one device (``dp_devices``
+    0 or 1), the first N of ``device``'s type for an int N
+    (``localdp.dp_device_list``), or the given list of devices.  Refused
+    with ``sa_shards``: the two layouts exclude each other."""
+    if isinstance(dp_devices, int) and dp_devices <= 1:
+        return None
+    if sa_shards:
+        raise ValueError("sa_shards and dp_devices are mutually exclusive "
+                         "layouts (sharded index vs replicated-per-device "
+                         "index)")
+    if isinstance(dp_devices, int):
+        return localdp.dp_device_list(dp_devices, device)
+    return list(dp_devices)
+
+
 def build_artifact(f_lines, e_lines, a_lines, lex_tokens,
                    cfg: ExtractorConfig = DEFAULT_CONFIG,
                    timing: PhaseTimer = None, device="cuda",
-                   sa_shards: int = 0, index_dir: str = None):
-    """Corpus preprocessing -> (Artifact, index on ``device``, timing).
-    Texts given as one string take the native tokenizer.  The index is a
-    TorchGrammarIndex, or with ``sa_shards > 0`` a ShardedGrammarIndex of
-    that many shards, whose build places no replicated O(corpus) array on
-    the device: its precompute gap checks run owner-computes.
+                   sa_shards=0, index_dir: str = None,
+                   save_index: bool = True):
+    """Corpus preprocessing -> (Artifact, index on ``device``, timing, the
+    resolved shard count).  Texts given as one string take the native
+    tokenizer.  ``sa_shards`` ("auto" or a count) is resolved against the
+    device's memory before anything is placed (``utils.budget.
+    resolve_shards``: a one-line BudgetError when the index cannot fit).
+    The index is a TorchGrammarIndex, or with a count > 0 a
+    ShardedGrammarIndex of that many shards, whose build places no
+    replicated O(corpus) array on the device: its precompute gap checks run
+    owner-computes.
 
     With ``index_dir`` (build once, query many; ``preproc.index_io``): a
     directory that holds a ``meta.json`` is loaded (phase ``indexload``) and
     only the device index is built from it, so no corpus is parsed, no
     suffix array built and no precompute run; its persisted precompute is
     used whatever config it was built with, as in the JAX package.  Any
-    other directory receives the fresh build (phase ``indexsave``)."""
+    other directory receives the fresh build (phase ``indexsave``) unless
+    ``save_index`` is False (the processes of ``parallel.multihost`` other
+    than process 0)."""
     sa_shards = _check_shards(sa_shards)
     device = torch.device(device)
     t = timing or PhaseTimer(device)
     if index_dir and os.path.exists(os.path.join(index_dir, "meta.json")):
         with t.phase("indexload"):
             art, _built_cfg = index_io.load(index_dir)
+        sa_shards = resolve_shards(sa_shards, art.source.toklen,
+                                   art.target.toklen, cfg, device)
         with t.phase("qrysin"):
             index = _device_index(art.source, art.target, art.sa, art.align,
                                   art.lex, cfg, sa_shards, device)
-        return art, index, t
+        return art, index, t, sa_shards
     with t.phase("refsin"):
         source = (cp.load_source_corpus_text(f_lines) if isinstance(f_lines, str)
                   else cp.load_source_corpus(f_lines))
@@ -135,6 +168,8 @@ def build_artifact(f_lines, e_lines, a_lines, lex_tokens,
                   else cp.load_target_corpus(e_lines))
         align = cp.load_alignment_fast(a_lines, source, target)
         lex = cp.load_lex_table(lex_tokens, source.vocab, target.vocab)
+    sa_shards = resolve_shards(sa_shards, source.toklen, target.toklen, cfg,
+                               device)
     with t.phase("suffixarray"):
         sa = sab.build_index(source.str_)
     with t.phase("qrysin"):
@@ -143,10 +178,10 @@ def build_artifact(f_lines, e_lines, a_lines, lex_tokens,
     with t.phase("precompute"):
         pc = pcx.precompute(make_engine(index, cfg), source, sa, cfg)
     art = Artifact(source, target, align, lex, sa, pc)
-    if index_dir:
+    if index_dir and save_index:
         with t.phase("indexsave"):
             index_io.save(index_dir, art, cfg)
-    return art, index, t
+    return art, index, t, sa_shards
 
 
 def _device_index(source, target, sa, align, lex, cfg, sa_shards, device):
@@ -159,22 +194,33 @@ def _device_index(source, target, sa, align, lex, cfg, sa_shards, device):
 def run_pipeline(f_lines, e_lines, a_lines, lex_tokens, q_lines,
                  cfg: ExtractorConfig = DEFAULT_CONFIG,
                  timing: PhaseTimer = None, device="cuda",
-                 lcp_passes: bool = False, sa_shards: int = 0,
-                 scan_cols: bool = False,
-                 index_dir: str = None) -> PipelineResult:
+                 lcp_passes: bool = False, sa_shards=0,
+                 scan_cols: bool = False, index_dir: str = None,
+                 dp_devices=0) -> PipelineResult:
     """Runs the main path with every device stage on ``device`` ("cuda": the
     hand-written kernels; "cpu": their plain PyTorch versions).
     ``lcp_passes`` runs pass 1/2 as the LCP-accelerated search (kernel B1)
     instead of the interval refinement (kernel A1); ``sa_shards > 0`` runs
-    the sharded index of that many shards (all on ``device``);
-    ``scan_cols`` runs lookup1's and lookup2's scans on host-materialised
-    item columns (kernels C1f, C1b, C1t); ``index_dir`` loads or persists
-    the corpus index (``build_artifact``).  The grammar is the same in every
-    case; ``lcp_passes`` or ``scan_cols`` with ``sa_shards`` is refused."""
-    sa_shards = _check_shards(sa_shards, lcp_passes, scan_cols)
-    art, index, t = build_artifact(f_lines, e_lines, a_lines, lex_tokens, cfg,
-                                   timing, device, sa_shards, index_dir)
-    ctx = _make_context(art, index, t, cfg, sa_shards, scan_cols)
+    the sharded index of that many shards (all on ``device``; "auto": as
+    the device budget decides); ``scan_cols`` runs lookup1's and lookup2's
+    scans on host-materialised item columns (kernels C1f, C1b, C1t);
+    ``index_dir`` loads or persists the corpus index (``build_artifact``);
+    ``dp_devices`` (a count N > 1, or a list of devices) replicates the
+    index on N devices and splits every device stage's items across them
+    (``parallel.localdp``).  The grammar is the same in every case;
+    ``lcp_passes`` or ``scan_cols`` with ``sa_shards``, and ``dp_devices``
+    with ``sa_shards``, are refused."""
+    return run_queries(prepare(
+        f_lines, e_lines, a_lines, lex_tokens, cfg, timing, device,
+        lcp_passes, sa_shards, scan_cols, index_dir, dp_devices), q_lines,
+        cfg, lcp_passes)
+
+
+def run_queries(prepared, q_lines, cfg: ExtractorConfig,
+                lcp_passes: bool = False) -> PipelineResult:
+    """The queries ``q_lines`` through every stage, against an index that
+    ``prepare`` returned."""
+    art, index, t, _, ctx = prepared
     with t.phase("qrysload"):
         queries = cp.load_queries(q_lines, art.source.vocab)
     front = _front_stages(ctx, queries, cfg, t, lcp_passes)
@@ -184,13 +230,40 @@ def run_pipeline(f_lines, e_lines, a_lines, lex_tokens, q_lines,
                           blocks=front["blocks"])
 
 
-def _make_context(art, index, t, cfg, sa_shards, scan_cols=False) -> dict:
+def prepare(f_lines, e_lines, a_lines, lex_tokens, cfg, timing, device,
+            lcp_passes=False, sa_shards=0, scan_cols=False, index_dir=None,
+            dp_devices=0, save_index=True):
+    """What every query batch of one index shares (``run_pipeline``,
+    ``run_pipeline_overlap``, ``serve``): the options checked, the
+    artifact and the device index (``build_artifact``) and the engine
+    context (``_make_context``) -> (artifact, index, timing, the resolved
+    shard count, context).  A refused combination raises before the
+    build; ``save_index`` as ``build_artifact`` takes it."""
+    sa_shards = _check_shards(sa_shards, lcp_passes, scan_cols)
+    dp = _dp_devices(dp_devices, device, sa_shards)
+    art, index, t, sa_shards = build_artifact(
+        f_lines, e_lines, a_lines, lex_tokens, cfg, timing, device, sa_shards,
+        index_dir, save_index)
+    _check_shards(sa_shards, lcp_passes, scan_cols)   # "auto" resolved
+    return art, index, t, sa_shards, _make_context(
+        art, index, t, cfg, sa_shards, scan_cols, dp)
+
+
+def _make_context(art, index, t, cfg, sa_shards, scan_cols=False,
+                  dp_devices=None) -> dict:
     """The engine and index handles that every query batch of one index
-    shares (``run_pipeline``, ``run_pipeline_overlap``, ``serve``)."""
+    shares (``run_pipeline``, ``run_pipeline_overlap``, ``serve``);
+    ``dp_devices``: the replicas' devices of a ``LocalDPEngine``."""
     ctx = dict(index=index, source=art.source, target=art.target,
-               sa=art.sa, pc=art.precomp,
-               engine=make_engine(index, cfg, scan_cols, art.sa.sa),
-               lex_index=index, sa_values=None)
+               sa=art.sa, pc=art.precomp, lex_index=index, sa_values=None)
+    if dp_devices:
+        with t.phase("qrysin"):
+            ctx["engine"] = localdp.LocalDPEngine(
+                index, art.sa.sa, cfg, devices=dp_devices,
+                scan_cols=scan_cols)
+        ctx["lex_index"] = ctx["engine"].index
+        return ctx
+    ctx["engine"] = make_engine(index, cfg, scan_cols, art.sa.sa)
     if sa_shards:
         with t.phase("qrysin"):
             ctx["lex_index"] = ic.build_host_lex_index(art.target, art.lex)
@@ -211,6 +284,15 @@ def _front_stages(ctx, queries, cfg, t, lcp_passes=False):
     if isinstance(index, shx.ShardedGrammarIndex):
         with t.phase("kernel"):
             p1, p2 = shx.sharded_passes(index, queries)
+    elif hasattr(engine, "refine_passes"):   # LocalDPEngine: the passes fan
+        if lcp_passes:
+            with t.phase("kernel"):
+                p1 = engine.pass1(queries)
+            with t.phase("kernel2"):
+                p2 = engine.pass2(queries, p1)
+        else:
+            with t.phase("kernel"):
+                p1, p2 = engine.refine_passes(queries)
     elif lcp_passes:
         with t.phase("kernel"):
             p1 = passes.pass1_lcp(index, queries)
@@ -319,9 +401,10 @@ def _back_stages(ctx, queries, fr, cfg, t):
 def run_pipeline_overlap(f_lines, e_lines, a_lines, lex_tokens, q_lines,
                          cfg: ExtractorConfig = DEFAULT_CONFIG,
                          timing: PhaseTimer = None, device="cuda",
-                         lcp_passes: bool = False, sa_shards: int = 0,
+                         lcp_passes: bool = False, sa_shards=0,
                          scan_cols: bool = False, index_dir: str = None,
-                         query_batches: int = 2) -> PipelineResult:
+                         query_batches: int = 2,
+                         dp_devices=0) -> PipelineResult:
     """``--query-batches``: the queries split into contiguous batches; batch
     i's host half (lexicon, MaxLex, formatting) runs on one worker thread
     while the main thread runs batch i+1's device half.  MaxLex scores on
@@ -334,10 +417,9 @@ def run_pipeline_overlap(f_lines, e_lines, a_lines, lex_tokens, q_lines,
     batch that holds it; ``precomp_rows`` belongs to the index and is not
     summed), with the per-batch dicts in ``per_batch``."""
     from concurrent.futures import ThreadPoolExecutor
-    sa_shards = _check_shards(sa_shards, lcp_passes, scan_cols)
-    art, index, t = build_artifact(f_lines, e_lines, a_lines, lex_tokens, cfg,
-                                   timing, device, sa_shards, index_dir)
-    ctx = _make_context(art, index, t, cfg, sa_shards, scan_cols)
+    art, index, t, sa_shards, ctx = prepare(
+        f_lines, e_lines, a_lines, lex_tokens, cfg, timing, device,
+        lcp_passes, sa_shards, scan_cols, index_dir, dp_devices)
     if not sa_shards:
         with t.phase("qrysin"):
             ctx["lex_index"] = ic.build_host_lex_index(art.target, art.lex)
@@ -370,9 +452,9 @@ def run_pipeline_overlap(f_lines, e_lines, a_lines, lex_tokens, q_lines,
 
 def run_pipeline_files(reffile, qryfile, tarfile, alignfile, lexfile, dest_dir,
                        cfg: ExtractorConfig = DEFAULT_CONFIG, device="cuda",
-                       lcp_passes: bool = False, sa_shards: int = 0,
+                       lcp_passes: bool = False, sa_shards=0,
                        scan_cols: bool = False, index_dir: str = None,
-                       query_batches: int = 0):
+                       query_batches: int = 0, dp_devices=0):
     """The CLI's run over files; ``query_batches > 1`` runs
     ``run_pipeline_overlap``."""
     with open(reffile, encoding="utf-8") as fh:
@@ -382,7 +464,7 @@ def run_pipeline_files(reffile, qryfile, tarfile, alignfile, lexfile, dest_dir,
     args = (f_text, e_text, cp.read_lines(alignfile), cp.read_tokens(lexfile),
             cp.read_lines(qryfile), cfg)
     kw = dict(device=device, lcp_passes=lcp_passes, sa_shards=sa_shards,
-              scan_cols=scan_cols, index_dir=index_dir)
+              scan_cols=scan_cols, index_dir=index_dir, dp_devices=dp_devices)
     if query_batches > 1:
         res = run_pipeline_overlap(*args, query_batches=query_batches, **kw)
     else:

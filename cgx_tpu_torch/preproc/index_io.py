@@ -72,8 +72,14 @@ def save(path: str, art: CorpusIndexArtifact, cfg: ExtractorConfig) -> None:
         "tgt_vocab": _vocab_to_list(art.target.vocab),
         "precomp_count": art.precomp.count,
     }
-    with open(os.path.join(path, "meta.json"), "w", encoding="utf-8") as fh:
+    # meta.json is written last and appears under its name only when
+    # complete: its presence is what makes a directory loadable
+    # (pipeline.build_artifact), so no reader may find half a file
+    final = os.path.join(path, "meta.json")
+    tmp = f"{final}.{os.getpid()}.tmp"
+    with open(tmp, "w", encoding="utf-8") as fh:
         json.dump(meta, fh)
+    os.replace(tmp, final)
 
 
 def load(path: str) -> tuple:

@@ -26,8 +26,9 @@ prewarm batch (``warn ...`` before it when the prewarm failed).
 
 Usage:
     python -m cgx_tpu_torch.serve <source_corpus> <target_corpus> \
-        <alignment_file> <lex_file> [--index-dir DIR] [--sa-shards N] \
-        [--no-sample] [--device cuda|cpu] [--prewarm QRYFILE|auto] \
+        <alignment_file> <lex_file> [--index-dir DIR] [--sa-shards N|auto] \
+        [--dp-devices N] [--no-sample] [--device cuda|cpu] \
+        [--prewarm QRYFILE|auto] \
         [--no-prewarm] [--prewarm-queries N]
 """
 
@@ -38,18 +39,19 @@ import dataclasses
 import sys
 import time
 
-from cgx_tpu_torch.cli import _shards_arg
+from cgx_tpu_torch.cli import _count_arg, _shards_arg
 from cgx_tpu_torch.config import DEFAULT_CONFIG
 
 
 def serve_loop(reffile, tarfile, alignfile, lexfile, cfg=DEFAULT_CONFIG,
-               index_dir=None, sa_shards: int = 0, inp=None, out=None,
+               index_dir=None, sa_shards=0, inp=None, out=None,
                prewarm="auto", prewarm_queries: int = 16,
-               device="cuda") -> int:
+               device="cuda", dp_devices=0) -> int:
     """Run the serve protocol over ``inp``/``out`` streams (stdin/stdout by
     default) with the index on ``device`` ("cuda" raises when no card is
     present; "cpu" runs the kernels' plain versions).  Returns the number of
-    requests served.
+    requests served.  ``sa_shards`` and ``dp_devices`` as
+    ``pipeline.run_pipeline`` takes them.
 
     ``prewarm`` names a query file run through the full path (output
     discarded) before ``ready`` is printed, so the first real request does
@@ -74,10 +76,10 @@ def serve_loop(reffile, tarfile, alignfile, lexfile, cfg=DEFAULT_CONFIG,
     with open(tarfile, encoding="utf-8") as fh:
         e_text = fh.read()
     t0 = time.perf_counter()
-    art, index, t = tpl.build_artifact(
+    art, _, _, _, ctx = tpl.prepare(
         f_text, e_text, cp.read_lines(alignfile), cp.read_tokens(lexfile),
-        cfg, device=device, sa_shards=sa_shards, index_dir=index_dir)
-    ctx = tpl._make_context(art, index, t, cfg, sa_shards)
+        cfg, None, device, sa_shards=sa_shards, index_dir=index_dir,
+        dp_devices=dp_devices)
 
     def run(queries):
         bt = PhaseTimer(device)
@@ -136,7 +138,11 @@ def main(argv=None) -> int:
     p.add_argument("--index-dir", default=None,
                    help="persisted corpus-index dir (built on first use)")
     p.add_argument("--sa-shards", type=_shards_arg, default=0, metavar="N",
-                   help="sharded-index mode: N shards, all on --device")
+                   help="sharded-index mode: N shards, all on --device "
+                        "('auto': as the device's memory decides)")
+    p.add_argument("--dp-devices", type=_count_arg, default=0, metavar="N",
+                   help="replicate the index on the first N devices and "
+                        "split every request's device work across them")
     p.add_argument("--no-sample", action="store_true")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device of the index and the kernels (default cuda)")
@@ -155,7 +161,8 @@ def main(argv=None) -> int:
     serve_loop(args.reffile, args.reftargetfile, args.alignfile, args.lexfile,
                cfg, index_dir=args.index_dir, sa_shards=args.sa_shards,
                prewarm=None if args.no_prewarm else args.prewarm,
-               prewarm_queries=args.prewarm_queries, device=args.device)
+               prewarm_queries=args.prewarm_queries, device=args.device,
+               dp_devices=args.dp_devices)
     return 0
 
 

@@ -158,8 +158,8 @@ def capture_rows() -> dict:
         golden = json.load(fh)
     with cs.Capture() as cap:
         for size, lcp, shards, cols, expect, forbid in cs.RUNS[:3]:
-            _, res, _ = cs.run_e2e(size, "cuda", cap, golden, expect, lcp,
-                                   forbid, shards, cols)
+            _, res, _, _ = cs.run_e2e(size, "cuda", cap, golden, expect,
+                                      lcp, forbid, shards, cols)
             if size == "europarl" and not shards:
                 cs.check_lcp_passes(res)
                 cs.check_query_dp(res, cap)

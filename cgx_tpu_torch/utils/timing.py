@@ -26,6 +26,9 @@ class PhaseTimer:
         self.mem_after: dict = {}
         self._lock = threading.Lock()
         self.device = torch.device(device) if device is not None else None
+        # per phase, the maximum over the processes of a multi-process run
+        # (``parallel.multihost``); None otherwise
+        self.global_phase_max = None
         if self._cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
 

@@ -57,6 +57,34 @@ Phases, one line each on stdout:
        busy time (the union of kernels, copies and sets) and that busy
        time's share of the run's wall and of its phases' sum printed,
        beside the wall of the same CLI run without ``--profile``;
+   3g. budget -- ``utils.budget`` on the card: the card's budget,
+       europarl's footprint equal to its index's tensor bytes and at most
+       its run's peak, ``auto`` replicated at europarl; then, each in its
+       own process and all at once, the CLI under ``CGX_DEVICE_MEM_MB``
+       budgets: on medium's files, ``--sa-shards 0`` and ``auto`` under
+       half the footprint each exit 1 with one line naming ROADMAP item
+       10b (every shard would share the card); on europarl's index dir,
+       ``--sa-shards 4`` under a budget that holds its whole 4-shard
+       layout gives the golden (the loaded sharded path's kernels only),
+       and under one 4 KiB short exits 1 with one such line; and
+       ``--dp-devices 2`` exits 1 past the one card (3h's check);
+   3h. local_dp -- ``parallel.localdp.LocalDPEngine`` over ``cuda:0``
+       repeated: europarl from its index dir over 2 and 3 replicas, and
+       medium, fresh, over 2 with ``lcp_passes`` (B1 fanned): the golden
+       hash and counters, each kernel launched at least as often as in
+       the one-device run (3c's loaded run, 3's ``lcp_passes`` run), no A4
+       where the index is loaded, and a peak within the one-device run's
+       plus each further replica's own cached rows and 8 MiB; walls beside
+       the one-device walls;
+   3i. multiprocess -- two ``cgx_tpu_torch.cli --coordinator`` processes
+       (gloo on loopback) both on the card: on europarl's index dir (both
+       load), then on medium with a fresh dir (process 0 builds and saves
+       it, process 1 waits for its word and loads); the union of
+       their files the golden hash, each stderr its ``queries [lo, hi)``
+       line, the ``-s`` timefile the ``global max-across-processes``
+       suffix, their launches together the path's kernels.  The CLI
+       processes of 3g and 3i print their launch counts at exit
+       (``LAUNCH_WRAPPER``), which count as the in-process runs' do;
 4. query_dp -- ``parallel.dist.run_sharded_search`` on the europarl run's
    index, pass-1 tokens and sampled block occurrences, over four shards on
    the one card (kernel B4, one launch per shard, and nothing else):
@@ -123,7 +151,7 @@ Phases, one line each on stdout:
    (``check_edges``).
 
 Then the script's total seconds, a JSON line with every kernel's numbers
-(``launches``: every phase's, 3b-3f included), and last the line
+(``launches``: every phase's, 3b-3i included), and last the line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before it.
 The script imports neither JAX nor the JAX package.
 """
@@ -466,13 +494,15 @@ _CORPORA = {}
 def run_e2e(size: str, device: str, capture: Capture, golden: dict,
             expect: tuple, lcp_passes: bool = False, forbid: tuple = (),
             sa_shards: int = 0, scan_cols: bool = False,
-            index_dir: str = None, query_batches: int = 0):
+            index_dir: str = None, query_batches: int = 0,
+            dp_devices: list = None):
     """One end-to-end run -> (its launch counts, its PipelineResult, its
     own peak device bytes: the peak less what was allocated before it, such
-    as the earlier runs' tensors the capture holds).  ``index_dir``: the run
-    saves its index there, or loads it when the dir holds one;
-    ``query_batches``: ``run_pipeline_overlap`` over that many batches, whose
-    summed pattern counters are not the golden's (its lines are)."""
+    as the earlier runs' tensors the capture holds, and its wall seconds).
+    ``index_dir``: the run saves its index there, or loads it when the dir
+    holds one; ``query_batches``: ``run_pipeline_overlap`` over that many
+    batches, whose summed pattern counters are not the golden's (its lines
+    are); ``dp_devices``: the devices of a ``LocalDPEngine``."""
     import torch
     from cgx_tpu_torch.config import DEFAULT_CONFIG
     from cgx_tpu_torch.kernels import build as kb
@@ -488,7 +518,8 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     held = torch.cuda.memory_allocated() if cuda else 0
     t0 = time.perf_counter()
     kw = dict(device=device, lcp_passes=lcp_passes, sa_shards=sa_shards,
-              scan_cols=scan_cols, index_dir=index_dir)
+              scan_cols=scan_cols, index_dir=index_dir,
+              dp_devices=dp_devices or 0)
     if query_batches:
         res = run_pipeline_overlap(*data, DEFAULT_CONFIG,
                                    query_batches=query_batches, **kw)
@@ -500,7 +531,8 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     run_peak = res.timing.peak_memory() - held
     loaded = "indexload" in res.timing.as_dict()
     what = size + (" (index loaded)" if loaded else "") + (
-        f" ({query_batches} query batches)" if query_batches else "")
+        f" ({query_batches} query batches)" if query_batches else "") + (
+        f" (dp over {len(dp_devices)})" if dp_devices else "")
     launches = check_launches(what, expect, forbid)
     lines = res.per_query_lines
     ok_shape = len(lines) == len(data[4]) and all(
@@ -516,6 +548,7 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
         "lcp_passes": lcp_passes, "sa_shards": sa_shards,
         "scan_cols": scan_cols, "index_dir": index_dir is not None,
         "index_loaded": loaded, "query_batches": query_batches,
+        "dp_devices": [str(d) for d in dp_devices] if dp_devices else None,
         "corpus_gen_s": gen_s, "wall_s": wall,
         "phases_s": res.timing.as_dict(),
         "peak_mem_bytes": res.timing.peak_memory(),
@@ -532,7 +565,7 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     if ghash != want["sha256"]:
         fail(f"{what}: grammar hash {ghash[:16]} != golden "
              f"{want['sha256'][:16]}")
-    return launches, res, run_peak
+    return launches, res, run_peak, wall
 
 
 def check_launches(what: str, expect, forbid, counts=None) -> dict:
@@ -2482,6 +2515,330 @@ def check_profile(work: str, golden: dict, device: str = "cuda") -> dict:
     return launches
 
 
+# ``python -c`` body that runs a module as ``__main__`` and prints its
+# kernels' launch counts as the last line of its stderr, so the CLI runs in
+# their own processes (3g-3i) are counted as the in-process runs are
+LAUNCH_WRAPPER = (
+    "import atexit, json, runpy, sys\n"
+    "from cgx_tpu_torch.kernels import build as kb\n"
+    "atexit.register(lambda: print('launches ' + json.dumps(dict("
+    "kb.LAUNCHES)), file=sys.stderr, flush=True))\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
+
+
+def run_clis(cmds: dict, timeout: float = 600) -> dict:
+    """Each named command, (arguments of ``python -m cgx_tpu_torch.cli``,
+    extra environment), as its own process, all started together ->
+    name: dict(rc, seconds, stderr lines, launches).  Every process is
+    waited for or killed before it returns."""
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name, (args, env) in cmds.items():
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", LAUNCH_WRAPPER, "cgx_tpu_torch.cli",
+                 *args], cwd=ROOT, env={**os.environ, **env},
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        out = {}
+        for name, proc in procs.items():
+            _, err = proc.communicate(timeout=timeout)
+            lines = err.splitlines()
+            counts = [json.loads(ln[len("launches "):]) for ln in lines
+                      if ln.startswith("launches ")]
+            out[name] = dict(rc=proc.returncode,
+                             seconds=time.perf_counter() - t0,
+                             stderr=lines,
+                             launches={k: (counts[-1] if counts else {})
+                                       .get(k, 0) for k in KERNELS})
+        return out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _error_lines(res: dict) -> list:
+    return [ln for ln in res["stderr"] if ln.startswith("error: ")]
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def index_tensor_bytes(index) -> int:
+    """Bytes of the index tensors a ``TorchGrammarIndex`` placed on the
+    device, or a ``ShardedGrammarIndex`` in its shards."""
+    import torch
+    tensors = [v for v in vars(index).values() if isinstance(v, torch.Tensor)]
+    tensors += [t for v in vars(index).values() if isinstance(v, list)
+                for t in v if isinstance(t, torch.Tensor)]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def replica_cache_bytes(index) -> int:
+    """Bytes of the per-device caches a run filled on an index (query
+    tokens, precomputed rows, LCP tables): what each further replica of
+    3h uploads again (MaxLex's tables stay on the first)."""
+    import torch
+    caches = [index._qtok, index._pcrows, index._lcp]
+    return sum(t.numel() * t.element_size() for c in caches if c
+               for t in c if isinstance(t, torch.Tensor))
+
+
+def check_budget(work: str, golden: dict, fp: dict, index_dir: str,
+                 device: str = "cuda") -> tuple:
+    """3g.  ``utils.budget`` on the card: its budget; europarl's footprint
+    (``fp``: per layout, the toklens, the index's tensor bytes and the
+    run's own peak, from phase 3) equal to its index's tensors and at most
+    the run's peak, and ``auto`` replicated there; then the CLI under
+    ``CGX_DEVICE_MEM_MB`` budgets: on medium's files, ``--sa-shards 0`` and
+    ``--sa-shards auto`` under a budget that holds half the replicated
+    index each exit 1 with one line naming ROADMAP item 10b (every shard
+    would share the one card); on europarl's index dir, ``--sa-shards 4``
+    under a budget that holds its whole 4-shard layout (phase 3's tensor
+    bytes of it) runs to the golden on the loaded sharded kernels, and
+    under one 4 KiB short of it exits 1 with one such line; and, in the
+    same batch, ``--dp-devices 2`` exits non-zero past the card count (3h)
+    -> (the launch counts, the ``--dp-devices 2`` run's result)."""
+    from cgx_tpu_torch.config import DEFAULT_CONFIG
+    from cgx_tpu_torch.utils import budget as bd
+    cfg = DEFAULT_CONFIG
+    eu, md, sh = fp["europarl"], fp["medium"], fp["europarl_sharded"]
+    eu_need = bd.replicated_footprint_bytes(eu["src"], eu["tgt"],
+                                            cfg.qry_max_length,
+                                            cfg.max_rule_span)
+    need = bd.replicated_footprint_bytes(md["src"], md["tgt"],
+                                         cfg.qry_max_length,
+                                         cfg.max_rule_span)
+    auto = bd.resolve_shards("auto", eu["src"], eu["tgt"], cfg, device)
+    paths = write_corpus_files("medium", os.path.join(work, "budget"),
+                               {"query.f": _CORPORA["medium"][4]})
+    files = [paths[n] for n in ("corpus.f", "query.f", "corpus.e",
+                                "corpus.a", "lex.txt")]
+    eu_paths = write_corpus_files("europarl", os.path.join(work, "budget_eu"),
+                                  {"query.f": _CORPORA["europarl"][4]})
+    eu_files = ["--index-dir", index_dir] + [
+        eu_paths[n] for n in ("corpus.f", "query.f", "corpus.e", "corpus.a",
+                              "lex.txt")]
+
+    def mb(usable):      # the budget whose usable share is ``usable`` bytes
+        return {"CGX_DEVICE_MEM_MB":
+                str(usable / bd.REF_INDEX_RATIO / 1024**2)}
+    out = {k: os.path.join(work, "budget", k) for k in
+           ("replicated", "auto", "four", "four_short", "dp")}
+    dev = ["--device", device]
+    four = dev + ["--sa-shards", "4"] + eu_files
+    res = run_clis({
+        "replicated": (dev + ["--sa-shards", "0", *files, out["replicated"]],
+                       mb(need / 2)),
+        "auto": (dev + ["--sa-shards", "auto", *files, out["auto"]],
+                 mb(need / 2)),
+        "four": (four + [out["four"]], mb(sh["tensor_bytes"] + 4096)),
+        "four_short": (four + [out["four_short"]],
+                       mb(sh["tensor_bytes"] - 4096)),
+        "dp": (dev + ["--dp-devices", "2", *files, out["dp"]], {})})
+    four_hash = (grammar_hash(read_grammars(out["four"],
+                                            len(_CORPORA["europarl"][4])))
+                 if res["four"]["rc"] == 0 else None)
+    print(json.dumps({
+        "phase": "budget", "device_budget_bytes": bd.device_budget_bytes(
+            device),
+        "europarl_footprint_bytes": eu_need,
+        "europarl_index_tensor_bytes": eu["tensor_bytes"],
+        "europarl_run_peak_mem_bytes": eu["peak"],
+        "europarl_4_shard_tensor_bytes": sh["tensor_bytes"],
+        "europarl_4_shard_run_peak_mem_bytes": sh["peak"],
+        "europarl_auto_shards": auto, "medium_footprint_bytes": need,
+        "cli": {k: {"rc": r["rc"], "seconds": r["seconds"],
+                    "errors": _error_lines(r),
+                    "launches": {a: b for a, b in r["launches"].items() if b}}
+                for k, r in res.items() if k != "dp"},
+        "four_shards_sha256": four_hash,
+        "golden_ok": four_hash == golden["europarl"]["sha256"]}), flush=True)
+    if eu_need != eu["tensor_bytes"]:
+        fail(f"budget: europarl's footprint {eu_need} != its index tensors' "
+             f"{eu['tensor_bytes']} bytes")
+    if eu_need > eu["peak"]:
+        fail(f"budget: europarl's footprint {eu_need} > its run's peak "
+             f"{eu['peak']}")
+    if auto != 0:
+        fail(f"budget: 'auto' resolved europarl to {auto} shards")
+    for name, want in (("replicated", "error: replicated corpus index"),
+                       ("auto", "error: replicated corpus index"),
+                       ("four_short", "error: 4-shard corpus index")):
+        errs = _error_lines(res[name])
+        if res[name]["rc"] != 1 or len(errs) != 1 \
+                or not errs[0].startswith(want) or "item 10b" not in errs[0]:
+            fail(f"budget: {name} exited {res[name]['rc']} with "
+                 f"{res[name]['stderr'][-5:]}")
+        check_launches(f"cli {name} (refused)", (), KERNELS,
+                       res[name]["launches"])
+    if res["four"]["rc"] != 0 or four_hash != golden["europarl"]["sha256"]:
+        fail(f"budget: --sa-shards 4 exited {res['four']['rc']}, hash "
+             f"{four_hash}: {res['four']['stderr'][-5:]}")
+    launches = check_launches("cli --sa-shards 4", LOAD_RUNS[1][1],
+                              others(LOAD_RUNS[1][1]),
+                              res["four"]["launches"])
+    return launches, res["dp"]
+
+
+def check_local_dp(cap: Capture, golden: dict, index_dir: str, base: dict,
+                   dp_cli: dict, device: str = "cuda") -> dict:
+    """3h.  ``LocalDPEngine`` over one card repeated: europarl from its
+    index dir over 2 and 3 replicas (``base["loaded"]``: the one-device
+    loaded run's launches, peak and wall, and its precomputed rows' bytes)
+    and medium, fresh, over 2 with ``lcp_passes`` (``base["medium_lcp"]``):
+    each the golden hash and counters, each fanned kernel launched at least
+    as often as on one device, no A4 on the loaded runs, and a peak no more
+    than the one-device run's plus each further replica's own cached rows
+    (the replicas share the index's tensors: ``replica_cache_bytes``);
+    ``dp_cli``, the CLI's
+    ``--dp-devices 2`` from 3g's batch, must exit non-zero naming the cards
+    it exceeds -> the launch counts."""
+    import torch
+    totals = {k: 0 for k in KERNELS}
+    rows = []
+    runs = [("europarl", n, False, "loaded") for n in (2, 3)] + \
+        [("medium", 2, True, "medium_lcp")]
+    for size, n, lcp, key in runs:
+        b_launch, b_peak, b_wall, b_cache = base[key]
+        expect = [k for k, v in b_launch.items() if v]
+        launches, res, peak, wall = run_e2e(
+            size, device, cap, golden, expect, lcp, others(expect),
+            index_dir=index_dir if key == "loaded" else None,
+            dp_devices=[torch.device(device, 0)
+                        if device == "cuda" else torch.device(device)] * n)
+        del res
+        fewer = [k for k in expect if launches[k] < b_launch[k]]
+        limit = b_peak + (n - 1) * b_cache + 8 * 2**20
+        rows.append({"size": size, "replicas": n, "lcp_passes": lcp,
+                     "wall_s": wall, "one_device_wall_s": b_wall,
+                     "run_peak_mem_bytes": peak,
+                     "one_device_run_peak_mem_bytes": b_peak,
+                     "peak_limit_bytes": limit,
+                     "launches": {k: v for k, v in launches.items() if v},
+                     "one_device_launches": {k: v for k, v in
+                                             b_launch.items() if v}})
+        if fewer:
+            fail(f"local dp {size} x{n}: {fewer} launched fewer times than "
+                 f"on one device")
+        if device == "cuda" and peak > limit:
+            fail(f"local dp {size} x{n}: peak {peak} > {limit} (the "
+                 f"one-device run's {b_peak})")
+        for k, v in launches.items():
+            totals[k] += v
+    errs = [ln for ln in dp_cli["stderr"] if "exceeds" in ln]
+    print(json.dumps({"phase": "local_dp", "runs": rows,
+                      "cli_dp2": {"rc": dp_cli["rc"],
+                                  "seconds": dp_cli["seconds"],
+                                  "errors": _error_lines(dp_cli)}}),
+          flush=True)
+    if device == "cuda" and (dp_cli["rc"] == 0 or not errs):
+        fail(f"cli --dp-devices 2 on one card: exit {dp_cli['rc']}, "
+             f"{dp_cli['stderr'][-5:]}")
+    return totals
+
+
+def run_two(size: str, work: str, index_dir: str, device: str = "cuda"):
+    """Two processes of the CLI (``--coordinator`` on loopback, both on the
+    card) over ``size``'s files and ``index_dir`` -> (each process's result
+    from ``run_clis``, the output dir, the timefile).  A failure of the
+    process group's bootstrap is retried once, a crash never."""
+    q_lines = _CORPORA[size][4]
+    d = os.path.join(work, f"two_{size}")
+    paths = write_corpus_files(size, d, {"query.f": q_lines})
+    files = [paths[n] for n in ("corpus.f", "query.f", "corpus.e",
+                                "corpus.a", "lex.txt")]
+    markers = ("DistNetworkError", "Connection refused", "timed out",
+               "Address already in use")
+    for attempt in range(2):
+        out = os.path.join(d, f"out{attempt}")
+        timefile = os.path.join(d, f"times{attempt}")
+        port = _free_port()
+        res = run_clis({pid: (
+            ["--device", device, "--coordinator", f"127.0.0.1:{port}",
+             "--num-processes", "2", "--process-id", str(pid),
+             "--index-dir", index_dir, "-s", timefile, *files, out],
+            {"GLOO_SOCKET_IFNAME": "lo"}) for pid in (0, 1)})
+        boot = any(m in ln for r in res.values() for ln in r["stderr"]
+                   for m in markers)
+        if all(r["rc"] == 0 for r in res.values()) or attempt or not boot:
+            return res, out, timefile
+
+
+def check_multiprocess(work: str, golden: dict, index_dir: str,
+                       device: str = "cuda") -> dict:
+    """3i.  Two CLI processes joined over gloo, both on the card: on
+    europarl's index dir (both load), then on medium with a fresh dir
+    (process 0 builds and saves it, process 1 waits for its word
+    and loads).  Each writes its contiguous query slice; the union of the
+    files must hash to the golden, each stderr name its ``queries [lo,
+    hi)``, the timefile hold each process's line with the ``global
+    max-across-processes`` suffix, and the processes' launches together
+    the path's kernels (no A4 where both load) -> the launch counts."""
+    totals = {k: 0 for k in KERNELS}
+    rows = {}
+    for size, idx, expect in (
+            ("europarl", index_dir, LOAD_RUNS[0][1]),
+            ("medium", os.path.join(work, "two_medium_index"),
+             PATH_KERNELS + ("A1", "A9"))):
+        res, out, timefile = run_two(size, work, idx, device)
+        n = len(_CORPORA[size][4])
+        ok = all(r["rc"] == 0 for r in res.values())
+        ghash = grammar_hash(read_grammars(out, n)) if ok else None
+        times = []
+        if os.path.exists(timefile):
+            with open(timefile, encoding="utf-8") as fh:
+                times = fh.read().splitlines()
+        both = {k: res[0]["launches"][k] + res[1]["launches"][k]
+                for k in KERNELS}
+        slices = [[ln for ln in res[p]["stderr"]
+                   if ln.startswith(f"multihost: process {p}: queries")]
+                  for p in (0, 1)]
+        rows[size] = {
+            "rc": [res[p]["rc"] for p in (0, 1)],
+            "seconds": [res[p]["seconds"] for p in (0, 1)],
+            "slices": slices, "timefile": times,
+            "launches": [{k: v for k, v in res[p]["launches"].items() if v}
+                         for p in (0, 1)],
+            "grammar_sha256": ghash,
+            "golden_ok": ghash == golden[size]["sha256"]}
+        if not ok:
+            fail(f"two processes, {size}: exit codes {rows[size]['rc']}: "
+                 f"{res[0]['stderr'][-5:]} {res[1]['stderr'][-5:]}")
+        if ghash != golden[size]["sha256"]:
+            fail(f"two processes, {size}: grammar hash {ghash[:16]} != "
+                 f"golden")
+        half = -(-n // 2)
+        want = [f"multihost: process 0: queries [0, {half}) done; "
+                f"{golden[size]['lines']} grammar lines globally",
+                f"multihost: process 1: queries [{half}, {n}) done; "
+                f"{golden[size]['lines']} grammar lines globally"]
+        if [s[-1] if s else None for s in slices] != want:
+            fail(f"two processes, {size}: slice lines {slices}")
+        if len(times) != 2 or not all(
+                " | global max-across-processes: " in t for t in times):
+            fail(f"two processes, {size}: timefile {times}")
+        local = [t.split(" | ")[0] for t in times]
+        loaded = sum("indexload" in t for t in local)
+        if loaded != (2 if idx == index_dir else 1) or (
+                idx != index_dir and not any("indexsave" in t
+                                             for t in local)):
+            fail(f"two processes, {size}: index built or loaded wrongly: "
+                 f"{local}")
+        check_launches(f"two processes, {size}", expect, others(expect),
+                       both)
+        for k in KERNELS:
+            totals[k] += both[k]
+    print(json.dumps({"phase": "multiprocess", "runs": rows}), flush=True)
+    return totals
+
+
 def launch_floor(capture: Capture, device: str):
     """The time of one launch of A8 (plain C entry, ctypes) on the first
     item of its captured inputs: by CUDA events the floor that host issue
@@ -2574,13 +2931,27 @@ def run_paths(cap: Capture, golden: dict, count, peaks: dict, work: str,
               index_dir: str) -> list:
     """Phases 3 and 4 -> the shard offsets of the sharded run."""
     shard_offsets = []
+    fp = {}        # per size: toklens, the index's tensor bytes, the peak
+    base = {}      # the one-device runs 3h compares with
     for size, lcp, shards, cols, expect, forbid in RUNS:
         # europarl's default run also persists its index (phase 3b)
         saves = size == "europarl" and not (shards or cols)
-        launches, res, peaks[(size, shards, cols)] = run_e2e(
+        launches, res, peaks[(size, shards, cols)], wall = run_e2e(
             size, "cuda", cap, golden, expect, lcp, forbid, shards, cols,
             index_dir=index_dir if saves else None)
         count(launches)
+        if not (lcp or shards or cols):
+            fp[size] = dict(src=res.index.reflen,
+                            tgt=res.index.tgt_str.numel(),
+                            tensor_bytes=index_tensor_bytes(res.index),
+                            peak=peaks[(size, shards, cols)])
+        if shards:
+            fp[f"{size}_sharded"] = dict(
+                tensor_bytes=index_tensor_bytes(res.index),
+                peak=peaks[(size, shards, cols)])
+        if lcp:
+            base["medium_lcp"] = (launches, peaks[(size, shards, cols)],
+                                  wall, replica_cache_bytes(res.index))
         if saves:
             check_index_dir(res, index_dir)
             count(check_lcp_passes(res))
@@ -2602,23 +2973,31 @@ def run_paths(cap: Capture, golden: dict, count, peaks: dict, work: str,
     # 3c. europarl from its persisted index, replicated and sharded
     first3 = None
     for shards, expect in LOAD_RUNS:
-        launches, res, _ = run_e2e("europarl", "cuda", cap, golden, expect,
-                                   forbid=others(expect), sa_shards=shards,
-                                   index_dir=index_dir)
+        launches, res, peak, wall = run_e2e(
+            "europarl", "cuda", cap, golden, expect, forbid=others(expect),
+            sa_shards=shards, index_dir=index_dir)
         count(launches)
         if not shards:
             first3 = res.per_query_lines[:3]
+            base["loaded"] = (launches, peak, wall,
+                              replica_cache_bytes(res.index))
         del res
     # 3d. a server over that index; 3e. medium's queries in four batches;
     # 3f. medium through the CLI under --profile
     count(check_serve(index_dir, work, golden, first3, LOAD_RUNS[0][1]))
-    launches, res, _ = run_e2e("medium", "cuda", cap, golden,
-                               OVERLAP_KERNELS,
-                               forbid=others(OVERLAP_KERNELS),
-                               query_batches=4)
+    launches, res, _, _ = run_e2e("medium", "cuda", cap, golden,
+                                  OVERLAP_KERNELS,
+                                  forbid=others(OVERLAP_KERNELS),
+                                  query_batches=4)
     count(launches)
     del res
     count(check_profile(work, golden))
+    # 3g. the device budget; 3h. local DP over the card repeated; 3i. two
+    # processes on the card
+    launches, dp_cli = check_budget(work, golden, fp, index_dir)
+    count(launches)
+    count(check_local_dp(cap, golden, index_dir, base, dp_cli))
+    count(check_multiprocess(work, golden, index_dir))
     return shard_offsets
 
 

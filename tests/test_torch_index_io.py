@@ -66,7 +66,7 @@ def _arrays_equal(a, b, what):
 
 def test_round_trip_keeps_every_array_and_the_meta(toy_fixture, tmp_path):
     cfg = ExtractorConfig(**CFG)
-    art, _, t = tpl.build_artifact(*_inputs(toy_fixture)[:4], cfg,
+    art, _, t, _ = tpl.build_artifact(*_inputs(toy_fixture)[:4], cfg,
                                    device="cpu", index_dir=str(tmp_path))
     assert isinstance(art, index_io.CorpusIndexArtifact)
     assert tpl.Artifact is index_io.CorpusIndexArtifact

@@ -164,7 +164,8 @@ def test_port_imports_without_jax():
             "cgx_tpu_torch.parallel.dist, "
             "cgx_tpu_torch.tools.gather_probe, cgx_tpu_torch.serve, "
             "cgx_tpu_torch.oracle.pipeline, "
-            "cgx_tpu_torch.preproc.index_io; "
+            "cgx_tpu_torch.preproc.index_io, cgx_tpu_torch.parallel.localdp, "
+            "cgx_tpu_torch.parallel.multihost, cgx_tpu_torch.utils.budget; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'cgx_tpu') "
             "and sys.modules[m] is not None); "

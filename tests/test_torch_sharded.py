@@ -21,6 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from cgx_tpu import cli as jcli  # noqa: E402
 from cgx_tpu import pipeline as jpl  # noqa: E402
 from cgx_tpu.config import ExtractorConfig as JaxConfig  # noqa: E402
 from cgx_tpu.extract import device as jdev  # noqa: E402
@@ -505,8 +506,8 @@ def test_sharded_build_never_replicates(data, world, monkeypatch):
     monkeypatch.setattr(tic, "build_index", boom)
     monkeypatch.setattr(tpl.ic, "build_index", boom)
     f, e, a, lex, _ = data
-    art, index, _ = tpl.build_artifact(f, e, a, lex, _cfgs()[1],
-                                       device="cpu", sa_shards=8)
+    art, index, _, _ = tpl.build_artifact(f, e, a, lex, _cfgs()[1],
+                                          device="cpu", sa_shards=8)
     assert isinstance(index, tshx.ShardedGrammarIndex)
     w = world
     want = tpcx.precompute(_engine(w), w["tsrc"], w["tsa"], w["tcfg"])
@@ -567,24 +568,30 @@ def _cli_args(d, out, extra):
                     str(d / "lex.txt"), str(out)]
 
 
-def test_cli_sa_shards(toy_fixture, tmp_path):
-    """``--sa-shards 8`` writes the files a run without it writes;
-    ``--sa-shards auto`` exits non-zero."""
+def test_cli_sa_shards(toy_fixture, data, tmp_path, monkeypatch):
+    """``--sa-shards 8`` and ``--sa-shards auto`` write the files of the
+    JAX CLI with the same flag and of the port's run without it; ``auto``
+    runs replicated where the device has no budget (the CPU without
+    ``CGX_DEVICE_MEM_MB``)."""
+    monkeypatch.delenv("CGX_DEVICE_MEM_MB", raising=False)
     assert cli.main(_cli_args(toy_fixture, tmp_path / "r",
                               ["--device", "cpu"])) == 0
-    assert cli.main(_cli_args(toy_fixture, tmp_path / "s",
-                              ["--device", "cpu", "--sa-shards", "8"])) == 0
     rep = sorted(p.name for p in (tmp_path / "r").iterdir())
-    assert rep and rep == sorted(p.name for p in (tmp_path / "s").iterdir())
-    for name in rep:
-        assert (tmp_path / "r" / name).read_bytes() == \
-            (tmp_path / "s" / name).read_bytes(), name
-    with pytest.raises(SystemExit) as exc:
-        cli.main(_cli_args(toy_fixture, tmp_path / "a",
-                           ["--device", "cpu", "--sa-shards", "auto"]))
-    assert exc.value.code != 0
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tpl.run_pipeline([], [], [], [], [], sa_shards="auto")
+    assert len(rep) == 8
+    for out, extra in (("s", ["--sa-shards", "8"]),
+                       ("a", ["--sa-shards", "auto"])):
+        assert cli.main(_cli_args(toy_fixture, tmp_path / out,
+                                  ["--device", "cpu"] + extra)) == 0
+        assert jcli.main(_cli_args(toy_fixture, tmp_path / f"j{out}",
+                                   extra)) == 0
+        for got in (out, f"j{out}"):
+            assert rep == sorted(p.name for p in (tmp_path / got).iterdir())
+            for name in rep:
+                assert (tmp_path / "r" / name).read_bytes() == \
+                    (tmp_path / got / name).read_bytes(), (got, name)
+    res = tpl.run_pipeline(*data, _cfgs()[1], device="cpu",
+                           sa_shards="auto")
+    assert not isinstance(res.index, tshx.ShardedGrammarIndex)
 
 
 def test_lcp_passes_with_sa_shards_raises(data):
