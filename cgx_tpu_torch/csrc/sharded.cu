@@ -12,8 +12,10 @@
 // B2s (cgx_refine_step) and B2t (cgx_token_partial) are B2r's round form
 //   for an index placed on a device list: JAX's _refine_chunk as it runs
 //   there, every shard's device stepping the same lockstep bisection over
-//   its own copy of the lanes, with only the two single-token reads of each
-//   step summed across the shards (see below).
+//   its own copy of the lanes, with only the SA words and tokens each step
+//   reads summed across the shards; a step reads five bisection levels
+//   ahead (a tree step), or every depth of a dispatch of single-row
+//   intervals at once (see below).
 //
 // JAX runs each gather on every shard and sums with psum: a shard whose rank
 // range [rank_start, rank_start + rank_count) (or owned token range
@@ -160,98 +162,210 @@ __global__ void gather_sa_sharded_kernel(Shards x,
 
 // ---- B2s and B2t: the round form ------------------------------------------
 //
-// A dispatch of `depths` levels from depth d0 runs 2 * depths lower bounds,
-// each in K steps (K >= the bisection steps of the widest interval, so a
-// lane whose search has ended is a no-op for the rest of its K).  Lower
-// bound b (0 <= b < 2 depths) searches depth d0 + b / 2 for the key
-// qt + (b & 1), qt the query token there or -1 past the lane's suffix: the
-// first bound of a depth gives its new lo (ups), the second its new hi.
-// Step g (0 <= g <= T = 2 depths K) is one launch of B2s on each shard's
-// device followed, for g < T, by one of B2t:
-//  * B2s applies step g - 1's summed token to the lane's bisection (h = M
-//    where the token is >= the key, else l = M + 1), closes bound (g - 1) /
-//    K when g is a multiple of K (its l is ups[c], or downs[c] + 1 and the
-//    level's new hi), opens bound g / K there, and writes the shard's part
-//    of the SA word at the midpoint M = (l + h) >> 1: sa[M] where the shard
-//    owns rank M and the bisection is live, else 0;
-//  * the home device sums the shards' parts; B2t then writes each shard's
-//    part of the token at sa[M] + depth (0 where it does not own the
-//    position or the bisection has ended), which the home device sums for
-//    the next B2s.
-// Every live read lies inside the SA and the corpus, so exactly one shard
-// gives a non-zero word and the int32 sums are exact; the lanes' state
-// (lo, hi, l, h: int32 [4, n]) and ups, downs are the same on every shard's
-// copy after every step.  The step count is fixed per dispatch, so the
-// host never waits on the card between steps.
+// A dispatch of `depths` levels from depth d0 runs 2 * depths lower bounds:
+// bound b (0 <= b < 2 depths) searches depth d0 + b / 2 for the key qt +
+// (b & 1), qt the query token there or -1 past the lane's suffix; the first
+// bound of a level gives its new lo (ups), the second, started from the
+// first's result, its new hi.  JAX's lb steps a bound one bisection level at
+// a time, each level one read of the SA word at the midpoint and one of the
+// token there, both summed over the shards.  The round form cuts the number
+// of those summed steps (each a launch per shard, a sum on the home device
+// and, across processes, a gloo round trip) two ways, both exact for any
+// key column, sorted or not (the lanes off both ends of the SA read keys
+// that are not):
+//  * the tree step: the next kTreeLevels levels of a lane's bisection tree
+//    have kTreeNodes nodes, and which of them lb visits depends only on the
+//    keys read, so one step reads the keys of all of them (speculation) and
+//    applies the kTreeLevels levels exactly as lb would.  Node 0 is the
+//    lane's [l, h); node j's children are 2j + 1, [l, M) (key >= the
+//    bound's), and 2j + 2, [M + 1, h), M = (l + h) >> 1.  A node whose
+//    interval is empty reads nothing (lb's h > l stop), and the children of
+//    an empty node are empty.  A dispatch takes R = ceil(K / kTreeLevels)
+//    steps a bound (K: the bisection steps of its widest interval), T = 2
+//    depths R in all (parallel/sharded.py round_plan);
+//  * the single-row plan: where no interval of the dispatch is wider than a
+//    row, every level reads the same row l, so step 0 reads SA[l], B2t the
+//    tokens at SA[l] + d0 + c for every c < depths, and step 1 resolves the
+//    levels in order (T = 1).
+// Step g (0 <= g <= T) is one launch of B2s on each shard's device followed,
+// for g < T, by one of B2t:
+//  * B2s (a warp per lane on a tree step, a thread per lane on the
+//    single-row plan) applies step g - 1's summed tokens, closes bound (g -
+//    1) / R when g is a multiple of R (its l is ups[c], or downs[c] + 1 and
+//    the level's new hi), opens bound g / R there, and writes the shard's
+//    part of the SA word at each node's midpoint: sa[M] where the shard owns
+//    rank M and the node is live, else 0;
+//  * the home device sums the shards' parts; B2t (a thread per node and
+//    token) writes each shard's part of the token at each live node's SA
+//    word + depth (+ c), which the home device sums for the next B2s.
+// Every part is the owner's word or 0, as JAX's psum takes it, so the int32
+// sums are the words JAX reads; the lanes' state (lo, hi, l, h: int32 [4,
+// n]) and ups, downs are the same on every shard's copy after every step.
+// The plan is fixed per dispatch, so the host never waits on the card
+// between steps.
+
+// the levels a tree step reads ahead and their nodes (parallel/sharded.py
+// TREE_LEVELS, TREE_NODES); a warp holds a lane's nodes, one a thread
+constexpr int kTreeLevels = 5;
+constexpr int kTreeNodes = 31;
+static_assert(kTreeNodes == (1 << kTreeLevels) - 1 && kTreeNodes < 32,
+              "a tree step's nodes fill a warp but one thread");
+constexpr int kTreeLanes = 4;            // lanes (warps) a block
+constexpr int kRowThreads = 256;
 
 __device__ __forceinline__ int round_key(const int* qtok, int q_len, int tok,
                                          int sl, int depth, int plus) {
     return (depth < sl ? qtok[clampi(tok + depth, q_len)] : -1) + plus;
 }
 
-__global__ void refine_step_kernel(
-    const int* __restrict__ sa, int sa_len, int rstart, int rcount,
-    const int* __restrict__ qtok, int q_len, const int* __restrict__ toks,
-    const int* __restrict__ sls, int* __restrict__ st, int* __restrict__ ups,
-    int* __restrict__ downs, const int* __restrict__ tok, int n, int g, int K,
-    int d0, int depths, int* __restrict__ out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
+// node j's interval of the bisection tree over [l, h): the path from the
+// root is the bits of j + 1 below its leading one, 0 the left child
+__device__ __forceinline__ void tree_node(int j, int& l, int& h) {
+    const int path = j + 1;
+    for (int k = 30 - __clz(path); k >= 0; --k) {
+        const int M = (l + h) >> 1;
+        if ((path >> k) & 1)
+            l = M + 1;
+        else
+            h = M;
+    }
+}
+
+// the shard's part of the SA word at the midpoint of [l, h): sa[M] where
+// the interval is live and the shard owns rank M, else 0
+__device__ __forceinline__ int sa_part(const int* sa, int sa_len, int rstart,
+                                       int rcount, int l, int h) {
+    if (h <= l) return 0;
+    const int loc = ((l + h) >> 1) - rstart;
+    return loc >= 0 && loc < rcount ? sa[clampi(loc, sa_len)] : 0;
+}
+
+__global__ void __launch_bounds__(32 * kTreeLanes)
+round_tree_kernel(const int* __restrict__ sa, int sa_len, int rstart,
+                  int rcount, const int* __restrict__ qtok, int q_len,
+                  const int* __restrict__ toks, const int* __restrict__ sls,
+                  int* __restrict__ st, int* __restrict__ ups,
+                  int* __restrict__ downs, const int* __restrict__ tok, int n,
+                  int g, int R, int d0, int depths, int* __restrict__ out) {
+    const int i = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+    const int j = threadIdx.x & 31;
+    if (i >= n) return;                   // the whole warp
     int lo = st[i], hi = st[n + i], l = st[2 * n + i], h = st[3 * n + i];
     int* up = ups + (size_t)i * depths;
     int* down = downs + (size_t)i * depths;
     if (g > 0) {
-        const int b = (g - 1) / K;
-        if (h > l) {
-            const int M = (l + h) >> 1;
-            if (tok[i] >= round_key(qtok, q_len, toks[i], sls[i],
-                                    d0 + (b >> 1), b & 1))
-                h = M;
-            else
-                l = M + 1;
+        const int b = (g - 1) / R;
+        if (h > l) {                      // the warp's lane is live
+            const int key = round_key(qtok, q_len, toks[i], sls[i],
+                                      d0 + (b >> 1), b & 1);
+            // bit j: node j's summed token >= the key
+            const unsigned ge = __ballot_sync(
+                0xffffffffu,
+                j < kTreeNodes && tok[(size_t)i * kTreeNodes + j] >= key);
+            int node = 0;
+            for (int lev = 0; lev < kTreeLevels && h > l; ++lev) {
+                const int M = (l + h) >> 1;
+                if ((ge >> node) & 1) {
+                    h = M;
+                    node = 2 * node + 1;
+                } else {
+                    l = M + 1;
+                    node = 2 * node + 2;
+                }
+            }
         }
-        if (g % K == 0) {
+        if (g % R == 0) {                 // bound b closes
             if ((b & 1) == 0) {
-                up[b >> 1] = l;
+                if (j == 0) up[b >> 1] = l;
             } else {
-                down[b >> 1] = l - 1;
-                lo = up[b >> 1];
+                if (j == 0) down[b >> 1] = l - 1;
+                lo = up[b >> 1];          // written by an earlier launch
                 hi = l;
             }
         }
     }
-    if (g < 2 * depths * K) {
-        const int b = g / K;
-        if (g % K == 0) {
-            l = (b & 1) ? up[b >> 1] : lo;
+    if (g < 2 * depths * R) {
+        // bound g / R opens: the first of a level at its lo, the second at
+        // the first's result, the l this launch just closed it with
+        if (g % R == 0) {
+            if (((g / R) & 1) == 0) l = lo;
             h = hi;
         }
-        int v = 0;
-        if (h > l) {
-            const int loc = ((l + h) >> 1) - rstart;
-            if (loc >= 0 && loc < rcount) v = sa[clampi(loc, sa_len)];
+        if (j < kTreeNodes) {
+            int nl = l, nh = h;
+            tree_node(j, nl, nh);
+            out[(size_t)i * kTreeNodes + j] =
+                sa_part(sa, sa_len, rstart, rcount, nl, nh);
         }
-        out[i] = v;
+    }
+    if (j == 0) {
+        st[i] = lo;
+        st[n + i] = hi;
+        st[2 * n + i] = l;
+        st[3 * n + i] = h;
+    }
+}
+
+// a lower bound over [l, h), at most one row wide, whose row's key is t
+__device__ __forceinline__ int row_bound(int l, int h, int t, int key) {
+    return h > l && t < key ? ((l + h) >> 1) + 1 : l;
+}
+
+__global__ void round_row_kernel(const int* __restrict__ sa, int sa_len,
+                                 int rstart, int rcount,
+                                 const int* __restrict__ qtok, int q_len,
+                                 const int* __restrict__ toks,
+                                 const int* __restrict__ sls,
+                                 int* __restrict__ st, int* __restrict__ ups,
+                                 int* __restrict__ downs,
+                                 const int* __restrict__ tok, int n, int g,
+                                 int d0, int depths, int* __restrict__ out) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    int lo = st[i], hi = st[n + i];
+    if (g == 0) {                         // the row's SA word
+        st[2 * n + i] = lo;
+        st[3 * n + i] = hi;
+        out[i] = sa_part(sa, sa_len, rstart, rcount, lo, hi);
+        return;
+    }
+    const int* t = tok + (size_t)i * depths;
+    int* up = ups + (size_t)i * depths;
+    int* down = downs + (size_t)i * depths;
+    const int tk = toks[i], sl = sls[i];
+    for (int c = 0; c < depths; ++c) {    // the levels in order, as lb
+        const int key = round_key(qtok, q_len, tk, sl, d0 + c, 0);
+        const int nlo = row_bound(lo, hi, t[c], key);
+        const int nhi = row_bound(nlo, hi, t[c], key + 1);
+        up[c] = nlo;
+        down[c] = nhi - 1;
+        lo = nlo;
+        hi = nhi;
     }
     st[i] = lo;
     st[n + i] = hi;
-    st[2 * n + i] = l;
-    st[3 * n + i] = h;
 }
 
-__global__ void token_partial_kernel(const int* __restrict__ ref, int ref_len,
-                                     int soff, int olo, int ohi,
-                                     const int* __restrict__ st,
-                                     const int* __restrict__ sa_sum, int n,
-                                     int depth, int* __restrict__ out) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
+__global__ void round_tokens_kernel(const int* __restrict__ ref, int ref_len,
+                                    int soff, int olo, int ohi,
+                                    const int* __restrict__ st,
+                                    const int* __restrict__ sa_sum, int n,
+                                    int nodes, int count, int depth,
+                                    int* __restrict__ out) {
+    const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const int per = nodes * count;
+    if (e >= (long long)n * per) return;
+    const int i = (int)(e / per);
+    const int r = (int)(e - (long long)i * per);
+    const int j = r / count;
+    int l = st[2 * n + i], h = st[3 * n + i];
+    tree_node(j, l, h);
     int v = 0;
-    if (st[3 * n + i] > st[2 * n + i]) {
-        const int p = sa_sum[i] + depth;
+    if (h > l) {
+        const int p = sa_sum[(size_t)i * nodes + j] + depth + (r - j * count);
         if (p >= olo && p < ohi) v = ref[clampi(p - soff, ref_len)];
     }
-    out[i] = v;
+    out[e] = v;
 }
 
 bool valid(int S, int BR, int sa_len, int B, int ref_len) {
@@ -306,38 +420,52 @@ CGX_EXPORT int cgx_gather_sa_sharded(const int* const* sa_ptrs,
 // rstart + rcount)); the lanes' query token positions toks and remaining
 // lengths sls; their state st int32 [4, n] (lo, hi, l, h: lo and hi given,
 // l and h set at step 0) and ups, downs int32 [n, depths], updated in
-// place; tok: the summed token of step g - 1 (unread at g = 0); out: the
-// shard's part of the SA word at each lane's midpoint (unwritten at the
-// last step, g = 2 depths K).
+// place; R: tree steps a lower bound (T = 2 depths R), or 0 for the
+// single-row plan (T = 1); tok: the summed tokens of step g - 1, int32 [n,
+// kTreeNodes] (R >= 1) or [n, depths] (unread at g = 0); out: the shard's
+// parts of the SA words at the nodes' midpoints, int32 [n, kTreeNodes] or
+// [n, 1] (unwritten at the last step, g = T).
 CGX_EXPORT int cgx_refine_step(const int* sa, int sa_len, int rstart,
                                int rcount, const int* qtok, int q_len,
                                const int* toks, const int* sls, int* st,
                                int* ups, int* downs, const int* tok, int n,
-                               int g, int K, int d0, int depths, int* out,
+                               int g, int R, int d0, int depths, int* out,
                                void* stream) {
-    if (sa_len < 1 || q_len < 1 || K < 1 || depths < 1 || g < 0 ||
-        (long long)g > 2LL * depths * K)
+    const long long T = R > 0 ? 2LL * depths * R : 1;
+    if (sa_len < 1 || q_len < 1 || R < 0 || depths < 1 || g < 0 || g > T ||
+        T >= (1LL << 31))
         return (int)cudaErrorInvalidValue;
-    const int threads = 256;
-    refine_step_kernel<<<cgx_grid(n, threads), threads, 0,
-                         (cudaStream_t)stream>>>(
-        sa, sa_len, rstart, rcount, qtok, q_len, toks, sls, st, ups, downs,
-        tok, n, g, K, d0, depths, out);
+    if (R > 0)
+        round_tree_kernel<<<cgx_grid(n, kTreeLanes), 32 * kTreeLanes, 0,
+                            (cudaStream_t)stream>>>(
+            sa, sa_len, rstart, rcount, qtok, q_len, toks, sls, st, ups,
+            downs, tok, n, g, R, d0, depths, out);
+    else
+        round_row_kernel<<<cgx_grid(n, kRowThreads), kRowThreads, 0,
+                           (cudaStream_t)stream>>>(
+            sa, sa_len, rstart, rcount, qtok, q_len, toks, sls, st, ups,
+            downs, tok, n, g, d0, depths, out);
     return (int)cudaGetLastError();
 }
 
 // B2t.  One shard's token slice ref (ref_len words from global position
 // soff; it owns [olo, ohi)); the lanes' state st as B2s left it; sa_sum
-// the summed SA word of this step; out: the shard's part of the token at
-// sa_sum + depth of each live lane, else 0.
+// the summed SA words of this step at the first `nodes` nodes of each
+// lane's tree (1 or kTreeNodes); out int32 [n, nodes * count]: the shard's
+// part of the token at sa_sum[i, j] + depth + c (c < count) of each live
+// node j, else 0.
 CGX_EXPORT int cgx_token_partial(const int* ref, int ref_len, int soff,
                                  int olo, int ohi, const int* st,
-                                 const int* sa_sum, int n, int depth,
-                                 int* out, void* stream) {
-    if (ref_len < 1) return (int)cudaErrorInvalidValue;
+                                 const int* sa_sum, int n, int nodes,
+                                 int count, int depth, int* out,
+                                 void* stream) {
+    if (ref_len < 1 || (nodes != 1 && nodes != kTreeNodes) || count < 1 ||
+        (long long)n * nodes * count >= (1LL << 31))
+        return (int)cudaErrorInvalidValue;
     const int threads = 256;
-    token_partial_kernel<<<cgx_grid(n, threads), threads, 0,
-                           (cudaStream_t)stream>>>(
-        ref, ref_len, soff, olo, ohi, st, sa_sum, n, depth, out);
+    round_tokens_kernel<<<cgx_grid(n * nodes * count, threads), threads, 0,
+                          (cudaStream_t)stream>>>(
+        ref, ref_len, soff, olo, ohi, st, sa_sum, n, nodes, count, depth,
+        out);
     return (int)cudaGetLastError();
 }

@@ -101,7 +101,8 @@ SIGNATURES = {
         "cgx_gather_sa_sharded": [_P, _P, _I, _I, _I, _P, _I, _P, _P],
         "cgx_refine_step": [_P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _P, _P,
                             _I, _I, _I, _I, _I, _P, _P],
-        "cgx_token_partial": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P],
+        "cgx_token_partial": [_P, _I, _I, _I, _I, _P, _P, _I, _I, _I, _I,
+                              _P, _P],
     },
     "dist": {
         "cgx_dp_step": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _P, _I, _P, _I,

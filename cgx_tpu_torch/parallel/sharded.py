@@ -29,10 +29,11 @@ places shard s on ``cuda:(s mod k)``.  The layout decides the refinement's
 form: over shards given one device, one launch of kernel B2r reaches them
 all through a pointer table; over a device list, the JAX form: every
 shard's device steps the same lockstep bisection over its own copy of the
-lanes (kernel B2s) and only the two single-token reads of each step are
-summed across the shards (B2s's SA word, then kernel B2t's token), on the
-lanes' home device (``ShardedGrammarIndex.device``, the first local
-shard's).
+lanes (kernel B2s) and only the reads of each step are summed across the
+shards (B2s's SA words, then kernel B2t's tokens), on the lanes' home
+device (``ShardedGrammarIndex.device``, the first local shard's).  A step
+reads five bisection levels ahead, or every depth of a dispatch whose
+intervals are at most one row (``round_plan``).
 
 With several processes (``parallel.multihost``, torch.distributed joined)
 the global shard list runs process-major, process p holding the contiguous
@@ -602,55 +603,145 @@ def gather_sa(sidx: ShardedGrammarIndex, rows) -> np.ndarray:
 # Kernels B2s and B2t: the refinement's round form on a device list
 # ---------------------------------------------------------------------------
 
+# A tree step reads the keys of the next TREE_LEVELS levels of each lane's
+# bisection tree at once: its TREE_NODES nodes (csrc/sharded.cu kTreeLevels,
+# kTreeNodes).
+TREE_LEVELS = 5
+TREE_NODES = 2 ** TREE_LEVELS - 1
+
+
 def round_steps(lo, hi) -> int:
-    """K, the steps of every lower bound in a dispatch of intervals [lo,
-    hi) (host arrays): the bisection steps of the widest, ceil(log2(w +
+    """K, the bisection steps of every lower bound in a dispatch of
+    intervals [lo, hi) (host arrays): those of the widest, ceil(log2(w +
     1)), at least 1.  An interval only narrows over a dispatch's levels."""
     w = int(np.max(np.asarray(hi, np.int64) - np.asarray(lo, np.int64),
                    initial=0))
     return max(1, w.bit_length())
 
 
+def round_plan(lo, hi, depths: int) -> tuple:
+    """(R, T) of a dispatch of ``depths`` levels over intervals [lo, hi):
+    R tree steps a lower bound, ceil(K / TREE_LEVELS) with K =
+    ``round_steps``, and T = 2 depths R steps in all; or, where no interval
+    is wider than one row (K = 1), the single-row plan (0, 1): every level
+    reads the same row, so one step reads every depth's token."""
+    K = round_steps(lo, hi)
+    if K == 1:
+        return 0, 1
+    R = -(-K // TREE_LEVELS)
+    return R, 2 * depths * R
+
+
+def _tree_nodes(l, h, nodes: int) -> tuple:
+    """The intervals of the first ``nodes`` nodes of each lane's bisection
+    tree over [l, h) (int32 [n]) -> (l, h) int32 [n, nodes].  Node 0 is [l,
+    h); node j's children are 2j + 1, [l, M) (the key at M was >= the
+    bound's), and 2j + 2, [M + 1, h), with M = (l + h) >> 1.  A child of an
+    empty node is empty, so a node is live (h > l) only where every node on
+    its path was."""
+    path = torch.arange(1, nodes + 1, dtype=torch.int64, device=l.device)
+    level = torch.tensor([j.bit_length() - 1 for j in range(1, nodes + 1)],
+                         device=l.device)
+    nl = l[:, None].repeat(1, nodes)
+    nh = h[:, None].repeat(1, nodes)
+    for k in range(int(level.max())):       # the k-th step from the root
+        on = level > k
+        right = ((path >> (level - 1 - k).clamp(min=0)) & 1).bool()
+        M = (nl + nh) >> 1
+        nl = torch.where(on & right, M + 1, nl)
+        nh = torch.where(on & ~right, M, nh)
+    return nl, nh
+
+
+def _round_key(qtok, toks, sls, depth: int):
+    """The query token at ``depth`` of each lane, -1 past its suffix."""
+    return torch.where(depth < sls, take(qtok, toks + depth),
+                       torch.full_like(toks, -1))
+
+
+def _row_bound(l, h, t, key):
+    """A lower bound over [l, h) at most one row wide, whose row's key is
+    ``t``: ``lb``'s one step, l where the interval is empty."""
+    M = (l + h) >> 1
+    return torch.where((h > l) & (t < key), M + 1, l)
+
+
+def _sa_parts(sa, rstart: int, rcount: int, l, h, nodes: int):
+    """One shard's parts of the SA words at the midpoints of the first
+    ``nodes`` tree nodes over [l, h): sa[M] where the node is live and the
+    shard owns rank M, else 0 -> int32 [n, nodes]."""
+    nl, nh = _tree_nodes(l, h, nodes)
+    loc = ((nl + nh) >> 1) - rstart
+    return torch.where((nh > nl) & (loc >= 0) & (loc < rcount),
+                       take(sa, loc), 0)
+
+
 def refine_step_plain(sa, rstart: int, rcount: int, qtok, toks, sls, st,
-                      ups, downs, tok, g: int, K: int, d0: int, depths: int):
-    """Plain PyTorch version of kernel B2s: step ``g`` of the round form on
-    one shard's rank slice ``sa`` (its ranks [rstart, rstart + rcount)),
-    updating the lanes' ``st`` (int32 [4, n]: lo, hi, l, h), ``ups`` and
-    ``downs`` (int32 [n, depths]) in place from step g - 1's summed token
-    ``tok`` -> the shard's part of the SA word at each lane's midpoint
-    (None at the last step, g = 2 depths K)."""
+                      ups, downs, tok, g: int, R: int, d0: int, depths: int):
+    """Plain PyTorch version of kernel B2s: step ``g`` of a dispatch's round
+    form (``round_plan``'s R; R = 0, the single-row plan) on one shard's
+    rank slice ``sa`` (its ranks [rstart, rstart + rcount)), updating the
+    lanes' ``st`` (int32 [4, n]: lo, hi, l, h), ``ups`` and ``downs``
+    (int32 [n, depths]) in place from step g - 1's summed tokens ``tok``
+    -> the shard's parts of the SA words this step reads (None at the last
+    step, g = T).
+
+    A tree step (R >= 1) walks lower bound (g - 1) // R down the
+    TREE_LEVELS levels whose TREE_NODES keys ``tok`` holds ([n,
+    TREE_NODES]), as ``lb`` steps them, closes it where g is a multiple of
+    R (its l is ups[c], or downs[c] + 1 and level c's new hi), opens bound
+    g // R there, and gives the part of the SA word at each node's midpoint
+    ([n, TREE_NODES]: sa[M] where the shard owns rank M and the node is
+    live, else 0).  The single-row plan's step 0 gives the part at each
+    lane's one row l ([n, 1]), its step 1 resolves every level from the
+    tokens at that row ([n, depths]) as ``lb`` would."""
     lo, hi, l, h = (x.clone() for x in st)
+    out = None
+    if R == 0:
+        if g == 0:
+            l, h = lo, hi
+            out = _sa_parts(sa, rstart, rcount, l, h, 1)
+        else:
+            for c in range(depths):
+                key = _round_key(qtok, toks, sls, d0 + c)
+                nlo = _row_bound(lo, hi, tok[:, c], key)
+                nhi = _row_bound(nlo, hi, tok[:, c], key + 1)
+                ups[:, c], downs[:, c] = nlo, nhi - 1
+                lo, hi = nlo, nhi
+        st.copy_(torch.stack([lo, hi, l, h]))
+        return out
     if g > 0:
-        b = (g - 1) // K
-        depth = d0 + b // 2
-        key = torch.where(depth < sls, take(qtok, toks + depth),
-                          torch.full_like(toks, -1)) + (b & 1)
-        live = h > l
-        M = (l + h) >> 1
-        ge = tok >= key
-        l = torch.where(live & ~ge, M + 1, l)
-        h = torch.where(live & ge, M, h)
-        if g % K == 0:
+        b = (g - 1) // R
+        key = _round_key(qtok, toks, sls, d0 + b // 2) + (b & 1)
+        node = torch.zeros_like(l, dtype=torch.int64)
+        for _ in range(TREE_LEVELS):
+            live = h > l
+            M = (l + h) >> 1
+            ge = tok.gather(1, node[:, None])[:, 0] >= key
+            l = torch.where(live & ~ge, M + 1, l)
+            h = torch.where(live & ge, M, h)
+            node = torch.where(ge, 2 * node + 1, 2 * node + 2).clamp(
+                max=TREE_NODES - 1)
+        if g % R == 0:
             if b % 2 == 0:
                 ups[:, b // 2] = l
             else:
                 downs[:, b // 2] = l - 1
                 lo, hi = ups[:, b // 2].clone(), l
-    out = None
-    if g < 2 * depths * K:
-        b = g // K
-        if g % K == 0:
-            l = ups[:, b // 2].clone() if b % 2 else lo
+    if g < 2 * depths * R:
+        # bound g // R opens: the first of a level at its lo, the second
+        # at the first's result, the l this step just closed it with
+        if g % R == 0:
+            if (g // R) % 2 == 0:
+                l = lo
             h = hi
-        loc = ((l + h) >> 1) - rstart
-        out = torch.where((h > l) & (loc >= 0) & (loc < rcount),
-                          take(sa, loc), 0)
+        out = _sa_parts(sa, rstart, rcount, l, h, TREE_NODES)
     st.copy_(torch.stack([lo, hi, l, h]))
     return out
 
 
 def refine_step(sa, rstart: int, rcount: int, qtok, toks, sls, st, ups,
-                downs, tok, g: int, K: int, d0: int, depths: int):
+                downs, tok, g: int, R: int, d0: int, depths: int):
     """Kernel B2s (``csrc/sharded.cu``, ``cgx_refine_step``): step ``g`` of
     the round form on one shard's device, as ``refine_step_plain``.
 
@@ -660,68 +751,81 @@ def refine_step(sa, rstart: int, rcount: int, qtok, toks, sls, st, ups,
     device = st.device
     if not kb.route("B2s", device):
         return refine_step_plain(sa, rstart, rcount, qtok, toks, sls, st,
-                                 ups, downs, tok, g, K, d0, depths)
+                                 ups, downs, tok, g, R, d0, depths)
     kb.check_inputs("B2s", device, torch.int32, sa=sa, qtok=qtok, toks=toks,
                     sls=sls, st=st, ups=ups, downs=downs, tok=tok)
     n = toks.shape[0]
-    if not (sls.shape == tok.shape == (n,) and st.shape == (4, n)
+    if not (R >= 0 and depths >= 1):
+        raise ValueError(f"B2s: a plan of {R} steps a bound, {depths} "
+                         f"levels")
+    T = 2 * depths * R if R else 1
+    if not (sls.shape == (n,) and st.shape == (4, n)
+            and tok.shape == (n, TREE_NODES if R else depths)
             and ups.shape == downs.shape == (n, depths)):
         raise ValueError("B2s: lane arrays differ in shape")
-    if not (K >= 1 and 0 <= g <= 2 * depths * K):
-        raise ValueError(f"B2s: step {g} of a {K}-step, {depths}-level "
-                         f"dispatch")
+    if not 0 <= g <= T:
+        raise ValueError(f"B2s: step {g} of a {T}-step dispatch")
     kb.check_count("B2s", n)
-    last = g == 2 * depths * K
-    out = torch.empty(n, dtype=torch.int32, device=device)
+    out = torch.empty((n, TREE_NODES if R else 1), dtype=torch.int32,
+                      device=device)
     if n:
         kb.launch(
             "sharded", "cgx_refine_step", device, kb.ptr(sa), sa.shape[0],
             rstart, rcount, kb.ptr(qtok), qtok.shape[0], kb.ptr(toks),
             kb.ptr(sls), kb.ptr(st), kb.ptr(ups), kb.ptr(downs), kb.ptr(tok),
-            n, g, K, d0, depths, kb.ptr(out))
+            n, g, R, d0, depths, kb.ptr(out))
         kb.LAUNCHES["B2s"] += 1
-    return None if last else out
+    return None if g == T else out
 
 
 def token_partial_plain(ref, soff: int, olo: int, ohi: int, st, sa_sum,
-                        depth: int):
-    """Plain PyTorch version of kernel B2t: one shard's part of the token at
-    ``sa_sum + depth`` of each live lane (``st``'s h > l) from its token
-    slice ``ref`` (global position ``soff`` first; it owns [olo, ohi)),
-    else 0."""
-    p = sa_sum + depth
-    ok = (st[3] > st[2]) & (p >= olo) & (p < ohi)
-    return torch.where(ok, take(ref, p - soff), 0)
+                        depth: int, count: int):
+    """Plain PyTorch version of kernel B2t: one shard's parts of the tokens
+    at ``sa_sum[:, j] + depth + c`` (c < ``count``) of each live node j of
+    the lanes' trees over st's [l, h) (``sa_sum``: int32 [n, nodes], the
+    summed SA words of B2s's step) from its token slice ``ref`` (global
+    position ``soff`` first; it owns [olo, ohi)), else 0 -> int32 [n, nodes
+    count]: a tree step's node tokens (count 1), or the single-row plan's
+    tokens of every depth at the one row (one node, count ``depths``)."""
+    n, nodes = sa_sum.shape
+    nl, nh = _tree_nodes(st[2], st[3], nodes)
+    p = (sa_sum + depth)[:, :, None] + torch.arange(
+        count, dtype=sa_sum.dtype, device=sa_sum.device)
+    ok = (nh > nl)[:, :, None] & (p >= olo) & (p < ohi)
+    return torch.where(ok, take(ref, p - soff), 0).reshape(n, nodes * count)
 
 
 def token_partial(ref, soff: int, olo: int, ohi: int, st, sa_sum,
-                  depth: int):
+                  depth: int, count: int):
     """Kernel B2t (``csrc/sharded.cu``, ``cgx_token_partial``): as
     ``token_partial_plain``, on the shard's device.  On CUDA tensors it
     launches the kernel; on CPU tensors it runs the plain version."""
     device = st.device
     if not kb.route("B2t", device):
-        return token_partial_plain(ref, soff, olo, ohi, st, sa_sum, depth)
+        return token_partial_plain(ref, soff, olo, ohi, st, sa_sum, depth,
+                                   count)
     kb.check_inputs("B2t", device, torch.int32, ref=ref, st=st,
                     sa_sum=sa_sum)
-    n = sa_sum.shape[0]
+    n, nodes = sa_sum.shape
     if st.shape != (4, n):
         raise ValueError("B2t: lane arrays differ in shape")
-    kb.check_count("B2t", n)
-    out = torch.empty(n, dtype=torch.int32, device=device)
+    if nodes not in (1, TREE_NODES) or count < 1:
+        raise ValueError(f"B2t: {nodes} nodes, {count} tokens a node")
+    kb.check_count("B2t", n * nodes * count)
+    out = torch.empty((n, nodes * count), dtype=torch.int32, device=device)
     if n:
         kb.launch(
             "sharded", "cgx_token_partial", device, kb.ptr(ref), ref.shape[0],
-            soff, olo, ohi, kb.ptr(st), kb.ptr(sa_sum), n, depth,
-            kb.ptr(out))
+            soff, olo, ohi, kb.ptr(st), kb.ptr(sa_sum), n, nodes, count,
+            depth, kb.ptr(out))
         kb.LAUNCHES["B2t"] += 1
     return out
 
 
 def _sum_parts(sidx, parts: list) -> dict:
-    """The shards' parts (int32 [n] each, on their devices) summed on the
-    home device, and across the processes of a composed run -> the sum on
-    each local device."""
+    """The shards' parts (int32, one shape, each on its device) summed on
+    the home device, and across the processes of a composed run -> the sum
+    on each local device."""
     total = None
     for p in parts:
         p = p.to(sidx.device)
@@ -738,14 +842,13 @@ def refine_round(sidx, qtok, toks, sls, lo, hi, d0: int, depths: int):
     """``depths`` refinement levels from depth ``d0`` for every lane (host
     int32 arrays ``toks``, ``sls``, ``lo``, ``hi``) over an index placed on
     a device list: each local shard steps its own copy of the lanes on its
-    device (kernel B2s, then B2t, ``round_steps`` steps a lower bound) and
-    the parts of each step are summed (``_sum_parts``).  ``qtok``: the
-    padded query tokens, or a function of the shard giving them on its
-    device.  Returns (ups, downs) int32 [n, depths] and the final (lo, hi)
-    int32 [n] on the home device, bit-equal to ``refine_sharded``."""
+    device (kernel B2s, then B2t, ``round_plan``'s T steps) and the parts
+    of each step are summed (``_sum_parts``).  ``qtok``: the padded query
+    tokens, or a function of the shard giving them on its device.  Returns
+    (ups, downs) int32 [n, depths] and the final (lo, hi) int32 [n] on the
+    home device, bit-equal to ``refine_sharded``."""
     n = len(toks)
-    K = round_steps(lo, hi)
-    T = 2 * depths * K
+    R, T = round_plan(lo, hi, depths)
     lanes, shared = {}, {}
     for s in sidx.local_shards():
         dev = sidx.device_of(s)
@@ -757,7 +860,9 @@ def refine_round(sidx, qtok, toks, sls, lo, hi, d0: int, depths: int):
             st=st.to(dev),
             ups=torch.zeros((n, depths), dtype=torch.int32, device=dev),
             downs=torch.zeros((n, depths), dtype=torch.int32, device=dev))
-    tok = {d: torch.zeros(n, dtype=torch.int32, device=d) for d in shared}
+    # step 0 reads no token
+    tok = {d: torch.zeros((n, TREE_NODES if R else depths),
+                          dtype=torch.int32, device=d) for d in shared}
     for g in range(T + 1 if n else 0):
         parts = []
         for s, ln in lanes.items():
@@ -765,18 +870,18 @@ def refine_round(sidx, qtok, toks, sls, lo, hi, d0: int, depths: int):
             rstart, rcount = (int(x) for x in sidx.rmeta[s])
             parts.append(refine_step(
                 sidx.sa_l[s], rstart, rcount, ln["qtok"], *shared[dev],
-                ln["st"], ln["ups"], ln["downs"], tok[dev], g, K, d0,
+                ln["st"], ln["ups"], ln["downs"], tok[dev], g, R, d0,
                 depths))
         if g == T:
             break
         sa_sum = _sum_parts(sidx, parts)
-        depth = d0 + g // K // 2
+        depth, count = (d0 + g // R // 2, 1) if R else (d0, depths)
         parts = []
         for s, ln in lanes.items():
             soff, olo, ohi = (int(x) for x in sidx.smeta[s])
             parts.append(token_partial(sidx.ref_l[s], soff, olo, ohi,
                                        ln["st"], sa_sum[sidx.device_of(s)],
-                                       depth))
+                                       depth, count))
         tok = _sum_parts(sidx, parts)
     home = lanes[sidx.local_shards()[0]]
     return home["ups"], home["downs"], home["st"][0], home["st"][1]

@@ -16,10 +16,17 @@ launch, and times every variant on them, in turns (the variants in order,
 then in reverse), by CUDA events and by the device's own clock
 (``chip_smoke._device_ms``): A7, A7 on a shard's views (A7v), A8, A8v, A8 on
 one item, A6, B3c, B1p1, B1p2, B4, A9, A9 on one rule (the launch's fixed
-cost), A9L, A10, A1, B2r, A3, A3 on one item, B3p, C1p, and the gather
+cost), A9L, A10, A1, B2r, A3, A3 on one item, B3p, C1p, the gather
 probe's P1 and P2 on its two inputs (europarl's A2b scan starts, and its
-defaults as P1@d and P2@d). Each row runs through the port's own wrapper
-with the variant's library in place of the built one. Every output is checked against the plain version first; a
+defaults as P1@d and P2@d), and B2s+B2t@1 and @2: the round form's whole
+dispatch (every B2s and B2t launch and the sums between them) on
+europarl's two pass-1/2 dispatches (the four-shard run's two B2r calls)
+over ``["cuda:0"] * 4``. Each row runs through the port's own wrapper
+with the variant's library in place of the built one; the round form of a
+``sharded.cu`` from before the tree step (no ``kTreeNodes``: one
+bisection level a step, K steps a lower bound) runs through its own C
+entries as its wrapper called them (``round_stepwise``). Every output is
+checked against the plain version first (B2r's, for the round form); a
 variant that differs is reported and dropped. Run from the repository root
 on a machine with a card.
 """
@@ -35,8 +42,12 @@ import re
 import subprocess
 import sys
 
+import dataclasses
+
+import numpy as np
 import torch
 
+from cgx_tpu_torch.engine import on
 from cgx_tpu_torch.extract import device as xdev
 from cgx_tpu_torch.features import maxlex as ml
 from cgx_tpu_torch.kernels import build as kb
@@ -73,6 +84,77 @@ ROWS = {"A7": (xdev.onegap, xdev.onegap_plain),
         "P1@d": (lambda r, p: probe("P1", r, p), gp.gather_sum_plain),
         "P2": (lambda r, p: probe("P2", r, p), gp.gather_rows_plain),
         "P2@d": (lambda r, p: probe("P2", r, p), gp.gather_rows_plain)}
+
+
+def round_dispatch(sidx, qtok, toks, sls, lo, hi, d0: int, depths: int):
+    """One dispatch of the round form over the index on a device list
+    ``sidx`` (host lanes), through the installed variant's library: the
+    port's ``refine_round``, or ``round_stepwise`` for a library from
+    before the tree step."""
+    fn = (round_stepwise if getattr(kb.library("sharded"), "stepwise", False)
+          else shx.refine_round)
+    return fn(sidx, qtok, toks, sls, lo, hi, d0, depths)
+
+
+def round_plain(sidx, qtok, toks, sls, lo, hi, d0: int, depths: int):
+    """B2r's plain version (JAX's bisection through the shards) on the same
+    lanes, on the index's home device."""
+    return shx.refine_sharded_plain(sidx, qtok, *on(sidx.device, toks, sls,
+                                                    lo, hi), d0, depths)
+
+
+# the C signatures of B2s and B2t before the tree step
+_STEPWISE = {"cgx_refine_step": kb.SIGNATURES["sharded"]["cgx_refine_step"],
+             "cgx_token_partial": [ctypes.c_void_p] + [ctypes.c_int] * 4
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p] * 2}
+
+
+def round_stepwise(sidx, qtok, toks, sls, lo, hi, d0: int, depths: int):
+    """The round form as it ran before the tree step: K = ``round_steps``
+    bisection steps a lower bound, T = 2 depths K steps, each a B2s launch
+    on every shard (part of the SA word at each lane's midpoint, int32
+    [n]), their sum, a B2t launch (part of the token there), their sum."""
+    lib = kb.library("sharded")
+    for fn, argt in _STEPWISE.items():
+        getattr(lib, fn).argtypes = argt
+    n, dev = len(toks), sidx.device
+    K = shx.round_steps(lo, hi)
+    T = 2 * depths * K
+    toks_t, sls_t = on(dev, toks, sls)
+    lanes = {s: (torch.from_numpy(np.stack([lo, hi, lo, hi]).astype(
+        np.int32)).to(dev), torch.zeros((n, depths), dtype=torch.int32,
+                                        device=dev),
+        torch.zeros((n, depths), dtype=torch.int32, device=dev))
+        for s in sidx.local_shards()}
+    tok = torch.zeros(n, dtype=torch.int32, device=dev)
+    for g in range(T + 1):
+        parts = []
+        for s, (st, ups, downs) in lanes.items():
+            rstart, rcount = (int(x) for x in sidx.rmeta[s])
+            out = torch.empty(n, dtype=torch.int32, device=dev)
+            kb.launch("sharded", "cgx_refine_step", dev,
+                      kb.ptr(sidx.sa_l[s]), sidx.sa_l[s].shape[0], rstart,
+                      rcount, kb.ptr(qtok), qtok.shape[0], kb.ptr(toks_t),
+                      kb.ptr(sls_t), kb.ptr(st), kb.ptr(ups), kb.ptr(downs),
+                      kb.ptr(tok), n, g, K, d0, depths, kb.ptr(out))
+            parts.append(out)
+        if g == T:
+            break
+        sa_sum = shx._sum_parts(sidx, parts)[dev]
+        parts = []
+        for s, (st, _, _) in lanes.items():
+            soff, olo, ohi = (int(x) for x in sidx.smeta[s])
+            out = torch.empty(n, dtype=torch.int32, device=dev)
+            kb.launch("sharded", "cgx_token_partial", dev,
+                      kb.ptr(sidx.ref_l[s]), sidx.ref_l[s].shape[0], soff,
+                      olo, ohi, kb.ptr(st), kb.ptr(sa_sum), n,
+                      d0 + g // K // 2, kb.ptr(out))
+            parts.append(out)
+        tok = shx._sum_parts(sidx, parts)[dev]
+    st, ups, downs = lanes[sidx.local_shards()[0]]
+    return ups, downs, st[0], st[1]
+
 
 
 def probe(kernel: str, ref, pos):
@@ -128,6 +210,9 @@ def build(name: str, src: str, out: str) -> dict:
             "sass_total": sum(ops.values()), "sass_kernels": per_kernel,
             "sass_top": ops.most_common(14)}), flush=True)
         lib = ctypes.CDLL(so)
+        if f == "sharded":      # a round form from before the tree step
+            with open(f"{src}/sharded.cu", encoding="utf-8") as fh:
+                lib.stepwise = "kTreeNodes" not in fh.read()
         for fn, argt in kb.SIGNATURES[f].items():
             if not hasattr(lib, fn):    # an older probe library: probe()
                 continue
@@ -157,17 +242,40 @@ def capture_rows() -> dict:
     import chip_smoke as cs
     with open(cs.GOLDEN, encoding="utf-8") as fh:
         golden = json.load(fh)
-    with cs.Capture() as cap:
-        for size, lcp, shards, cols, expect, forbid in cs.RUNS[:3]:
-            _, res, _, _ = cs.run_e2e(size, "cuda", cap, golden, expect,
-                                      lcp, forbid, shards, cols)
-            if size == "europarl" and not shards:
-                cs.check_lcp_passes(res)
-                cs.check_query_dp(res, cap)
-                cs.check_dense_large(res, cap)
-            del res
-        cs.check_pcs_cols(cap)
+    dispatches = []        # the four-shard run's B2r calls, in order
+    real = shx.refine_sharded
+
+    def keep(*args):
+        dispatches.append(args)
+        return real(*args)
+    shx.refine_sharded = keep
+    try:
+        with cs.Capture() as cap:
+            for size, lcp, shards, cols, expect, forbid in cs.RUNS[:3]:
+                dispatches.clear()
+                _, res, _, _ = cs.run_e2e(size, "cuda", cap, golden, expect,
+                                          lcp, forbid, shards, cols)
+                if size == "europarl" and not shards:
+                    cs.check_lcp_passes(res)
+                    cs.check_query_dp(res, cap)
+                    cs.check_dense_large(res, cap)
+                if shards:
+                    sidx = res.index
+                del res
+            cs.check_pcs_cols(cap)
+    finally:
+        shx.refine_sharded = real
     rows = {k: cap.calls[k] for k in ROWS if k in cap.calls}
+    # the round form over the same shards placed on the card four times
+    listed = dataclasses.replace(
+        sidx, devices=[sidx.device] * sidx.S, listed=True, _shard_tables={},
+        _qtok=None)
+    for j, (_, qtok, toks, sls, lo, hi, d0, depths) in enumerate(
+            dispatches, 1):
+        ROWS[f"B2s+B2t@{j}"] = (round_dispatch, round_plain)
+        rows[f"B2s+B2t@{j}"] = (toks.shape[0], (
+            listed, qtok, *(x.cpu().numpy() for x in (toks, sls, lo, hi)),
+            d0, depths))
     probes = cs.probe_inputs(cap)
     for k in ("P1", "P2"):
         for suffix, name in (("", "europarl_A2b"), ("@d", "defaults")):

@@ -28,7 +28,7 @@ other word and find the result unchanged.
 * ``refine_reads``: A1 and B2r, the seeded refinement's binary lower
   bounds (B2r also the shards' meta rows);
 * ``refine_round_reads``: one step of B2r's round form on one shard, B2s
-  or B2t;
+  or B2t (a tree step's nodes, or the single-row plan's depths);
 * ``pcs_reads``: A3, B3p and C1p (``_pcs_item``), with ``pcs_rounds``, the
   rounds in which A3's warp resolves its items' patterns;
 * ``probe_reads``: P1 and P2, the corpus words under the union of the
@@ -652,50 +652,94 @@ def refine_reads(*args) -> tuple:
 
 def refine_round_reads(kernel: str, *args) -> tuple:
     """(words, live lanes) that one launch of B2s or B2t on one shard needs
-    (a word each lane reads or writes, counted once):
+    (a word each lane reads or writes; each SA word, query token and corpus
+    token once over the launch):
 
-    * B2s, ``args`` as ``sharded.refine_step`` takes them: each lane's
-      state (lo, hi, l, h) read and written, its ``toks`` and ``sls``;
-      where the step updates a live search (g > 0), the summed token and,
-      inside the suffix, the key's query token; where a lower bound closes
-      or the second of a level opens, the ``ups``/``downs`` words written
-      or read; the part written (g < T) and the SA word where the shard
-      owns a live lane's midpoint;
+    * B2s, ``args`` as ``sharded.refine_step`` takes them.  A tree step
+      (R >= 1): each lane's state (lo, hi, l, h) read and written; where it
+      applies a live lane's tokens (g > 0), its ``toks`` and ``sls``, the
+      key's query token inside the suffix and the summed token of each node
+      its walk visits; where a lower bound closes, the ``ups``/``downs``
+      words written and read; the parts written (g < T) and the SA word at
+      each live node's midpoint that the shard owns.  The single-row plan:
+      step 0 each lane's lo and hi read, l and h and its part written, and
+      the SA word at a live lane's row that the shard owns; step 1 each
+      lane's lo, hi (read and written), ``toks`` and ``sls``, at each level
+      whose interval is live the summed token and the query token inside
+      the suffix, and every ``ups``/``downs`` word written;
     * B2t, ``args`` as ``sharded.token_partial`` takes them: each lane's l
-      and h, and for a live lane the summed SA word and, where the shard
-      owns the position, the corpus word; the part written.
+      and h, the summed SA word of each live node and the corpus word of
+      each token it reads there that the shard owns, and the parts written.
 
     Live lanes: those whose search runs in the step."""
     if kernel == "B2t":
-        ref, soff, olo, ohi, st, sa_sum, depth = args
-        live = st[3] > st[2]
-        p = sa_sum + depth
-        owned = live & (p >= olo) & (p < ohi)
-        n = sa_sum.shape[0]
-        return (3 * n + int(live.sum()) + int(owned.sum()),
-                int(live.sum()))
-    (sa, rstart, rcount, qtok, toks, sls, st, ups, downs, tok, g, K, d0,
+        ref, soff, olo, ohi, st, sa_sum, depth, count = args
+        n, nodes = sa_sum.shape
+        nl, nh = shx._tree_nodes(st[2], st[3], nodes)
+        live = nh > nl
+        p = (sa_sum + depth)[:, :, None] + torch.arange(
+            count, dtype=sa_sum.dtype, device=sa_sum.device)
+        own = live[:, :, None] & (p >= olo) & (p < ohi)
+        words = (2 * n + int(live.sum()) + n * nodes * count
+                 + _distinct([(_slots(ref, p - soff, False), own)]))
+        return words, int(live[:, 0].sum())
+    (sa, rstart, rcount, qtok, toks, sls, st, ups, downs, tok, g, R, d0,
      depths) = args
     n = toks.shape[0]
-    T = 2 * depths * K
-    words = 10 * n
-    live = st[3] > st[2]
+
+    def sa_words(l, h, nodes):
+        nl, nh = shx._tree_nodes(l, h, nodes)
+        loc = ((nl + nh) >> 1) - rstart
+        return _distinct([(_slots(sa, loc, False),
+                           (nh > nl) & (loc >= 0) & (loc < rcount))])
+
+    def qtok_words(pos, keep):
+        return _distinct([(_slots(qtok, pos), keep)])
+    lo, hi, l, h = st
+    if R == 0 and g == 0:
+        return 5 * n + sa_words(lo, hi, 1), int((hi > lo).sum())
+    if R == 0:
+        words, qpos, qkeep = 6 * n + 2 * depths * n, [], []
+        for c in range(depths):
+            live = hi > lo
+            key = shx._round_key(qtok, toks, sls, d0 + c)
+            words += int(live.sum())
+            qpos.append(toks + d0 + c)
+            qkeep.append(live & (d0 + c < sls))
+            nlo = shx._row_bound(lo, hi, tok[:, c], key)
+            hi = shx._row_bound(nlo, hi, tok[:, c], key + 1)
+            lo = nlo
+        q = qtok_words(torch.stack(qpos, 1), torch.stack(qkeep, 1))
+        return words + q, int((st[1] > st[0]).sum())
+    words = 8 * n
+    live0 = h > l
     if g > 0:
-        b = (g - 1) // K
-        words += int(live.sum()) + int((live & (d0 + b // 2 < sls)).sum())
-        if g % K == 0:
-            words += n * (1 if b % 2 == 0 else 2)   # ups; downs + ups
-    if g < T:
+        b = (g - 1) // R
+        key = shx._round_key(qtok, toks, sls, d0 + b // 2) + (b & 1)
+        words += 2 * int(live0.sum()) + qtok_words(
+            toks + d0 + b // 2, live0 & (d0 + b // 2 < sls))
+        node = torch.zeros_like(l, dtype=torch.int64)
+        for _ in range(shx.TREE_LEVELS):
+            live = h > l
+            words += int(live.sum())
+            M = (l + h) >> 1
+            ge = tok.gather(1, node[:, None])[:, 0] >= key
+            l = torch.where(live & ~ge, M + 1, l)
+            h = torch.where(live & ge, M, h)
+            node = torch.where(ge, 2 * node + 1, 2 * node + 2).clamp(
+                max=shx.TREE_NODES - 1)
+        if g % R == 0:
+            words += n * (1 if b % 2 == 0 else 2)  # ups; downs + ups
+    if g < 2 * depths * R:
         after = st.clone()
         shx.refine_step_plain(sa, rstart, rcount, qtok, toks, sls, after,
-                              ups.clone(), downs.clone(), tok, g, K, d0,
+                              ups.clone(), downs.clone(), tok, g, R, d0,
                               depths)
-        l, h = after[2], after[3]
-        loc = ((l + h) >> 1) - rstart
-        words += n + int(((h > l) & (loc >= 0) & (loc < rcount)).sum())
-        if g % K == 0 and (g // K) % 2:
-            words += n                              # ups read
-    return words, int(live.sum())
+        words += shx.TREE_NODES * n + sa_words(after[2], after[3],
+                                               shx.TREE_NODES)
+        if g == 0:
+            live0 = after[3] > after[2]
+    return words, int(live0.sum())
 
 
 def _pcs_words(refstr, pstart, plen, sl, el, mrs: int) -> tuple:

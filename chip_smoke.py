@@ -161,8 +161,13 @@ Phases, one line each on stdout:
    tables (A9 over medium's dense tables; B1 also over a small index of
    70-token sentences, for matches past 32 tokens; B2r also on 1 and 3
    shards; B2s and B2t at every step of the round form on the same lanes
-   over 1, 3 and 4 shards on the card repeated), and P1 and P2 on short
-   corpora, ragged item counts and grids (``check_edges``).
+   over 1, 3 and 4 shards on the card repeated, and on ``round_edges``'
+   intervals 0-257 rows wide whose keys are not sorted, off both ends of
+   the SA, and single-row dispatches of 1, 4 and 16 depths), and P1 and
+   P2 on short corpora, ragged item counts and grids (``check_edges``).
+   Every round-form run's B2s and B2t launches must equal its
+   dispatches' plans (``check_round_launches``), and its e2e line prints
+   each dispatch's plan (``round_dispatches``: R, T).
 
 Then the script's total seconds, a JSON line with every kernel's numbers
 (``launches``: every phase's, 3b-3i included), and last the line
@@ -250,6 +255,16 @@ SHARDED_KERNELS = ("B2r", "B2g", "B3f", "B3b", "B3p", "B3t", "B3c", "A4v",
 # B2t) in place of B2r, the rest per owning shard
 ROUND = ("B2s", "B2t")
 ROUND_KERNELS = ROUND + SHARDED_KERNELS[1:]
+
+
+def round_T(args) -> int:
+    """The step count T of the dispatch a B2s launch (``args`` as
+    ``sharded.refine_step`` takes them) belongs to: 2 depths R, or 1 on
+    the single-row plan (R = 0)."""
+    R, depths = args[11], args[13]
+    return 2 * depths * R if R else 1
+
+
 # one card standing in for a device list of 4 and 2 shards
 CARD4, CARD2 = ["cuda:0"] * 4, ["cuda:0"] * 2
 # the column path's scans, and the kernels no end-to-end run launches (A9L:
@@ -502,8 +517,11 @@ class Capture:
         self.shard_calls = {}    # (kernel, view offset) -> (n, args)
         self.dp_calls = []       # every B4 call's args, in shard order
         self.items = {}          # kernel -> items
+        self.rounds = []         # each round-form dispatch's plan
         self.originals = {site: getattr(*site) for site in self.sites}
+        self.originals[(shx, "refine_round")] = shx.refine_round
         self.view_type = OffsetView
+        self.shx = shx
 
     def __enter__(self):
         for site, (kernel_of, count_of) in self.sites.items():
@@ -512,10 +530,11 @@ class Capture:
             def hook(*args, _real=real, _k=kernel_of, _n=count_of):
                 k, n = _k(args), _n(args)
                 self.items[k] = self.items.get(k, 0) + n
-                # the largest launch; of B2s's, one that applies a token
-                # (g not a multiple of K).  B2s updates its lanes in place
-                # and a later step B2t's, so theirs are kept as copies
-                rank = (n, k == "B2s" and args[10] % args[11] != 0)
+                # the largest launch; of B2s's, a tree step that both
+                # applies tokens and reads (0 < g < T).  B2s updates its
+                # lanes in place and a later step B2t's, so theirs are kept
+                # as copies
+                rank = (n, k == "B2s" and 0 < args[10] < round_T(args))
                 if rank > self.ranks.get(k, (-1, False)):
                     self.ranks[k] = rank
                     self.calls[k] = (n, tuple(
@@ -529,6 +548,16 @@ class Capture:
                         self.shard_calls[key] = (n, args)
                 return _real(*args)
             setattr(*site, hook)
+        shx = self.shx
+        real_round = self.originals[(shx, "refine_round")]
+
+        def round_hook(sidx, qtok, toks, sls, lo, hi, d0, depths):
+            R, T = shx.round_plan(lo, hi, depths)
+            self.rounds.append({"lanes": len(toks), "d0": d0,
+                                "depths": depths, "R": R, "T": T,
+                                "shards": len(sidx.local_shards())})
+            return real_round(sidx, qtok, toks, sls, lo, hi, d0, depths)
+        shx.refine_round = round_hook
         return self
 
     def __exit__(self, *exc):
@@ -562,6 +591,7 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     gen_s = time.perf_counter() - t0
     kb.LAUNCHES.clear()
     capture.items.clear()
+    capture.rounds.clear()
     cuda = torch.device(device).type == "cuda"
     held = torch.cuda.memory_allocated() if cuda else 0
     t0 = time.perf_counter()
@@ -603,8 +633,10 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
         "held_before_bytes": held, "run_peak_mem_bytes": run_peak,
         "counters": res.counters, "launches": launches,
         "items": dict(capture.items),
+        **({"round_dispatches": capture.rounds} if capture.rounds else {}),
         "grammar_sha256": ghash, "golden_ok": ghash == want["sha256"]}),
         flush=True)
+    check_round_launches(what, launches, capture.rounds)
     if not ok_shape:
         fail(f"{what}: malformed grammar lines")
     if counters_off or not lines_ok:
@@ -614,6 +646,16 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
         fail(f"{what}: grammar hash {ghash[:16]} != golden "
              f"{want['sha256'][:16]}")
     return launches, res, run_peak, wall
+
+
+def check_round_launches(what: str, launches: dict, rounds: list):
+    """The round form's launches equal its dispatches' plans: B2s T + 1
+    times a dispatch on each local shard, B2t T times."""
+    want = (sum(r["shards"] * (r["T"] + 1) for r in rounds),
+            sum(r["shards"] * r["T"] for r in rounds))
+    if (launches["B2s"], launches["B2t"]) != want:
+        fail(f"{what}: B2s/B2t launched {launches['B2s']}/"
+             f"{launches['B2t']} times, the dispatches' plans {want}")
 
 
 def check_launches(what: str, expect, forbid, counts=None) -> dict:
@@ -1189,10 +1231,24 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
              "B4": (dist.dp_step, dist.dp_step_plain),
              "P1": (gp.gather_sum, gp.gather_sum_plain),
              "P2": (gp.gather_rows, gp.gather_rows_plain)}
+    flat = {}
+
+    def b2g_take(sidx, rows, shard=None):
+        """B2g's function as one PyTorch call, ``torch.take`` over the
+        stacked rank slices at the clamped ranks (stacked once, outside the
+        timed calls); B2g's own 0 at a rank no shard owns is not in it."""
+        key = (id(sidx), shard)
+        if key not in flat:
+            flat[key] = ((torch.stack(sidx.sa_l).reshape(-1), 0, sidx.reflen)
+                         if shard is None else
+                         (sidx.sa_l[shard], *(int(x)
+                                              for x in sidx.rmeta[shard])))
+        words, start, count = flat[key]
+        return torch.take(words, (rows - start).clamp(0, count - 1).long())
     # one PyTorch call computing a kernel's function (P1: with its sum, a
     # second call), timed beside it only
     library = {"P1": lambda ref, pos: gp.library_rows(ref, pos).sum(
-        dtype=torch.int32), "P2": gp.library_rows}
+        dtype=torch.int32), "P2": gp.library_rows, "B2g": b2g_take}
     # B2s is timed as the pipeline calls it (its in-place update on the
     # kept copies of its inputs), and compared on copies of them
     timed = {"B2s": (shx.refine_step, shx.refine_step_plain)}
@@ -1230,8 +1286,14 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
         ms, reps = _time_ms(lambda: tk(*args), device)
         dev = _device_ms(lambda: tk(*args), reps)
         plain_ms = _time_ms(lambda: tp(*args), device)[0]
-        library_ms = (_time_ms(lambda: library[k](*args), device)[0]
-                      if k in library else None)
+        library_ms = None
+        if k in library:
+            if k == "B2g" and not torch.equal(library[k](*args),
+                                              kernel(*args)):
+                extra["library_why"] = ("torch.take differs from B2g on "
+                                        "this launch's rows")
+            else:
+                library_ms = _time_ms(lambda: library[k](*args), device)[0]
         bytes_ms = nbytes / MEM_BYTES_PER_S * 1e3
         ops_ms = ops / OPS_PER_S * 1e3
         row = {"name": k, "route": "cuda", "source": src,
@@ -1492,7 +1554,85 @@ def refine_edges(capture: Capture, rng, reflen: int, sent) -> dict:
                     last = head[np.clip(hi - 1, 0, reflen - 1)]
                     st["positions_straddle"] += int((live & (
                         first // views[S].B != last // views[S].B)).sum())
+    round_edges(listed, views, refstr, rng, reflen, stats)
     return stats
+
+
+# the interval widths of ``round_edges``' tree-step dispatches: a tree
+# step's 5 levels end within 31 rows, so 31-33 and 255-257 straddle one and
+# four steps a bound
+ROUND_EDGE_WIDTHS = (0, 1, 2, 15, 16, 31, 32, 33, 255, 256, 257)
+
+
+def round_edges(listed: dict, views: dict, refstr, rng, reflen: int,
+                stats: dict):
+    """B2s and B2t at every step of the round form (``round_checked``) on
+    intervals that are not SA intervals of a shared prefix, so that the
+    keys they read are not sorted: ``ROUND_EDGE_WIDTHS`` rows at random
+    ranks, off the SA's front and off its back, a dispatch a width (tree
+    steps from 2 rows on, R = 1 and 2; d0 0 and 3, 4 depths), and dispatches of single-row intervals (empty, inverted,
+    one row, a row off each end of the SA) with 1, 4 and 16 depths from
+    d0 0, 5 and 7; every lane's query ends at, before or after d0 (depths
+    past its end), the padded corpus as the query tokens; over 1, 3 and 4
+    shards on the card repeated; each dispatch's result against B2r's
+    plain version (JAX's bisection through the shards).  Counts into
+    ``stats``: dispatches per plan and per shard count, lanes per width,
+    lanes off each end."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.parallel import sharded as shx
+    st = stats["B2s"]
+    st.update(tree_dispatches=0, row_dispatches=0, off_front=0, off_back=0,
+              widths={w: 0 for w in ROUND_EDGE_WIDTHS}, row_depths=[])
+
+    def dispatch(S, lo, hi, d0, depths):
+        n = len(lo)
+        toks = rng.integers(0, reflen, n).astype(np.int32)
+        sls = rng.choice([0, d0 - 1, d0, d0 + 1, d0 + 3, 40], n).astype(
+            np.int32)
+        lanes = [np.asarray(x, np.int32) for x in (toks, sls, lo, hi)]
+        with round_checked(stats):
+            got = shx.refine_round(listed[S], refstr, *lanes, d0, depths)
+        want = shx.refine_sharded_plain(
+            views[S], refstr, *(torch.from_numpy(x).cuda() for x in lanes),
+            d0, depths)
+        what = f"S={S},d0={d0},depths={depths}"
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"B2s/B2t@round_edges({what}): the round form differs "
+                 f"from B2r's plain version")
+        R, _ = shx.round_plan(lo, hi, depths)
+        st["row_dispatches" if R == 0 else "tree_dispatches"] += 1
+        st["dispatches"] += 1
+        st["lanes"] += n
+        st["shards"][S] += 1
+        st["off_front"] += int((lo < 0).sum())
+        st["off_back"] += int((hi > reflen).sum())
+        return R
+
+    for S in listed:
+        for d0 in (0, 3):
+            for w in ROUND_EDGE_WIDTHS:
+                # three lanes w rows wide (at a random rank, off the front,
+                # off the back) and five narrower ones; the widest decides
+                # the plan
+                lo = np.concatenate([[rng.integers(0, reflen - w),
+                                      -(w // 2) - 1, reflen - w // 2],
+                                     rng.integers(0, reflen - w, 5)])
+                hi = lo + np.concatenate([[w] * 3,
+                                          rng.integers(0, w + 1, 5)])
+                st["widths"][w] += 3
+                if (dispatch(S, lo, hi, d0, 4) == 0) != (w <= 1):
+                    fail(f"B2s@round_edges: a dispatch {w} rows wide took "
+                         f"the wrong plan")
+        for d0, depths in ((0, 1), (5, 4), (7, 16)):
+            lo = rng.integers(0, reflen, 40)
+            hi = lo + rng.integers(0, 2, 40)
+            lo[:4] = [-1, reflen, reflen - 1, 9]
+            hi[:4] = [0, reflen + 1, reflen, 7]
+            if dispatch(S, lo, hi, d0, depths) != 0:
+                fail("B2s@round_edges: a single-row dispatch took tree "
+                     "steps")
+            st["row_depths"].append(depths)
 
 
 @contextlib.contextmanager
@@ -1509,7 +1649,7 @@ def round_checked(stats: dict):
         out = real_step(*args)
         got = ([] if out is None else [out]) + list(args[6:9])
         if not all(torch_equal(a, b) for a, b in zip(got, want)):
-            fail(f"B2s@edge: step {args[10]} of K={args[11]} differs from "
+            fail(f"B2s@edge: step {args[10]} of R={args[11]} differs from "
                  f"its plain version")
         stats["B2s"]["launches"] += 1
         return out
@@ -2668,8 +2808,15 @@ def check_profile(work: str, golden: dict, device: str = "cuda") -> dict:
 LAUNCH_WRAPPER = (
     "import atexit, json, runpy, sys\n"
     "from cgx_tpu_torch.kernels import build as kb\n"
+    "from cgx_tpu_torch.parallel import sharded as shx\n"
+    "steps, real = [], shx.refine_round\n"
+    "def hook(sidx, qtok, toks, sls, lo, hi, d0, depths):\n"
+    "    steps.append(shx.round_plan(lo, hi, depths)[1])\n"
+    "    return real(sidx, qtok, toks, sls, lo, hi, d0, depths)\n"
+    "shx.refine_round = hook\n"
     "atexit.register(lambda: print('launches ' + json.dumps(dict("
-    "kb.LAUNCHES)), file=sys.stderr, flush=True))\n"
+    "kb.LAUNCHES)) + '\\nround_steps ' + json.dumps(steps), "
+    "file=sys.stderr, flush=True))\n"
     "sys.argv = sys.argv[1:]\n"
     "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
 
@@ -2693,11 +2840,14 @@ def run_clis(cmds: dict, timeout: float = 600) -> dict:
             lines = err.splitlines()
             counts = [json.loads(ln[len("launches "):]) for ln in lines
                       if ln.startswith("launches ")]
+            steps = [json.loads(ln[len("round_steps "):]) for ln in lines
+                     if ln.startswith("round_steps ")]
             out[name] = dict(rc=proc.returncode,
                              seconds=time.perf_counter() - t0,
                              stderr=lines,
                              launches={k: (counts[-1] if counts else {})
-                                       .get(k, 0) for k in KERNELS})
+                                       .get(k, 0) for k in KERNELS},
+                             round_steps=steps[-1] if steps else [])
         return out
     finally:
         for proc in procs.values():
@@ -2937,9 +3087,10 @@ def check_multiprocess(work: str, golden: dict, index_dir: str,
     and the processes' launches together the path's kernels (no A4 where
     both load).  In the composed pair each process launches only its own
     shard's kernels: its B2s and B2t half of those of the one-process run
-    over ``["cuda:0"] * 2`` (``round2``: its launches and wall; one launch
-    a step a shard), and the two processes' launches of B2g, B3f, B3b,
-    B3p, B3t, B3c, A7v and A8v together that run's -> the launch counts."""
+    over ``["cuda:0"] * 2`` (``round2``: its launches, wall and steps per
+    dispatch; one launch a step a shard) and its steps per dispatch that
+    run's, and the two processes' launches of B2g, B3f, B3b, B3p, B3t,
+    B3c, A7v and A8v together that run's -> the launch counts."""
     totals = {k: 0 for k in KERNELS}
     rows = {}
     for name, size, idx, expect, extra in (
@@ -3001,10 +3152,16 @@ def check_multiprocess(work: str, golden: dict, index_dir: str,
             rows[name]["one_process_launches"] = {
                 k: v for k, v in one.items() if v}
             rows[name]["one_process_wall_s"] = round2[1]
+            steps = [res[p]["round_steps"] for p in (0, 1)]
+            rows[name]["round_steps"] = steps
+            rows[name]["one_process_round_steps"] = round2[2]
             if any(v != [one[k] // 2] * 2 for k, v in own.items()) or any(
                     v != one[k] for k, v in shared.items()):
                 fail(f"two processes, {name}: launches {own} {shared}, "
                      f"the one-process 2-shard run's {one}")
+            if steps != [round2[2]] * 2:
+                fail(f"two processes, {name}: steps per dispatch {steps}, "
+                     f"the one-process 2-shard run's {round2[2]}")
         for k in KERNELS:
             totals[k] += both[k]
     print(json.dumps({"phase": "multiprocess", "runs": rows}), flush=True)
@@ -3154,7 +3311,8 @@ def run_paths(cap: Capture, golden: dict, count, peaks: dict, work: str,
         elif isinstance(shards, list):
             sharded_memory("europarl (index loaded)", shards, res.index,
                            peak, base["loaded"][1], wall)
-            base[f"round{len(shards)}"] = (launches, wall)
+            base[f"round{len(shards)}"] = (launches, wall,
+                                           [r["T"] for r in cap.rounds])
         del res
     # 3d. a server over that index; 3e. medium's queries in four batches;
     # 3f. medium through the CLI under --profile

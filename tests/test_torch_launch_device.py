@@ -223,10 +223,10 @@ def test_round_form_launches_on_each_shard_device(toy, fake):
     hi = np.full(n, 5, np.int32)
     shx.refine_round(sidx, qtok, np.arange(n, dtype=np.int32),
                      np.full(n, 9, np.int32), lo, hi, 3, 2)
-    K = shx.round_steps(lo, hi)
+    _, T = shx.round_plan(lo, hi, 2)
     steps = fake.of("cgx_refine_step")
-    assert steps == CARDS * (2 * 2 * K + 1)
-    assert fake.of("cgx_token_partial") == CARDS * (2 * 2 * K)
+    assert steps == CARDS * (T + 1)
+    assert fake.of("cgx_token_partial") == CARDS * T
 
 
 def test_localdp_launches_on_each_replica_device(toy, fake):

@@ -5,7 +5,8 @@ counter marks as needed decide the plain version's output. Redrawing every
 other word of the index arrays (from the same array, so that the words stay
 plausible) changes no output, so the bounds, which count only the needed
 words, count all that the functions need; and the needed words are fewer
-than the gathers."""
+than the gathers.  The round form's count (B2s, B2t) equals a brute-force
+count of the same words, lane by lane and node by node."""
 
 import dataclasses
 import pathlib
@@ -467,13 +468,17 @@ CSRC = pathlib.Path(__file__).parent.parent / "cgx_tpu_torch" / "csrc"
     ("lcp.cuh", "kWalkLevels", reads.WALK_LEVELS),
     ("sharded.cu", "kShardRowBytes", shx.B2R_SHARD_ROW_BYTES),
     ("sharded.cu", "kShardRowsLimit", shx.B2R_SHARED_BYTES),
+    ("sharded.cu", "kTreeLevels", shx.TREE_LEVELS),
+    ("sharded.cu", "kTreeNodes", shx.TREE_NODES),
     ("probe.cu", "kWin", gp.W),
     ("probe.cu", "kWarps", gp.WARPS),
     ("probe.cu", "kInFlight", gp.IN_FLIGHT),
     ("probe.cu", "kBlocksPerSM", gp.BLOCKS_PER_SM)])
 def test_models_use_the_kernels_constants(source, name, value):
     """The counters' models of the warp bodies (``pcs_rounds``, ``lcp_need``),
-    B2r's shard-row check in its wrapper (``check_b2r_shards``) and the
+    B2r's shard-row check in its wrapper (``check_b2r_shards``), the round
+    form's tree step (31 nodes over 5 levels, in B2s and B2t's plain
+    versions and ``refine_round_reads``) and the
     probe's grid and walk (``gather_probe.grid``, and its model in
     ``tests/test_torch_probe.py``) use the kernels' own constants."""
     text = (CSRC / source).read_text(encoding="utf-8")
@@ -703,3 +708,130 @@ def test_probe_reads_count_the_windows_union(length, n, seed):
         gp.windows(torch.from_numpy(other), tpos).numpy())
     if length > 1000:       # sparse windows: fewer words than gathers
         assert len(need) < n * gp.W
+
+
+def _brute_round_words(kernel, args) -> int:
+    """``refine_round_reads``'s words counted lane by lane and node by node
+    in Python, from the definitions: each SA word, query token and corpus
+    token once over the launch."""
+    def node(j, l, h):              # node j of the tree over [l, h)
+        path = j + 1
+        for k in range(path.bit_length() - 2, -1, -1):
+            M = (l + h) >> 1
+            l, h = (M + 1, h) if (path >> k) & 1 else (l, M)
+        return l, h
+
+    def clamp(x, n):
+        return min(max(x, 0), n - 1)
+    if kernel == "B2t":
+        ref, soff, olo, ohi, st, sa_sum, depth, count = args
+        n, nodes = sa_sum.shape
+        words, pos = 2 * n + n * nodes * count, set()
+        for i in range(n):
+            for j in range(nodes):
+                l, h = node(j, int(st[2, i]), int(st[3, i]))
+                if h > l:
+                    words += 1
+                    for c in range(count):
+                        p = int(sa_sum[i, j]) + depth + c
+                        if olo <= p < ohi:
+                            pos.add(clamp(p - soff, ref.shape[0]))
+        return words + len(pos)
+    (sa, rstart, rcount, qtok, toks, sls, st, ups, downs, tok, g, R, d0,
+     depths) = args
+    n = toks.shape[0]
+    ranks, qpos = set(), set()
+
+    def sa_word(l, h):
+        loc = ((l + h) >> 1) - rstart
+        if h > l and 0 <= loc < rcount:
+            ranks.add(loc)
+
+    def key_of(i, depth):
+        if depth < int(sls[i]):
+            qpos.add(clamp(int(toks[i]) + depth, qtok.shape[0]))
+            return int(qtok[clamp(int(toks[i]) + depth, qtok.shape[0])])
+        return -1
+    words = 0
+    for i in range(n):
+        lo, hi, l, h = (int(x) for x in st[:, i])
+        if R == 0 and g == 0:
+            words += 5
+            sa_word(lo, hi)
+        elif R == 0:
+            words += 6 + 2 * depths
+            for c in range(depths):
+                if hi > lo:
+                    words += 1
+                key = key_of(i, d0 + c) if hi > lo else 0
+                t = int(tok[i, c])
+                nlo = lo + 1 if hi > lo and t < key else lo
+                nhi = nlo + 1 if hi > nlo and t < key + 1 else nlo
+                lo, hi = nlo, nhi
+        else:
+            words += 8
+            if g > 0:
+                b = (g - 1) // R
+                if h > l:
+                    words += 2
+                    key = key_of(i, d0 + b // 2) + b % 2
+                    j = 0
+                    for _ in range(5):
+                        if h <= l:
+                            break
+                        words += 1
+                        M = (l + h) >> 1
+                        if int(tok[i, j]) >= key:
+                            h, j = M, 2 * j + 1
+                        else:
+                            l, j = M + 1, 2 * j + 2
+                if g % R == 0:
+                    words += 1 if b % 2 == 0 else 2
+                    if b % 2:
+                        lo, hi = int(ups[i, b // 2]), l
+            if g < 2 * depths * R:
+                if g % R == 0:
+                    l, h = (l if (g // R) % 2 else lo), hi
+                words += 31
+                for j in range(31):
+                    sa_word(*node(j, l, h))
+    return words + len(ranks) + len(qpos)
+
+
+@pytest.mark.parametrize("d0,depths,single", [(0, 4, False), (2, 4, False),
+                                              (5, 4, True), (3, 16, True)])
+def test_refine_round_reads_count_each_word_once(sharded, d0, depths, single,
+                                                 monkeypatch):
+    """``refine_round_reads`` on every B2s and B2t launch of a round-form
+    dispatch over 3 shards (tree steps from the whole SA and from each
+    lane's own interval; single-row dispatches) equals a brute-force count
+    of the same words, lane by lane and node by node."""
+    sidx, rep = sharded
+    rng = np.random.default_rng(60 + d0 + depths)
+    n = 24
+    qtok, toks, sls, lo, hi = _lanes(rng, rep, n, d0)
+    if single:
+        hi = (lo + torch.from_numpy(rng.integers(0, 2, n).astype(
+            np.int32))).to(torch.int32)
+        lo[0], hi[0] = -1, 0
+    listed = dataclasses.replace(sidx, devices=[torch.device("cpu")] * 3,
+                                 listed=True)
+    seen = []
+
+    def spy(k, real):
+        def run(*args):
+            kept = tuple(a.clone() if torch.is_tensor(a) else a
+                         for a in args)
+            seen.append((k, kept, reads.refine_round_reads(k, *kept)))
+            return real(*args)
+        return run
+    monkeypatch.setattr(shx, "refine_step", spy("B2s", shx.refine_step))
+    monkeypatch.setattr(shx, "token_partial", spy("B2t",
+                                                  shx.token_partial))
+    shx.refine_round(listed, qtok, *(x.numpy() for x in (toks, sls, lo, hi)),
+                     d0, depths)
+    R, T = shx.round_plan(lo.numpy(), hi.numpy(), depths)
+    assert (R == 0) == single
+    assert len(seen) == 3 * (2 * T + 1)
+    for k, args, (words, _) in seen:
+        assert words == _brute_round_words(k, args), (k, args[10:12])

@@ -8,9 +8,11 @@ the per-shard memory accounting and the host MaxLex backend, the premise
 of kernel B2r's search read through the shards, and B2r's limit on the
 shard count; the index placed on a device list (``["cpu"] * S``): its
 placement, the round form of the refinement (kernels B2s and B2t, driven
-to completion) against ``_refine_chunk`` and the replicated passes, B2g by
-owner, and the pipeline against the JAX package's sharded run and the
-bench's golden hash.  The JAX side runs on the 8 virtual CPU devices of
+to completion) against ``_refine_chunk`` and the replicated passes, its
+tree step (five bisection levels a step) and single-row plan against
+JAX's bisection on arbitrary key columns and its step and launch counts,
+B2g by owner, and the pipeline against the JAX package's sharded run and
+the bench's golden hash.  The JAX side runs on the 8 virtual CPU devices of
 tests/conftest.py; the port side on the CPU, that is, on the kernels'
 plain versions."""
 
@@ -290,6 +292,217 @@ def test_round_steps_end_every_bisection(width):
         return n
     need = max(steps(k) for k in range(-1, width + 2))
     assert need <= K and (need == K or width == 0)
+
+
+def _column_index(column, sa, S):
+    """An index on ``["cpu"] * S`` over an arbitrary key column: rank M's
+    SA word ``sa[M]``, position p's token ``column[p]``, so that the keys
+    need not be sorted over any interval."""
+    sl = tshx.rank_token_slices(np.asarray(column, np.int32),
+                                np.asarray(sa, np.int32), len(sa), S, 5, 7)
+
+    def put(rows):
+        return [torch.from_numpy(np.array(r, np.int32)) for r in rows]
+    cpu = torch.device("cpu")
+    return tshx.ShardedGrammarIndex(
+        S=S, reflen=len(sa), ref_glen=len(column), rlp_glen=0, tgt_glen=0,
+        B=sl["B"], BR=sl["BR"], BH=5, device=cpu, sa_l=put(sl["sa_l"]),
+        ref_l=put(sl["ref_l"]), rlp_l=None, lrt_l=None,
+        src_off=sl["src_off"], tgt_off=None,
+        rmeta=sl["rmeta"].astype(np.int32),
+        smeta=sl["smeta"].astype(np.int32), devices=[cpu] * S, listed=True)
+
+
+def _lb(column, sa, l, h, key, depth, steps=None):
+    """JAX's ``lb`` on one lane, its reads summed over the shards as the
+    psum gives them (0 at a rank or position no shard owns): ``steps``
+    bisection steps, or to its end -> (l, h)."""
+    n = 0
+    while h > l and (steps is None or n < steps):
+        M = (l + h) >> 1
+        p = (int(sa[M]) if 0 <= M < len(sa) else 0) + depth
+        t = int(column[p]) if 0 <= p < len(column) else 0
+        l, h = (l, M) if t >= key else (M + 1, h)
+        n += 1
+    return l, h
+
+
+def _column(rng, N):
+    """An N-rank index's arbitrary key column (values in [-50, 50), not
+    sorted) and SA words (positions in and past the column)."""
+    return rng.integers(-50, 50, N + 40), rng.integers(0, N + 60, N)
+
+
+def _column_lanes(rng, N, n, widths):
+    """Lanes over an N-rank column: intervals of the given widths anywhere,
+    a few off each end of the SA and one inverted; query keys below,
+    inside and above the column's values, and lanes past their query's
+    end (key -1)."""
+    w = rng.choice(widths, n)
+    lo = rng.integers(-3, N + 3, n)
+    lo[:2], lo[2:4] = -(int(w.max()) // 2) - 2, N - 2
+    hi = lo + w
+    hi[4] = lo[4] - 2
+    qtok = np.concatenate([rng.choice([-60, 60], 40),
+                           rng.integers(-50, 50, 40)]).astype(np.int32)
+    toks = rng.integers(0, 60, n).astype(np.int32)
+    sls = rng.integers(0, 20, n).astype(np.int32)
+    sls[:n // 8] = 0
+    return qtok, toks, sls, lo.astype(np.int32), hi.astype(np.int32)
+
+
+@pytest.mark.parametrize("S", (1, 3))
+@pytest.mark.parametrize("widths", [tuple(range(8)), tuple(range(8, 64)),
+                                    tuple(range(64, 601, 3))])
+def test_tree_step_is_five_lb_steps(S, widths):
+    """On an arbitrary (non-monotone) int32 key column, every tree step of
+    B2s and B2t's plain versions over S shards (their parts summed) moves
+    each lane's [l, h) exactly as ``TREE_LEVELS`` steps of ``lb`` do: a
+    level's first lower bound (key qt) over two steps, then its second (key
+    qt + 1) from the first's result; ups, downs and the new [lo, hi) are
+    ``lb``'s, and every shard's copy of the lanes agrees."""
+    rng = np.random.default_rng(10 * S + widths[0])
+    N, n, d0, R = 700, 64, 2, 2          # two steps a bound: K <= 10
+    column, sa = _column(rng, N)
+    t = _column_index(column, sa, S)
+    qtok, toks, sls, lo, hi = _column_lanes(rng, N, n, widths)
+    assert tshx.round_steps(lo, hi) <= R * tshx.TREE_LEVELS
+    key = np.where(d0 < sls, qtok[toks + d0], -1)
+    want = {g: [] for g in range(1, 5)}
+    for i in range(n):
+        first = _lb(column, sa, lo[i], hi[i], key[i], d0, 5)
+        up = _lb(column, sa, lo[i], hi[i], key[i], d0)[0]
+        assert _lb(column, sa, lo[i], hi[i], key[i], d0, 10)[0] == up
+        second = _lb(column, sa, up, hi[i], key[i] + 1, d0, 5)
+        down = _lb(column, sa, up, hi[i], key[i] + 1, d0)[0]
+        want[1].append((lo[i], hi[i]) + first)
+        want[2].append((lo[i], hi[i], up, hi[i]))
+        want[3].append((lo[i], hi[i]) + second)
+        want[4].append((up, down))
+    q, tk, sl = (torch.from_numpy(x) for x in (qtok, toks, sls))
+    st = [torch.from_numpy(np.stack([lo, hi, lo, hi])) for _ in range(S)]
+    ups = [torch.zeros((n, 1), dtype=torch.int32) for _ in range(S)]
+    downs = [torch.zeros((n, 1), dtype=torch.int32) for _ in range(S)]
+    tok = torch.zeros((n, tshx.TREE_NODES), dtype=torch.int32)
+    for g in range(5):
+        parts = [tshx.refine_step_plain(
+            t.sa_l[s], *(int(x) for x in t.rmeta[s]), q, tk, sl, st[s],
+            ups[s], downs[s], tok, g, R, d0, 1) for s in range(S)]
+        for s in range(S):
+            assert torch.equal(st[s], st[0])
+            assert torch.equal(ups[s], ups[0])
+            assert torch.equal(downs[s], downs[0])
+        if g == 4:
+            up, down = np.array(want[4]).T
+            np.testing.assert_array_equal(ups[0][:, 0].numpy(), up)
+            np.testing.assert_array_equal(downs[0][:, 0].numpy(), down - 1)
+            np.testing.assert_array_equal(st[0][:2].numpy(), [up, down])
+            assert parts[0] is None
+            break
+        if g:
+            np.testing.assert_array_equal(st[0].numpy().T, want[g])
+        if g == 2:
+            np.testing.assert_array_equal(ups[0][:, 0].numpy(),
+                                          np.array(want[2])[:, 2])
+        tok = sum(tshx.token_partial_plain(
+            t.ref_l[s], *(int(x) for x in t.smeta[s]), st[s], sum(parts),
+            d0, 1) for s in range(S))
+
+
+@pytest.mark.parametrize("S", (1, 3))
+@pytest.mark.parametrize("d0,depths", [(0, 1), (3, 4), (7, 16)])
+def test_single_row_resolve_is_lb(S, d0, depths):
+    """A dispatch of intervals at most one row wide (empty ones, inverted
+    ones and rows off both ends of the SA among them) over an arbitrary key
+    column takes the single-row plan, and its ups and downs equal ``lb``'s
+    depth by depth, lanes past their query's end included."""
+    rng = np.random.default_rng(100 * S + 10 * d0 + depths)
+    N, n = 300, 96
+    column, sa = _column(rng, N)
+    qtok, toks, sls, lo, hi = _column_lanes(rng, N, n, (0, 1))
+    lo[0], hi[0], lo[1], hi[1] = -1, 0, N, N + 1
+    assert tshx.round_plan(lo, hi, depths) == (0, 1)
+    got = tshx.refine_round(_column_index(column, sa, S),
+                            torch.from_numpy(qtok), toks, sls, lo, hi, d0,
+                            depths)
+    for i in range(n):
+        l, h = int(lo[i]), int(hi[i])
+        for c in range(depths):
+            d = d0 + c
+            key = int(qtok[toks[i] + d]) if d < sls[i] else -1
+            nlo = _lb(column, sa, l, h, key, d)[0]
+            nhi = _lb(column, sa, nlo, h, key + 1, d)[0]
+            assert (int(got[0][i, c]), int(got[1][i, c])) == (nlo, nhi - 1)
+            l, h = nlo, nhi
+        assert (int(got[2][i]), int(got[3][i])) == (l, h)
+
+
+@pytest.mark.parametrize("width", [0, 1, 2, 3, 31, 32, 33, 600, 1024])
+@pytest.mark.parametrize("depths", [1, 4, 16])
+def test_round_plan_steps_and_launches(width, depths, monkeypatch):
+    """A dispatch takes T = 2 depths ceil(K / TREE_LEVELS) steps (K =
+    ``round_steps``), or one where its widest interval is at most one row;
+    ``refine_round`` calls B2s T + 1 times on each shard and B2t T
+    times."""
+    lo = np.array([0, 5, 9], np.int32)
+    hi = lo + np.array([width, min(width, 1), 0], np.int32)
+    R, T = tshx.round_plan(lo, hi, depths)
+    K = tshx.round_steps(lo, hi)
+    if width <= 1:
+        assert (R, T) == (0, 1)
+    else:
+        assert R == -(-K // tshx.TREE_LEVELS) and T == 2 * depths * R
+    calls = {"B2s": [], "B2t": []}
+
+    def spy(k, real, shard_of):
+        def run(*args):
+            calls[k].append(shard_of(args))
+            return real(*args)
+        return run
+    column, sa = _column(np.random.default_rng(width), 1100)
+    t = _column_index(column, sa, 3)
+    monkeypatch.setattr(tshx, "refine_step", spy(
+        "B2s", tshx.refine_step, lambda a: int(a[1])))
+    monkeypatch.setattr(tshx, "token_partial", spy(
+        "B2t", tshx.token_partial, lambda a: int(a[1])))
+    tshx.refine_round(t, torch.zeros(64, dtype=torch.int32),
+                      np.zeros(3, np.int32), np.full(3, 20, np.int32), lo,
+                      hi, 0, depths)
+    starts = [int(x) for x in t.rmeta[:, 0]]
+    soffs = [int(x) for x in t.smeta[:, 0]]
+    assert calls["B2s"] == starts * (T + 1)
+    assert calls["B2t"] == soffs * T
+
+
+@pytest.mark.parametrize("S", (1, 3, 8))
+def test_single_row_round_equals_refine_chunk(world, S):
+    """A (d0, depths) = (7, 16) dispatch whose every interval is at most one
+    row, a rank off each end of the SA and empty lanes among them: the
+    single-row plan of B2s and B2t's plain versions over ``["cpu"] * S``
+    against ``_refine_chunk`` on the JAX mesh of S devices."""
+    w = world
+    j = _jsidx(w, S)
+    t = _carried(w, S, ["cpu"] * S)
+    reflen = t.reflen
+    rng = np.random.default_rng(70 + S)
+    n = 80
+    qtok = np.asarray(w["jqs"].padded_tokens())
+    toks = rng.integers(0, w["jqs"].totaltokens, n).astype(np.int32)
+    sls = rng.integers(1, 24, n).astype(np.int32)
+    lo = rng.integers(0, reflen, n).astype(np.int32)
+    hi = (lo + rng.integers(0, 2, n)).astype(np.int32)
+    lo[:4] = [-1, reflen, -3, reflen - 1]
+    hi[:4] = [0, reflen + 1, -3, reflen]
+    assert tshx.round_plan(lo, hi, 16) == (0, 1)
+    want = jshx._refine_chunk(
+        j.sa_l, j.ref_l, j.rmeta, j.smeta, jnp.asarray(qtok),
+        jnp.asarray(toks), jnp.asarray(sls), jnp.asarray(lo),
+        jnp.asarray(hi), jnp.int32(7), mesh=j.mesh, depths=16)
+    got = tshx.refine_round(t, torch.from_numpy(qtok), toks, sls, lo, hi, 7,
+                            16)
+    for g, wv in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(wv))
 
 
 @pytest.mark.parametrize("S", (1, 3, 8))
