@@ -1,0 +1,10 @@
+"""extract_ms: blocks and extraction (phases extractin, extractkernel) per
+unit of the mix."""
+
+from perfbench.metrics import _phases as ph
+
+
+def read(rec):
+    if rec["kind"] != "requests":
+        return None
+    return ph.per_unit_ms(rec, ph.phase_sum(rec["requests"], ph.EXTRACT))
