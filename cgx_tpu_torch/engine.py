@@ -21,6 +21,14 @@ the same host logic drives both index layouts:
 Methods (all take and return host numpy; device placement is the engine's
 business): ``sa_values``, ``pcs_expanded``, ``scan_expanded``,
 ``two_expanded``, ``gap_check``, ``contig``, ``onegap``, ``twogap``.
+Each protocol method is a child phase ``engine.<method>`` of the phase
+that called it (``traced``) when the engine's ``timer`` is set
+(``pipeline.build_artifact`` and ``_make_context`` set it, ``serve`` per
+request): the span holds the host tables, the upload, the launch, the
+wait and the copy down, so a phase's time less its ``engine.*`` children
+is its host time apart from its kernels.  The orchestrators (the lookups,
+``precompute``) open their host stages' child phases on the same timer.
+
 ``ReplicatedEngine``'s kernel methods, and its ``pass1_items`` and
 ``pass2_items`` (kernel B1 over explicit items), also take ``fetch``: with
 ``fetch=False`` they launch and return a function that copies the result to
@@ -32,8 +40,9 @@ dispatch pools have no counterpart: the port always fuses the gap check.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
-import torch
 
 from cgx_tpu_torch.extract import device as xdev
 from cgx_tpu_torch.kernels import build as kb
@@ -82,8 +91,31 @@ def materialize_items(counts):
 
 def on(device, *cols):
     """int32 copies of numpy columns on ``device``."""
-    return [torch.from_numpy(np.ascontiguousarray(c, np.int32)).to(device)
+    return [kb.to_device(np.ascontiguousarray(c, np.int32), device)
             for c in cols]
+
+
+def host(t) -> np.ndarray:
+    """A device tensor's values as numpy (``kernels.build.to_host``)."""
+    return kb.to_host(t).numpy()
+
+
+def traced(method):
+    """An engine protocol method timed as the child phase
+    ``engine.<name>`` of the phase open on the calling thread, where the
+    engine has a ``timer``; no span without one, or inside another engine
+    call."""
+    name = "engine." + method.__name__
+
+    @functools.wraps(method)
+    def call(self, *args, **kw):
+        timer = self.timer
+        parent = timer.open_phase() if timer is not None else None
+        if parent is None or parent.rsplit("/", 1)[-1].startswith("engine."):
+            return method(self, *args, **kw)
+        with timer.phase(name, sync=False):
+            return method(self, *args, **kw)
+    return call
 
 
 def _done(get, fetch: bool):
@@ -99,6 +131,8 @@ class ReplicatedEngine:
     ``_two_expanded_cols``); it needs ``sa_host``, the host suffix array
     the index was built from (numpy)."""
 
+    timer = None
+
     def __init__(self, index, cfg, scan_cols: bool = False, sa_host=None):
         if scan_cols and sa_host is None:
             raise ValueError("scan_cols reads each occurrence's start from "
@@ -108,10 +142,11 @@ class ReplicatedEngine:
         self.scan_cols = scan_cols
         self.sa_host = sa_host
 
+    @traced
     def sa_values(self, rows) -> np.ndarray:
         """``sa[rows]`` read from the index's device copy -> int64 numpy."""
-        r = torch.from_numpy(np.asarray(rows, np.int64)).to(self.index.device)
-        return self.index.sa[r].cpu().numpy().astype(np.int64)
+        r = kb.to_device(np.asarray(rows, np.int64), self.index.device)
+        return host(self.index.sa[r]).astype(np.int64)
 
     def _pattern_tables(self, counts, cols, width=8):
         """(pattab, offs, n) on the index's device for per-pattern item
@@ -122,9 +157,8 @@ class ReplicatedEngine:
             pattab[:, c] = v
         kb.check_count("lookup", int(offs[-1]))   # before the int32 cast
         dev = self.index.device
-        return (torch.from_numpy(pattab).to(dev),
-                torch.from_numpy(offs.astype(np.int32)).to(dev),
-                int(offs[-1]))
+        return (kb.to_device(pattab, dev),
+                kb.to_device(offs.astype(np.int32), dev), int(offs[-1]))
 
     def pass1_items(self, queries, toks, suffixlens, fetch=True):
         """B1's pass 1 (``passes.pass1``) over explicit query-token items
@@ -134,7 +168,7 @@ class ReplicatedEngine:
         out = passes.pass1(ix.refstr_padded, ix.sa, lcpleft, lcpright,
                            ix.query_tokens(queries),
                            *on(ix.device, toks, suffixlens), ix.reflen)
-        return _done(lambda: tuple(t.cpu().numpy() for t in out), fetch)
+        return _done(lambda: tuple(host(t) for t in out), fetch)
 
     def pass2_items(self, queries, toks, matches, LLs, MMs, RRs, fetch=True):
         """B1's pass 2 (``passes.pass2``) over explicit (token, match
@@ -144,8 +178,9 @@ class ReplicatedEngine:
         out = passes.pass2(ix.refstr_padded, ix.sa, lcpleft, lcpright,
                            ix.query_tokens(queries),
                            *on(ix.device, toks, matches, LLs, MMs, RRs))
-        return _done(lambda: tuple(t.cpu().numpy() for t in out), fetch)
+        return _done(lambda: tuple(host(t) for t in out), fetch)
 
+    @traced
     def pcs_expanded(self, queries, pc, base, counts, sl, el, tok, stok,
                      fetch=True):
         """A3 over the precomputed occurrences -> numpy bool [sum(counts)]."""
@@ -158,9 +193,10 @@ class ReplicatedEngine:
         words = lookup.pcs(ix.refstr_padded, ix.precomp_rows(pc), pattab,
                            offs, n, self.cfg.max_rule_span)
         return _done(lambda: np.unpackbits(
-            words.cpu().numpy().view(np.uint8),
+            host(words).view(np.uint8),
             bitorder="little")[:n].astype(bool), fetch)
 
+    @traced
     def scan_expanded(self, queries, fwd, lo, counts, sl, el, side,
                       fetch=True):
         """A2 over the patterns' SA ranges (with ``scan_cols``: C1f/C1b over
@@ -186,8 +222,9 @@ class ReplicatedEngine:
             mask = lookup.scan(ix.refstr_padded, ix.rlp, ix.lr_tar, ix.sa,
                                pattab, offs, n, cfg.max_rule_span,
                                cfg.min_gap_size, fwd)
-        return _done(lambda: mask.cpu().numpy(), fetch)
+        return _done(lambda: host(mask), fetch)
 
+    @traced
     def two_expanded(self, onegap_sa, pc, lo, counts, pcmode, fetch=True):
         """A5 (or with ``scan_cols`` C1t) over every one-gap occurrence ->
         (cand, gc) numpy int32 [sum(counts)] masks."""
@@ -205,39 +242,43 @@ class ReplicatedEngine:
             rows[:len(onegap_sa.str_position), 0] = onegap_sa.str_position
             rows[:len(onegap_sa.length), 1] = onegap_sa.length
             words = lookup.two(ix.refstr_padded, ix.rlp, ix.lr_tar,
-                               torch.from_numpy(rows).to(ix.device),
+                               kb.to_device(rows, ix.device),
                                ix.precomp_rows(pc), pattab, offs, n,
                                cfg.max_rule_span, cfg.min_gap_size)
-        return _done(lambda: split_two(words.cpu().numpy()), fetch)
+        return _done(lambda: split_two(host(words)), fetch)
 
+    @traced
     def gap_check(self, gostart, fwd, fetch=True):
         """A4 -> numpy int32 [n] move masks."""
         ix, cfg = self.index, self.cfg
         (g,) = on(ix.device, gostart)
         gc = pcx.gap_check(ix.rlp, ix.lr_tar, g, cfg.max_rule_span,
                            cfg.min_gap_size, fwd)
-        return _done(lambda: gc.cpu().numpy(), fetch)
+        return _done(lambda: host(gc), fetch)
 
+    @traced
     def contig(self, sa_pos, lm, fetch=True):
         """A6 -> the 8 numpy int32 columns (ts, packed) per family."""
         ix, cfg = self.index, self.cfg
         out = xdev.contig(ix.refstr_padded, ix.sa, ix.rlp, ix.lr_tar,
                           *on(ix.device, sa_pos, lm), cfg.max_rule_span,
                           cfg.max_rule_symbols)
-        return _done(lambda: tuple(out.cpu().numpy()), fetch)
+        return _done(lambda: tuple(host(out)), fetch)
 
+    @traced
     def onegap(self, css, fes, sls, els, fetch=True):
         """A7 -> the 6 numpy int32 columns."""
         ix, cfg = self.index, self.cfg
         out = xdev.onegap(ix.refstr_padded, ix.rlp, ix.lr_tar,
                           *on(ix.device, css, fes, sls, els),
                           cfg.max_rule_span, cfg.max_rule_symbols)
-        return _done(lambda: tuple(out.cpu().numpy()), fetch)
+        return _done(lambda: tuple(host(out)), fetch)
 
+    @traced
     def twogap(self, css, fes, ses, sls, els, cls, fetch=True):
         """A8 -> the 2 numpy int32 columns."""
         ix = self.index
         out = xdev.twogap(ix.refstr_padded, ix.rlp, ix.lr_tar,
                           *on(ix.device, css, fes, ses, sls, els, cls),
                           self.cfg.max_rule_span)
-        return _done(lambda: tuple(out.cpu().numpy()), fetch)
+        return _done(lambda: tuple(host(out)), fetch)

@@ -366,7 +366,7 @@ def contig(refstr, sa, rlp, lr_tar, sa_pos, lm, mrs: int, msym: int):
             kb.ptr(sa), sa.shape[0], kb.ptr(rlp), rlp.shape[0], kb.ptr(lr_tar),
             lr_tar.shape[0], kb.ptr(sa_pos), kb.ptr(lm), n, mrs, msym,
             kb.ptr(out))
-        kb.LAUNCHES["A6"] += 1
+        kb.counted("A6", n, kb.nbytes(sa_pos, lm, out))
     return out
 
 
@@ -394,7 +394,7 @@ def contig_pos(refstr, rlp, lr_tar, cs, lm, mrs: int, msym: int):
             "contig", "cgx_contig_pos", device, *kb.view(refstr),
             *kb.view(rlp), *kb.view(lr_tar), kb.ptr(cs), kb.ptr(lm), n, mrs,
             msym, kb.ptr(out))
-        kb.LAUNCHES["B3c"] += 1
+        kb.counted("B3c", n, kb.nbytes(cs, lm, out))
     return out
 
 
@@ -660,7 +660,8 @@ def onegap(refstr, rlp, lr_tar, cs, first_end, sl, el, mrs: int, msym: int):
             "onegap", "cgx_onegap", device, *kb.view(refstr), *kb.view(rlp),
             *kb.view(lr_tar), kb.ptr(cs), kb.ptr(first_end), kb.ptr(sl),
             kb.ptr(el), n, mrs, msym, kb.ptr(out))
-        kb.LAUNCHES[kb.launch_id("A7", rlp)] += 1
+        kb.counted(kb.launch_id("A7", rlp), n,
+                   kb.nbytes(cs, first_end, sl, el, out))
     return out
 
 
@@ -785,7 +786,9 @@ def twogap(refstr, rlp, lr_tar, cs, first_end, second_end, sl, el, cl,
             *kb.view(lr_tar), kb.ptr(cs), kb.ptr(first_end),
             kb.ptr(second_end), kb.ptr(sl), kb.ptr(el), kb.ptr(cl), n, mrs,
             kb.ptr(out))
-        kb.LAUNCHES[kb.launch_id("A8", rlp)] += 1
+        kb.counted(kb.launch_id("A8", rlp), n,
+                   kb.nbytes(cs, first_end, second_end, sl, el, cl,
+                             out))
     return out
 
 

@@ -72,7 +72,7 @@ def lex_tables(index):
     l2 = _neglog(index.lex_val2_host)
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return kb.to_device(a, dev)
 
     if ns * nt <= DEV_DENSE_LIMIT:
         L1 = np.full((ns, nt), np.inf, dtype=np.float32)
@@ -224,7 +224,7 @@ def accum_dense(L1, L2, tgt_str, maxscore: float, sp, t0, tend, g1, g11, g2,
             L1.shape[0], L1.shape[1], kb.ptr(tgt_str), tgt_str.shape[0],
             maxscore, kb.ptr(sp), *(kb.ptr(c) for c in cols), T, kb.ptr(fge),
             kb.ptr(egf))
-        kb.LAUNCHES["A9"] += 1
+        kb.counted("A9", T, kb.nbytes(sp, *cols, fge, egf))
     return fge, egf
 
 
@@ -257,7 +257,7 @@ def accum_range(rs, re, lt, lnv1, lnv2, tgt_str, maxscore: float, sp, t0,
             rs.shape[0], kb.ptr(lt), kb.ptr(lnv1), kb.ptr(lnv2), lt.shape[0],
             steps, kb.ptr(tgt_str), tgt_str.shape[0], maxscore, kb.ptr(sp),
             *(kb.ptr(c) for c in cols), T, kb.ptr(fge), kb.ptr(egf))
-        kb.LAUNCHES["A10"] += 1
+        kb.counted("A10", T, kb.nbytes(sp, *cols, fge, egf))
     return fge, egf
 
 
@@ -358,10 +358,10 @@ def compute_maxlex(task_arrays: dict, index, rules_one, rules_two,
         _scatter(by_kind, kinds, fge, egf)
         return
     dev = index.device
-    sp = torch.from_numpy(np.ascontiguousarray(np.concatenate(
-        [task_arrays[k].src_pat for k in kinds]), np.int32)).to(dev)
-    cols = [torch.from_numpy(np.ascontiguousarray(np.concatenate(
-        [getattr(task_arrays[k], f) for k in kinds]), np.int32)).to(dev)
+    sp = kb.to_device(np.ascontiguousarray(np.concatenate(
+        [task_arrays[k].src_pat for k in kinds]), np.int32), dev)
+    cols = [kb.to_device(np.ascontiguousarray(np.concatenate(
+        [getattr(task_arrays[k], f) for k in kinds]), np.int32), dev)
         for f in ("t0", "tend", "g1", "g11", "g2", "g21")]
     mode, tabs = lex_tables(index)
     if mode == "dense":
@@ -370,7 +370,8 @@ def compute_maxlex(task_arrays: dict, index, rules_one, rules_two,
         rs, re, lt, lnv1, lnv2, steps = tabs
         fge, egf = accum_range(rs, re, lt, lnv1, lnv2, index.tgt_str,
                                cfg.max_score, sp, *cols, steps)
-    _scatter(by_kind, kinds, fge.cpu().numpy(), egf.cpu().numpy())
+    _scatter(by_kind, kinds, kb.to_host(fge).numpy(),
+             kb.to_host(egf).numpy())
 
 
 def _scatter(by_kind, kinds, fge, egf):

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from cgx_tpu_torch.config import ExtractorConfig
+from cgx_tpu_torch.kernels import build as kb
 from cgx_tpu_torch.preproc.corpus import (Alignment, LexTable, QuerySet,
                                           SourceCorpus, TargetCorpus)
 from cgx_tpu_torch.preproc.suffix_array import SAIndex
@@ -59,7 +60,7 @@ class TorchGrammarIndex:
         and a new set at a reused address is never served stale data)."""
         if self._qtok is not None and self._qtok[0]() is queries:
             return self._qtok[1]
-        t = torch.from_numpy(queries.padded_tokens()).to(self.device)
+        t = kb.to_device(queries.padded_tokens(), self.device)
         self._qtok = (weakref.ref(queries), t)
         return t
 
@@ -73,7 +74,7 @@ class TorchGrammarIndex:
         host = np.zeros((max(n, 1), 2), np.int32)
         host[:n, 0] = pc.onegap_start
         host[:n, 1] = pc.onegap_length
-        t = torch.from_numpy(host).to(self.device)
+        t = kb.to_device(host, self.device)
         self._pcrows = (weakref.ref(pc), t)
         return t
 
@@ -81,7 +82,7 @@ class TorchGrammarIndex:
         """(lcpleft, lcpright) on this index's device, uploaded on the first
         call and kept: the default pass-1/2 path never places them."""
         if self._lcp is None:
-            self._lcp = tuple(torch.from_numpy(a).to(self.device)
+            self._lcp = tuple(kb.to_device(a, self.device)
                               for a in (self.lcpleft_host, self.lcpright_host))
         return self._lcp
 
@@ -157,7 +158,7 @@ def from_jax_arrays(arrays: dict, device) -> TorchGrammarIndex:
     sa = np.ascontiguousarray(arrays["sa"], np.int32)
 
     def put(a):   # a writable int32 copy (the JAX package's arrays are read-only)
-        return torch.from_numpy(np.array(a, np.int32)).to(device)
+        return kb.to_device(np.array(a, np.int32), device)
 
     return TorchGrammarIndex(
         reflen=reflen, device=device,

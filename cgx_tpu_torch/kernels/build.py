@@ -19,8 +19,18 @@ refinement's round form on a device list) and B3f, B3b, B3p, B3t and B3c (the pe
 extraction), the column-upload lookups' C1f, C1b, C1p and C1t, the
 query-DP step's B4 (one per shard) and the gather probe's P1 and P2); A4,
 A7 and A8 count as A4v, A7v and A8v when they read a shard's
-``OffsetView``s (``launch_id``).  A wrapper adds one right after it launched
-its kernel, and nowhere else.
+``OffsetView``s (``launch_id``).  A wrapper counts each launch right after
+it launched its kernel, and nowhere else, through ``counted``, which also
+adds the launch's items to ``ITEMS`` and its bytes to ``BYTES``.
+
+``COUNTS`` holds the copy and sync counters of the hot path:
+``h2d_bytes`` and ``d2h_bytes`` (``to_device``, ``to_host``: the one path
+of every host<->device copy), ``syncs`` (one per ``to_host`` of a CUDA
+tensor, plus one per ``utils.timing.PhaseTimer`` synchronise) and the
+two-gap lookup's work at its boundaries (``lookup2.items``, the A5 items
+scanned, and ``lookup2.rows``, the rows kept).  A copy is counted only
+where a CUDA tensor takes part, so a CPU run writes no count under a
+device's name.  ``snapshot`` reads the whole registry as one flat dict.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import subprocess
 import threading
 import time
 
+import numpy as np
 import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,6 +54,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 LAUNCHES: collections.Counter = collections.Counter()
+ITEMS: collections.Counter = collections.Counter()
+BYTES: collections.Counter = collections.Counter()
+COUNTS: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -232,6 +246,61 @@ def launch(lib_name: str, fn: str, device: torch.device, *args) -> None:
     with current(device):
         rc = getattr(library(lib_name), fn)(*args, stream(device))
     check(lib_name, rc)
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of ``tensors`` (whole tensors, not views into the corpus)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def counted(kernel: str, items: int, nbytes: int) -> None:
+    """One launch of ``kernel`` over ``items`` items, moving ``nbytes``:
+    the launch's per-item input columns and tables, each read once, and its
+    outputs, each written once, from their shapes alone.  The corpus words
+    an item reads depend on the data and are left out, so ``BYTES`` is a
+    cheap lower bound of the traffic (``tools/reads.py`` gives the exact,
+    costly one)."""
+    LAUNCHES[kernel] += 1
+    ITEMS[kernel] += int(items)
+    BYTES[kernel] += int(nbytes)
+
+
+def to_device(array, device) -> torch.Tensor:
+    """``array`` (numpy or a host tensor) copied to ``device``; the bytes
+    counted as ``h2d_bytes`` where ``device`` is a card."""
+    t = (array if isinstance(array, torch.Tensor)
+         else torch.from_numpy(np.ascontiguousarray(array)))
+    out = t.to(device)
+    if out.device.type == "cuda" and t.device.type == "cpu":
+        COUNTS["h2d_bytes"] += nbytes(t)
+    return out
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host; a CUDA tensor's copy counts its bytes as
+    ``d2h_bytes`` and one of ``syncs`` (the copy waits for the device)."""
+    if t.device.type == "cuda":
+        COUNTS["syncs"] += 1
+        COUNTS["d2h_bytes"] += nbytes(t)
+    return t.cpu()
+
+
+def snapshot() -> dict:
+    """The registry as one flat dict: ``COUNTS``' keys, ``launches.<id>``,
+    ``items.<id>`` and ``bytes.<id>``."""
+    out = dict(COUNTS)
+    for prefix, counter in (("launches", LAUNCHES), ("items", ITEMS),
+                            ("bytes", BYTES)):
+        out.update({f"{prefix}.{k}": v for k, v in counter.items()})
+    return out
+
+
+def grown(since: dict) -> dict:
+    """The counters of ``snapshot()`` that grew since ``since`` (an
+    earlier ``snapshot()``), by how much."""
+    now = snapshot()
+    return {k: v - since.get(k, 0) for k, v in now.items()
+            if v != since.get(k, 0)}
 
 
 def check(lib_name: str, rc: int) -> None:

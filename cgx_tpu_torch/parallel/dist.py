@@ -59,8 +59,8 @@ def shard_items(devices, a, fill=0) -> list:
     JAX ``P("dp")`` placement)."""
     a = pad_to_multiple(np.asarray(a), len(devices), fill)
     chunk = len(a) // len(devices)
-    return [torch.from_numpy(np.ascontiguousarray(a[s * chunk:(s + 1) * chunk]))
-            .to(d) for s, d in enumerate(devices)]
+    return [kb.to_device(a[s * chunk:(s + 1) * chunk], d)
+            for s, d in enumerate(devices)]
 
 
 def replicate(devices, a) -> list:
@@ -68,7 +68,7 @@ def replicate(devices, a) -> list:
     copies = {}
     for d in devices:
         if d not in copies:
-            copies[d] = torch.as_tensor(a).to(d)
+            copies[d] = kb.to_device(torch.as_tensor(a), d)
     return [copies[d] for d in devices]
 
 
@@ -127,7 +127,8 @@ def dp_step(refstr, sa, lcpleft, lcpright, rlp, lr_tar, qtok, toks,
             rlp.shape[0], kb.ptr(lr_tar), lr_tar.shape[0], kb.ptr(toks),
             kb.ptr(suffixlens), n, reflen, kb.ptr(sa_pos), kb.ptr(lms), m, mrs,
             msym, kb.ptr(p1), kb.ptr(ex), kb.ptr(counts))
-        kb.LAUNCHES["B4"] += 1
+        kb.counted("B4", n + m, kb.nbytes(toks, suffixlens, sa_pos, lms,
+                                          p1, ex, counts))
     return p1, ex, counts
 
 
@@ -148,7 +149,7 @@ def make_sharded_search_step(devices, reflen: int, mrs: int, msym: int):
         p1 = torch.cat([o[0].to(home) for o in outs], dim=1)
         ex = torch.cat([o[1].to(home) for o in outs], dim=1)
         total = torch.stack([o[2].to(home) for o in outs]).long().sum(dim=0)
-        n_match, n_rules = (wrap32(v) for v in total.tolist())
+        n_match, n_rules = (wrap32(v) for v in kb.to_host(total).tolist())
         return tuple(p1), tuple(ex), n_match, n_rules
     return step
 
@@ -184,4 +185,4 @@ def run_sharded_search(devices, index, queries, blocks, cfg):
             index.lr_tar, index.query_tokens(queries))),
         shard_items(devices, toks), shard_items(devices, suffixlens),
         shard_items(devices, sa_pos), shard_items(devices, lms))
-    return p1[0][:n].cpu().numpy(), n_match, n_rules
+    return kb.to_host(p1[0][:n]).numpy(), n_match, n_rules

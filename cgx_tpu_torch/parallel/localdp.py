@@ -32,7 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from cgx_tpu_torch.engine import ReplicatedEngine, on
+from cgx_tpu_torch.engine import ReplicatedEngine, host, on, traced
 from cgx_tpu_torch.kernels import build as kb
 from cgx_tpu_torch.search import passes
 from cgx_tpu_torch.types import Pass1Result, Pass2Result
@@ -94,6 +94,8 @@ class LocalDPEngine:
 
     ``devices`` (a list, which may repeat a device) or else
     ``dp_device_list(n_devices, index.device)`` names the replicas."""
+
+    timer = None
 
     def __init__(self, index, sa_host: np.ndarray, cfg, n_devices: int = 0,
                  devices=None, scan_cols: bool = False):
@@ -174,7 +176,7 @@ class LocalDPEngine:
                     ix.sa, ix.refstr_padded, ix.query_tokens(queries),
                     *on(ix.device, toks[s:e], sls[s:e], lo[s:e], hi[s:e]),
                     depth, dchunk)
-                return lambda: tuple(t.cpu().numpy() for t in out)
+                return lambda: tuple(host(t) for t in out)
             return self._fan(self._item_spans(len(toks)), launch)
 
         ix0 = self.index
@@ -216,35 +218,43 @@ class LocalDPEngine:
     # the engine protocol
     # ------------------------------------------------------------------
 
+    @traced
     def sa_values(self, rows) -> np.ndarray:
         """``sa[rows]`` from the host SA -> int64 numpy."""
         return self.sa_host[np.asarray(rows, np.int64)].astype(np.int64)
 
+    @traced
     def pcs_expanded(self, queries, pc, base, counts, sl, el, tok, stok):
         return self._fan_arrays("pcs_expanded", self._pattern_spans(counts),
                                 (base, counts, sl, el, tok, stok),
                                 queries, pc)
 
+    @traced
     def scan_expanded(self, queries, fwd, lo, counts, sl, el, side):
         return self._fan_arrays("scan_expanded", self._pattern_spans(counts),
                                 (lo, counts, sl, el, side), queries, fwd)
 
+    @traced
     def two_expanded(self, onegap_sa, pc, lo, counts, pcmode):
         return self._fan_arrays("two_expanded", self._pattern_spans(counts),
                                 (lo, counts, pcmode), onegap_sa, pc)
 
+    @traced
     def gap_check(self, gostart, fwd):
         return self._fan_arrays("gap_check", self._item_spans(len(gostart)),
                                 (gostart,), fwd=fwd)
 
+    @traced
     def contig(self, sa_pos, lm):
         return self._fan_arrays("contig", self._item_spans(len(sa_pos)),
                                 (sa_pos, lm))
 
+    @traced
     def onegap(self, css, fes, sls, els):
         return self._fan_arrays("onegap", self._item_spans(len(css)),
                                 (css, fes, sls, els))
 
+    @traced
     def twogap(self, css, fes, ses, sls, els, cls):
         return self._fan_arrays("twogap", self._item_spans(len(css)),
                                 (css, fes, ses, sls, els, cls))

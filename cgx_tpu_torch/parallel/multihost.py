@@ -126,7 +126,7 @@ def _phase_max_allgather(timing) -> dict:
     processes' phase sets differ (process 0 builds, the others load), so each
     sends its whole dict."""
     gathered = [None] * process_count()
-    dist.all_gather_object(gathered, timing.as_dict())
+    dist.all_gather_object(gathered, timing.as_dict(children=False))
     agg: dict = {}
     for phases in gathered:
         for k, v in phases.items():

@@ -56,7 +56,8 @@ import torch
 import torch.distributed as tdist
 
 from cgx_tpu_torch.config import ExtractorConfig
-from cgx_tpu_torch.engine import materialize_items, on, two_gap_occurrences
+from cgx_tpu_torch.engine import (host, materialize_items, on, traced,
+                                  two_gap_occurrences)
 from cgx_tpu_torch.extract import device as xdev
 from cgx_tpu_torch.kernels import build as kb
 from cgx_tpu_torch.search import lookup, passes
@@ -163,8 +164,7 @@ class ShardedGrammarIndex:
                              dtype=torch.int64, device=dev),
                 torch.tensor([t.data_ptr() for t in self.ref_l],
                              dtype=torch.int64, device=dev),
-                torch.from_numpy(np.ascontiguousarray(self.rmeta)).to(dev),
-                torch.from_numpy(np.ascontiguousarray(self.smeta)).to(dev))
+                kb.to_device(self.rmeta, dev), kb.to_device(self.smeta, dev))
         return self._tables
 
     def shard_table(self, s: int) -> tuple:
@@ -175,8 +175,7 @@ class ShardedGrammarIndex:
             self._shard_tables[s] = (
                 torch.tensor([self.sa_l[s].data_ptr()], dtype=torch.int64,
                              device=dev),
-                torch.from_numpy(np.ascontiguousarray(self.rmeta[s:s + 1]))
-                .to(dev))
+                kb.to_device(self.rmeta[s:s + 1], dev))
         return self._shard_tables[s]
 
     def qtok_on(self, s: int, queries) -> torch.Tensor:
@@ -193,8 +192,7 @@ class ShardedGrammarIndex:
             self._qtok = (weakref.ref(queries), {})
         copies = self._qtok[1]
         if device not in copies:
-            copies[device] = torch.from_numpy(queries.padded_tokens()).to(
-                device)
+            copies[device] = kb.to_device(queries.padded_tokens(), device)
         return copies[device]
 
 
@@ -372,7 +370,7 @@ def _make(a: dict, devices: list, listed: bool) -> ShardedGrammarIndex:
         if dtype == np.uint32:
             x = x.view(np.int32)
         return [None if d is None else
-                torch.from_numpy(np.array(x[s], np.int32)).to(d)
+                kb.to_device(np.array(x[s], np.int32), d)
                 for s, d in enumerate(devices)]
 
     seed_pk3 = a["seed_pk3"]
@@ -523,7 +521,8 @@ def refine_sharded(sidx, qtok, toks, sls, lo, hi, d0: int, depths: int):
             kb.ptr(qtok), qtok.shape[0], kb.ptr(toks), kb.ptr(sls), kb.ptr(lo),
             kb.ptr(hi), n, d0, depths, kb.ptr(ups), kb.ptr(downs),
             kb.ptr(lo_out), kb.ptr(hi_out))
-        kb.LAUNCHES["B2r"] += 1
+        kb.counted("B2r", n, kb.nbytes(toks, sls, lo, hi, ups, downs,
+                                       lo_out, hi_out))
     return ups, downs, lo_out, hi_out
 
 
@@ -562,7 +561,7 @@ def gather_sa_sharded(sidx, rows, shard: int = None):
             "sharded", "cgx_gather_sa_sharded", device, kb.ptr(sa_ptrs),
             kb.ptr(rmeta), len(slices), sidx.BR, slices[0].shape[0],
             kb.ptr(rows), n, kb.ptr(out))
-        kb.LAUNCHES["B2g"] += 1
+        kb.counted("B2g", n, kb.nbytes(rows, out))
     return out
 
 
@@ -585,7 +584,7 @@ def gather_sa(sidx: ShardedGrammarIndex, rows) -> np.ndarray:
         return np.empty(0, np.int32)
     if not sidx.listed:
         (r,) = on(sidx.device, rows)
-        return gather_sa_sharded(sidx, r).cpu().numpy()
+        return host(gather_sa_sharded(sidx, r))
     owner = np.clip(rows // sidx.BR, 0, sidx.S - 1)
     launched = []
     for s in sidx.local_shards():
@@ -595,7 +594,7 @@ def gather_sa(sidx: ShardedGrammarIndex, rows) -> np.ndarray:
             launched.append((sel, gather_sa_sharded(sidx, r, s)))
     out = np.zeros(len(rows), np.int32)
     for sel, res in launched:
-        out[sel] = res.cpu().numpy()
+        out[sel] = host(res)
     return _process_sum(sidx, out)
 
 
@@ -740,6 +739,32 @@ def refine_step_plain(sa, rstart: int, rcount: int, qtok, toks, sls, st,
     return out
 
 
+def step_bytes(n: int, g: int, R: int, depths: int) -> int:
+    """The bytes step ``g`` of B2s moves over ``n`` lanes whatever they
+    hold: each lane's state read and written (the single-row plan's step 0
+    reads lo and hi, writes l, h and its part; its step 1 reads ``toks`` and
+    ``sls`` and writes every level's ``ups`` and ``downs``), the ``ups`` /
+    ``downs`` column a closing tree bound writes (and reads), and the parts
+    a step that reads writes.  The tokens, query tokens and SA words that
+    only a live lane reads are left out (``tools/reads.py``
+    ``refine_round_reads`` counts them), so this is a lower bound."""
+    if R == 0:
+        return 4 * n * (5 if g == 0 else 6 + 2 * depths)
+    words = 8 * n
+    if g > 0 and g % R == 0:
+        words += n * (1 + (g - 1) // R % 2)
+    if g < 2 * depths * R:
+        words += TREE_NODES * n
+    return 4 * words
+
+
+def partial_bytes(n: int, nodes: int, count: int) -> int:
+    """The bytes a B2t launch over ``n`` lanes moves whatever they hold:
+    each lane's l and h read and its parts written; the summed SA words of
+    the live nodes and the corpus words are left out (a lower bound)."""
+    return 4 * n * (2 + nodes * count)
+
+
 def refine_step(sa, rstart: int, rcount: int, qtok, toks, sls, st, ups,
                 downs, tok, g: int, R: int, d0: int, depths: int):
     """Kernel B2s (``csrc/sharded.cu``, ``cgx_refine_step``): step ``g`` of
@@ -774,7 +799,7 @@ def refine_step(sa, rstart: int, rcount: int, qtok, toks, sls, st, ups,
             rstart, rcount, kb.ptr(qtok), qtok.shape[0], kb.ptr(toks),
             kb.ptr(sls), kb.ptr(st), kb.ptr(ups), kb.ptr(downs), kb.ptr(tok),
             n, g, R, d0, depths, kb.ptr(out))
-        kb.LAUNCHES["B2s"] += 1
+        kb.counted("B2s", n, step_bytes(n, g, R, depths))
     return None if g == T else out
 
 
@@ -818,7 +843,7 @@ def token_partial(ref, soff: int, olo: int, ohi: int, st, sa_sum,
             "sharded", "cgx_token_partial", device, kb.ptr(ref), ref.shape[0],
             soff, olo, ohi, kb.ptr(st), kb.ptr(sa_sum), n, nodes, count,
             depth, kb.ptr(out))
-        kb.LAUNCHES["B2t"] += 1
+        kb.counted("B2t", n, partial_bytes(n, nodes, count))
     return out
 
 
@@ -831,9 +856,9 @@ def _sum_parts(sidx, parts: list) -> dict:
         p = p.to(sidx.device)
         total = p if total is None else total + p
     if sidx.n_processes > 1:
-        host = total.cpu()
-        tdist.all_reduce(host)
-        total = host.to(sidx.device)
+        summed = kb.to_host(total)
+        tdist.all_reduce(summed)
+        total = kb.to_device(summed, sidx.device)
     return {d: total.to(d) for d in {sidx.device_of(s)
                                      for s in sidx.local_shards()}}
 
@@ -857,7 +882,7 @@ def refine_round(sidx, qtok, toks, sls, lo, hi, d0: int, depths: int):
         st = torch.from_numpy(np.stack([lo, hi, lo, hi]).astype(np.int32))
         lanes[s] = dict(
             qtok=qtok(s) if callable(qtok) else qtok.to(dev),
-            st=st.to(dev),
+            st=kb.to_device(st, dev),
             ups=torch.zeros((n, depths), dtype=torch.int32, device=dev),
             downs=torch.zeros((n, depths), dtype=torch.int32, device=dev))
     # step 0 reads no token
@@ -896,7 +921,7 @@ def sharded_passes(sidx: ShardedGrammarIndex, queries):
         def dispatch(toks, sls, lo, hi, depth, dchunk):
             out = refine_round(sidx, lambda s: sidx.qtok_on(s, queries),
                                toks, sls, lo, hi, depth, dchunk)
-            return tuple(t.cpu().numpy() for t in out)
+            return tuple(host(t) for t in out)
     else:
         qtok = sidx.query_tokens(queries)
 
@@ -904,7 +929,7 @@ def sharded_passes(sidx: ShardedGrammarIndex, queries):
             out = refine_sharded(sidx, qtok,
                                  *on(sidx.device, toks, sls, lo, hi), depth,
                                  dchunk)
-            return tuple(t.cpu().numpy() for t in out)
+            return tuple(host(t) for t in out)
 
     return passes.drive_refinement(
         queries, sidx.reflen,
@@ -923,10 +948,13 @@ class ShardedEngine:
     shard's device and views, and come back in their original order.  The
     kernel methods take ``fetch`` as ``ReplicatedEngine``'s do."""
 
+    timer = None
+
     def __init__(self, sidx: ShardedGrammarIndex, cfg: ExtractorConfig):
         self.sidx = sidx
         self.cfg = cfg
 
+    @traced
     def sa_values(self, rows) -> np.ndarray:
         return gather_sa(self.sidx, rows).astype(np.int64)
 
@@ -956,10 +984,11 @@ class ShardedEngine:
 
         def get():
             for sel, res in launched:
-                out[:, sel] = res.reshape(n_out, -1).cpu().numpy()
+                out[:, sel] = host(res.reshape(n_out, -1))
             return then(_process_sum(sidx, out) if N else out)
         return get() if fetch else get
 
+    @traced
     def pcs_expanded(self, queries, pc, base, counts, sl, el, tok, stok,
                      fetch=True):
         item_pat, tx = materialize_items(counts)
@@ -974,6 +1003,7 @@ class ShardedEngine:
         return self._partitioned(cols[0], cols, run_one, 1,
                                  lambda o: o[0].astype(bool), fetch)
 
+    @traced
     def scan_expanded(self, queries, fwd, lo, counts, sl, el, side,
                       fetch=True):
         item_pat, tx = materialize_items(counts)
@@ -989,6 +1019,7 @@ class ShardedEngine:
         return self._partitioned(gostart, cols, run_one, 1,
                                  lambda o: o[0], fetch)
 
+    @traced
     def two_expanded(self, onegap_sa, pc, lo, counts, pcmode, fetch=True):
         css, fes = two_gap_occurrences(onegap_sa, pc, lo, counts, pcmode)
         cfg = self.cfg
@@ -998,6 +1029,7 @@ class ShardedEngine:
                                     cfg.min_gap_size)
         return self._partitioned(css, [css, fes], run_one, 2, tuple, fetch)
 
+    @traced
     def gap_check(self, gostart, fwd, fetch=True):
         """Owner-computes precompute gap checks (kernel A4 on each shard's
         views): the build never places a replicated O(corpus) array."""
@@ -1010,6 +1042,7 @@ class ShardedEngine:
         return self._partitioned(gostart, [gostart], run_one, 1,
                                  lambda o: o[0], fetch)
 
+    @traced
     def contig(self, sa_pos, lm, fetch=True):
         cs = self.sa_values(sa_pos)
         cfg = self.cfg
@@ -1020,6 +1053,7 @@ class ShardedEngine:
         return self._partitioned(cs, [cs, np.asarray(lm)], run_one, 8, tuple,
                                  fetch)
 
+    @traced
     def onegap(self, css, fes, sls, els, fetch=True):
         cfg = self.cfg
         cols = [np.asarray(c) for c in (css, fes, sls, els)]
@@ -1029,6 +1063,7 @@ class ShardedEngine:
                                cfg.max_rule_symbols)
         return self._partitioned(cols[0], cols, run_one, 6, tuple, fetch)
 
+    @traced
     def twogap(self, css, fes, ses, sls, els, cls, fetch=True):
         cfg = self.cfg
         cols = [np.asarray(c) for c in (css, fes, ses, sls, els, cls)]

@@ -67,7 +67,7 @@ from cgx_tpu_torch.search import lookup, passes
 from cgx_tpu_torch.search import precompute as pcx
 from cgx_tpu_torch.types import GapRules
 from cgx_tpu_torch.utils.budget import resolve_shards
-from cgx_tpu_torch.utils.timing import PhaseTimer
+from cgx_tpu_torch.utils.timing import PhaseTimer, child
 
 
 # the one-time corpus preprocessing (host side), as index_io persists it
@@ -171,12 +171,18 @@ def build_artifact(f_lines, e_lines, a_lines, lex_tokens,
                                   art.lex, cfg, sa_shards, device)
         return art, index, t, sa_shards
     with t.phase("refsin"):
-        source = (cp.load_source_corpus_text(f_lines) if isinstance(f_lines, str)
-                  else cp.load_source_corpus(f_lines))
-        target = (cp.load_target_corpus_text(e_lines) if isinstance(e_lines, str)
-                  else cp.load_target_corpus(e_lines))
-        align = cp.load_alignment_fast(a_lines, source, target)
-        lex = cp.load_lex_table(lex_tokens, source.vocab, target.vocab)
+        with child(t, "source"):
+            source = (cp.load_source_corpus_text(f_lines)
+                      if isinstance(f_lines, str)
+                      else cp.load_source_corpus(f_lines))
+        with child(t, "target"):
+            target = (cp.load_target_corpus_text(e_lines)
+                      if isinstance(e_lines, str)
+                      else cp.load_target_corpus(e_lines))
+        with child(t, "align"):
+            align = cp.load_alignment_fast(a_lines, source, target)
+        with child(t, "lex"):
+            lex = cp.load_lex_table(lex_tokens, source.vocab, target.vocab)
     sa_shards = _resolve(sa_shards, source.toklen, target.toklen, cfg,
                          device)
     with t.phase("suffixarray"):
@@ -185,7 +191,9 @@ def build_artifact(f_lines, e_lines, a_lines, lex_tokens,
         index = _device_index(source, target, sa, align, lex, cfg, sa_shards,
                               device)
     with t.phase("precompute"):
-        pc = pcx.precompute(make_engine(index, cfg), source, sa, cfg)
+        engine = make_engine(index, cfg)
+        engine.timer = t
+        pc = pcx.precompute(engine, source, sa, cfg)
     art = Artifact(source, target, align, lex, sa, pc)
     if index_dir and save_index:
         with t.phase("indexsave"):
@@ -283,12 +291,14 @@ def _make_context(art, index, t, cfg, sa_shards, scan_cols=False,
                 index, art.sa.sa, cfg, devices=dp_devices,
                 scan_cols=scan_cols)
         ctx["lex_index"] = ctx["engine"].index
-        return ctx
-    ctx["engine"] = make_engine(index, cfg, scan_cols, art.sa.sa)
-    if sa_shards:
-        with t.phase("qrysin"):
-            ctx["lex_index"] = ic.build_host_lex_index(art.target, art.lex)
-        ctx["sa_values"] = ctx["engine"].sa_values
+    else:
+        ctx["engine"] = make_engine(index, cfg, scan_cols, art.sa.sa)
+        if sa_shards:
+            with t.phase("qrysin"):
+                ctx["lex_index"] = ic.build_host_lex_index(art.target,
+                                                           art.lex)
+            ctx["sa_values"] = ctx["engine"].sa_values
+    ctx["engine"].timer = t
     return ctx
 
 
@@ -374,14 +384,17 @@ def _back_stages(ctx, queries, fr, cfg, t):
     search2, enum2 = fr["search2"], fr["enum2"]
     onegap_sa = fr["onegap_sa"]
     with t.phase("lexicon", sync=False):
-        rules_one, tasks_one = lx.fast_create_lexicon_onegap(
-            fr["rules1"], source, target, blocks, search1, enum1, onegap_sa,
-            pc, fr["sep_onegap"], cfg)
-        rules_two, tasks_two = lx.fast_create_lexicon_twogap(
-            fr["rules2"], source, target, blocks, search1, enum1, search2,
-            enum2, onegap_sa, pc, fr["sep1"], fr["sep2"], cfg)
-        rules_contig, tasks_contig = lx.fast_create_lexicon_contig(
-            fr["contig"], source, target, blocks, cfg)
+        with child(t, "onegap"):
+            rules_one, tasks_one = lx.fast_create_lexicon_onegap(
+                fr["rules1"], source, target, blocks, search1, enum1,
+                onegap_sa, pc, fr["sep_onegap"], cfg)
+        with child(t, "twogap"):
+            rules_two, tasks_two = lx.fast_create_lexicon_twogap(
+                fr["rules2"], source, target, blocks, search1, enum1,
+                search2, enum2, onegap_sa, pc, fr["sep1"], fr["sep2"], cfg)
+        with child(t, "contig"):
+            rules_contig, tasks_contig = lx.fast_create_lexicon_contig(
+                fr["contig"], source, target, blocks, cfg)
     lex_index = ctx["lex_index"]
     with t.phase("maxlex",
                  sync=not isinstance(lex_index, ic.HostLexIndex)):
@@ -392,19 +405,22 @@ def _back_stages(ctx, queries, fr, cfg, t):
         G = len(blocks.start)
         D1 = len(search1.qrystart)
         D2 = len(search2.blockid)
-        ud_contig = lx.updown_index(rules_contig, G)
-        ud_one = lx.updown_index(rules_one, 2 * G + D1)
-        ud_two = lx.updown_index(rules_two, G + D2 + 2 * D1)
-        fmt_contig = gw.format_lines(rules_contig)
-        fmt_one = gw.format_lines(rules_one)
-        fmt_two = gw.format_lines(rules_two)
-        per_query_lines = [
-            gw.grammar_lines_for_query(
-                q, blocks.qry_global, search1.query_with_id,
-                search2.query_with_id, ud_contig, ud_one, ud_two, fmt_contig,
-                fmt_one, fmt_two, G, D1, D2)
-            for q in range(queries.qryscount)
-        ]
+        with child(t, "updown"):
+            ud_contig = lx.updown_index(rules_contig, G)
+            ud_one = lx.updown_index(rules_one, 2 * G + D1)
+            ud_two = lx.updown_index(rules_two, G + D2 + 2 * D1)
+        with child(t, "format"):
+            fmt_contig = gw.format_lines(rules_contig)
+            fmt_one = gw.format_lines(rules_one)
+            fmt_two = gw.format_lines(rules_two)
+        with child(t, "lines"):
+            per_query_lines = [
+                gw.grammar_lines_for_query(
+                    q, blocks.qry_global, search1.query_with_id,
+                    search2.query_with_id, ud_contig, ud_one, ud_two,
+                    fmt_contig, fmt_one, fmt_two, G, D1, D2)
+                for q in range(queries.qryscount)
+            ]
     counters = dict(
         blocks=G, distinct_onegap=D1, distinct_twogap=D2,
         precomp_rows=pc.count, pass1_tokens=queries.totaltokens,

@@ -47,6 +47,7 @@ import torch
 from cgx_tpu_torch.config import ExtractorConfig
 from cgx_tpu_torch.kernels import build as kb
 from cgx_tpu_torch.types import GapOnSA, OneGapSearch, Precomp, TwoGapSearch
+from cgx_tpu_torch.utils.timing import child
 from cgx_tpu_torch.utils.views import as_view, take
 
 MMOV = 16  # move-axis width; real moves are bounded by max_rule_span - 2
@@ -372,7 +373,8 @@ def scan(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int, mgs: int,
             kb.ptr(rlp), rlp.shape[0], kb.ptr(lr_tar), lr_tar.shape[0],
             kb.ptr(sa), sa.shape[0], kb.ptr(pattab), kb.ptr(offs),
             pattab.shape[0], n, mrs, mgs, int(fwd), kb.ptr(out))
-        kb.LAUNCHES["A2f" if fwd else "A2b"] += 1
+        kb.counted("A2f" if fwd else "A2b", n,
+                   kb.nbytes(pattab, offs, out))
     return out
 
 
@@ -398,7 +400,7 @@ def pcs(refstr, pcrows, pattab, offs, n: int, mrs: int):
             "scan", "cgx_pcs", device, kb.ptr(refstr), refstr.shape[0],
             kb.ptr(pcrows), pcrows.shape[0], kb.ptr(pattab), kb.ptr(offs),
             pattab.shape[0], n, mrs, kb.ptr(out))
-        kb.LAUNCHES["A3"] += 1
+        kb.counted("A3", n, kb.nbytes(pattab, offs, out))
     return out
 
 
@@ -436,7 +438,7 @@ def two(refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, n: int, mrs: int,
             kb.ptr(ogrows), ogrows.shape[0], kb.ptr(pcrows), pcrows.shape[0],
             kb.ptr(pattab), kb.ptr(offs), pattab.shape[0], n, mrs, mgs,
             kb.ptr(out))
-        kb.LAUNCHES["A5"] += 1
+        kb.counted("A5", n, kb.nbytes(pattab, offs, out))
     return out
 
 
@@ -463,7 +465,7 @@ def _scan_items(kernel, fn, refstr, rlp, lr_tar, qtok, gostart, sl, el, qpos,
             "scan", fn, device, *kb.view(refstr), *kb.view(rlp),
             *kb.view(lr_tar), kb.ptr(qtok), qtok.shape[0], kb.ptr(gostart),
             kb.ptr(sl), kb.ptr(el), kb.ptr(qpos), n, mrs, mgs, kb.ptr(out))
-        kb.LAUNCHES[kernel] += 1
+        kb.counted(kernel, n, kb.nbytes(gostart, sl, el, qpos, out))
     return out
 
 
@@ -517,7 +519,8 @@ def pcs_items(refstr, qtok, pstart, plen, sl, el, tok, stok, mrs: int):
             "scan", "cgx_pcs_items", device, *kb.view(refstr), kb.ptr(qtok),
             qtok.shape[0], kb.ptr(pstart), kb.ptr(plen), kb.ptr(sl),
             kb.ptr(el), kb.ptr(tok), kb.ptr(stok), n, mrs, kb.ptr(out))
-        kb.LAUNCHES["B3p"] += 1
+        kb.counted("B3p", n,
+                   kb.nbytes(pstart, plen, sl, el, tok, stok, out))
     return out
 
 
@@ -541,7 +544,7 @@ def two_items(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int):
             "scan", "cgx_two_items", device, *kb.view(refstr), *kb.view(rlp),
             *kb.view(lr_tar), kb.ptr(pstart), kb.ptr(plen), n, mrs, mgs,
             kb.ptr(out))
-        kb.LAUNCHES["B3t"] += 1
+        kb.counted("B3t", n, kb.nbytes(pstart, plen, out))
     return out
 
 
@@ -602,7 +605,8 @@ def scan_cols(refstr, rlp, lr_tar, gostart, sl, el, w0, w1, w2, mrs: int,
             kb.ptr(rlp), rlp.shape[0], kb.ptr(lr_tar), lr_tar.shape[0],
             kb.ptr(gostart), kb.ptr(sl), kb.ptr(el), kb.ptr(w0), kb.ptr(w1),
             kb.ptr(w2), n, mrs, mgs, int(fwd), kb.ptr(out))
-        kb.LAUNCHES[kernel] += 1
+        kb.counted(kernel, n,
+                   kb.nbytes(gostart, sl, el, w0, w1, w2, out))
     return out
 
 
@@ -631,7 +635,8 @@ def pcs_cols(refstr, pstart, plen, sl, el, pa1, pa2, pb2, pb3, mrs: int):
             "scan", "cgx_pcs_cols", device, kb.ptr(refstr), refstr.shape[0],
             kb.ptr(pstart), kb.ptr(plen), kb.ptr(sl), kb.ptr(el), kb.ptr(pa1),
             kb.ptr(pa2), kb.ptr(pb2), kb.ptr(pb3), n, mrs, kb.ptr(out))
-        kb.LAUNCHES["C1p"] += 1
+        kb.counted("C1p", n, kb.nbytes(pstart, plen, sl, el, pa1, pa2,
+                                       pb2, pb3, out))
     return out
 
 
@@ -657,7 +662,7 @@ def two_packed(refstr, rlp, lr_tar, pstart, plen, mrs: int, mgs: int):
             "scan", "cgx_two_packed", device, kb.ptr(refstr), refstr.shape[0],
             kb.ptr(rlp), rlp.shape[0], kb.ptr(lr_tar), lr_tar.shape[0],
             kb.ptr(pstart), kb.ptr(plen), n, mrs, mgs, kb.ptr(out))
-        kb.LAUNCHES["C1t"] += 1
+        kb.counted("C1t", n, kb.nbytes(pstart, plen, out))
     return out
 
 
@@ -671,146 +676,170 @@ def one_gap_lookup(engine, queries, p1, p2, search: OneGapSearch,
     (pattern, corpus start, length) sorted by (pattern, start, length);
     fills ``search.start_on_salist``/``end_on_salist``.  A precomp reference
     row has length 0 and the precomp cell as its start.  ``engine``
-    (``cgx_tpu_torch.engine``) runs the device work."""
+    (``cgx_tpu_torch.engine``) runs the device work.  With the engine's
+    ``timer`` (a ``utils.timing.PhaseTimer``) the host stages are child
+    phases of the phase open: ``route`` (precomp cells, SA ranges,
+    routing), ``pcs_rows`` (A3's jobs and their hits to rows),
+    ``scan_rows`` (A2's hits to rows) and ``sort``."""
     mgs = cfg.min_gap_size
-    qtok = np.asarray(queries.tokens)
-    qpad = np.asarray(queries.padded_tokens()).astype(np.int64)
-    sl_all = search.qrystart_len.astype(np.int64)
-    el_all = search.qryend_len.astype(np.int64)
-    tok_all = search.qrystart.astype(np.int64)
-    stok_all = tok_all + search.gap.astype(np.int64) + sl_all
+    with child(engine.timer, "route"):
+        qtok = np.asarray(queries.tokens)
+        qpad = np.asarray(queries.padded_tokens()).astype(np.int64)
+        sl_all = search.qrystart_len.astype(np.int64)
+        el_all = search.qryend_len.astype(np.int64)
+        tok_all = search.qrystart.astype(np.int64)
+        stok_all = tok_all + search.gap.astype(np.int64) + sl_all
 
-    # precomp cell per pattern (existPrecomputation)
-    a_last = qtok[tok_all + sl_all - 1]
-    b_first = qtok[stok_all]
-    ia = np.searchsorted(pc.frequent_list, a_last)
-    ib = np.searchsorted(pc.frequent_list, b_first)
-    P = pc.P
-    ok_a = (ia < P) & (pc.frequent_list[np.minimum(ia, P - 1)] == a_last)
-    ok_b = (ib < P) & (pc.frequent_list[np.minimum(ib, P - 1)] == b_first)
-    pci = np.where(ok_a & ok_b, ia * P + ib, -1)
+        # precomp cell per pattern (existPrecomputation)
+        a_last = qtok[tok_all + sl_all - 1]
+        b_first = qtok[stok_all]
+        ia = np.searchsorted(pc.frequent_list, a_last)
+        ib = np.searchsorted(pc.frequent_list, b_first)
+        P = pc.P
+        ok_a = (ia < P) & (pc.frequent_list[np.minimum(ia, P - 1)] == a_last)
+        ok_b = (ib < P) & (pc.frequent_list[np.minimum(ib, P - 1)]
+                           == b_first)
+        pci = np.where(ok_a & ok_b, ia * P + ib, -1)
 
-    # SA ranges of the a and b phrases
-    p2_up = p2.up if len(p2.up) else np.zeros(1, np.int32)
-    p2_down = p2.down if len(p2.down) else np.zeros(1, np.int32)
+        # SA ranges of the a and b phrases
+        p2_up = p2.up if len(p2.up) else np.zeros(1, np.int32)
+        p2_down = p2.down if len(p2.down) else np.zeros(1, np.int32)
 
-    def rng(tk, ln):
-        u = np.where(ln == 1, p1.up[tk], 0)
-        d = np.where(ln == 1, p1.down[tk], 0)
-        cc = np.where(ln > 1, p2.connectoffset[tk] + ln - 2, 0)
-        u = np.where(ln == 1, u, p2_up[cc])
-        d = np.where(ln == 1, d, p2_down[cc])
-        return u.astype(np.int64), d.astype(np.int64)
+        def rng(tk, ln):
+            u = np.where(ln == 1, p1.up[tk], 0)
+            d = np.where(ln == 1, p1.down[tk], 0)
+            cc = np.where(ln > 1, p2.connectoffset[tk] + ln - 2, 0)
+            u = np.where(ln == 1, u, p2_up[cc])
+            d = np.where(ln == 1, d, p2_down[cc])
+            return u.astype(np.int64), d.astype(np.int64)
 
-    r1u, r1d = rng(tok_all, sl_all)
-    r2u, r2d = rng(stok_all, el_all)
-    dis1 = r1d - r1u
-    dis2 = r2d - r2u
-    use_fwd = dis1 <= dis2
-    has_pc = pci != -1
-    pc_dis = np.where(has_pc,
-                      pc.index_end[np.maximum(pci, 0)]
-                      - pc.index_start[np.maximum(pci, 0)], -1)
-    pc_ref = has_pc & (sl_all == 1) & (el_all == 1) & (pc_dis >= 0)
-    pc_seed = has_pc & ~pc_ref
+        r1u, r1d = rng(tok_all, sl_all)
+        r2u, r2d = rng(stok_all, el_all)
+        dis1 = r1d - r1u
+        dis2 = r2d - r2u
+        use_fwd = dis1 <= dis2
+        has_pc = pci != -1
+        pc_dis = np.where(has_pc,
+                          pc.index_end[np.maximum(pci, 0)]
+                          - pc.index_start[np.maximum(pci, 0)], -1)
+        pc_ref = has_pc & (sl_all == 1) & (el_all == 1) & (pc_dis >= 0)
+        pc_seed = has_pc & ~pc_ref
 
-    # cell-vs-interval routing: a pc_seed pattern whose rarer phrase has
-    # fewer occurrences than its pair's cell takes the scan instead (the
-    # scan covers every legal gap and checks the same target span, so the
-    # rows are the same); a pattern whose phrase does not occur has no hits
-    lm64 = p1.longestmatch.astype(np.int64)
+        # cell-vs-interval routing: a pc_seed pattern whose rarer phrase has
+        # fewer occurrences than its pair's cell takes the scan instead (the
+        # scan covers every legal gap and checks the same target span, so
+        # the rows are the same); a pattern whose phrase does not occur has
+        # no hits
+        lm64 = p1.longestmatch.astype(np.int64)
 
-    def phrase_valid(tk, ln):
-        return np.where(ln == 1, p1.up[tk] >= 0, ln <= lm64[tk])
+        def phrase_valid(tk, ln):
+            return np.where(ln == 1, p1.up[tk] >= 0, ln <= lm64[tk])
 
-    phrase_ok = phrase_valid(tok_all, sl_all) \
-        & phrase_valid(stok_all, el_all) & (dis1 >= 0) & (dis2 >= 0)
-    routed = pc_seed & (~phrase_ok
-                        | (np.minimum(dis1, dis2) + 1 < pc_dis + 1))
-    pc_seed = pc_seed & ~routed
-    scan_member = ~has_pc | (routed & phrase_ok)
+        phrase_ok = phrase_valid(tok_all, sl_all) \
+            & phrase_valid(stok_all, el_all) & (dis1 >= 0) & (dis2 >= 0)
+        routed = pc_seed & (~phrase_ok
+                            | (np.minimum(dis1, dis2) + 1 < pc_dis + 1))
+        pc_seed = pc_seed & ~routed
+        scan_member = ~has_pc | (routed & phrase_ok)
 
-    rows_parts = []
-    # 1) precomp references: one row per pattern
-    ref_ids = np.flatnonzero(pc_ref)
-    if len(ref_ids):
-        rows_parts.append(np.stack([
-            ref_ids, pci[ref_ids], np.zeros(len(ref_ids), dtype=np.int64)],
-            axis=1))
+        rows_parts = []
+        # 1) precomp references: one row per pattern
+        ref_ids = np.flatnonzero(pc_ref)
+        if len(ref_ids):
+            rows_parts.append(np.stack([
+                ref_ids, pci[ref_ids],
+                np.zeros(len(ref_ids), dtype=np.int64)], axis=1))
 
     # 2) precomp-seed verification (A3).  Jobs with equal kernel inputs
     # (cell, sl, el, the four compared tokens) run once; their hits go to
     # every member pattern.
     seed_ids = np.flatnonzero(pc_seed)
     if len(seed_ids):
-        s64, e64 = sl_all[seed_ids], el_all[seed_ids]
-        t64, st64 = tok_all[seed_ids], stok_all[seed_ids]
-        key = np.stack([pci[seed_ids], s64, e64,
-                        qpad[t64 + np.maximum(s64 - 2, 0)],
-                        qpad[t64 + np.maximum(s64 - 3, 0)],
-                        qpad[st64 + 1], qpad[st64 + 2]], axis=1)
-        _, rep_ix, inv = np.unique(key, axis=0, return_index=True,
-                                   return_inverse=True)
-        inv = inv.reshape(-1)
-        reps = seed_ids[rep_ix]
-        counts_s = (pc_dis[reps] + 1).clip(min=0)
+        with child(engine.timer, "pcs_rows"):
+            s64, e64 = sl_all[seed_ids], el_all[seed_ids]
+            t64, st64 = tok_all[seed_ids], stok_all[seed_ids]
+            key = np.stack([pci[seed_ids], s64, e64,
+                            qpad[t64 + np.maximum(s64 - 2, 0)],
+                            qpad[t64 + np.maximum(s64 - 3, 0)],
+                            qpad[st64 + 1], qpad[st64 + 2]], axis=1)
+            _, rep_ix, inv = np.unique(key, axis=0, return_index=True,
+                                       return_inverse=True)
+            inv = inv.reshape(-1)
+            reps = seed_ids[rep_ix]
+            counts_s = (pc_dis[reps] + 1).clip(min=0)
         ok = engine.pcs_expanded(queries, pc, pc.index_start[pci[reps]],
                                  counts_s, sl_all[reps], el_all[reps],
                                  tok_all[reps], stok_all[reps])
-        hit = np.flatnonzero(ok)
-        if len(hit):
-            rgrp, tx, _ = expand_hits(hit, counts_s)
-            hit_counts = np.bincount(rgrp, minlength=len(reps))
-            gstart = np.concatenate([[0], np.cumsum(hit_counts)])[:-1]
-            order = np.argsort(inv, kind="stable")
-            members = seed_ids[order]
-            mcounts = hit_counts[inv[order]]
-            pat = np.repeat(members, mcounts)
-            if len(pat):
-                moffs = np.concatenate([[0], np.cumsum(mcounts)])[:-1]
-                idx = (np.repeat(gstart[inv[order]], mcounts)
-                       + np.arange(int(mcounts.sum()))
-                       - np.repeat(moffs, mcounts))
-                row = pc.index_start[pci[pat]] + tx[idx]
-                spos = pc.onegap_start[row].astype(np.int64) - sl_all[pat] + 1
-                length = pc.onegap_length[row].astype(np.int64) \
-                    + sl_all[pat] - 1 + el_all[pat] - 1
-                rows_parts.append(np.stack([pat, spos, length], axis=1))
+        with child(engine.timer, "pcs_rows"):
+            hit = np.flatnonzero(ok)
+            if len(hit):
+                rows_parts += _pcs_rows(hit, counts_s, reps, inv, seed_ids,
+                                        pc, pci, sl_all, el_all)
 
     # 3) forward and backward scans (A2) from the rarer phrase
     for fwd in (True, False):
-        ids = np.flatnonzero(scan_member & (use_fwd == fwd))
+        with child(engine.timer, "scan_rows"):
+            ids = np.flatnonzero(scan_member & (use_fwd == fwd))
+            lo = np.where(fwd, r1u, r2u)[ids]
+            counts = (np.where(fwd, dis1, dis2)[ids] + 1).clip(min=0)
+            side = (stok_all if fwd else tok_all)[ids]
         if not len(ids):
             continue
-        lo = np.where(fwd, r1u, r2u)[ids]
-        counts = (np.where(fwd, dis1, dis2)[ids] + 1).clip(min=0)
-        side = (stok_all if fwd else tok_all)[ids]
         mask = engine.scan_expanded(queries, fwd, lo, counts, sl_all[ids],
                                     el_all[ids], side)
-        ii, mm = _mask_hits(mask)
+        with child(engine.timer, "scan_rows"):
+            ii, mm = _mask_hits(mask)
+            if len(ii):
+                pat, tx, pi = expand_hits(ii, counts, ids)
         if not len(ii):
             continue
-        pat, tx, pi = expand_hits(ii, counts, ids)
         gostart = engine.sa_values(lo[pi] + tx)
-        if fwd:
-            length = sl_all[pat] + mgs + mm + el_all[pat] - 1
-            rows_parts.append(np.stack([pat, gostart, length], axis=1))
-        else:
-            spos = gostart - 1 - mgs - mm - sl_all[pat] + 1
-            length = el_all[pat] + mgs + mm + sl_all[pat] - 1
-            rows_parts.append(np.stack([pat, spos, length], axis=1))
+        with child(engine.timer, "scan_rows"):
+            if fwd:
+                length = sl_all[pat] + mgs + mm + el_all[pat] - 1
+                rows_parts.append(np.stack([pat, gostart, length], axis=1))
+            else:
+                spos = gostart - 1 - mgs - mm - sl_all[pat] + 1
+                length = el_all[pat] + mgs + mm + sl_all[pat] - 1
+                rows_parts.append(np.stack([pat, spos, length], axis=1))
 
-    if rows_parts:
-        rows = np.concatenate(rows_parts, axis=0)
-        rows = rows[np.lexsort((rows[:, 2], rows[:, 1], rows[:, 0]))]
-    else:
-        rows = np.empty((0, 3), dtype=np.int64)
-    out = GapOnSA(position=rows[:, 0].astype(np.int32),
-                  str_position=rows[:, 1].astype(np.int32),
-                  length=rows[:, 2].astype(np.int32),
-                  length2=np.zeros(len(rows), dtype=np.int32))
-    _fill_salist(search.start_on_salist, search.end_on_salist, out.position)
+    with child(engine.timer, "sort"):
+        if rows_parts:
+            rows = np.concatenate(rows_parts, axis=0)
+            rows = rows[np.lexsort((rows[:, 2], rows[:, 1], rows[:, 0]))]
+        else:
+            rows = np.empty((0, 3), dtype=np.int64)
+        out = GapOnSA(position=rows[:, 0].astype(np.int32),
+                      str_position=rows[:, 1].astype(np.int32),
+                      length=rows[:, 2].astype(np.int32),
+                      length2=np.zeros(len(rows), dtype=np.int32))
+        _fill_salist(search.start_on_salist, search.end_on_salist,
+                     out.position)
     return out
+
+
+def _pcs_rows(hit, counts_s, reps, inv, seed_ids, pc, pci, sl_all, el_all):
+    """A3's hits (flat item indices over the jobs ``reps``) expanded to
+    every member pattern of each job -> the rows (pattern, start, length),
+    as a list of at most one array."""
+    rgrp, tx, _ = expand_hits(hit, counts_s)
+    hit_counts = np.bincount(rgrp, minlength=len(reps))
+    gstart = np.concatenate([[0], np.cumsum(hit_counts)])[:-1]
+    order = np.argsort(inv, kind="stable")
+    members = seed_ids[order]
+    mcounts = hit_counts[inv[order]]
+    pat = np.repeat(members, mcounts)
+    if not len(pat):
+        return []
+    moffs = np.concatenate([[0], np.cumsum(mcounts)])[:-1]
+    idx = (np.repeat(gstart[inv[order]], mcounts)
+           + np.arange(int(mcounts.sum()))
+           - np.repeat(moffs, mcounts))
+    row = pc.index_start[pci[pat]] + tx[idx]
+    spos = pc.onegap_start[row].astype(np.int64) - sl_all[pat] + 1
+    length = pc.onegap_length[row].astype(np.int64) \
+        + sl_all[pat] - 1 + el_all[pat] - 1
+    return [np.stack([pat, spos, length], axis=1)]
 
 
 def two_gap_items(search1: OneGapSearch, onegap_sa: GapOnSA, pc: Precomp):
@@ -837,7 +866,8 @@ def two_gap_items(search1: OneGapSearch, onegap_sa: GapOnSA, pc: Precomp):
 
 def two_gap_lookup(engine, queries, search1: OneGapSearch,
                    onegap_sa: GapOnSA, search2: TwoGapSearch, pc: Precomp,
-                   cfg: ExtractorConfig, refstr_host: np.ndarray) -> GapOnSA:
+                   cfg: ExtractorConfig,
+                   refstr_host: np.ndarray) -> GapOnSA:
     """The occurrences of every distinct two-gap pattern, as rows (pattern,
     corpus start, b's end offset, c's end offset) sorted by all four; fills
     ``search2.start_on_salist``/``end_on_salist``.
@@ -846,24 +876,54 @@ def two_gap_lookup(engine, queries, search1: OneGapSearch,
     expanded, unsampled) are scanned once by kernel A5; the c token of each
     hit is read from ``refstr_host`` (the host copy of the source token
     string) and matched against the (one-gap pattern, c token) pairs of the
-    two-gap patterns.  ``engine`` as in ``one_gap_lookup``."""
+    two-gap patterns.  ``engine`` as in ``one_gap_lookup``; with its
+    ``timer`` the host stages are child phases: ``items`` (A5's table),
+    ``keys`` (the sorted (one-gap pattern, c token) table), ``match`` (A5's
+    hits to occurrences, their c tokens matched, the gap check's bit
+    tested) and ``sort``."""
     D2 = len(search2.blockid)
     mgs = cfg.min_gap_size
     empty = GapOnSA(*(np.empty(0, np.int32) for _ in range(4)))
-    lo, counts, pcmode = two_gap_items(search1, onegap_sa, pc)
+    with child(engine.timer, "items"):
+        lo, counts, pcmode = two_gap_items(search1, onegap_sa, pc)
     if D2 == 0 or counts.sum() == 0:
         return empty
+    kb.COUNTS["lookup2.items"] += int(counts.sum())
     cand_mask, gc_mask = engine.two_expanded(onegap_sa, pc, lo, counts,
                                              pcmode)
-    # sorted (oneId, c-token) -> twoId table; distinct patterns are unique
-    # pairs
-    ctok = np.asarray(queries.tokens)[search2.gap2].astype(np.int64)
-    keys = (search2.blockid.astype(np.int64) << 32) | ctok
-    korder = np.argsort(keys, kind="stable")
-    keys_sorted = keys[korder]
-    ii, mm = _mask_hits(cand_mask)
+    with child(engine.timer, "keys"):
+        # sorted (oneId, c-token) -> twoId table; distinct patterns are
+        # unique pairs
+        ctok = np.asarray(queries.tokens)[search2.gap2].astype(np.int64)
+        keys = (search2.blockid.astype(np.int64) << 32) | ctok
+        korder = np.argsort(keys, kind="stable")
+        keys_sorted = keys[korder]
+    with child(engine.timer, "match"):
+        ii, mm = _mask_hits(cand_mask)
+        if len(ii):
+            rows = _two_gap_rows(ii, mm, lo, counts, pcmode, onegap_sa, pc,
+                                 gc_mask, keys_sorted, korder, refstr_host,
+                                 mgs)
     if not len(ii):
         return empty
+    with child(engine.timer, "sort"):
+        rows = rows[np.lexsort((rows[:, 3], rows[:, 2], rows[:, 1],
+                                rows[:, 0]))]
+        out = GapOnSA(position=rows[:, 0].astype(np.int32),
+                      str_position=rows[:, 1].astype(np.int32),
+                      length=rows[:, 2].astype(np.int32),
+                      length2=rows[:, 3].astype(np.int32))
+        _fill_salist(search2.start_on_salist, search2.end_on_salist,
+                     out.position)
+    kb.COUNTS["lookup2.rows"] += len(rows)
+    return out
+
+
+def _two_gap_rows(ii, mm, lo, counts, pcmode, onegap_sa, pc, gc_mask,
+                  keys_sorted, korder, refstr_host, mgs):
+    """A5's candidate hits (item ``ii``, move ``mm``) to the unsorted rows
+    (two-gap id, start, b's end offset, c's end offset) of those whose c
+    token matches a two-gap pattern and whose gap check passed."""
     # occurrence fields and the scanned c token, recomputed at the hits only
     pat, tx, _ = expand_hits(ii, counts)
     row = lo[pat] + tx
@@ -888,15 +948,8 @@ def two_gap_lookup(engine, queries, search1: OneGapSearch,
     hit = found & (((gc_mask[ii].astype(np.int64) >> mm) & 1) == 1)
     two_id = korder[np.minimum(ki, len(korder) - 1)][hit]
     length2 = fes + 1 + mgs + mm
-    rows = np.stack([two_id, css[hit], fes[hit],
+    return np.stack([two_id, css[hit], fes[hit],
                      length2[hit].astype(np.int64)], axis=1)
-    rows = rows[np.lexsort((rows[:, 3], rows[:, 2], rows[:, 1], rows[:, 0]))]
-    out = GapOnSA(position=rows[:, 0].astype(np.int32),
-                  str_position=rows[:, 1].astype(np.int32),
-                  length=rows[:, 2].astype(np.int32),
-                  length2=rows[:, 3].astype(np.int32))
-    _fill_salist(search2.start_on_salist, search2.end_on_salist, out.position)
-    return out
 
 
 def _fill_salist(start_arr, end_arr, positions):

@@ -181,7 +181,8 @@ def refine_chunk(sa, refstr, qtok, toks, sls, lo, hi, d0: int, depths: int):
             kb.ptr(refstr), refstr.shape[0], kb.ptr(qtok), qtok.shape[0],
             kb.ptr(toks), kb.ptr(sls), kb.ptr(lo), kb.ptr(hi), n, d0, depths,
             kb.ptr(ups), kb.ptr(downs), kb.ptr(lo_out), kb.ptr(hi_out))
-        kb.LAUNCHES["A1"] += 1
+        kb.counted("A1", n, kb.nbytes(toks, sls, lo, hi, ups, downs,
+                                      lo_out, hi_out))
     return ups, downs, lo_out, hi_out
 
 
@@ -433,7 +434,7 @@ def pass1(refstr, sa, lcpleft, lcpright, qtok, toks, suffixlens, reflen: int):
             kb.ptr(sa), sa.shape[0], kb.ptr(lcpleft), kb.ptr(lcpright),
             lcpleft.shape[0], kb.ptr(qtok), qtok.shape[0], kb.ptr(toks),
             kb.ptr(suffixlens), n, reflen, kb.ptr(out))
-        kb.LAUNCHES["B1p1"] += 1
+        kb.counted("B1p1", n, kb.nbytes(toks, suffixlens, out))
     return tuple(out)
 
 
@@ -463,7 +464,8 @@ def pass2(refstr, sa, lcpleft, lcpright, qtok, toks, matches, LLs, MMs, RRs):
             lcpleft.shape[0], kb.ptr(qtok), qtok.shape[0], kb.ptr(toks),
             kb.ptr(matches), kb.ptr(LLs), kb.ptr(MMs), kb.ptr(RRs), n,
             kb.ptr(out))
-        kb.LAUNCHES["B1p2"] += 1
+        kb.counted("B1p2", n, kb.nbytes(toks, matches, LLs, MMs, RRs,
+                                        out))
     return tuple(out)
 
 
@@ -476,7 +478,7 @@ def _suffix_lens(queries) -> np.ndarray:
 
 def _on(dev, *arrays):
     """int32 copies of numpy arrays on ``dev``."""
-    return [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+    return [kb.to_device(np.ascontiguousarray(a, np.int32), dev)
             for a in arrays]
 
 
@@ -488,7 +490,7 @@ def pass1_lcp(index, queries) -> Pass1Result:
     toks, sls = _on(index.device, np.arange(n, dtype=np.int32),
                     _suffix_lens(queries))
     lm, up, down, ffh, ffl, ffr = (
-        t.cpu().numpy() for t in pass1(
+        kb.to_host(t).numpy() for t in pass1(
             index.refstr_padded, index.sa, lcpleft, lcpright,
             index.query_tokens(queries), toks, sls, index.reflen))
     return Pass1Result(up=up, down=down, firstfindhit=ffh, firstfindhitL=ffl,
@@ -503,7 +505,7 @@ def pass2_lcp(index, queries, p1: Pass1Result) -> Pass2Result:
         return Pass2Result(connectoffset=connectoffset,
                            up=np.empty(0, np.int32), down=np.empty(0, np.int32))
     lcpleft, lcpright = index.lcp_tables()
-    up, down = (t.cpu().numpy() for t in pass2(
+    up, down = (kb.to_host(t).numpy() for t in pass2(
         index.refstr_padded, index.sa, lcpleft, lcpright,
         index.query_tokens(queries),
         *_on(index.device, toks, matches, p1.firstfindhitL[toks],
@@ -637,7 +639,7 @@ def refine_passes(index, queries, stats: dict = None):
     def dispatch(toks, sls, lo, hi, depth, dchunk):
         out = refine_chunk(index.sa, index.refstr_padded, qtok,
                            *_on(dev, toks, sls, lo, hi), depth, dchunk)
-        return tuple(t.cpu().numpy() for t in out)
+        return tuple(kb.to_host(t).numpy() for t in out)
 
     return drive_refinement(queries, index.reflen, index.seed_host, dispatch,
                             stats=stats)

@@ -27,6 +27,7 @@ from cgx_tpu_torch.preproc.corpus import SourceCorpus
 from cgx_tpu_torch.preproc.suffix_array import SAIndex
 from cgx_tpu_torch.search.lookup import MMOV, gap_check_grow, pack_moves
 from cgx_tpu_torch.types import Precomp
+from cgx_tpu_torch.utils.timing import child
 
 
 def gap_check_plain(rlp, lr_tar, gostart, mrs: int, mgs: int, fwd: bool):
@@ -58,7 +59,7 @@ def gap_check(rlp, lr_tar, gostart, mrs: int, mgs: int, fwd: bool):
             "gapcheck", "cgx_gap_check", device, *kb.view(rlp),
             *kb.view(lr_tar), kb.ptr(gostart), n, mrs, mgs, int(fwd),
             kb.ptr(out))
-        kb.LAUNCHES[kb.launch_id("A4", rlp)] += 1
+        kb.counted(kb.launch_id("A4", rlp), n, kb.nbytes(gostart, out))
     return out
 
 
@@ -134,52 +135,60 @@ def precompute(engine, source: SourceCorpus, sa: SAIndex,
     """The precomputed occurrences of every owned frequent pair, with the
     gap checks (A4) run by ``engine`` (``cgx_tpu_torch.engine``), forward
     then backward; a ``ShardedEngine`` runs each check on the shard that
-    owns its occurrence."""
-    tokens, counts, run_start = top_tokens(source, sa, cfg)
-    P = len(tokens)
-    mrs, mgs = cfg.max_rule_span, cfg.min_gap_size
-    sa_host = np.asarray(sa.sa)
+    owns its occurrence.  With the engine's ``timer`` (a
+    ``utils.timing.PhaseTimer``) the host stages are child phases of the
+    phase open: ``top`` (the top tokens and their occurrences), ``scan``
+    (the partner scans), ``rows`` (the gap checks' results to rows and
+    misses) and ``sort``."""
+    with child(engine.timer, "top"):
+        tokens, counts, run_start = top_tokens(source, sa, cfg)
+        P = len(tokens)
+        mrs, mgs = cfg.max_rule_span, cfg.min_gap_size
+        sa_host = np.asarray(sa.sa)
 
-    # every occurrence of every top token, once
-    tok_idx = np.repeat(np.arange(P), counts)
-    offs = np.concatenate([[0], np.cumsum(counts)])[:-1]
-    tx = np.arange(int(counts.sum())) - np.repeat(offs, counts)
-    gostart = sa_host[np.repeat(run_start, counts) + tx].astype(np.int32)
+        # every occurrence of every top token, once
+        tok_idx = np.repeat(np.arange(P), counts)
+        offs = np.concatenate([[0], np.cumsum(counts)])[:-1]
+        tx = np.arange(int(counts.sum())) - np.repeat(offs, counts)
+        gostart = sa_host[np.repeat(run_start, counts) + tx].astype(np.int32)
 
     refstr_host = np.asarray(source.str_)
     rows_parts = []
     missing = np.zeros(P * P, dtype=np.int32)
     for fwd in (True, False):
-        owns, cell, start, length = _host_scan(
-            refstr_host, tokens, counts, tok_idx, gostart.astype(np.int64),
-            mrs, mgs, fwd)
-        live = np.flatnonzero(owns.any(axis=1))
+        with child(engine.timer, "scan"):
+            owns, cell, start, length = _host_scan(
+                refstr_host, tokens, counts, tok_idx,
+                gostart.astype(np.int64), mrs, mgs, fwd)
+            live = np.flatnonzero(owns.any(axis=1))
         if not len(live):
             continue
         gc = engine.gap_check(gostart[live], fwd)
-        ii_l, mm = np.nonzero(owns[live])
-        ii = live[ii_l]
-        hit = gc_bit(gc[ii_l], mm)
-        np.add.at(missing, cell[ii, mm][~hit], 1)
-        if hit.any():
-            rows_parts.append(np.stack([
-                cell[ii, mm][hit], start[ii, mm][hit].astype(np.int64),
-                length[ii, mm][hit].astype(np.int64)], axis=1))
+        with child(engine.timer, "rows"):
+            ii_l, mm = np.nonzero(owns[live])
+            ii = live[ii_l]
+            hit = gc_bit(gc[ii_l], mm)
+            np.add.at(missing, cell[ii, mm][~hit], 1)
+            if hit.any():
+                rows_parts.append(np.stack([
+                    cell[ii, mm][hit], start[ii, mm][hit].astype(np.int64),
+                    length[ii, mm][hit].astype(np.int64)], axis=1))
 
-    if rows_parts:
-        rows = np.concatenate(rows_parts, axis=0)
-        check_capacity("precomp", len(rows), cfg.cap_precomp)
-        rows = rows[np.lexsort((rows[:, 2], rows[:, 1], rows[:, 0]))]
-    else:
-        rows = np.empty((0, 3), dtype=np.int64)
+    with child(engine.timer, "sort"):
+        if rows_parts:
+            rows = np.concatenate(rows_parts, axis=0)
+            check_capacity("precomp", len(rows), cfg.cap_precomp)
+            rows = rows[np.lexsort((rows[:, 2], rows[:, 1], rows[:, 0]))]
+        else:
+            rows = np.empty((0, 3), dtype=np.int64)
 
-    index_start = np.ones(P * P, dtype=np.int32)
-    index_end = np.zeros(P * P, dtype=np.int32)
-    if len(rows):
-        uniq, first_idx, cnts = np.unique(rows[:, 0], return_index=True,
-                                          return_counts=True)
-        index_start[uniq] = first_idx.astype(np.int32)
-        index_end[uniq] = (first_idx + cnts - 1).astype(np.int32)
+        index_start = np.ones(P * P, dtype=np.int32)
+        index_end = np.zeros(P * P, dtype=np.int32)
+        if len(rows):
+            uniq, first_idx, cnts = np.unique(rows[:, 0], return_index=True,
+                                              return_counts=True)
+            index_start[uniq] = first_idx.astype(np.int32)
+            index_end[uniq] = (first_idx + cnts - 1).astype(np.int32)
     return Precomp(
         frequent_list=tokens.astype(np.int32),
         tok_start=run_start.astype(np.int32),

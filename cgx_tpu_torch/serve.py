@@ -18,11 +18,14 @@ writes ``dest_dir/grammar.<i>.{s,n}`` per query (the same bytes as a
 one-shot ``cgx_tpu_torch.cli`` run over the same corpus and queries) and
 answers on stdout:
 
-    ok <n_queries> <n_grammar_lines> <seconds>
+    ok <n_queries> <n_grammar_lines> <seconds> [<phase>=<seconds> ...]
 
-or ``err <what>`` for a bad request line or a batch that failed; serving
-goes on.  The first line is ``ready <seconds>``, after the index and the
-prewarm batch (``warn ...`` before it when the prewarm failed).
+where the tokens after the request's seconds are its own top-level phases
+(``utils.timing.PhaseTimer``: ``enumeration=0.012 lookup1=0.340 ...``, in
+the order they first ran), or ``err <what>`` for a bad request line or a
+batch that failed; serving goes on.  The first line is ``ready
+<seconds>``, after the index and the prewarm batch (``warn ...`` before
+it when the prewarm failed).
 
 Usage:
     python -m cgx_tpu_torch.serve <source_corpus> <target_corpus> \
@@ -82,9 +85,12 @@ def serve_loop(reffile, tarfile, alignfile, lexfile, cfg=DEFAULT_CONFIG,
         dp_devices=dp_devices)
 
     def run(queries):
+        """The request's lines, counters and its own phase timer (the
+        engine's calls timed under its phases)."""
         bt = PhaseTimer(device)
+        ctx["engine"].timer = bt
         front = tpl._front_stages(ctx, queries, cfg, bt)
-        return tpl._back_stages(ctx, queries, front, cfg, bt)
+        return (*tpl._back_stages(ctx, queries, front, cfg, bt), bt)
 
     if prewarm is not None:
         # a bad prewarm file must not kill the server before 'ready':
@@ -117,13 +123,16 @@ def serve_loop(reffile, tarfile, alignfile, lexfile, cfg=DEFAULT_CONFIG,
         try:
             queries = cp.load_queries(cp.read_lines(qryfile),
                                       art.source.vocab)
-            lines, counters = run(queries)
+            lines, counters, bt = run(queries)
             gw.write_grammars(dest, queries.qryscount, cfg.is_sample, lines)
         except Exception as exc:   # keep serving after a bad batch
             print(f"err {type(exc).__name__}: {exc}", file=out, flush=True)
             continue
+        phases = "".join(f" {k}={v:.3f}" for k, v in
+                         bt.as_dict(children=False).items())
         print(f"ok {queries.qryscount} {counters['total_lines']} "
-              f"{time.perf_counter() - t1:.3f}", file=out, flush=True)
+              f"{time.perf_counter() - t1:.3f}{phases}", file=out,
+              flush=True)
         served += 1
     return served
 

@@ -127,7 +127,7 @@ def launch(kernel: str, ref, pos, blocks=None):
     kb.launch("probe", "cgx_probe_sum" if kernel == "P1" else
               "cgx_probe_rows", device, kb.ptr(ref), ref.shape[0],
               kb.ptr(pos), n, g, kb.ptr(out))
-    kb.LAUNCHES[kernel] += 1
+    kb.counted(kernel, n, kb.nbytes(pos, out))
     return res
 
 

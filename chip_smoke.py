@@ -27,8 +27,9 @@ Phases, one line each on stdout:
    B2g, B3f, B3b, B3p, B3t, B3c and A4, A7, A8 on shard views on the
    sharded one (MaxLex on the host there).  Its counters must equal the
    JAX package's and its grammar hash the golden in
-   tests/golden_torch_hashes.json (the JAX package's full grammar).  On
-   europarl's index and queries both LCP passes must then give the
+   tests/golden_torch_hashes.json (the JAX package's full grammar); its
+   line prints each kernel's items and bytes (``kernels.build.ITEMS``,
+   ``BYTES``).  On europarl's index and queries both LCP passes must then give the
    refinement's up, down and longestmatch (their launches, B1's largest,
    counted with the launch counts reset just before them); the sharded run
    prints each shard's bytes and its peak device memory beside the
@@ -516,7 +517,6 @@ class Capture:
         self.ranks = {}          # kernel -> the rank of its kept call
         self.shard_calls = {}    # (kernel, view offset) -> (n, args)
         self.dp_calls = []       # every B4 call's args, in shard order
-        self.items = {}          # kernel -> items
         self.rounds = []         # each round-form dispatch's plan
         self.originals = {site: getattr(*site) for site in self.sites}
         self.originals[(shx, "refine_round")] = shx.refine_round
@@ -529,7 +529,6 @@ class Capture:
 
             def hook(*args, _real=real, _k=kernel_of, _n=count_of):
                 k, n = _k(args), _n(args)
-                self.items[k] = self.items.get(k, 0) + n
                 # the largest launch; of B2s's, a tree step that both
                 # applies tokens and reads (0 < g < T).  B2s updates its
                 # lanes in place and a later step B2t's, so theirs are kept
@@ -590,7 +589,8 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
     data = _CORPORA[size]
     gen_s = time.perf_counter() - t0
     kb.LAUNCHES.clear()
-    capture.items.clear()
+    kb.ITEMS.clear()
+    kb.BYTES.clear()
     capture.rounds.clear()
     cuda = torch.device(device).type == "cuda"
     held = torch.cuda.memory_allocated() if cuda else 0
@@ -632,7 +632,7 @@ def run_e2e(size: str, device: str, capture: Capture, golden: dict,
         "peak_mem_bytes": res.timing.peak_memory(),
         "held_before_bytes": held, "run_peak_mem_bytes": run_peak,
         "counters": res.counters, "launches": launches,
-        "items": dict(capture.items),
+        "items": dict(kb.ITEMS), "bytes": dict(kb.BYTES),
         **({"round_dispatches": capture.rounds} if capture.rounds else {}),
         "grammar_sha256": ghash, "golden_ok": ghash == want["sha256"]}),
         flush=True)
@@ -781,7 +781,6 @@ def _query_dp(res, capture: Capture, shards: int) -> dict:
     _, sa_pos, lms = dist.contig_occurrences(res.blocks, cfg)
     devices = dist.make_mesh(devices=["cuda:0"] * shards)
     kb.LAUNCHES.clear()
-    capture.items.clear()
     capture.dp_calls.clear()
     t0 = time.perf_counter()
     lm, n_match, n_rules = dist.run_sharded_search(devices, index, queries,
@@ -842,7 +841,6 @@ def check_pcs_cols(capture: Capture) -> dict:
     cols = [torch.from_numpy(np.ascontiguousarray(c, np.int32)).cuda()
             for c in cols]
     kb.LAUNCHES.clear()
-    capture.items.clear()
     got = lookup.pcs_cols(refstr, *cols, mrs)
     torch.cuda.synchronize()
     launches = check_launches("columns", ("C1p",),
@@ -888,7 +886,6 @@ def check_probe(capture: Capture) -> dict:
     from cgx_tpu_torch.tools import gather_probe as gp
     inputs = probe_inputs(capture)
     kb.LAUNCHES.clear()
-    capture.items.clear()
     results = {name: gp.run_probe(ref, pos, reps=10)
                for name, (ref, pos) in inputs.items()}
     torch.cuda.synchronize()

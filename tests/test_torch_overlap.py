@@ -84,15 +84,22 @@ def test_overlap_back_half_scores_on_the_host(monkeypatch):
     real_phase = PhaseTimer.phase
 
     def phase(self, name, sync=True):
-        synced.append((name, sync))
+        synced.append((name, sync, self.open_phase()))
         return real_phase(self, name, sync)
     monkeypatch.setattr(PhaseTimer, "phase", phase)
     tpl.run_pipeline_overlap(*_world(), ExtractorConfig(precompute_count=10),
                              device="cpu", query_batches=2)
     assert seen == [(False, ic.HostLexIndex)] * 2
-    host = {n for n, s in synced if not s}
+    top = [(n, s) for n, s, parent in synced if parent is None]
+    host = {n for n, s in top if not s}
     assert host == {"lexicon", "maxlex", "printout"}
-    assert all(s for n, s in synced if n not in host)
+    assert all(s for n, s in top if n not in host)
+    # the child phases (the back half's among them) ask for no synchronise
+    children = {(parent.split("/")[0], n)
+                for n, s, parent in synced if parent is not None}
+    assert {("lexicon", "onegap"), ("printout", "lines"),
+            ("lookup2", "match")} <= children
+    assert not any(s for n, s, parent in synced if parent is not None)
 
 
 def test_phase_timer_counts_every_addition(monkeypatch):

@@ -835,3 +835,51 @@ def test_refine_round_reads_count_each_word_once(sharded, d0, depths, single,
     assert len(seen) == 3 * (2 * T + 1)
     for k, args, (words, _) in seen:
         assert words == _brute_round_words(k, args), (k, args[10:12])
+
+
+@pytest.mark.parametrize("d0,depths,single", [(0, 4, False), (2, 4, False),
+                                              (5, 4, True), (3, 16, True)])
+def test_round_form_launch_bytes_are_a_lower_bound(sharded, d0, depths,
+                                                   single, monkeypatch):
+    """The bytes counted for every B2s and B2t launch of a round-form
+    dispatch over 3 shards (``step_bytes``, ``partial_bytes``, what
+    ``kb.counted`` adds to ``BYTES``) are at most the words
+    ``refine_round_reads`` counts for it, 4 bytes a word: a step counts
+    none of the whole ``ups``/``downs`` tables, nor step 0 a token."""
+    sidx, rep = sharded
+    rng = np.random.default_rng(90 + d0 + depths)
+    n = 24
+    qtok, toks, sls, lo, hi = _lanes(rng, rep, n, d0)
+    if single:
+        hi = (lo + torch.from_numpy(rng.integers(0, 2, n).astype(
+            np.int32))).to(torch.int32)
+    listed = dataclasses.replace(sidx, devices=[torch.device("cpu")] * 3,
+                                 listed=True)
+    seen = []
+
+    def spy(k, real):
+        def run(*args):
+            kept = tuple(a.clone() if torch.is_tensor(a) else a
+                         for a in args)
+            words = reads.refine_round_reads(k, *kept)[0]
+            if k == "B2t":
+                n_, nodes = kept[5].shape
+                got = shx.partial_bytes(n_, nodes, kept[7])
+            else:
+                got = shx.step_bytes(kept[4].shape[0], *kept[10:12],
+                                     kept[13])
+            seen.append((k, kept[10:12] if k == "B2s" else None, got, words))
+            return real(*args)
+        return run
+    monkeypatch.setattr(shx, "refine_step", spy("B2s", shx.refine_step))
+    monkeypatch.setattr(shx, "token_partial", spy("B2t",
+                                                  shx.token_partial))
+    shx.refine_round(listed, qtok, *(x.numpy() for x in (toks, sls, lo, hi)),
+                     d0, depths)
+    R, T = shx.round_plan(lo.numpy(), hi.numpy(), depths)
+    assert len(seen) == 3 * (2 * T + 1)
+    for k, at, got, words in seen:
+        assert 0 < got <= 4 * words, (k, at, got, words)
+    # a dispatch's B2s bytes grow with its steps, not with T x the tables
+    b2s = sum(got for k, _, got, _ in seen if k == "B2s")
+    assert b2s < 3 * (T + 1) * 4 * n * (8 + 2 + shx.TREE_NODES)

@@ -133,3 +133,26 @@ def test_serve_cuda_without_a_card_raises(toy_fixture, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.serve_loop(*_files(toy_fixture), inp=io.StringIO(""),
                          out=io.StringIO())
+
+
+def test_ok_line_appends_the_request_phases(toy_fixture, tmp_path):
+    """The ``ok`` line keeps its first four fields and then names the
+    request's own top-level phases, ``name=seconds``, each request's
+    from its own timer (no child phase among them)."""
+    q_all, q_small = _small_queries(toy_fixture, tmp_path)
+    req = io.StringIO(f"{q_all} {tmp_path / 'a'}\n"
+                      f"{q_small} {tmp_path / 'b'}\n")
+    out = io.StringIO()
+    assert serve.serve_loop(*_files(toy_fixture), inp=req, out=out,
+                            prewarm=None, device="cpu") == 2
+    for reply, n in zip(out.getvalue().splitlines()[1:], ("8", "3")):
+        fields = reply.split()
+        assert fields[0] == "ok" and fields[1] == n
+        int(fields[2])
+        wall = float(fields[3])
+        phases = dict(tok.split("=") for tok in fields[4:])
+        assert {"kernel", "enumeration", "lookup1", "lookup2", "lexicon",
+                "printout"} <= set(phases)
+        assert not any("/" in k for k in phases)
+        assert sum(float(v) for v in phases.values()) <= wall + 0.01 * len(
+            phases)
