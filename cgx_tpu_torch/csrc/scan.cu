@@ -37,6 +37,28 @@
 //   replaces _two_batch_packed (:650-658), the same word over (pstart,
 //   plen) columns; B3t (cgx_two_items) replaces _two_batch (:643) on a
 //   shard's views and returns cand and gc as two words.
+// lookup2's match, A5m (cgx_two_count, cgx_two_rows), `two_match_warp`:
+//   replaces no TPU kernel.  The JAX package resolves A5's hits on the host
+//   (cgx_tpu/search/lookup.py:727-757: unpack the bits, expand the hits,
+//   gather each hit's occurrence and c token, search the int64 (one-gap
+//   pattern, c token) keys, test the gap-check bit); on the H100 that host
+//   work was nearly all of lookup2's time while A5 took milliseconds, so
+//   A5m does it in A5's warp body (two_steps, shared with A5): lane m of
+//   a half takes move m of the half's item, and where the move is a
+//   candidate that passes the gap check it bisects its move word (the c
+//   token) in int32 over the item's one-gap pattern's sorted c tokens
+//   (kptr, kctok: no packed key on the device).  Two passes over one body:
+//   the count pass writes each warp's kept rows, the exclusive prefix of
+//   those counts is taken on the device, and the write pass recomputes the
+//   body and writes each kept move's row (two_id, pstart, plen | (m <<
+//   16)) at its warp's offset plus its rank in the step's ballot, so the
+//   rows come out in (item, move) order, which a stable sort by two_id
+//   alone turns into the lookup's (two_id, start, length, length2) order.
+//   The write pass runs over row ranges [r0, r1) (warps outside return at
+//   once), so its output buffer stays under A5's word column.  Bound: A5's
+//   reads and its gap check per item, then one kptr pair per item, a few
+//   L2-resident kctok words per kept candidate and 12 bytes a row kept;
+//   twice A5's work in all, latency-bound gathers as A5 is.
 // The verifications, `pcs_warp`: _pcs_item (:203): the span budget, up to
 //   2 prefix and 2 suffix tokens per precomputed occurrence, a lane per
 //   item reading only the corpus words its item needs, all in one round.
@@ -309,12 +331,16 @@ scan_kernel(View ref, View rlp, View lr_tar, const int* __restrict__ sa,
 // survive over the earlier moves) is a ballot, and the gap check is
 // gap_check_half for every item: gc is part of the output (do_gap=True).
 // Both first-round words of pair it + 1 are read while pair it's gap check
-// runs.  Lane i gets item i's cand and gc.  Every lane of the warp calls
-// this.
-__device__ __forceinline__ void two_warp(const View& ref, const View& rlp,
-                                         const View& lr_tar, int pstart,
-                                         int plen, int mrs, int mgs,
-                                         unsigned& cand, unsigned& gc) {
+// runs.  After step it, every lane calls step(src, g, pl, word, c, h): its
+// half's item src = 2it + (lane >> 4), that item's gostart g = pstart +
+// plen and plen pl, the lane's move word, the candidate ballot c (bit
+// lane: move lane & 15 of the lane's half's item) and the half's gap-check
+// mask h (bit m: move m).  Every lane of the warp calls this.
+template <class Step>
+__device__ __forceinline__ void two_steps(const View& ref, const View& rlp,
+                                          const View& lr_tar, int pstart,
+                                          int plen, int mrs, int mgs,
+                                          Step&& step) {
     const int lane = lane_id();
     const int m = lane & 15;
     const int gostart = pstart + plen;
@@ -328,8 +354,6 @@ __device__ __forceinline__ void two_warp(const View& ref, const View& rlp,
     int g = __shfl_sync(kFull, gostart, lane >> 4);
     int word = move_word(g);
     unsigned t = gap_check_word(rlp, g + 1, true);
-    cand = 0;
-    gc = 0;
 #pragma unroll 1
     for (int it = 0; it < 16; ++it) {
         const int src = 2 * it + (lane >> 4);
@@ -353,16 +377,66 @@ __device__ __forceinline__ void two_warp(const View& ref, const View& rlp,
         const unsigned h = gap_check_half(rlp, lr_tar, g + 1, mgs - 1, mrs,
                                           true, t);
         __syncwarp();
-        // lane 2it takes half 0's item, lane 2it + 1 half 1's
-        const unsigned hv = __shfl_sync(kFull, h, (lane & 1) << 4);
-        if ((lane >> 1) == it) {
-            cand = (c >> ((lane & 1) << 4)) & 0xFFFFu;
-            gc = hv;
-        }
+        step(src, g, pl, word, c, h);
         g = g_next;
         word = word_next;
         t = t_next;
     }
+}
+
+// two_steps keeping each item's masks: lane i gets item i's cand and gc
+__device__ __forceinline__ void two_warp(const View& ref, const View& rlp,
+                                         const View& lr_tar, int pstart,
+                                         int plen, int mrs, int mgs,
+                                         unsigned& cand, unsigned& gc) {
+    const int lane = lane_id();
+    cand = 0;
+    gc = 0;
+    two_steps(ref, rlp, lr_tar, pstart, plen, mrs, mgs,
+              [&](int src, int, int, int, unsigned c, unsigned h) {
+        // lane 2it takes half 0's item, lane 2it + 1 half 1's
+        const unsigned hv = __shfl_sync(kFull, h, (lane & 1) << 4);
+        if ((lane >> 1) == (src >> 1)) {
+            cand = (c >> ((lane & 1) << 4)) & 0xFFFFu;
+            gc = hv;
+        }
+    });
+}
+
+// A5m's body: two_steps with each kept move's c token matched.  Lane i
+// holds item i's `valid` flag and its one-gap pattern's key range [klo,
+// khi) of kctok (the c tokens of the pattern's two-gap extensions,
+// ascending and distinct).  In each step lane m of a half takes move m of
+// the half's item: where the move is a candidate and passes the gap check,
+// its move word (the c token) is found by an int32 lower-bound bisection
+// over the range.  Then every lane calls emit(f, pstart, plen, m, k): f the
+// ballot of the lanes whose move matched (bits 0-15 item 2it's moves,
+// 16-31 item 2it + 1's: (item, move) order), the half's item's (pstart,
+// plen), the lane's move and, where it matched, the key's slot k (else -1).
+// Every lane of the warp calls this.
+template <class Emit>
+__device__ __forceinline__ void two_match_warp(
+        const View& ref, const View& rlp, const View& lr_tar, int pstart,
+        int plen, bool valid, int klo, int khi,
+        const int* __restrict__ kctok, int mrs, int mgs, Emit&& emit) {
+    const int lane = lane_id();
+    const int m = lane & 15;
+    two_steps(ref, rlp, lr_tar, pstart, plen, mrs, mgs,
+              [&](int src, int g, int pl, int word, unsigned c, unsigned h) {
+        const bool v = __shfl_sync(kFull, (int)valid, src) != 0;
+        const int lo0 = __shfl_sync(kFull, klo, src);
+        const int hi0 = __shfl_sync(kFull, khi, src);
+        int k = -1;
+        if (v && ((c >> lane) & 1u) && ((h >> m) & 1u)) {
+            int lo = lo0, hi = hi0;
+            while (lo < hi) {
+                const int mid = (lo + hi) >> 1;
+                if (kctok[mid] < word) lo = mid + 1; else hi = mid;
+            }
+            if (lo < hi0 && kctok[lo] == word) k = lo;
+        }
+        emit(__ballot_sync(kFull, k >= 0), g - pl, pl, m, k);
+    });
 }
 
 // A3: a warp per 32 consecutive items j0 .. j0 + 31.  Item j's pattern is
@@ -451,6 +525,24 @@ pcs_kernel(View ref, const int* __restrict__ pcrows, int m_rows,
     if (lane == 0) out[j0 >> 5] = (int)word;
 }
 
+// lane j's A5 item: its pattern p (returned) and the occurrence (start, len)
+// of row pattab[p, 0] + j - offs[p], read from the precomputed rows or the
+// one-gap rows as the pattern's pcmode flag says (the unselected table is
+// never read, and the selected read is clamped)
+__device__ __forceinline__ int two_occurrence(
+        const int* __restrict__ ogrows, int og_rows,
+        const int* __restrict__ pcrows, int pc_rows,
+        const int* __restrict__ pattab, const int* __restrict__ offs, int D,
+        int j, int& pstart, int& plen) {
+    const int p = find_pattern(offs, D, j);
+    const int row = pattab[2 * p] + j - offs[p];
+    const int* r = pattab[2 * p + 1] > 0 ? pcrows + 2 * clampi(row, pc_rows)
+                                         : ogrows + 2 * clampi(row, og_rows);
+    pstart = r[0];
+    plen = r[1];
+    return p;
+}
+
 // A5: a warp per 32 consecutive items (two_warp); a warp wholly past n
 // returns at once, and its other lanes stay to the end
 __global__ void __launch_bounds__(kScanThreads)
@@ -462,21 +554,97 @@ two_kernel(View ref, View rlp, View lr_tar, const int* __restrict__ ogrows,
     if (j - lane_id() >= n) return;
     // 1. lane i: item i's pattern, its row and the occurrence (start, len)
     int pstart = 0, plen = 0;
-    if (j < n) {
-        const int p = find_pattern(offs, D, j);
-        const int row = pattab[2 * p] + j - offs[p];
-        // the unselected table is never read, and the selected read is
-        // clamped
-        const int* r = pattab[2 * p + 1] > 0
-                           ? pcrows + 2 * clampi(row, pc_rows)
-                           : ogrows + 2 * clampi(row, og_rows);
-        pstart = r[0];
-        plen = r[1];
-    }
+    if (j < n)
+        two_occurrence(ogrows, og_rows, pcrows, pc_rows, pattab, offs, D, j,
+                       pstart, plen);
     // 2-3. the candidate and gap-check masks; 4. one coalesced store
     unsigned cand, gc;
     two_warp(ref, rlp, lr_tar, pstart, plen, mrs, mgs, cand, gc);
     if (j < n) out[j] = (int)(cand | (gc << 16));
+}
+
+// A5m's lane j: A5's occurrence, and the key range [klo, khi) of its
+// pattern (kptr[p], kptr[p + 1], clamped into the nk keys); a tail lane
+// (j >= n) holds the empty core and no key
+struct TwoMatchItem {
+    int pstart = 0, plen = 0, klo = 0, khi = 0;
+    bool valid = false;
+};
+
+__device__ __forceinline__ TwoMatchItem two_match_item(
+        const int* __restrict__ ogrows, int og_rows,
+        const int* __restrict__ pcrows, int pc_rows,
+        const int* __restrict__ pattab, const int* __restrict__ offs, int D,
+        const int* __restrict__ kptr, int nk, int j, int n) {
+    TwoMatchItem it;
+    if (j < n) {
+        const int p = two_occurrence(ogrows, og_rows, pcrows, pc_rows, pattab,
+                                     offs, D, j, it.pstart, it.plen);
+        it.klo = clip(kptr[p], 0, nk);
+        it.khi = clip(kptr[p + 1], it.klo, nk);
+        it.valid = true;
+    }
+    return it;
+}
+
+// A5m's count pass: a warp per 32 consecutive items (two_match_warp); lane
+// 0 writes the number of rows the warp keeps
+__global__ void __launch_bounds__(kScanThreads)
+two_count_kernel(View ref, View rlp, View lr_tar,
+                 const int* __restrict__ ogrows, int og_rows,
+                 const int* __restrict__ pcrows, int pc_rows,
+                 const int* __restrict__ pattab, const int* __restrict__ offs,
+                 int D, const int* __restrict__ kptr,
+                 const int* __restrict__ kctok, int nk, int n, int mrs,
+                 int mgs, int* __restrict__ counts) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j - lane_id() >= n) return;
+    const TwoMatchItem it = two_match_item(ogrows, og_rows, pcrows, pc_rows,
+                                           pattab, offs, D, kptr, nk, j, n);
+    int total = 0;
+    two_match_warp(ref, rlp, lr_tar, it.pstart, it.plen, it.valid, it.klo,
+                   it.khi, kctok, mrs, mgs,
+                   [&](unsigned f, int, int, int, int) {
+                       total += __popc(f);
+                   });
+    if (lane_id() == 0) counts[j >> 5] = total;
+}
+
+// A5m's write pass over the rows [r0, r1): warp w's rows are rows woff[w]
+// .. woff[w + 1] - 1 (the exclusive prefix of the count pass), in (item,
+// move) order; a warp with none in the range returns at once, the others
+// recompute the count pass's body and each lane writes its matched move's
+// row (two_id, pstart, plen | (m << 16)) at the warp's running offset plus
+// its rank among the step's matches, if it lies in the range
+__global__ void __launch_bounds__(kScanThreads)
+two_rows_kernel(View ref, View rlp, View lr_tar,
+                const int* __restrict__ ogrows, int og_rows,
+                const int* __restrict__ pcrows, int pc_rows,
+                const int* __restrict__ pattab, const int* __restrict__ offs,
+                int D, const int* __restrict__ kptr,
+                const int* __restrict__ kctok, const int* __restrict__ kid,
+                int nk, int n, int mrs, int mgs,
+                const long long* __restrict__ woff, long long r0,
+                long long r1, int* __restrict__ rows) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j - lane_id() >= n) return;
+    long long base = woff[j >> 5];
+    if (woff[(j >> 5) + 1] <= r0 || base >= r1) return;   // the whole warp
+    const TwoMatchItem it = two_match_item(ogrows, og_rows, pcrows, pc_rows,
+                                           pattab, offs, D, kptr, nk, j, n);
+    const unsigned below = (1u << lane_id()) - 1u;
+    two_match_warp(ref, rlp, lr_tar, it.pstart, it.plen, it.valid, it.klo,
+                   it.khi, kctok, mrs, mgs,
+                   [&](unsigned f, int css, int fes, int m, int k) {
+                       const long long r = base + __popc(f & below);
+                       if (k >= 0 && r >= r0 && r < r1) {
+                           int* o = rows + 3 * (r - r0);
+                           o[0] = kid[k];
+                           o[1] = css;
+                           o[2] = fes | (m << 16);
+                       }
+                       base += __popc(f);
+                   });
 }
 
 // ---- C1: one item per row of host-resolved columns
@@ -652,6 +820,53 @@ CGX_EXPORT int cgx_two(const int* refstr, int ref_len, const int* rlp,
         identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
         identity_view(lr_tar, lr_len), ogrows, og_rows, pcrows, pc_rows,
         pattab, offs, D, n, mrs, mgs, out);
+    return (int)cudaGetLastError();
+}
+
+// A5m, the count pass.  A5's arguments (pattab int32 [D, 2] = (occurrence-row
+// base, pcmode), offs, ogrows and pcrows) and the (one-gap pattern, c token)
+// table: kptr int32 [D + 1], pattern p's keys kctok[kptr[p] .. kptr[p + 1])
+// ascending (nk keys in all).  counts: int32 [(n + 31) / 32], the rows each
+// warp keeps.
+CGX_EXPORT int cgx_two_count(const int* refstr, int ref_len, const int* rlp,
+                             int rlp_len, const int* lr_tar, int lr_len,
+                             const int* ogrows, int og_rows,
+                             const int* pcrows, int pc_rows,
+                             const int* pattab, const int* offs, int D,
+                             const int* kptr, const int* kctok, int nk, int n,
+                             int mrs, int mgs, int* counts, void* stream) {
+    if (mrs < 1 || mrs > MMOV || D < 1 || og_rows < 1 || pc_rows < 1
+        || nk < 1)
+        return (int)cudaErrorInvalidValue;
+    two_count_kernel<<<cgx_grid(n, kScanThreads), kScanThreads, 0,
+                       (cudaStream_t)stream>>>(
+        identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
+        identity_view(lr_tar, lr_len), ogrows, og_rows, pcrows, pc_rows,
+        pattab, offs, D, kptr, kctok, nk, n, mrs, mgs, counts);
+    return (int)cudaGetLastError();
+}
+
+// A5m, the write pass.  The count pass's arguments, kid int32 [nk] (each
+// key's two-gap id) and woff int64 [(n + 31) / 32 + 1], the exclusive
+// prefix of its counts.  rows: int32 [r1 - r0, 3], rows r0 .. r1 - 1 of
+// (two_id, pstart, plen | (move << 16)) in (item, move) order.
+CGX_EXPORT int cgx_two_rows(const int* refstr, int ref_len, const int* rlp,
+                            int rlp_len, const int* lr_tar, int lr_len,
+                            const int* ogrows, int og_rows, const int* pcrows,
+                            int pc_rows, const int* pattab, const int* offs,
+                            int D, const int* kptr, const int* kctok,
+                            const int* kid, int nk, int n, int mrs, int mgs,
+                            const long long* woff, long long r0, long long r1,
+                            int* rows, void* stream) {
+    if (mrs < 1 || mrs > MMOV || D < 1 || og_rows < 1 || pc_rows < 1
+        || nk < 1 || r0 < 0 || r1 < r0)
+        return (int)cudaErrorInvalidValue;
+    two_rows_kernel<<<cgx_grid(n, kScanThreads), kScanThreads, 0,
+                      (cudaStream_t)stream>>>(
+        identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
+        identity_view(lr_tar, lr_len), ogrows, og_rows, pcrows, pc_rows,
+        pattab, offs, D, kptr, kctok, kid, nk, n, mrs, mgs, woff, r0, r1,
+        rows);
     return (int)cudaGetLastError();
 }
 

@@ -20,7 +20,11 @@ the same host logic drives both index layouts:
 
 Methods (all take and return host numpy; device placement is the engine's
 business): ``sa_values``, ``pcs_expanded``, ``scan_expanded``,
-``two_expanded``, ``gap_check``, ``contig``, ``onegap``, ``twogap``.
+``two_expanded``, ``gap_check``, ``contig``, ``onegap``, ``twogap``.  An
+engine whose ``two_rows_on_device`` is true (``ReplicatedEngine`` without
+``scan_cols``) also has ``two_rows`` (kernel A5m: lookup2's scan and its
+c-token match on the device), which lookup2 then takes in place of
+``two_expanded`` and its host match; the others have neither.
 Each protocol method is a child phase ``engine.<method>`` of the phase
 that called it (``traced``) when the engine's ``timer`` is set
 (``pipeline.build_artifact`` and ``_make_context`` set it, ``serve`` per
@@ -237,15 +241,40 @@ class ReplicatedEngine:
         else:
             pattab, offs, n = self._pattern_tables(counts, (lo, pcmode),
                                                    width=2)
-            rows = np.zeros((max(len(onegap_sa.str_position), 1), 2),
-                            np.int32)
-            rows[:len(onegap_sa.str_position), 0] = onegap_sa.str_position
-            rows[:len(onegap_sa.length), 1] = onegap_sa.length
             words = lookup.two(ix.refstr_padded, ix.rlp, ix.lr_tar,
-                               kb.to_device(rows, ix.device),
+                               self._onegap_rows(onegap_sa),
                                ix.precomp_rows(pc), pattab, offs, n,
                                cfg.max_rule_span, cfg.min_gap_size)
         return _done(lambda: split_two(host(words)), fetch)
+
+    @property
+    def two_rows_on_device(self) -> bool:
+        """Whether lookup2 matches on the device (``two_rows``): on the
+        expanded items, not with ``scan_cols``."""
+        return not self.scan_cols
+
+    @traced
+    def two_rows(self, onegap_sa, pc, lo, counts, pcmode, kptr, kctok, kid):
+        """A5m over every one-gap occurrence, the c tokens matched against
+        the (one-gap pattern, c token) table ``kptr``, ``kctok``, ``kid``
+        (``lookup.two_rows``) -> the kept rows' (two_id, pstart, plen |
+        (move << 16)), numpy int32 [R] each, in (item, move) order."""
+        ix, cfg = self.index, self.cfg
+        pattab, offs, n = self._pattern_tables(counts, (lo, pcmode), width=2)
+        rows = lookup.two_rows(ix.refstr_padded, ix.rlp, ix.lr_tar,
+                               self._onegap_rows(onegap_sa),
+                               ix.precomp_rows(pc), pattab, offs, n,
+                               cfg.max_rule_span, cfg.min_gap_size,
+                               *on(ix.device, kptr, kctok, kid)).numpy()
+        return rows[:, 0], rows[:, 1], rows[:, 2]
+
+    def _onegap_rows(self, onegap_sa):
+        """The one-gap occurrences (start, len) as A5's int32 [m >= 1, 2]
+        table on the index's device."""
+        rows = np.zeros((max(len(onegap_sa.str_position), 1), 2), np.int32)
+        rows[:len(onegap_sa.str_position), 0] = onegap_sa.str_position
+        rows[:len(onegap_sa.length), 1] = onegap_sa.length
+        return kb.to_device(rows, self.index.device)
 
     @traced
     def gap_check(self, gostart, fwd, fetch=True):

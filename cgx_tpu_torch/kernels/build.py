@@ -13,7 +13,9 @@ module of the package on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts launches per kernel id (the ids of the JAX package's
 device kernels: A1, A2f and A2b for A2's forward and backward scans, A3,
-A4, A5, A6, A7, A8, A9, A10, B1p1 and B1p2 for B1's two passes, and the
+A4, A5, A6, A7, A8, A9, A10, B1p1 and B1p2 for B1's two passes, A5m
+(lookup2's match on the device, which replaces no TPU kernel; its count
+and write passes each count a launch), and the
 sharded index's B2r and B2g (refinement, SA gather), B2s and B2t (the
 refinement's round form on a device list) and B3f, B3b, B3p, B3t and B3c (the per-item scans, verification, second-gap scan and contiguous
 extraction), the column-upload lookups' C1f, C1b, C1p and C1t, the
@@ -28,7 +30,8 @@ adds the launch's items to ``ITEMS`` and its bytes to ``BYTES``.
 of every host<->device copy), ``syncs`` (one per ``to_host`` of a CUDA
 tensor, plus one per ``utils.timing.PhaseTimer`` synchronise) and the
 two-gap lookup's work at its boundaries (``lookup2.items``, the A5 items
-scanned, and ``lookup2.rows``, the rows kept).  A copy is counted only
+scanned, ``lookup2.device_items``, those of them matched on the device by
+A5m, and ``lookup2.rows``, the rows kept).  A copy is counted only
 where a CUDA tensor takes part, so a CPU run writes no count under a
 device's name.  ``snapshot`` reads the whole registry as one flat dict.
 """
@@ -61,6 +64,7 @@ COUNTS: collections.Counter = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _V = [_P, _I, _I, _I]   # a view: words, local length, global offset, length
 # C entry points per source file: name -> argtypes (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
@@ -96,6 +100,10 @@ SIGNATURES = {
         "cgx_pcs_cols": [_P, _I] + [_P] * 8 + [_I, _I, _P, _P],
         "cgx_two_packed": [_P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _P,
                            _P],
+        "cgx_two_count": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I,
+                          _P, _P, _I, _I, _I, _I, _P, _P],
+        "cgx_two_rows": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I,
+                         _P, _P, _P, _I, _I, _I, _I, _P, _L, _L, _P, _P],
     },
     "contig": {
         "cgx_contig": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,

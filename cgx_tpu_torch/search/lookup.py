@@ -26,7 +26,9 @@ package does:
 lookup2: kernel A5 (``two``) scans right from every occurrence of every
 distinct one-gap pattern (precomputed cells expanded) for the second gap,
 with the gap check fused in; the c token of each hit is resolved on the host
-against the two-gap patterns that extend the core.
+against the two-gap patterns that extend the core.  On the replicated
+engine kernel A5m (``two_rows``) runs A5's body and resolves the c tokens
+on the device, and only the kept rows come down.
 
 The kernels expand their item axis on the device from a per-pattern table
 (``pattab``) and the exclusive count prefix (``offs``), and launch once over
@@ -156,12 +158,17 @@ def gap_check_grow(rlp, lr_tar, fixed, base_off: int, mrs: int,
     return ok1 & (s + bmin == src_start) & (s + bmax == src_end)
 
 
-def _expand(pattab, offs, n: int):
-    """Item j -> (pattern row of pattab, tx): the last pattern p with
-    offs[p] <= j, clamped to [0, D - 1] (``_cumsum_expand``)."""
-    j = torch.arange(n, dtype=torch.int32, device=offs.device)
-    p = (torch.searchsorted(offs, j, right=True) - 1).clamp(
+def _pattern_of(pattab, offs, j):
+    """Items ``j`` -> their patterns: the last p with offs[p] <= j, clamped
+    to [0, D - 1] (``_cumsum_expand``)."""
+    return (torch.searchsorted(offs, j, right=True) - 1).clamp(
         0, pattab.shape[0] - 1)
+
+
+def _expand(pattab, offs, n: int):
+    """Item j -> (pattern row of pattab, tx) (``_pattern_of``)."""
+    j = torch.arange(n, dtype=torch.int32, device=offs.device)
+    p = _pattern_of(pattab, offs, j)
     return pattab[p], j - offs[p]
 
 
@@ -282,17 +289,59 @@ def scan_plain(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int,
                                  gap))
 
 
+def _two_occurrences(ogrows, pcrows, pattab, offs, j):
+    """A5's items ``j`` -> (their patterns, the occurrence rows (start, len)
+    [N, 2]): row pattab[p, 0] + j - offs[p] of the precomputed rows where
+    the pattern's pcmode flag is set, else of the one-gap rows."""
+    p = _pattern_of(pattab, offs, j)
+    f = pattab[p]
+    row = f[:, 0] + j - offs[p]
+    # both reads are clamped; the pcmode flag selects one
+    return p, torch.where((f[:, 1] > 0)[:, None], take(pcrows, row),
+                          take(ogrows, row))
+
+
 def two_plain(refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, n: int,
               mrs: int, mgs: int):
     """Plain PyTorch version of kernel A5 -> int32 [n] words holding the
     uint32 bits ``cand | (gc << 16)``."""
-    f, tx = _expand(pattab, offs, n)
-    row = f[:, 0] + tx
-    # both reads are clamped; the pcmode flag selects one
-    sel = torch.where((f[:, 1] > 0)[:, None], take(pcrows, row),
-                      take(ogrows, row))
+    j = torch.arange(n, dtype=torch.int32, device=offs.device)
+    sel = _two_occurrences(ogrows, pcrows, pattab, offs, j)[1]
     return two_packed_plain(refstr, rlp, lr_tar, sel[:, 0], sel[:, 1], mrs,
                             mgs)
+
+
+def two_rows_plain(refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, n: int,
+                   mrs: int, mgs: int, kptr, kctok, kid):
+    """Plain PyTorch version of kernel A5m -> its rows, int32 [R, 3]: two_id,
+    pstart, plen | (move << 16), in (item, move) order.  A move is kept
+    where it is A5's candidate, passes the gap check, and its move word
+    (the c token) is one of its pattern's keys kctok[kptr[p] .. kptr[p +
+    1]) (clamped into the keys; ascending, distinct), found by an int32
+    lower-bound bisection; the row's two_id is that key's ``kid``."""
+    j = torch.arange(n, dtype=torch.int32, device=offs.device)
+    p, occ = _two_occurrences(ogrows, pcrows, pattab, offs, j)
+    pstart, plen = occ[:, 0], occ[:, 1]
+    cand, gc = _two_body(refstr, rlp, lr_tar, pstart, plen, mrs, mgs)
+    ii, mm = torch.nonzero(cand & gc, as_tuple=True)
+    ref = as_view(refstr)
+    word = ref[(pstart[ii] + plen[ii] + 1 + mgs + mm).clamp(
+        max=ref.shape[0] - 1)]
+    nk = kctok.shape[0]
+    klo = kptr[p[ii]].clamp(0, nk)
+    khi = torch.maximum(kptr[p[ii] + 1].clamp(0, nk), klo)
+    lo, hi = klo.clone(), khi.clone()
+    while bool((lo < hi).any()):
+        live = lo < hi
+        mid = (lo + hi) >> 1
+        less = take(kctok, mid) < word
+        lo = torch.where(live & less, mid + 1, lo)
+        hi = torch.where(live & ~less, mid, hi)
+    found = (lo < khi) & (take(kctok, lo) == word)
+    ii, mm, k = ii[found], mm[found], lo[found]
+    return torch.stack([take(kid, k), pstart[ii],
+                        plen[ii] | (mm.to(torch.int32) << 16)],
+                       dim=1).to(torch.int32)
 
 
 def pcs_plain(refstr, pcrows, pattab, offs, n: int, mrs: int):
@@ -440,6 +489,77 @@ def two(refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, n: int, mrs: int,
             kb.ptr(out))
         kb.counted("A5", n, kb.nbytes(pattab, offs, out))
     return out
+
+
+def _row_budget(n: int) -> int:
+    """A5m's write-pass rows a range by default: what A5's word column of
+    ``n`` items (4 bytes an item) holds, less the warp counts and their
+    exclusive prefix (4 and 8 bytes a warp, 8 more), at 12 bytes a row; at
+    least 1."""
+    W = (n + 31) // 32
+    return max(1, (4 * n - 12 * W - 8) // 12)
+
+
+def two_rows(refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, n: int,
+             mrs: int, mgs: int, kptr, kctok, kid, row_budget: int = None):
+    """Kernel A5m (``csrc/scan.cu``, ``cgx_two_count`` and
+    ``cgx_two_rows``): A5's scan and gap check over A5's items (arguments as
+    ``two``), each kept move's c token matched on the device against its
+    one-gap pattern's keys (``kptr`` int32 [D + 1]: pattern p's keys are
+    ``kctok[kptr[p] .. kptr[p + 1])``, ascending; ``kid`` each key's
+    two-gap id) -> the kept rows on the host, int32 [R, 3]: two_id,
+    pstart, plen | (move << 16), in (item, move) order.
+
+    The count pass gives each warp's rows, their exclusive prefix is taken
+    on the device and its total copied down; the write pass then runs over
+    row ranges of at most ``row_budget`` rows (default ``_row_budget``, so
+    that lookup2 holds no more on the device than A5's word column) into
+    one reused buffer, each range copied down.  Replaces no TPU kernel (the
+    JAX package matches on the host, cgx_tpu/search/lookup.py:727-757).
+    On CUDA tensors it launches the kernel; on CPU tensors it runs
+    ``two_rows_plain`` (all rows at once)."""
+    device = offs.device
+    if not kb.route("A5m", device):
+        return two_rows_plain(refstr, rlp, lr_tar, ogrows, pcrows, pattab,
+                              offs, n, mrs, mgs, kptr, kctok, kid)
+    kb.check_inputs("A5m", device, torch.int32, refstr=refstr, rlp=rlp,
+                    lr_tar=lr_tar, ogrows=ogrows, pcrows=pcrows,
+                    pattab=pattab, offs=offs, kptr=kptr, kctok=kctok,
+                    kid=kid)
+    _check_items("A5m", pattab, offs, n, width=2)
+    _check_rows("A5m", ogrows=ogrows, pcrows=pcrows)
+    if kptr.shape[0] != pattab.shape[0] + 1:
+        raise ValueError("A5m: kptr must have D + 1 entries")
+    if kctok.dim() != 1 or kctok.shape[0] < 1 or kid.shape != kctok.shape:
+        raise ValueError("A5m: kctok and kid must be int32 [nk >= 1]")
+    ix = (kb.ptr(refstr), refstr.shape[0], kb.ptr(rlp), rlp.shape[0],
+          kb.ptr(lr_tar), lr_tar.shape[0], kb.ptr(ogrows), ogrows.shape[0],
+          kb.ptr(pcrows), pcrows.shape[0], kb.ptr(pattab), kb.ptr(offs),
+          pattab.shape[0], kb.ptr(kptr), kb.ptr(kctok))
+    W = (n + 31) // 32
+    counts = torch.empty(W, dtype=torch.int32, device=device)
+    if n:
+        kb.launch("scan", "cgx_two_count", device, *ix, kctok.shape[0], n,
+                  mrs, mgs, kb.ptr(counts))
+        # the per-pattern tables once a lookup2 (kctok is only bisected)
+        kb.counted("A5m", n, kb.nbytes(pattab, offs, kptr, counts))
+    woff = torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
+                      torch.cumsum(counts, 0, dtype=torch.int64)])
+    total = int(kb.to_host(woff[W:])[0])
+    budget = row_budget or _row_budget(n)
+    out = np.empty((total, 3), np.int32)
+    if total:
+        buf = torch.empty((min(budget, total), 3), dtype=torch.int32,
+                          device=device)
+    for r0 in range(0, total, budget):
+        r1 = min(r0 + budget, total)
+        kb.launch("scan", "cgx_two_rows", device, *ix, kb.ptr(kid),
+                  kctok.shape[0], n, mrs, mgs, kb.ptr(woff), r0, r1,
+                  kb.ptr(buf))
+        # every warp reads its prefix pair; each row its kid and 12 bytes
+        kb.counted("A5m", n, kb.nbytes(woff) + 16 * (r1 - r0))
+        out[r0:r1] = kb.to_host(buf[:r1 - r0]).numpy()
+    return torch.from_numpy(out)
 
 
 def _check_cols(kernel, n, *cols):
@@ -873,14 +993,21 @@ def two_gap_lookup(engine, queries, search1: OneGapSearch,
     ``search2.start_on_salist``/``end_on_salist``.
 
     Every distinct one-gap pattern's occurrences (precomputed cells
-    expanded, unsampled) are scanned once by kernel A5; the c token of each
-    hit is read from ``refstr_host`` (the host copy of the source token
-    string) and matched against the (one-gap pattern, c token) pairs of the
-    two-gap patterns.  ``engine`` as in ``one_gap_lookup``; with its
-    ``timer`` the host stages are child phases: ``items`` (A5's table),
-    ``keys`` (the sorted (one-gap pattern, c token) table), ``match`` (A5's
-    hits to occurrences, their c tokens matched, the gap check's bit
-    tested) and ``sort``."""
+    expanded, unsampled) are scanned once for a second gap, and the c token
+    of each hit is matched against the (one-gap pattern, c token) pairs of
+    the two-gap patterns.  An engine that declares ``two_rows_on_device``
+    does both on the device (kernel A5m, ``engine.two_rows``); any other
+    engine runs kernel A5 (``engine.two_expanded``), and the hits are
+    matched on the host, the c token read from ``refstr_host`` (the host
+    copy of the source token string).  Either route gives the rows in
+    (item, move) order, and since each pattern's items are in (start,
+    length) order and the moves ascend, a stable sort by two-gap id alone
+    gives the four-column order.  ``engine`` as in
+    ``one_gap_lookup``; with its ``timer`` the host stages are child
+    phases: ``items`` (A5's table), ``keys`` (the sorted (one-gap pattern,
+    c token) table), ``match`` (on the host route A5's hits to occurrences,
+    their c tokens matched, the gap check's bit tested; on the device
+    route the rows' columns unpacked) and ``sort``."""
     D2 = len(search2.blockid)
     mgs = cfg.min_gap_size
     empty = GapOnSA(*(np.empty(0, np.int32) for _ in range(4)))
@@ -888,34 +1015,48 @@ def two_gap_lookup(engine, queries, search1: OneGapSearch,
         lo, counts, pcmode = two_gap_items(search1, onegap_sa, pc)
     if D2 == 0 or counts.sum() == 0:
         return empty
-    kb.COUNTS["lookup2.items"] += int(counts.sum())
-    cand_mask, gc_mask = engine.two_expanded(onegap_sa, pc, lo, counts,
-                                             pcmode)
+    n = int(counts.sum())
+    kb.COUNTS["lookup2.items"] += n
+    on_device = getattr(engine, "two_rows_on_device", False)
+    if not on_device:
+        cand_mask, gc_mask = engine.two_expanded(onegap_sa, pc, lo, counts,
+                                                 pcmode)
     with child(engine.timer, "keys"):
         # sorted (oneId, c-token) -> twoId table; distinct patterns are
         # unique pairs
         ctok = np.asarray(queries.tokens)[search2.gap2].astype(np.int64)
         keys = (search2.blockid.astype(np.int64) << 32) | ctok
         korder = np.argsort(keys, kind="stable")
-        keys_sorted = keys[korder]
-    with child(engine.timer, "match"):
-        ii, mm = _mask_hits(cand_mask)
-        if len(ii):
-            rows = _two_gap_rows(ii, mm, lo, counts, pcmode, onegap_sa, pc,
-                                 gc_mask, keys_sorted, korder, refstr_host,
-                                 mgs)
-    if not len(ii):
-        return empty
+        if on_device:   # the table as int32 columns: pattern p's c tokens
+            kptr = np.searchsorted(search2.blockid[korder],
+                                   np.arange(len(lo) + 1))
+            kctok = ctok[korder]
+        else:
+            keys_sorted = keys[korder]
+    if on_device:
+        kb.COUNTS["lookup2.device_items"] += n
+        two_id, css, word = engine.two_rows(onegap_sa, pc, lo, counts, pcmode,
+                                            kptr, kctok, korder)
+        if not len(two_id):
+            return empty
+        with child(engine.timer, "match"):
+            fes = word & 0xFFFF
+            cols = (two_id, css, fes, fes + 1 + mgs + (word >> 16))
+    else:
+        with child(engine.timer, "match"):
+            ii, mm = _mask_hits(cand_mask)
+            if len(ii):
+                cols = _two_gap_rows(ii, mm, lo, counts, pcmode, onegap_sa,
+                                     pc, gc_mask, keys_sorted, korder,
+                                     refstr_host, mgs).T
+        if not len(ii):
+            return empty
     with child(engine.timer, "sort"):
-        rows = rows[np.lexsort((rows[:, 3], rows[:, 2], rows[:, 1],
-                                rows[:, 0]))]
-        out = GapOnSA(position=rows[:, 0].astype(np.int32),
-                      str_position=rows[:, 1].astype(np.int32),
-                      length=rows[:, 2].astype(np.int32),
-                      length2=rows[:, 3].astype(np.int32))
+        order = np.argsort(cols[0], kind="stable")
+        out = GapOnSA(*(c[order].astype(np.int32) for c in cols))
         _fill_salist(search2.start_on_salist, search2.end_on_salist,
                      out.position)
-    kb.COUNTS["lookup2.rows"] += len(rows)
+    kb.COUNTS["lookup2.rows"] += len(order)
     return out
 
 
@@ -953,8 +1094,12 @@ def _two_gap_rows(ii, mm, lo, counts, pcmode, onegap_sa, pc, gc_mask,
 
 
 def _fill_salist(start_arr, end_arr, positions):
+    """Each pattern's first and last row of the rows sorted by pattern
+    ``positions``: the prefix of the rows' per-pattern counts (patterns
+    with none are left as they are)."""
     if len(positions):
-        uniq, first, counts = np.unique(positions, return_index=True,
-                                        return_counts=True)
-        start_arr[uniq] = first.astype(np.int32)
-        end_arr[uniq] = (first + counts - 1).astype(np.int32)
+        counts = np.bincount(positions, minlength=len(start_arr))
+        end = np.cumsum(counts)
+        has = np.flatnonzero(counts)
+        start_arr[has] = (end[has] - counts[has]).astype(np.int32)
+        end_arr[has] = (end[has] - 1).astype(np.int32)

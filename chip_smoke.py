@@ -22,8 +22,9 @@ Phases, one line each on stdout:
    shards' views in its build) (``RUNS``).
    Each run must launch its path's kernels and no other (launch counts
    reset just before it, see ``RUNS``): A1 or B1's two passes, A4, A2
-   forward and backward (C1f and C1b with ``scan_cols``), A3, A5 (C1t with
-   ``scan_cols``), A6, A7, A8 and A9 or A10 on the replicated index; B2r,
+   forward and backward (C1f and C1b with ``scan_cols``), A3, A5m (A5's
+   scan with lookup2's match; C1t with ``scan_cols``), A6, A7, A8 and A9
+   or A10 on the replicated index; B2r,
    B2g, B3f, B3b, B3p, B3t, B3c and A4, A7, A8 on shard views on the
    sharded one (MaxLex on the host there).  Its counters must equal the
    JAX package's and its grammar hash the golden in
@@ -55,7 +56,7 @@ Phases, one line each on stdout:
        for A3) and the prewarm nothing else;
        ``ready`` and each request's seconds and launches printed;
    3e. medium with ``query_batches=4`` (``run_pipeline_overlap``): the
-       golden hash and line count, A4, A1, A2f, A2b, A3, A5, A6, A7 and A8
+       golden hash and line count, A4, A1, A2f, A2b, A3, A5m, A6, A7 and A8
        and no A9 or A10 (MaxLex on the host, on the worker thread);
    3f. profile -- ``cli.main([..., "--profile", DIR])`` on medium's
        files: the grammar files the golden hash, medium's path launched,
@@ -79,7 +80,9 @@ Phases, one line each on stdout:
        repeated: europarl from its index dir over 2 and 3 replicas, and
        medium, fresh, over 2 with ``lcp_passes`` (B1 fanned): the golden
        hash and counters, each kernel launched at least as often as in
-       the one-device run (3c's loaded run, 3's ``lcp_passes`` run), no A4
+       the one-device run (3c's loaded run, 3's ``lcp_passes`` run; the
+       replicas take lookup2's host route, A5, where one device takes
+       A5m: the one run that launches A5), no A4
        where the index is loaded, and a peak within the one-device run's
        plus each further replica's own cached rows and 8 MiB; walls beside
        the one-device walls;
@@ -125,7 +128,9 @@ Phases, one line each on stdout:
    A7v, A8v, B3f, B3b, B3p, B3t, B3c) also on its largest launch on each
    shard (B2s on a launch that applies a token, on copies of the lanes it
    updates in place), the first (negative global offset) and the last (reads clamped to
-   the global end) included: the outputs must be bit-equal (float32
+   the global end) included, and A5m also with its write pass in ranges
+   of 1, 7 and a third of its rows (``row_budget_ranges``, ranges that
+   start inside a warp): the outputs must be bit-equal (float32
    compared by bit pattern); times of both, the time of one PyTorch call
    that computes the same function where there is one (P1, P2), the
    kernel's time by the device's own clock (``device_ms``: the timed calls
@@ -138,9 +143,10 @@ Phases, one line each on stdout:
    where a function stops early, only the words its result needs, counted
    from this launch's items by ``tools.reads`` and printed: lookup1's scans
    the corpus words that decide each item's candidates and the gap check
-   only for the items whose candidate mask is non-zero; A4, A5, C1t and B3t
-   the gap check's words; A5, C1t and B3t the move words up to the first
-   stop; A6, B3c and B4's extraction the words and growth steps of
+   only for the items whose candidate mask is non-zero; A4, A5, A5m, C1t
+   and B3t the gap check's words; A5, A5m, C1t and B3t the move words up
+   to the first stop (A5m also its tables and 3 words a row it keeps);
+   A6, B3c and B4's extraction the words and growth steps of
    ``_extract_contig_item`` up to each loop's exit; A7 and A7v each side's
    step words up to its first event and the window entries its checks look
    up; A8 and A8v the gaps' words only where the rule is valid; A10 the
@@ -157,9 +163,11 @@ Phases, one line each on stdout:
    of one launch of A8 on one item (by the device's clock A8's own
    one-item chain, ``launch_floor``).  Then the warp and half-warp kernels
    (A1, B2r, A2f, A2b, A3, A4, A4v, C1f, C1b, C1p, B3f, B3b, B3p, A6, B3c,
-   A5, C1t, B3t, A7, A7v, A8, A8v, A10, A9, B1p1, B1p2) against their plain
-   versions on synthetic edge inputs over europarl's index arrays and
-   tables (A9 over medium's dense tables; B1 also over a small index of
+   A5, A5m, C1t, B3t, A7, A7v, A8, A8v, A10, A9, B1p1, B1p2) against their
+   plain versions on synthetic edge inputs over europarl's index arrays
+   and tables (A5m also with its write pass in ranges of 1, 7 and a third
+   of the rows, as on its kernel row; A9 over medium's dense tables; B1
+   also over a small index of
    70-token sentences, for matches past 32 tokens; B2r also on 1 and 3
    shards; B2s and B2t at every step of the round form on the same lanes
    over 1, 3 and 4 shards on the card repeated, and on ``round_edges``'
@@ -211,6 +219,8 @@ KERNELS = {
     "A2b": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:337"),
     "A3": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:315"),
     "A5": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:662"),
+    "A5m": ("cgx_tpu_torch/csrc/scan.cu",
+            "none (the host match, cgx_tpu/search/lookup.py:727-757)"),
     "A6": ("cgx_tpu_torch/csrc/contig.cu", "cgx_tpu/extract/device.py:382"),
     "A7": ("cgx_tpu_torch/csrc/onegap.cu", "cgx_tpu/extract/device.py:616"),
     "A8": ("cgx_tpu_torch/csrc/twogap.cu", "cgx_tpu/extract/device.py:744"),
@@ -249,7 +259,11 @@ KERNELS = {
 VIEW_ROWS = {"A4v": "A4", "A7v": "A7", "A8v": "A8"}
 # the kernels every replicated end-to-end run launches, besides its
 # pass-1/2 and MaxLex kernels
-PATH_KERNELS = ("A4", "A2f", "A2b", "A3", "A5", "A6", "A7", "A8")
+PATH_KERNELS = ("A4", "A2f", "A2b", "A3", "A5m", "A6", "A7", "A8")
+# lookup2's host route (A5, then the match on the host), which of the
+# end-to-end runs only local DP's replicas take (``check_local_dp``): in
+# place of A5m on one device
+DP_ROUTE = {"A5m": "A5"}
 SHARDED_KERNELS = ("B2r", "B2g", "B3f", "B3b", "B3p", "B3t", "B3c", "A4v",
                    "A7v", "A8v")
 # the sharded index on a device list: the refinement's round form (B2s,
@@ -277,22 +291,24 @@ OFF_PATH = ("C1p", "B4", "P1", "P2", "A9L")
 # must not)
 RUNS = (
     ("medium", False, 0, False, PATH_KERNELS + ("A1", "A9"),
-     ("B1p1", "B1p2") + SHARDED_KERNELS + ROUND + COLS_KERNELS + OFF_PATH),
+     ("A5", "B1p1", "B1p2") + SHARDED_KERNELS + ROUND + COLS_KERNELS
+     + OFF_PATH),
     ("europarl", False, 0, False, PATH_KERNELS + ("A1", "A10"),
-     ("B1p1", "B1p2") + SHARDED_KERNELS + ROUND + COLS_KERNELS + OFF_PATH),
+     ("A5", "B1p1", "B1p2") + SHARDED_KERNELS + ROUND + COLS_KERNELS
+     + OFF_PATH),
     ("europarl", False, 4, False, SHARDED_KERNELS,
-     ("A1", "A9", "A10", "B1p1", "B1p2") + ROUND + PATH_KERNELS
+     ("A1", "A5", "A9", "A10", "B1p1", "B1p2") + ROUND + PATH_KERNELS
      + COLS_KERNELS + OFF_PATH),
     ("europarl", False, 0, True,
      ("A1", "A4", "A3", "A6", "A7", "A8", "A10") + COLS_KERNELS,
-     ("A2f", "A2b", "A5", "B1p1", "B1p2") + SHARDED_KERNELS + ROUND
+     ("A2f", "A2b", "A5", "A5m", "B1p1", "B1p2") + SHARDED_KERNELS + ROUND
      + OFF_PATH),
     ("medium", True, 0, False, PATH_KERNELS + ("B1p1", "B1p2", "A9"),
-     ("A1",) + SHARDED_KERNELS + ROUND + COLS_KERNELS + OFF_PATH),
+     ("A1", "A5") + SHARDED_KERNELS + ROUND + COLS_KERNELS + OFF_PATH),
     # the index on a device list (the card four times), built fresh, so
     # that A4 runs on the shards' views too
     ("medium", False, CARD4, False, ROUND_KERNELS,
-     ("B2r",) + ("A1", "A9", "A10", "B1p1", "B1p2") + PATH_KERNELS
+     ("B2r",) + ("A1", "A5", "A9", "A10", "B1p1", "B1p2") + PATH_KERNELS
      + COLS_KERNELS + OFF_PATH),
 )
 
@@ -300,7 +316,7 @@ RUNS = (
 # (sa_shards, must launch); each must launch nothing else, so no A4 or A4v
 # (the precompute is loaded, not run)
 LOAD_RUNS = (
-    (0, ("A1", "A2f", "A2b", "A3", "A5", "A6", "A7", "A8", "A10")),
+    (0, ("A1", "A2f", "A2b", "A3", "A5m", "A6", "A7", "A8", "A10")),
     (4, ("B2r", "B2g", "B3f", "B3b", "B3p", "B3t", "B3c", "A7v", "A8v")),
     # on a device list: the round form, no B2r
     (CARD4, ROUND + ("B2g", "B3f", "B3b", "B3p", "B3t", "B3c", "A7v",
@@ -315,7 +331,8 @@ OVERLAP_KERNELS = PATH_KERNELS + ("A1",)
 PROFILE_GLOBALS = {
     "A1": "refine_warp_kernel", "A4": "gap_check_kernel",
     "A2f": "scan_kernel", "A2b": "scan_kernel", "A3": "pcs_kernel",
-    "A5": "two_kernel", "A6": "contig_kernel", "A7": "onegap_kernel",
+    "A5m": "two_rows_kernel", "A6": "contig_kernel",
+    "A7": "onegap_kernel",
     "A8": "twogap_kernel", "A9": "dense_quad_kernel",
 }
 
@@ -351,6 +368,8 @@ WORK = {
     "A2b": (0, 2, 1, 300),
     "A3": (0, 0, 1 / 32, 40),    # (+ pcs_reads: offs, pattab, rows, corpus)
     "A5": (0, 2, 1, 150),        # occurrence row (+ scan, gap check)
+    "A5m": (0, 2, 1 / 32, 150),  # occurrence row, warp counts (+ scan, gap
+    #                              check, 3 words a row kept)
     "A6": (2, 1, 8, 0),          # SA word (+ contig_reads)
     "A7": (4, 0, 6, 200),        # (+ onegap_reads)
     "A8": (6, 0, 2, 150),        # (+ twogap_reads)
@@ -376,7 +395,7 @@ for _v, _k in VIEW_ROWS.items():
 # lookup1's scans, the gap check, A5's, A6's, A7's and A8's bodies
 SCAN_ROWS = ("A2f", "A2b", "C1f", "C1b", "B3f", "B3b")
 GAP_ROWS = ("A4", "A4v")
-TWO_ROWS = ("A5", "C1t", "B3t")
+TWO_ROWS = ("A5", "A5m", "C1t", "B3t")
 CONTIG_ROWS = ("A6", "B3c", "B4")
 ONEGAP_ROWS = ("A7", "A7v")
 TWOGAP_ROWS = ("A8", "A8v")
@@ -410,7 +429,8 @@ EDGE_MRS = (1, 2, 8, 15)
 EDGE_MSYM = (2, 3, 5)    # A6, B3c, A7, A7v
 # argument positions of the per-pattern table and count prefix (A3's:
 # pcs_reads)
-TABLE_ARGS = {"A2f": (4, 5), "A2b": (4, 5), "A5": (5, 6)}
+TABLE_ARGS = {"A2f": (4, 5), "A2b": (4, 5), "A5": (5, 6),
+              "A5m": (5, 6, 10, 11, 12)}
 # A3's, B3p's and C1p's edge launches: item counts around a warp
 PCS_EDGE_ITEMS = (1, 15, 17, 31, 32, 33)
 
@@ -484,6 +504,7 @@ class Capture:
                                lambda a: a[6]),
             (lookup, "pcs"): (lambda a: "A3", lambda a: a[4]),
             (lookup, "two"): (lambda a: "A5", lambda a: a[7]),
+            (lookup, "two_rows"): (lambda a: "A5m", lambda a: a[7]),
             (xdev, "contig"): (lambda a: "A6", lambda a: a[4].shape[0]),
             (xdev, "onegap"): (on_view("A7"), lambda a: a[3].shape[0]),
             (xdev, "twogap"): (on_view("A8"), lambda a: a[3].shape[0]),
@@ -1071,9 +1092,9 @@ def data_reads(k: str, n: int, args) -> tuple:
                                     gostart + 1 if fwd else gostart - 1,
                                     mgs - 1, mrs, fwd)
     elif k in TWO_ROWS:
-        if k == "A5":
+        if k in ("A5", "A5m"):
             refstr, rlp, lr_tar, ogrows, pcrows, pattab, offs, _, mrs, mgs = \
-                args
+                args[:10]
             f, tx = lookup._expand(pattab, offs, n)
             row = f[:, 0] + tx
             occ = torch.where((f[:, 1] > 0)[:, None], take(pcrows, row),
@@ -1083,6 +1104,12 @@ def data_reads(k: str, n: int, args) -> tuple:
             refstr, rlp, lr_tar, pstart, plen, mrs, mgs = args
             items = (pstart, plen)
         words, ok = reads.two_reads(refstr, rlp, lr_tar, *items, mrs, mgs)
+        if k == "A5m":     # and the rows it keeps, 3 words each
+            kept = lookup.two_rows_plain(*args).shape[0]
+            return (words + 3 * kept, n * GAP_OPS + ok * FOLD_OPS,
+                    {"words": words, "words_per_item": words / max(n, 1),
+                     "gap_first_test_items": ok, "rows": kept,
+                     "rows_per_item": kept / max(n, 1)})
     elif k == "B4":     # B1's pass 1 on the lanes, A6's body on the items
         refstr, sa, lcpl, lcpr, rlp, lr_tar, qtok, toks, sls, sa_pos, lm, \
             reflen, mrs, msym = args[:14]
@@ -1169,6 +1196,22 @@ def _bit_equal(k: str, kernel, plain, args, device: str) -> float:
     return err
 
 
+def _a5m_ranges(what: str, args, device: str) -> dict:
+    """A5m with its write pass split into ranges of 1 row, 7 rows and a
+    third of the rows (so that ranges start and end inside a warp), each
+    bit-equal to the plain version -> {row budget: ranges}."""
+    import functools
+    from cgx_tpu_torch.search import lookup
+    total = lookup.two_rows_plain(*args).shape[0]
+    ranges = {}
+    for b in sorted({1, 7, max(1, total // 3)}):
+        _bit_equal(f"A5m@{what},row_budget={b}",
+                   functools.partial(lookup.two_rows, row_budget=b),
+                   lambda *a: lookup.two_rows_plain(*a).cpu(), args, device)
+        ranges[b] = -(-total // b)
+    return ranges
+
+
 def _step_outputs(step):
     """B2s's function (``step``: the kernel's wrapper or its plain version)
     as outputs: the part it writes and the lanes' state, ups and downs after
@@ -1198,6 +1241,9 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
              "A2b": (lookup.scan, lookup.scan_plain),
              "A3": (lookup.pcs, lookup.pcs_plain),
              "A5": (lookup.two, lookup.two_plain),
+             # the kernel's wrapper returns its rows on the host
+             "A5m": (lookup.two_rows,
+                     lambda *a: lookup.two_rows_plain(*a).cpu()),
              "A6": (xdev.contig, xdev.contig_plain),
              "A7": (xdev.onegap, xdev.onegap_plain),
              "A8": (xdev.twogap, xdev.twogap_plain),
@@ -1276,6 +1322,8 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
                  + TWOGAP_ROWS + MAXLEX_ROWS + DENSE_ROWS + LCP_ROWS
                  + REFINE_ROWS + PCS_ROWS + PROBE_ROWS + ROUND):
             words, ops, extra = data_reads(k, n, args)
+        if k == "A5m":    # the write pass in ranges, as the cells split it
+            extra["row_budget_ranges"] = _a5m_ranges("main", args, device)
         nbytes, ops = work(k, n, args, words, ops)
         # timed after the bound is counted: B2s's timed calls update its
         # kept lanes in place
@@ -2245,8 +2293,12 @@ def check_edges(capture: Capture):
       shard's views, and at each one's own ends;
     * A5: (start, len) rows at those corpus positions and ending at the
       corpus end, in both row tables, under tables with empty patterns as
-      A2's; C1t the same rows as columns, and B3t on the first and the last
-      shard's views at their own ends too;
+      A2's; A5m on the same items, each pattern's keys about half the c
+      tokens of the moves A5 keeps for its items and other corpus words
+      (none for about a fifth of the patterns), also with its write pass
+      in ranges of 1, 7 and a third of the rows; C1t the
+      same rows as columns, and B3t on the first and the last shard's
+      views at their own ends too;
     * A7, A8 on the whole arrays, A7v, A8v on the first and the last
       shard's views: ``gap_edges`` (occurrences at the corpus, sentence
       and shard ends, the gaps in another sentence than cs, msym 2, 3 and
@@ -2266,7 +2318,9 @@ def check_edges(capture: Capture):
     Fails unless every output is bit-equal, the inputs of A2, A4, C1f, C1b,
     B3f and B3b reach the gap check (lookup1's scans: items with a candidate
     and items with a non-zero mask), A6's emit each of its four families,
-    A5's set both halves of its word (cand and gc), A7's emit each of its
+    A5's set both halves of its word (cand and gc), A5m's keep rows, with
+    some warp keeping two or more (so that its write ranges start inside
+    a warp), A7's emit each of its
     three families and have growth sides that die at step 0, that emit after
     step 0 and that meet no event within the span limit, A8's items have
     every checkBoundary code (0-4), A1's and B2r's lanes hold empty
@@ -2297,7 +2351,7 @@ def check_edges(capture: Capture):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
     stats = {k: {"launches": 0} for k in ("A2f", "A2b", "A4", "A4v", "C1f",
                                           "C1b", "B3f", "B3b", "A6", "B3c",
-                                          "A5", "C1t", "B3t")}
+                                          "A5", "A5m", "C1t", "B3t")}
     scans = ("A2f", "A2b", "C1f", "C1b", "B3f", "B3b")
 
     def compare(k, kernel, plain, args, what):
@@ -2315,6 +2369,8 @@ def check_edges(capture: Capture):
         if k in ("A6", "B3c"):
             for r, fam in enumerate(("ab", "Xab", "abX", "XabX")):
                 add(fam, (out[2 * r + 1] & 1).sum())
+        elif k == "A5m":
+            add("rows", out.shape[0])
         elif k in ("A5", "C1t", "B3t"):
             cand, gc = (out[0], out[1]) if k == "B3t" else (
                 out & 0xFFFF, (out >> 16) & 0xFFFF)
@@ -2494,10 +2550,45 @@ def check_edges(capture: Capture):
                 lo = rng.integers(0, n_edges + 66, D)   # some past the end
                 lo[1] = 0
                 pattab = np.stack([lo, rng.integers(0, 2, D)], axis=1)
-                compare("A5", lookup.two, lookup.two_plain,
-                        (refstr, rlp, lr_tar, dev(tables[0]), dev(tables[1]),
-                         dev(pattab), dev(offs), n, mrs, mgs),
-                        f"n={n},mrs={mrs},first={edge_rows[e]}")
+                word = compare("A5", lookup.two, lookup.two_plain,
+                               (refstr, rlp, lr_tar, dev(tables[0]),
+                                dev(tables[1]), dev(pattab), dev(offs), n,
+                                mrs, mgs),
+                               f"n={n},mrs={mrs},first={edge_rows[e]}")
+                # A5m on the same items: each pattern's keys (none for about
+                # a fifth) are about half the c tokens of the moves A5 keeps
+                # for its items and two other corpus words, ascending, then
+                # one key that no pattern owns
+                word = word.cpu().numpy().astype(np.int64)
+                ii, mm = np.nonzero(((word & (word >> 16))[:, None]
+                                     >> np.arange(16)) & 1)
+                p_j, occ = (t.cpu().numpy() for t in lookup._two_occurrences(
+                    dev(tables[0]), dev(tables[1]), dev(pattab), dev(offs),
+                    torch.arange(n, dtype=torch.int32, device="cuda")))
+                ctok = ref_h[np.minimum(occ[ii, 0] + occ[ii, 1] + 1 + mgs
+                                        + mm, glen - 1)]
+                keys, matched = [], np.zeros(len(ii), bool)
+                for p in range(D):
+                    own = np.unique(ctok[p_j[ii] == p])
+                    own = own[rng.random(len(own)) < 0.5]
+                    keys.append(np.unique(np.concatenate(
+                        [own, ref_h[rng.integers(0, glen, 2)]]))
+                        if rng.random() >= 0.2 else np.empty(0, np.int64))
+                    at = p_j[ii] == p
+                    matched[at] = np.isin(ctok[at], keys[-1])
+                kptr = np.concatenate([[0], np.cumsum([len(k) for k in keys])])
+                kctok = np.concatenate(keys + [ref_h[:1]])
+                st = stats["A5m"]
+                st["fullest_warp"] = max(st.get("fullest_warp", 0), int(
+                    np.bincount(ii[matched] // 32, minlength=1).max()))
+                a5m = (refstr, rlp, lr_tar, dev(tables[0]), dev(tables[1]),
+                       dev(pattab), dev(offs), n, mrs, mgs, dev(kptr),
+                       dev(kctok), dev(rng.integers(0, 1 << 20, len(kctok))))
+                what = f"n={n},mrs={mrs},first={edge_rows[e]}"
+                compare("A5m", lookup.two_rows,
+                        lambda *a: lookup.two_rows_plain(*a).cpu(), a5m, what)
+                st["ranges"] = st.get("ranges", 0) + sum(
+                    _a5m_ranges(f"edge({what})", a5m, "cuda").values())
                 rows = np.concatenate([edge_rows, tables[0][n_edges:]])[
                     pick]
                 compare("C1t", lookup.two_packed, lookup.two_packed_plain,
@@ -2555,6 +2646,12 @@ def check_edges(capture: Capture):
     silent = [f"{k}.{f}" for k, fams in (
         ("A6", ("ab", "Xab", "abX", "XabX")), ("A5", ("cand_items", "gc_items")))
         for f in fams if stats[k][f] == 0]
+    # A5m's edges keep rows, and some warp keeps two or more, so that the
+    # write ranges of 1 and 7 rows start inside a warp
+    silent += [f"A5m.{f}" for f in ("rows", "ranges")
+               if stats["A5m"].get(f, 0) == 0]
+    if stats["A5m"].get("fullest_warp", 0) < 2:
+        silent.append("A5m.fullest_warp")
     silent += [f"{k}.{f}" for k in ("A1", "B2r")
                for f in ("empty_lanes", "past_end", "collapsed", "narrowed",
                          "rows_straddle", "positions_straddle")
@@ -3004,7 +3101,7 @@ def check_local_dp(cap: Capture, golden: dict, index_dir: str, base: dict,
         [("medium", 2, True, "medium_lcp")]
     for size, n, lcp, key in runs:
         b_launch, b_peak, b_wall, b_cache = base[key]
-        expect = [k for k, v in b_launch.items() if v]
+        expect = [DP_ROUTE.get(k, k) for k, v in b_launch.items() if v]
         launches, res, peak, wall = run_e2e(
             size, device, cap, golden, expect, lcp, others(expect),
             index_dir=index_dir if key == "loaded" else None,

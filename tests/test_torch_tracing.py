@@ -4,7 +4,7 @@ child, top-level output unchanged, profiler ranges while a profiler
 records), the engine calls as child phases, the counter registry of
 ``kernels/build.py`` (``counted``, ``to_device``, ``to_host``,
 ``snapshot``, the lookups' rows, the timer's ``count:<name>`` keys) and the child phases of a whole run of
-the pipeline and of ``cli --profile``."""
+the pipeline (lookup2's on both its routes) and of ``cli --profile``."""
 
 import json
 import pathlib
@@ -31,9 +31,16 @@ CHILDREN = {
     "precompute": {"top", "scan", "rows", "sort", "engine.gap_check"},
     "lookup1": {"route", "scan_rows", "sort", "engine.scan_expanded",
                 "engine.sa_values"},
-    "lookup2": {"items", "keys", "match", "sort", "engine.two_expanded"},
+    "lookup2": {"items", "keys", "match", "sort", "engine.two_rows"},
     "lexicon": {"onegap", "twogap", "contig"},
     "printout": {"updown", "format", "lines"},
+}
+# lookup2's children on each route: the replicated engine matches on the
+# device (A5m), every other engine (here ``scan_cols``) on the host (A5)
+LOOKUP2_ROUTES = {
+    "device": ({}, CHILDREN["lookup2"]),
+    "host": ({"scan_cols": True},
+             {"items", "keys", "match", "sort", "engine.two_expanded"}),
 }
 
 
@@ -282,9 +289,32 @@ def test_lookups_count_their_rows_and_a_cpu_run_no_copy(toy_run):
     res, grew, items0 = toy_run
     assert grew["lookup2.rows"] == res.counters["twogap_sa"] > 0
     assert grew["lookup2.items"] >= grew["lookup2.rows"]
+    assert grew["lookup2.device_items"] == grew["lookup2.items"]
     assert [grew.get(k, 0) for k in ("syncs", "h2d_bytes", "d2h_bytes")] \
         == [0, 0, 0]
     assert dict(kb.ITEMS) == items0            # no launch on the CPU
+
+
+@pytest.mark.parametrize("route", sorted(LOOKUP2_ROUTES))
+def test_lookup2_children_on_each_route(toy_fixture, route):
+    """lookup2's child phases name its engine call: ``engine.two_rows`` on
+    the device route, ``engine.two_expanded`` on the host route, whose
+    items ``lookup2.device_items`` does not count."""
+    kw, kids = LOOKUP2_ROUTES[route]
+    d = pathlib.Path(toy_fixture)
+    args = [cp.read_lines(str(d / n)) for n in ("corpus.f", "corpus.e",
+                                                "corpus.a")]
+    counts0 = dict(kb.COUNTS)
+    res = tpl.run_pipeline(*args, cp.read_tokens(str(d / "lex.txt")),
+                           cp.read_lines(str(d / "query.f")),
+                           ExtractorConfig(), device="cpu", **kw)
+    got = {k.split("/", 1)[1] for k in res.timing.children
+           if k.startswith("lookup2/") and k.count("/") == 1}
+    assert got == kids
+    grew = {k: v - counts0.get(k, 0) for k, v in kb.COUNTS.items()}
+    assert grew["lookup2.items"] > 0
+    assert grew.get("lookup2.device_items", 0) == (
+        grew["lookup2.items"] if route == "device" else 0)
 
 
 def test_cli_profile_names_the_child_phases(toy_fixture, tmp_path):
