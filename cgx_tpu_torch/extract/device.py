@@ -13,7 +13,13 @@ Port of ``cgx_tpu/extract/device.py``: the host orchestration
 compaction into ``GapRules``, ``unpack_family``) and each kernel's plain
 PyTorch version (``contig_plain``, ``onegap_plain``, ``twogap_plain``), a
 lane-vectorized transcription of the JAX item function.  Sampling happens on the host when
-the occurrence lists are built (``extract.blocks.occurrence_lists``).
+the occurrence lists are built (``extract.blocks.occurrence_lists``); with
+``is_sample`` off every occurrence is listed.  The orchestrators count the
+items each family hands its kernel (``kernels.build.COUNTS``
+``extract.contig_items``, ``extract.onegap_items``,
+``extract.twogap_items``), hand them to the engine in calls of at most
+``CALL_ITEMS`` and time their host stages as the child phases
+``occurrences`` and ``rules`` of the engine's ``timer``.
 """
 
 from __future__ import annotations
@@ -26,7 +32,24 @@ from cgx_tpu_torch.extract.blocks import occurrence_lists
 from cgx_tpu_torch.kernels import build as kb
 from cgx_tpu_torch.types import (Blocks, ContigRules, GapOnSA, GapRules,
                                  OneGapSearch, Precomp, TwoGapSearch)
+from cgx_tpu_torch.utils.batching import in_calls
+from cgx_tpu_torch.utils.timing import child
 from cgx_tpu_torch.utils.views import take
+
+# the host stages of each family's orchestration, child phases of the
+# phase open on the engine's timer (``extractkernel`` in the pipeline):
+# the occurrence lists and item columns, and the rows' unpacking, compaction
+# and stable sort by rule id; the engine call between them is its own
+# ``engine.<family>`` child
+OCCURRENCES, RULES = "occurrences", "rules"
+# the most occurrences one engine call of A6, A7 or A8 takes: an unsampled
+# request lists every occurrence of its patterns (millions at a TED-sized
+# corpus, about 48 B of columns and outputs each on the device), so the
+# calls are cut to bound extraction's device memory by one call's, whatever
+# the request holds; a sampled request of a few hundred sentences fits in one.
+# Query DP's contiguous extraction (B4, ``parallel.dist.run_sharded_search``)
+# takes every occurrence in one launch a shard and is not bounded so
+CALL_ITEMS = 1 << 20
 
 IMAX = 14   # max growth distance: lm + i <= max_rule_span with lm >= 1
 CWID = 16   # base span scan width
@@ -406,17 +429,21 @@ def extract_contiguous(engine, blocks: Blocks, cfg: ExtractorConfig):
     """Host orchestration for extractConsistentPairs_Gappy: sampled
     occurrence list -> the contiguous extraction on ``engine``
     (``cgx_tpu_torch.engine``) -> canonical compaction + stable id sort.  Returns (ContigRules, Xab/abX GapRules, XabX GapRules)."""
+    timer = getattr(engine, "timer", None)
     G = len(blocks.start)
-    lo = np.where(blocks.matchlen >= 1, blocks.start, 0)
-    hi = np.where(blocks.matchlen >= 1, blocks.end, -1)
-    bnums, tx = occurrence_lists(lo, hi, cfg.sampler, cfg.is_sample)
-    if len(bnums) == 0:
-        return (ContigRules(*(np.empty(0, np.int32) for _ in range(3))),
-                _empty_gaprules(), _empty_gaprules())
-    sa_pos = blocks.start.astype(np.int64)[bnums] + tx
-    lms = blocks.matchlen.astype(np.int64)[bnums]
-    out = engine.contig(sa_pos, lms)
-    return _finish_contig(out, bnums, G)
+    with child(timer, OCCURRENCES):
+        lo = np.where(blocks.matchlen >= 1, blocks.start, 0)
+        hi = np.where(blocks.matchlen >= 1, blocks.end, -1)
+        bnums, tx = occurrence_lists(lo, hi, cfg.sampler, cfg.is_sample)
+        kb.COUNTS["extract.contig_items"] += len(bnums)
+        if len(bnums) == 0:
+            return (ContigRules(*(np.empty(0, np.int32) for _ in range(3))),
+                    _empty_gaprules(), _empty_gaprules())
+        sa_pos = blocks.start.astype(np.int64)[bnums] + tx
+        lms = blocks.matchlen.astype(np.int64)[bnums]
+    out = in_calls(engine.contig, CALL_ITEMS, sa_pos, lms)
+    with child(timer, RULES):
+        return _finish_contig(out, bnums, G)
 
 
 def _gaprules(parts) -> GapRules:
@@ -703,15 +730,19 @@ def extract_onegap(engine, search1: OneGapSearch, onegap_sa: GapOnSA,
                    pc: Precomp, cfg: ExtractorConfig):
     """Host orchestration for extractConsistentPairs_OneGap: sampled
     occurrence list -> kernel A7 on ``engine`` -> compaction.  Returns (aXb GapRules, XaXb/aXbX GapRules)."""
+    timer = getattr(engine, "timer", None)
     D1 = len(search1.qrystart)
-    ids, css, fes = _onegap_occurrences(search1, onegap_sa, pc,
-                                        cfg.sampler_onegap, cfg.is_sample)
-    if len(ids) == 0:
-        return _empty_gaprules(), _empty_gaprules()
-    ids = np.asarray(ids, dtype=np.int64)
-    out = engine.onegap(
-        css, fes, search1.qrystart_len[ids], search1.qryend_len[ids])
-    return _finish_onegap(out, ids, D1)
+    with child(timer, OCCURRENCES):
+        ids, css, fes = _onegap_occurrences(search1, onegap_sa, pc,
+                                            cfg.sampler_onegap, cfg.is_sample)
+        kb.COUNTS["extract.onegap_items"] += len(ids)
+        if len(ids) == 0:
+            return _empty_gaprules(), _empty_gaprules()
+        ids = np.asarray(ids, dtype=np.int64)
+        sls, els = search1.qrystart_len[ids], search1.qryend_len[ids]
+    out = in_calls(engine.onegap, CALL_ITEMS, css, fes, sls, els)
+    with child(timer, RULES):
+        return _finish_onegap(out, ids, D1)
 
 
 def _finish_onegap(out, ids, D1):
@@ -796,15 +827,20 @@ def extract_twogap(engine, search1: OneGapSearch, search2: TwoGapSearch,
                    twogap_sa: GapOnSA, cfg: ExtractorConfig) -> GapRules:
     """Host orchestration for extractConsistentPairs_TwoGap: sampled
     occurrence list -> kernel A8 on ``engine`` -> compaction.  Returns the aXbXc GapRules."""
-    ids, tx = occurrence_lists(search2.start_on_salist, search2.end_on_salist,
-                               cfg.sampler_twogap, cfg.is_sample)
-    if len(ids) == 0:
-        return _empty_gaprules()
-    ids = np.asarray(ids, dtype=np.int64)
-    row = search2.start_on_salist.astype(np.int64)[ids] + tx
-    one_ids = search2.blockid.astype(np.int64)[ids]
-    ts, pk = engine.twogap(
-        twogap_sa.str_position[row], twogap_sa.length[row],
-        twogap_sa.length2[row], search1.qrystart_len[one_ids],
-        search1.qryend_len[one_ids], search2.qryend_len[ids])
-    return _gaprules([unpack_family(ts, pk, two_gaps=True) + (ids,)])
+    timer = getattr(engine, "timer", None)
+    with child(timer, OCCURRENCES):
+        ids, tx = occurrence_lists(search2.start_on_salist,
+                                   search2.end_on_salist, cfg.sampler_twogap,
+                                   cfg.is_sample)
+        kb.COUNTS["extract.twogap_items"] += len(ids)
+        if len(ids) == 0:
+            return _empty_gaprules()
+        ids = np.asarray(ids, dtype=np.int64)
+        row = search2.start_on_salist.astype(np.int64)[ids] + tx
+        one_ids = search2.blockid.astype(np.int64)[ids]
+        cols = (twogap_sa.str_position[row], twogap_sa.length[row],
+                twogap_sa.length2[row], search1.qrystart_len[one_ids],
+                search1.qryend_len[one_ids], search2.qryend_len[ids])
+    ts, pk = in_calls(engine.twogap, CALL_ITEMS, *cols)
+    with child(timer, RULES):
+        return _gaprules([unpack_family(ts, pk, two_gaps=True) + (ids,)])

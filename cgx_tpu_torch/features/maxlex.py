@@ -32,6 +32,7 @@ import torch
 from cgx_tpu_torch.config import ExtractorConfig
 from cgx_tpu_torch.index.container import HostLexIndex, pack_lex_key
 from cgx_tpu_torch.kernels import build as kb
+from cgx_tpu_torch.utils.batching import in_calls
 from cgx_tpu_torch.utils.views import take
 
 TPOSW = 16   # target span width (end offset < max_rule_span)
@@ -39,6 +40,10 @@ SRCW = 5     # max source words (MAX_rule_symbols)
 
 # max dense-matrix entries per direction (2 x 512 MB of device memory)
 DEV_DENSE_LIMIT = 1 << 27
+# the most rules one launch of A9 or A10 scores (52 B of columns and
+# features each on the device): an unsampled request's million distinct
+# rules are scored in several, so MaxLex's device memory stays bounded
+CALL_RULES = 1 << 19
 
 
 def _neglog(v: np.ndarray) -> np.ndarray:
@@ -342,8 +347,9 @@ def compute_maxlex(task_arrays: dict, index, rules_one, rules_two,
                    rules_contig, cfg: ExtractorConfig):
     """Scores the families' TaskArrays and scatters the features into the
     rules (row d of a family's TaskArrays is its distinct rule d): on the
-    index's device (A9 / A10) for a ``TorchGrammarIndex``, on the host for a
-    ``HostLexIndex`` (the sharded index's)."""
+    index's device (A9 / A10, in launches of at most ``CALL_RULES`` rules)
+    for a ``TorchGrammarIndex``, on the host for a ``HostLexIndex`` (the
+    sharded index's)."""
     by_kind = {"onegap": rules_one, "twogap": rules_two, "contig": rules_contig}
     kinds = [k for k in ("onegap", "twogap", "contig")
              if len(task_arrays[k].t0)]
@@ -358,20 +364,23 @@ def compute_maxlex(task_arrays: dict, index, rules_one, rules_two,
         _scatter(by_kind, kinds, fge, egf)
         return
     dev = index.device
-    sp = kb.to_device(np.ascontiguousarray(np.concatenate(
-        [task_arrays[k].src_pat for k in kinds]), np.int32), dev)
-    cols = [kb.to_device(np.ascontiguousarray(np.concatenate(
-        [getattr(task_arrays[k], f) for k in kinds]), np.int32), dev)
-        for f in ("t0", "tend", "g1", "g11", "g2", "g21")]
+    src = np.concatenate([task_arrays[k].src_pat for k in kinds])
+    cols = [np.concatenate([getattr(task_arrays[k], f) for k in kinds])
+            for f in ("t0", "tend", "g1", "g11", "g2", "g21")]
     mode, tabs = lex_tables(index)
-    if mode == "dense":
-        fge, egf = accum_dense(*tabs, index.tgt_str, cfg.max_score, sp, *cols)
-    else:
-        rs, re, lt, lnv1, lnv2, steps = tabs
-        fge, egf = accum_range(rs, re, lt, lnv1, lnv2, index.tgt_str,
-                               cfg.max_score, sp, *cols, steps)
-    _scatter(by_kind, kinds, kb.to_host(fge).numpy(),
-             kb.to_host(egf).numpy())
+
+    def launch(*host_cols):
+        sp, *cs = (kb.to_device(np.ascontiguousarray(c, np.int32), dev)
+                   for c in host_cols)
+        if mode == "dense":
+            f, e = accum_dense(*tabs, index.tgt_str, cfg.max_score, sp, *cs)
+        else:
+            rs, re, lt, lnv1, lnv2, steps = tabs
+            f, e = accum_range(rs, re, lt, lnv1, lnv2, index.tgt_str,
+                               cfg.max_score, sp, *cs, steps)
+        return kb.to_host(f).numpy(), kb.to_host(e).numpy()
+    fge, egf = in_calls(launch, CALL_RULES, src, *cols)
+    _scatter(by_kind, kinds, fge, egf)
 
 
 def _scatter(by_kind, kinds, fge, egf):

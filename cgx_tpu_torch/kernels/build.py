@@ -31,7 +31,11 @@ of every host<->device copy), ``syncs`` (one per ``to_host`` of a CUDA
 tensor, plus one per ``utils.timing.PhaseTimer`` synchronise) and the
 two-gap lookup's work at its boundaries (``lookup2.items``, the A5 items
 scanned, ``lookup2.device_items``, those of them matched on the device by
-A5m, and ``lookup2.rows``, the rows kept).  A copy is counted only
+A5m, and ``lookup2.rows``, the rows kept), the items the extraction
+hands each of its kernels (``extract.contig_items``,
+``extract.onegap_items``, ``extract.twogap_items``: the occurrences of
+A6, A7 and A8 after sampling, counted on every device) and the grammar
+lines the pipeline formats (``grammar.lines``).  A copy is counted only
 where a CUDA tensor takes part, so a CPU run writes no count under a
 device's name.  ``snapshot`` reads the whole registry as one flat dict.
 """

@@ -171,7 +171,10 @@ def contig_occurrences(blocks, cfg):
 def run_sharded_search(devices, index, queries, blocks, cfg):
     """Query-DP pass 1 and contiguous extraction over the shards' devices on
     a ``TorchGrammarIndex``; returns the pass-1 longestmatch array (host)
-    and the global counts (n_match, n_rules)."""
+    and the global counts (n_match, n_rules).  Each shard's B4 takes all its
+    occurrences in one launch: unlike ``extract.device``'s calls of at most
+    ``CALL_ITEMS``, its device memory grows with the request's
+    occurrences."""
     n = queries.totaltokens
     toks = np.arange(n, dtype=np.int32)
     suffixlens = passes._suffix_lens(queries)

@@ -57,6 +57,7 @@ from cgx_tpu_torch.features import lexicon as lx
 from cgx_tpu_torch.features import maxlex as ml
 from cgx_tpu_torch.grammar import writer as gw
 from cgx_tpu_torch.index import container as ic
+from cgx_tpu_torch.kernels import build as kb
 from cgx_tpu_torch.parallel import localdp
 from cgx_tpu_torch.parallel import sharded as shx
 from cgx_tpu_torch.preproc import corpus as cp
@@ -421,6 +422,8 @@ def _back_stages(ctx, queries, fr, cfg, t):
                     fmt_contig, fmt_one, fmt_two, G, D1, D2)
                 for q in range(queries.qryscount)
             ]
+    total_lines = sum(len(x) for x in per_query_lines)
+    kb.COUNTS["grammar.lines"] += total_lines
     counters = dict(
         blocks=G, distinct_onegap=D1, distinct_twogap=D2,
         precomp_rows=pc.count, pass1_tokens=queries.totaltokens,
@@ -431,7 +434,7 @@ def _back_stages(ctx, queries, fr, cfg, t):
         onegap_rules=len(fr["rules1"].gappy_index),
         twogap_rules=len(fr["rules2"].gappy_index),
         distinct_rules=len(rules_one) + len(rules_two) + len(rules_contig),
-        total_lines=sum(len(x) for x in per_query_lines))
+        total_lines=total_lines)
     return per_query_lines, counters
 
 

@@ -1,4 +1,7 @@
-"""Power-of-two bucket padding of the index arrays (from ``cgx_tpu/utils/batching.py``).
+"""Power-of-two bucket padding of the index arrays (from ``cgx_tpu/utils/batching.py``),
+and ``in_calls``, which cuts a launch's item columns into calls of a fixed
+most, so that a launch's device memory follows that size and not the
+request's.
 
 The CUDA kernels take their lengths at run time, so the port needs none of the
 JAX package's per-shape program ladder.  The padding itself is kept: every
@@ -27,3 +30,15 @@ def pad_tokens(tokens: np.ndarray, fill) -> np.ndarray:
     if m == n:
         return tokens
     return np.concatenate([tokens, np.full(m - n, fill, tokens.dtype)])
+
+
+def in_calls(call, size: int, *cols):
+    """``call(*cols)`` over consecutive slices of at most ``size`` items
+    (rows of the columns) -> its output columns (numpy arrays), each
+    concatenated in item order."""
+    n = len(cols[0])
+    if n <= size:
+        return call(*cols)
+    parts = [call(*(c[lo:lo + size] for c in cols))
+             for lo in range(0, n, size)]
+    return tuple(np.concatenate(p) for p in zip(*parts))

@@ -100,6 +100,16 @@ Phases, one line each on stdout:
        launches only its own shard's).  The CLI
        processes of 3g and 3i print their launch counts at exit
        (``LAUNCH_WRAPPER``), which count as the in-process runs' do;
+   3j. unsampled -- medium with ``is_sample`` off (every occurrence
+       extracted, as ``--no-sample``): the sampled medium run's kernels
+       (A1, A4, A2f, A2b, A3, A5m, A6, A7, A8, A9) and no other, every
+       query's lines equal to the port's plain path on the CPU and
+       ``UNSAMPLED_REF_QUERIES``' to ``perfbench.reference``'s (the text
+       turned into its arrays, ``tools/reference_text.py``), the files
+       ``grammar.<i>.n`` and some SampleCountF past log10(301); its line
+       prints the items each kernel took and the extraction's counters.
+       It runs after the capture closes, so the kernel rows of phase 7
+       keep the sampled paths' largest launches;
 4. query_dp -- ``parallel.dist.run_sharded_search`` on the europarl run's
    index, pass-1 tokens and sampled block occurrences, over four shards and
    then two on the one card (kernel B4, one launch per shard with its
@@ -2708,6 +2718,82 @@ def read_grammars(d: str, n: int) -> list:
     return out
 
 
+# 3j: medium with ``is_sample`` off; the queries compared with the
+# reference (every query: under 1 s each on the host)
+UNSAMPLED_REF_QUERIES = tuple(range(32))
+
+
+def check_unsampled(work: str) -> dict:
+    """3j. medium with ``is_sample`` off (every occurrence extracted) on
+    the card: the sampled medium run's kernels and no other, every query's
+    lines equal to the port's plain path on the CPU and
+    ``UNSAMPLED_REF_QUERIES``' to ``perfbench.reference``'s, the files
+    ``grammar.<i>.n``, and some rule's SampleCountF past log10(301), which
+    a sampled run cannot give -> the launch counts."""
+    import dataclasses
+    import math
+    import re
+    import torch
+    from cgx_tpu_torch.config import DEFAULT_CONFIG
+    from cgx_tpu_torch.grammar import writer as gw
+    from cgx_tpu_torch.kernels import build as kb
+    from cgx_tpu_torch.pipeline import run_pipeline
+    cfg = dataclasses.replace(DEFAULT_CONFIG, is_sample=False)
+    data = _CORPORA["medium"]
+    kb.LAUNCHES.clear()
+    kb.ITEMS.clear()
+    kb.BYTES.clear()
+    counts0 = dict(kb.COUNTS)
+    t0 = time.perf_counter()
+    res = run_pipeline(*data, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect, forbid = RUNS[0][4], RUNS[0][5]
+    launches = check_launches("medium (unsampled)", expect, forbid)
+    items = dict(kb.ITEMS)
+    grew = {k: v - counts0.get(k, 0) for k, v in kb.COUNTS.items()
+            if k.startswith(("extract.", "grammar."))}
+    t0 = time.perf_counter()
+    plain = run_pipeline(*data, cfg, device="cpu")
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = _load_tool("reference_text").reference_grammar(
+        data, {"is_sample": False}, UNSAMPLED_REF_QUERIES)
+    ref_s = time.perf_counter() - t0
+    lines = res.per_query_lines
+    dest = os.path.join(work, "medium_unsampled")
+    gw.write_grammars(dest, res.queries.qryscount, cfg.is_sample, lines)
+    files = sorted(os.listdir(dest))
+    counts = [float(m.group(1)) for q in lines for ln in q
+              for m in [re.search(r"SampleCountF=([0-9.]+)", ln)] if m]
+    plain_off = [q for q in range(len(lines))
+                 if lines[q] != plain.per_query_lines[q]]
+    ref_off = [q for q, want in zip(UNSAMPLED_REF_QUERIES, ref)
+               if lines[q] != want]
+    print(json.dumps({
+        "phase": "e2e_unsampled", "size": "medium", "wall_s": wall,
+        "plain_cpu_s": plain_s, "reference_s": ref_s,
+        "reference_queries": list(UNSAMPLED_REF_QUERIES),
+        "phases_s": res.timing.as_dict(), "counters": res.counters,
+        "launches": launches, "items": items, "bytes": dict(kb.BYTES),
+        "counted": grew, "max_sample_count_f": max(counts, default=None),
+        "grammar_sha256": grammar_hash(lines),
+        "plain_queries_off": plain_off, "reference_queries_off": ref_off}),
+        flush=True)
+    if files != sorted(f"grammar.{q}.n" for q in range(len(lines))):
+        fail(f"medium (unsampled): files {files[:3]} are not grammar.<i>.n")
+    if plain_off:
+        fail(f"medium (unsampled): queries {plain_off[:5]} differ from the "
+             "port's plain path on the CPU")
+    if ref_off:
+        fail(f"medium (unsampled): queries {ref_off} differ from "
+             "perfbench.reference")
+    if not counts or max(counts) <= math.log10(301):
+        fail("medium (unsampled): no SampleCountF past log10(301): the "
+             "run was sampled")
+    return launches
+
+
 def dir_bytes(d: str) -> dict:
     return {f: os.path.getsize(os.path.join(d, f))
             for f in sorted(os.listdir(d))}
@@ -3331,6 +3417,9 @@ def main():
             # 5. C1p on A3's largest launch, as columns; 6. the gather probe
             count(check_pcs_cols(cap))
             count(check_probe(cap))
+        # 3j. medium unsampled, outside the capture: the kernel rows keep
+        # the sampled paths' largest launches
+        count(check_unsampled(work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

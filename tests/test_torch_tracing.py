@@ -3,8 +3,10 @@ phases (a stack per thread, ``parent/child`` keys, no synchronise in a
 child, top-level output unchanged, profiler ranges while a profiler
 records), the engine calls as child phases, the counter registry of
 ``kernels/build.py`` (``counted``, ``to_device``, ``to_host``,
-``snapshot``, the lookups' rows, the timer's ``count:<name>`` keys) and the child phases of a whole run of
-the pipeline (lookup2's on both its routes) and of ``cli --profile``."""
+``snapshot``, the lookups' rows, the extraction's items, the grammar's
+lines, the timer's ``count:<name>`` keys) and the child phases of a whole
+run of the pipeline (lookup2's on both its routes, extraction's sampled
+and unsampled) and of ``cli --profile``."""
 
 import json
 import pathlib
@@ -32,6 +34,8 @@ CHILDREN = {
     "lookup1": {"route", "scan_rows", "sort", "engine.scan_expanded",
                 "engine.sa_values"},
     "lookup2": {"items", "keys", "match", "sort", "engine.two_rows"},
+    "extractkernel": {"occurrences", "rules", "engine.contig",
+                      "engine.onegap", "engine.twogap"},
     "lexicon": {"onegap", "twogap", "contig"},
     "printout": {"updown", "format", "lines"},
 }
@@ -293,6 +297,48 @@ def test_lookups_count_their_rows_and_a_cpu_run_no_copy(toy_run):
     assert [grew.get(k, 0) for k in ("syncs", "h2d_bytes", "d2h_bytes")] \
         == [0, 0, 0]
     assert dict(kb.ITEMS) == items0            # no launch on the CPU
+
+
+# the extraction's item counters and the engine call whose items each counts
+EXTRACT_ITEMS = {"contig": "extract.contig_items",
+                 "onegap": "extract.onegap_items",
+                 "twogap": "extract.twogap_items"}
+
+
+@pytest.mark.parametrize("is_sample", [True, False],
+                         ids=["sampled", "unsampled"])
+def test_extraction_counts_the_items_of_each_engine_call(
+        toy_fixture, monkeypatch, is_sample):
+    """``extract.<family>_items`` grow by the items handed to the engine's
+    ``contig``, ``onegap`` and ``twogap`` (A6, A7, A8), ``grammar.lines``
+    by the lines formatted, and ``extractkernel``'s children are the host
+    stages and the three engine calls, with and without sampling."""
+    handed = {k: 0 for k in EXTRACT_ITEMS}
+    for name in EXTRACT_ITEMS:
+        real = getattr(ReplicatedEngine, name)
+
+        def rec(self, *args, _real=real, _name=name, **kw):
+            handed[_name] += len(args[0])
+            return _real(self, *args, **kw)
+        monkeypatch.setattr(ReplicatedEngine, name, rec)
+    d = pathlib.Path(toy_fixture)
+    args = [cp.read_lines(str(d / n)) for n in ("corpus.f", "corpus.e",
+                                                "corpus.a")]
+    counts0 = dict(kb.COUNTS)
+    res = tpl.run_pipeline(*args, cp.read_tokens(str(d / "lex.txt")),
+                           cp.read_lines(str(d / "query.f")),
+                           ExtractorConfig(is_sample=is_sample),
+                           device="cpu")
+    grew = {k: v - counts0.get(k, 0) for k, v in kb.COUNTS.items()}
+    assert {k: grew.get(c, 0) for k, c in EXTRACT_ITEMS.items()} == handed
+    assert all(handed.values()), handed
+    assert grew["grammar.lines"] == res.counters["total_lines"] > 0
+    got = {k.split("/", 1)[1] for k in res.timing.children
+           if k.startswith("extractkernel/") and k.count("/") == 1}
+    assert got == CHILDREN["extractkernel"]
+    d = res.timing.as_dict()
+    for k, c in EXTRACT_ITEMS.items():
+        assert d["count:" + c] == handed[k]
 
 
 @pytest.mark.parametrize("route", sorted(LOOKUP2_ROUTES))
