@@ -24,6 +24,20 @@
 //   C1f / C1b (cgx_scan_cols, identity views) replace _scan_batch_cols
 //     (:274-282): one item per row of host-resolved columns gostart, sl, el
 //     and the three compared query tokens w0..w2.
+// lookup1's rows, A2m (cgx_scan_count, cgx_scan_rows): replaces no TPU
+//   kernel.  The JAX package turns A2's masks into rows on the host
+//   (cgx_tpu/search/lookup.py one_gap_lookup_tpu: unpack the bits, expand
+//   the hits to (pattern, tx), read each hit's SA word, stack and lexsort the
+//   rows); on the H100 that host work and the copy of one mask word an item
+//   were most of lookup1's time while A2 took milliseconds.  A2m runs A2's
+//   item expansion and warp body unchanged, then compacts the kept moves in
+//   two passes, as A5m does: the count pass writes each warp's popcount, the
+//   exclusive prefix of those counts is taken on the device, and the write
+//   pass writes each kept (item, move) as one int64 key packing (pattern,
+//   start, length) at its warp's offset plus its lanes' prefix.  The keys
+//   are sorted after the kernel (the rows are
+//   unique, so the keys' order is the lexsort's).  Bound: A2's reads, twice
+//   (both passes run the body), and 8 bytes a key written.
 // lookup2's second-gap scan, `two_warp`: _two_item (:615-639): from an aXb
 //   occurrence (start, len) the 16 moves right of the core and the fused
 //   gap check anchored one token past it.  A half-warp per item reads the
@@ -295,6 +309,44 @@ __device__ __forceinline__ unsigned scan_warp(const View& ref, const View& rlp,
     return mask;
 }
 
+// A2's and A2m's lane j: the item's pattern row fields, its SA word and (A2m)
+// the caller's pattern id pattab[p, 6]; a tail lane (j >= n) holds no item
+struct ScanItem {
+    int gostart = 0, sl = 0, el = 0, w0 = 0, w1 = 0, w2 = 0, pid = 0;
+    bool valid = false;
+};
+
+__device__ __forceinline__ ScanItem scan_item(const int* __restrict__ sa,
+                                              int sa_len,
+                                              const int* __restrict__ pattab,
+                                              const int* __restrict__ offs,
+                                              int D, int j, int n) {
+    ScanItem it;
+    if (j < n) {
+        const int p = find_pattern(offs, D, j);
+        const int* f = pattab + 8 * p;
+        it.gostart = sa[clip(f[0] + j - offs[p], 0, sa_len - 1)];
+        it.sl = f[1];
+        it.el = f[2];
+        it.w0 = f[3];
+        it.w1 = f[4];
+        it.w2 = f[5];
+        it.pid = f[6];
+        it.valid = true;
+    }
+    return it;
+}
+
+__device__ __forceinline__ unsigned scan_item_warp(const View& ref,
+                                                   const View& rlp,
+                                                   const View& lr_tar,
+                                                   const ScanItem& it,
+                                                   int mrs, int mgs,
+                                                   bool fwd) {
+    return scan_warp(ref, rlp, lr_tar, it.gostart, it.sl, it.el, it.w0,
+                     it.w1, it.w2, it.valid, mrs, mgs, fwd);
+}
+
 // A2: a warp per 32 consecutive items.  Every lane stays to the end (tail
 // lanes past n are masked, never returned), since the shuffles and ballots
 // name the whole warp.
@@ -304,23 +356,68 @@ scan_kernel(View ref, View rlp, View lr_tar, const int* __restrict__ sa,
             const int* __restrict__ offs, int D, int n, int mrs, int mgs,
             bool fwd, int* __restrict__ out) {
     const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool valid = j < n;
-    // lane i for the warp's item i: the pattern, its row and the SA word
-    int gostart = 0, sl = 0, el = 0, w0 = 0, w1 = 0, w2 = 0;
-    if (valid) {
-        const int p = find_pattern(offs, D, j);
-        const int* f = pattab + 8 * p;
-        gostart = sa[clip(f[0] + j - offs[p], 0, sa_len - 1)];
-        sl = f[1];
-        el = f[2];
-        w0 = f[3];
-        w1 = f[4];
-        w2 = f[5];
-    }
+    // lane i for the warp's item i: the pattern, its row and the SA word;
     // the scan and the gap check, then one coalesced store per warp
-    const unsigned mask = scan_warp(ref, rlp, lr_tar, gostart, sl, el, w0, w1,
-                                    w2, valid, mrs, mgs, fwd);
-    if (valid) out[j] = (int)mask;
+    const ScanItem it = scan_item(sa, sa_len, pattab, offs, D, j, n);
+    const unsigned mask = scan_item_warp(ref, rlp, lr_tar, it, mrs, mgs, fwd);
+    if (it.valid) out[j] = (int)mask;
+}
+
+// A2m's count pass: A2's warp body; lane 0 writes the number of kept moves
+// (rows) of the warp's 32 items.  A warp wholly past n returns at once.
+__global__ void __launch_bounds__(kScanThreads)
+scan_count_kernel(View ref, View rlp, View lr_tar, const int* __restrict__ sa,
+                  int sa_len, const int* __restrict__ pattab,
+                  const int* __restrict__ offs, int D, int n, int mrs,
+                  int mgs, bool fwd, int* __restrict__ counts) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j - lane_id() >= n) return;
+    const ScanItem it = scan_item(sa, sa_len, pattab, offs, D, j, n);
+    const unsigned mask = scan_item_warp(ref, rlp, lr_tar, it, mrs, mgs, fwd);
+    const unsigned total = __reduce_add_sync(kFull, __popc(mask));
+    if (lane_id() == 0) counts[j >> 5] = (int)total;
+}
+
+// A2m's write pass: warp w's rows are rows woff[w] .. woff[w + 1] - 1 (the
+// exclusive prefix of the count pass), in (item, move) order: lane i's after
+// those of lanes < i (the exclusive prefix of the lanes' popcounts), its
+// moves ascending.  A warp with no row returns at once; the others
+// recompute the count pass's body and each lane writes, for each kept move m
+// of its item, the key
+//   (pid << sh_pat) | ((start + bias) << sh_len) | length
+// with start = gostart forward, gostart - mgs - m - sl backward, and length
+// = sl + mgs + m + el - 1 (lookup1's row of cgx_tpu/search/lookup.py:
+// one_gap_lookup_tpu, packed as search/lookup.py RowKey packs it)
+__global__ void __launch_bounds__(kScanThreads)
+scan_rows_kernel(View ref, View rlp, View lr_tar, const int* __restrict__ sa,
+                 int sa_len, const int* __restrict__ pattab,
+                 const int* __restrict__ offs, int D, int n, int mrs, int mgs,
+                 bool fwd, const long long* __restrict__ woff, int sh_pat,
+                 int sh_len, int bias, long long* __restrict__ keys) {
+    const int j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j - lane_id() >= n) return;
+    const long long base = woff[j >> 5];
+    if (woff[(j >> 5) + 1] == base) return;   // the whole warp
+    const ScanItem it = scan_item(sa, sa_len, pattab, offs, D, j, n);
+    unsigned mask = scan_item_warp(ref, rlp, lr_tar, it, mrs, mgs, fwd);
+    const int lane = lane_id();
+    const int c = __popc(mask);
+    int incl = c;                     // inclusive prefix over the lanes
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += v;
+    }
+    long long r = base + incl - c;
+    const long long pkey = (long long)it.pid << sh_pat;
+    while (mask) {
+        const int m = __ffs(mask) - 1;
+        mask &= mask - 1;
+        const int start = fwd ? it.gostart : it.gostart - mgs - m - it.sl;
+        const int length = it.sl + mgs + m + it.el - 1;
+        keys[r++] = pkey | ((long long)(start + bias) << sh_len)
+                    | (long long)length;
+    }
 }
 
 // _two_item for a warp's 32 aXb cores, lane i holding item i's (pstart,
@@ -788,6 +885,45 @@ CGX_EXPORT int cgx_scan(const int* refstr, int ref_len, const int* rlp,
         identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
         identity_view(lr_tar, lr_len), sa, sa_len, pattab, offs, D, n, mrs,
         mgs, fwd != 0, out);
+    return (int)cudaGetLastError();
+}
+
+// A2m, the count pass.  A2's arguments, pattab int32 [D, 8] with the
+// caller's pattern id in column 6.  counts: int32 [(n + 31) / 32], the rows
+// (kept moves) of each warp.
+CGX_EXPORT int cgx_scan_count(const int* refstr, int ref_len, const int* rlp,
+                              int rlp_len, const int* lr_tar, int lr_len,
+                              const int* sa, int sa_len, const int* pattab,
+                              const int* offs, int D, int n, int mrs, int mgs,
+                              int fwd, int* counts, void* stream) {
+    if (mrs < 1 || mrs > MMOV || D < 1) return (int)cudaErrorInvalidValue;
+    scan_count_kernel<<<cgx_grid(n, kScanThreads), kScanThreads, 0,
+                        (cudaStream_t)stream>>>(
+        identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
+        identity_view(lr_tar, lr_len), sa, sa_len, pattab, offs, D, n, mrs,
+        mgs, fwd != 0, counts);
+    return (int)cudaGetLastError();
+}
+
+// A2m, the write pass.  The count pass's arguments, woff int64 [(n + 31) / 32
+// + 1] (the exclusive prefix of its counts) and the key's layout (sh_len <
+// sh_pat < 64, bias >= 0).  keys: int64 [woff[(n + 31) / 32]], the rows in
+// (item, move) order.
+CGX_EXPORT int cgx_scan_rows(const int* refstr, int ref_len, const int* rlp,
+                             int rlp_len, const int* lr_tar, int lr_len,
+                             const int* sa, int sa_len, const int* pattab,
+                             const int* offs, int D, int n, int mrs, int mgs,
+                             int fwd, const long long* woff, int sh_pat,
+                             int sh_len, int bias, long long* keys,
+                             void* stream) {
+    if (mrs < 1 || mrs > MMOV || D < 1 || sh_len < 1 || sh_pat <= sh_len
+        || sh_pat > 63 || bias < 0)
+        return (int)cudaErrorInvalidValue;
+    scan_rows_kernel<<<cgx_grid(n, kScanThreads), kScanThreads, 0,
+                       (cudaStream_t)stream>>>(
+        identity_view(refstr, ref_len), identity_view(rlp, rlp_len),
+        identity_view(lr_tar, lr_len), sa, sa_len, pattab, offs, D, n, mrs,
+        mgs, fwd != 0, woff, sh_pat, sh_len, bias, keys);
     return (int)cudaGetLastError();
 }
 

@@ -24,7 +24,11 @@ business): ``sa_values``, ``pcs_expanded``, ``scan_expanded``,
 engine whose ``two_rows_on_device`` is true (``ReplicatedEngine`` without
 ``scan_cols``) also has ``two_rows`` (kernel A5m: lookup2's scan and its
 c-token match on the device), which lookup2 then takes in place of
-``two_expanded`` and its host match; the others have neither.
+``two_expanded`` and its host match; the others have neither.  Likewise
+``scan_rows_on_device`` and ``scan_rows`` (kernel A2m: lookup1's scan
+hits as rows, and the sort of all its rows, on the device), which lookup1
+takes in place of ``scan_expanded``, its host expansion and
+``sa_values``.
 Each protocol method is a child phase ``engine.<method>`` of the phase
 that called it (``traced``) when the engine's ``timer`` is set
 (``pipeline.build_artifact`` and ``_make_context`` set it, ``serve`` per
@@ -91,6 +95,17 @@ def materialize_items(counts):
     tx = np.arange(len(item_pat), dtype=np.int64) \
         - np.repeat(cum - counts, counts)
     return item_pat, tx
+
+
+def _scan_tokens(queries, fwd, sl, side) -> tuple:
+    """A2's three compared query tokens per pattern: b's first three
+    forward (``side`` = b's start), a's last three reversed backward
+    (``side`` = a's start)."""
+    qtok = np.asarray(queries.padded_tokens()).astype(np.int64)
+    if fwd:
+        return qtok[side], qtok[side + 1], qtok[side + 2]
+    return (qtok[side + sl - 1], qtok[side + np.maximum(sl - 2, 0)],
+            qtok[side + np.maximum(sl - 3, 0)])
 
 
 def on(device, *cols):
@@ -206,12 +221,7 @@ class ReplicatedEngine:
         """A2 over the patterns' SA ranges (with ``scan_cols``: C1f/C1b over
         the items materialised on the host, each occurrence read from the
         host SA) -> numpy int32 [sum(counts)] masks."""
-        qtok = np.asarray(queries.padded_tokens()).astype(np.int64)
-        if fwd:
-            toks = (qtok[side], qtok[side + 1], qtok[side + 2])
-        else:
-            toks = (qtok[side + sl - 1], qtok[side + np.maximum(sl - 2, 0)],
-                    qtok[side + np.maximum(sl - 3, 0)])
+        toks = _scan_tokens(queries, fwd, sl, side)
         ix, cfg = self.index, self.cfg
         if self.scan_cols:
             item_pat, tx = materialize_items(counts)
@@ -227,6 +237,35 @@ class ReplicatedEngine:
                                pattab, offs, n, cfg.max_rule_span,
                                cfg.min_gap_size, fwd)
         return _done(lambda: host(mask), fetch)
+
+    @property
+    def scan_rows_on_device(self) -> bool:
+        """Whether lookup1 turns its scans' hits into rows on the device
+        (``scan_rows``): on the expanded items, not with ``scan_cols``."""
+        return not self.scan_cols
+
+    @traced
+    def scan_rows(self, queries, scans, host_rows, n_patterns):
+        """A2m over lookup1's scans ``scans`` ((fwd, lo, counts, sl, el,
+        side, ids) each: ``scan_expanded``'s arguments and the scanned
+        patterns' ids) and the sort of those rows with the host-built rows
+        ``host_rows`` (int64 [R, 3]: pattern, start, length), keys packed
+        by ``lookup.device_row_key`` (``lookup.scan_rows``) -> the sorted
+        rows' (pattern, start, length), numpy int32 [3, R]."""
+        ix, cfg = self.index, self.cfg
+        mrs = cfg.max_rule_span
+        key = lookup.device_row_key(n_patterns, ix.reflen, mrs, host_rows)
+        tables = []
+        for fwd, lo, counts, sl, el, side, ids in scans:
+            pattab, offs, n = self._pattern_tables(
+                counts, (lo, sl, el) + _scan_tokens(queries, fwd, sl, side)
+                + (ids,))
+            tables.append((pattab, offs, n, fwd))
+        return lookup.scan_rows(ix.refstr_padded, ix.rlp, ix.lr_tar, ix.sa,
+                                tables,
+                                key.pack(host_rows[:, 0], host_rows[:, 1],
+                                         host_rows[:, 2]),
+                                key, mrs, cfg.min_gap_size)
 
     @traced
     def two_expanded(self, onegap_sa, pc, lo, counts, pcmode, fetch=True):

@@ -13,9 +13,10 @@ module of the package on a machine without ``nvcc``.
 
 ``LAUNCHES`` counts launches per kernel id (the ids of the JAX package's
 device kernels: A1, A2f and A2b for A2's forward and backward scans, A3,
-A4, A5, A6, A7, A8, A9, A10, B1p1 and B1p2 for B1's two passes, A5m
-(lookup2's match on the device, which replaces no TPU kernel; its count
-and write passes each count a launch), and the
+A4, A5, A6, A7, A8, A9, A10, B1p1 and B1p2 for B1's two passes, A2m
+(lookup1's rows on the device), A2s (the sort and unpacking of those
+rows) and A5m (lookup2's match on the device), which replace no TPU
+kernel (each pass of each counts a launch), and the
 sharded index's B2r and B2g (refinement, SA gather), B2s and B2t (the
 refinement's round form on a device list) and B3f, B3b, B3p, B3t and B3c (the per-item scans, verification, second-gap scan and contiguous
 extraction), the column-upload lookups' C1f, C1b, C1p and C1t, the
@@ -28,7 +29,9 @@ adds the launch's items to ``ITEMS`` and its bytes to ``BYTES``.
 ``COUNTS`` holds the copy and sync counters of the hot path:
 ``h2d_bytes`` and ``d2h_bytes`` (``to_device``, ``to_host``: the one path
 of every host<->device copy), ``syncs`` (one per ``to_host`` of a CUDA
-tensor, plus one per ``utils.timing.PhaseTimer`` synchronise) and the
+tensor, plus one per ``utils.timing.PhaseTimer`` synchronise), the
+one-gap lookup's (``lookup1.items``, the A2 items scanned on either route,
+and ``lookup1.device_items``, those of them that took A2m) and the
 two-gap lookup's work at its boundaries (``lookup2.items``, the A5 items
 scanned, ``lookup2.device_items``, those of them matched on the device by
 A5m, and ``lookup2.rows``, the rows kept), the items the extraction
@@ -89,6 +92,10 @@ SIGNATURES = {
     "scan": {
         "cgx_scan": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I,
                      _I, _P, _P],
+        "cgx_scan_count": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I,
+                           _I, _I, _I, _P, _P],
+        "cgx_scan_rows": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I,
+                          _I, _I, _I, _P, _I, _I, _I, _P, _P],
         "cgx_pcs": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _P, _P],
         "cgx_two": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I,
                     _I, _I, _P, _P],
@@ -108,6 +115,11 @@ SIGNATURES = {
                           _P, _P, _I, _I, _I, _I, _P, _P],
         "cgx_two_rows": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I,
                          _P, _P, _P, _I, _I, _I, _I, _P, _L, _L, _P, _P],
+    },
+    "sort": {
+        "cgx_sort_hist": [_P, _I, _I, _P, _P],
+        "cgx_sort_scatter": [_P, _I, _I, _P, _P, _P],
+        "cgx_unpack_rows": [_P, _I, _I, _I, _I, _P, _P],
     },
     "contig": {
         "cgx_contig": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _I, _I,

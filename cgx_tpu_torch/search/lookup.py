@@ -21,7 +21,10 @@ package does:
   then a second dispatch for the candidates) lives inside A2: it runs the
   gap check only for items whose candidate mask is non-zero, which gives
   the same rows by construction.  ``scan_plain(..., gap=False)`` returns the
-  candidate masks alone.
+  candidate masks alone.  On the replicated engine kernel A2m
+  (``scan_count``, ``scan_keys``; ``scan_rows`` with the sort) runs A2's
+  body and writes each kept move as one packed int64 row key on the
+  device, and only the sorted rows come down.
 
 lookup2: kernel A5 (``two``) scans right from every occurrence of every
 distinct one-gap pattern (precomputed cells expanded) for the second gap,
@@ -42,6 +45,8 @@ The orchestrators reach each through an engine (``cgx_tpu_torch.engine``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -427,6 +432,261 @@ def scan(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int, mgs: int,
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class RowKey:
+    """lookup1's row (pattern, start, length) packed into one int64 key,
+    ``(pattern << sh_pat) | ((start + bias) << sh_len) | length``, with
+    field widths taken from the data (``fit``).  A lookup's rows are unique,
+    so sorting their keys gives the order of the lexsort by (pattern,
+    start, length), and no argsort or stable sort is needed.  ``pack`` and
+    ``unpack`` take numpy or torch int64 arrays; kernel A2m packs the same
+    way."""
+    sh_len: int
+    sh_pat: int
+    bias: int
+    bits: int       # the key's width: sh_pat and the pattern's bits
+
+    @classmethod
+    def fit(cls, n_patterns: int, start_lo: int, start_hi: int,
+            length_hi: int) -> "RowKey":
+        """The layout of patterns in [0, n_patterns), starts in
+        [start_lo, start_hi] and lengths in [0, length_hi].  Starts are
+        int32 and lengths below the span limit, so the key passes 63 bits
+        only past about 2^26 patterns in one lookup: ValueError then."""
+        bias = max(-int(start_lo), 0)
+        sh_len = max(int(length_hi).bit_length(), 1)
+        sh_pat = sh_len + max(int(start_hi + bias).bit_length(), 1)
+        bits = sh_pat + max(int(n_patterns) - 1, 1).bit_length()
+        if bits > 63:
+            raise ValueError(f"lookup1's row key needs {bits} bits "
+                             f"({n_patterns} patterns)")
+        return cls(sh_len, sh_pat, bias, bits)
+
+    def pack(self, pat, start, length):
+        return (pat << self.sh_pat) | ((start + self.bias) << self.sh_len) \
+            | length
+
+    def unpack(self, keys) -> tuple:
+        """-> (pattern, start, length), int64 each."""
+        smask = (1 << (self.sh_pat - self.sh_len)) - 1
+        return (keys >> self.sh_pat,
+                ((keys >> self.sh_len) & smask) - self.bias,
+                keys & ((1 << self.sh_len) - 1))
+
+
+def device_row_key(n_patterns: int, corpus_len: int, mrs: int,
+                   host_rows) -> RowKey:
+    """The layout of A2m's route, fixed before its kernels run: its scan
+    rows start in [1 - mrs, corpus_len - 1] (a backward row's a phrase ends
+    at or after the corpus start, its sl <= mrs) and are shorter than mrs
+    (the scan's span limit); the host rows ``host_rows`` (int64 [R, 3]) are
+    fitted as they are."""
+    lo, hi, ln = 1 - mrs, corpus_len - 1, mrs - 1
+    if len(host_rows):
+        lo = min(lo, int(host_rows[:, 1].min()))
+        hi = max(hi, int(host_rows[:, 1].max()))
+        ln = max(ln, int(host_rows[:, 2].max()))
+    return RowKey.fit(n_patterns, lo, hi, ln)
+
+
+def _scan_hits(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int,
+               mgs: int, fwd: bool):
+    """A2's items and their kept moves -> (pattern rows f [n, 8], SA words
+    [n], ok bool [n, MMOV])."""
+    f, tx = _expand(pattab, offs, n)
+    gostart = take(sa, f[:, 0] + tx)
+    return f, gostart, _scan_body(refstr, rlp, lr_tar, gostart, f[:, 1],
+                                  f[:, 2], f[:, 3:6], mrs, mgs, fwd)
+
+
+def scan_count_plain(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int,
+                     mgs: int, fwd: bool):
+    """Plain PyTorch version of kernel A2m's count pass -> int32
+    [ceil(n / 32)], the kept moves of each warp's 32 items."""
+    ok = _scan_hits(refstr, rlp, lr_tar, sa, pattab, offs, n, mrs, mgs,
+                    fwd)[2]
+    c = ok.sum(dim=1, dtype=torch.int32)
+    pad = torch.zeros(-n % 32, dtype=torch.int32, device=c.device)
+    return torch.cat([c, pad]).view(-1, 32).sum(dim=1, dtype=torch.int32)
+
+
+def scan_rows_plain(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int,
+                    mgs: int, fwd: bool, key: RowKey):
+    """Plain PyTorch version of kernel A2m's write pass over all its rows
+    -> int64 [R] keys in (item, move) order: each kept move m of an item of
+    pattern row p (A2's table, with the caller's pattern id in pattab[p,
+    6]) as the row (pattern id, start, length), start = the SA word
+    forward, the word - mgs - m - sl backward, length = sl + mgs + m + el -
+    1, packed by ``key``."""
+    f, gostart, ok = _scan_hits(refstr, rlp, lr_tar, sa, pattab, offs, n,
+                                mrs, mgs, fwd)
+    ii, mm = torch.nonzero(ok, as_tuple=True)
+    g, sl, el = (c[ii].long() for c in (gostart, f[:, 1], f[:, 2]))
+    start = g if fwd else g - mgs - mm - sl
+    return key.pack(f[ii, 6].long(), start, sl + mgs + mm + el - 1)
+
+
+def scan_count(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int,
+               mgs: int, fwd: bool):
+    """Kernel A2m's count pass (``csrc/scan.cu``, ``cgx_scan_count``) over
+    A2's items (arguments as ``scan``, the caller's pattern id in pattab
+    column 6) -> int64 [ceil(n / 32) + 1] on the items' device: the
+    exclusive prefix of each warp's rows, the total last.  On CPU tensors
+    the counts come from ``scan_count_plain``."""
+    device = offs.device
+    if not kb.route("A2m", device):
+        counts = scan_count_plain(refstr, rlp, lr_tar, sa, pattab, offs, n,
+                                  mrs, mgs, fwd)
+    else:
+        kb.check_inputs("A2m", device, torch.int32, refstr=refstr, rlp=rlp,
+                        lr_tar=lr_tar, sa=sa, pattab=pattab, offs=offs)
+        _check_items("A2m", pattab, offs, n)
+        counts = torch.empty((n + 31) // 32, dtype=torch.int32,
+                             device=device)
+        if n:
+            kb.launch(
+                "scan", "cgx_scan_count", device, kb.ptr(refstr),
+                refstr.shape[0], kb.ptr(rlp), rlp.shape[0], kb.ptr(lr_tar),
+                lr_tar.shape[0], kb.ptr(sa), sa.shape[0], kb.ptr(pattab),
+                kb.ptr(offs), pattab.shape[0], n, mrs, mgs, int(fwd),
+                kb.ptr(counts))
+            # the per-pattern tables once a scan
+            kb.counted("A2m", n, kb.nbytes(pattab, offs, counts))
+    return torch.cat([torch.zeros(1, dtype=torch.int64, device=device),
+                      torch.cumsum(counts, 0, dtype=torch.int64)])
+
+
+def scan_keys(refstr, rlp, lr_tar, sa, pattab, offs, n: int, mrs: int,
+              mgs: int, fwd: bool, woff, key: RowKey, out) -> None:
+    """Kernel A2m's write pass (``csrc/scan.cu``, ``cgx_scan_rows``): the
+    scan's rows (as many as ``woff``, the count pass's prefix, totals), in
+    (item, move) order, as int64 keys packed by ``key`` into ``out`` (an
+    int64 tensor of that many keys on the items' device).  On CPU tensors
+    it runs ``scan_rows_plain``."""
+    device = offs.device
+    if not kb.route("A2m", device):
+        out[:] = scan_rows_plain(refstr, rlp, lr_tar, sa, pattab, offs, n,
+                                 mrs, mgs, fwd, key)
+        return
+    kb.check_inputs("A2m", device, torch.int64, woff=woff, out=out)
+    if out.dim() != 1:
+        raise ValueError("A2m: out must be int64 [rows]")
+    if out.shape[0]:
+        kb.launch(
+            "scan", "cgx_scan_rows", device, kb.ptr(refstr), refstr.shape[0],
+            kb.ptr(rlp), rlp.shape[0], kb.ptr(lr_tar), lr_tar.shape[0],
+            kb.ptr(sa), sa.shape[0], kb.ptr(pattab), kb.ptr(offs),
+            pattab.shape[0], n, mrs, mgs, int(fwd), kb.ptr(woff), key.sh_pat,
+            key.sh_len, key.bias, kb.ptr(out))
+        # every warp reads its prefix pair; each row 8 bytes
+        kb.counted("A2m", n, kb.nbytes(woff) + 8 * out.shape[0])
+
+
+# the keys a block of kernel A2s's passes sorts (csrc/sort.cu kTile)
+SORT_TILE = 4096
+
+
+def sort_keys_plain(keys, bits: int):
+    """Plain PyTorch version of kernel A2s's passes -> ``keys`` sorted."""
+    return torch.sort(keys).values
+
+
+def unpack_keys_plain(keys, key: RowKey):
+    """Plain PyTorch version of kernel A2s's unpacking -> int32 [3, n]."""
+    return torch.stack(key.unpack(keys)).to(torch.int32)
+
+
+def sort_keys(keys, bits: int):
+    """Kernel A2s's passes (``csrc/sort.cu``, ``cgx_sort_hist`` and
+    ``cgx_sort_scatter``): the non-negative int64 ``keys`` below
+    ``2**bits``, sorted ascending by a least-significant-digit radix sort
+    over 8-bit digits, one pass a digit, between ``keys`` and one more
+    buffer (which of the two holds the result depends on the passes'
+    parity: drop ``keys`` after the call).  Replaces no TPU kernel (the
+    JAX package lexsorts lookup1's rows on the host).  On CUDA tensors it
+    launches the kernels; on CPU tensors it runs ``sort_keys_plain``."""
+    device = keys.device
+    if not kb.route("A2s", device):
+        return sort_keys_plain(keys, bits)
+    kb.check_inputs("A2s", device, torch.int64, keys=keys)
+    n = keys.shape[0]
+    kb.check_count("A2s", n)
+    if n == 0 or not 1 <= bits <= 63:
+        return keys
+    tiles = -(-n // SORT_TILE)
+    hist = torch.empty(256 * tiles, dtype=torch.int32, device=device)
+    src, dst = keys, torch.empty_like(keys)
+    for shift in range(0, bits, 8):
+        kb.launch("sort", "cgx_sort_hist", device, kb.ptr(src), n, shift,
+                  kb.ptr(hist))
+        kb.counted("A2s", n, kb.nbytes(src, hist))
+        offs = torch.cumsum(hist, 0, dtype=torch.int32) - hist
+        kb.launch("sort", "cgx_sort_scatter", device, kb.ptr(src), n, shift,
+                  kb.ptr(offs), kb.ptr(dst))
+        kb.counted("A2s", n, kb.nbytes(src, offs, dst))
+        src, dst = dst, src
+    return src
+
+
+def unpack_keys(keys, key: RowKey):
+    """Kernel A2s's unpacking (``csrc/sort.cu``, ``cgx_unpack_rows``): the
+    int64 row keys packed by ``key`` -> int32 [3, n] on their device:
+    pattern, start, length.  On CPU tensors it runs
+    ``unpack_keys_plain``."""
+    device = keys.device
+    if not kb.route("A2s", device):
+        return unpack_keys_plain(keys, key)
+    kb.check_inputs("A2s", device, torch.int64, keys=keys)
+    n = keys.shape[0]
+    kb.check_count("A2s", n)
+    cols = torch.empty((3, n), dtype=torch.int32, device=device)
+    if n:
+        kb.launch("sort", "cgx_unpack_rows", device, kb.ptr(keys), n,
+                  key.sh_pat, key.sh_len, key.bias, kb.ptr(cols))
+        kb.counted("A2s", n, kb.nbytes(keys, cols))
+    return cols
+
+
+def scan_rows(refstr, rlp, lr_tar, sa, scans, host_keys, key: RowKey,
+              mrs: int, mgs: int):
+    """Kernel A2m over lookup1's scans and the sort of all its rows on
+    their device -> int32 numpy [3, R]: the rows' pattern, start and
+    length, sorted by ``key``.
+
+    ``scans`` lists (pattab, offs, n, fwd): A2's tables on the device (the
+    caller's pattern id in pattab column 6); ``host_keys`` (int64 numpy)
+    the keys of the rows built on the host (precomputed references and
+    A3's).  Each scan's count pass runs and the totals come down in one
+    copy; every key is written into one device buffer after the host
+    keys, sorted and unpacked there (kernel A2s), and the columns come
+    down once.  The working set, 16 bytes a key in the sort and 20 in the
+    unpacking, stays under A2's mask column of 4 bytes an item of the
+    larger scan while a lookup keeps fewer than a fifth as many rows as
+    it scans items (a Europarl request: 0.18).  Replaces no TPU kernel
+    (the JAX package builds and lexsorts the rows on the host,
+    cgx_tpu/search/lookup.py one_gap_lookup_tpu).  On CPU tensors the
+    passes run ``scan_count`` and ``scan_keys``'s plain versions."""
+    device = sa.device
+    ix = (refstr, rlp, lr_tar, sa)
+    woffs = [scan_count(*ix, pattab, offs, n, mrs, mgs, fwd)
+             for pattab, offs, n, fwd in scans]
+    totals = (kb.to_host(torch.cat([w[-1:] for w in woffs])).tolist()
+              if woffs else [])
+    nh = len(host_keys)
+    keys = torch.empty(nh + sum(totals), dtype=torch.int64, device=device)
+    keys[:nh] = kb.to_device(np.asarray(host_keys, np.int64), device)
+    r = nh
+    for (pattab, offs, n, fwd), t in zip(scans, totals):
+        # each prefix is freed once its write pass has run
+        scan_keys(*ix, pattab, offs, n, mrs, mgs, fwd, woffs.pop(0), key,
+                  keys[r:r + t])
+        r += t
+    keys = sort_keys(keys, key.bits)
+    cols = unpack_keys(keys, key)
+    del keys
+    return kb.to_host(cols).numpy()
+
+
 def pcs(refstr, pcrows, pattab, offs, n: int, mrs: int):
     """Kernel A3 (``csrc/scan.cu``, ``cgx_pcs``): for each of the ``n``
     items (the precomputed occurrences ``pcrows`` (int32 [m, 2]: start, len)
@@ -796,11 +1056,21 @@ def one_gap_lookup(engine, queries, p1, p2, search: OneGapSearch,
     (pattern, corpus start, length) sorted by (pattern, start, length);
     fills ``search.start_on_salist``/``end_on_salist``.  A precomp reference
     row has length 0 and the precomp cell as its start.  ``engine``
-    (``cgx_tpu_torch.engine``) runs the device work.  With the engine's
-    ``timer`` (a ``utils.timing.PhaseTimer``) the host stages are child
-    phases of the phase open: ``route`` (precomp cells, SA ranges,
-    routing), ``pcs_rows`` (A3's jobs and their hits to rows),
-    ``scan_rows`` (A2's hits to rows) and ``sort``."""
+    (``cgx_tpu_torch.engine``) runs the device work.
+
+    The scans' rows take one of two routes.  An engine that declares
+    ``scan_rows_on_device`` turns them into rows on the device (kernel
+    A2m, ``engine.scan_rows``): the precomputed references' and A3's rows
+    go up as keys, every key is sorted there (kernel A2s) and the sorted
+    columns come down.  Any other engine runs A2
+    (``engine.scan_expanded``), its hits are expanded on the host and
+    their SA words read (``engine.sa_values``).  Either route sorts one
+    packed key per row (``RowKey``), which orders the unique rows as the
+    lexsort by (pattern, start, length) does.  With the engine's ``timer``
+    (a ``utils.timing.PhaseTimer``) the host stages are child phases of
+    the phase open: ``route`` (precomp cells, SA ranges, routing),
+    ``pcs_rows`` (A3's jobs and their hits to rows), ``scan_rows`` (the
+    scans' tables; on the host route A2's hits to rows) and ``sort``."""
     mgs = cfg.min_gap_size
     with child(engine.timer, "route"):
         qtok = np.asarray(queries.tokens)
@@ -896,46 +1166,77 @@ def one_gap_lookup(engine, queries, p1, p2, search: OneGapSearch,
                 rows_parts += _pcs_rows(hit, counts_s, reps, inv, seed_ids,
                                         pc, pci, sl_all, el_all)
 
-    # 3) forward and backward scans (A2) from the rarer phrase
-    for fwd in (True, False):
-        with child(engine.timer, "scan_rows"):
+    # 3) forward and backward scans (A2, or A2m on the device) from the
+    # rarer phrase
+    scans = []
+    with child(engine.timer, "scan_rows"):
+        for fwd in (True, False):
             ids = np.flatnonzero(scan_member & (use_fwd == fwd))
-            lo = np.where(fwd, r1u, r2u)[ids]
-            counts = (np.where(fwd, dis1, dis2)[ids] + 1).clip(min=0)
-            side = (stok_all if fwd else tok_all)[ids]
-        if not len(ids):
-            continue
-        mask = engine.scan_expanded(queries, fwd, lo, counts, sl_all[ids],
-                                    el_all[ids], side)
-        with child(engine.timer, "scan_rows"):
-            ii, mm = _mask_hits(mask)
-            if len(ii):
-                pat, tx, pi = expand_hits(ii, counts, ids)
-        if not len(ii):
-            continue
-        gostart = engine.sa_values(lo[pi] + tx)
-        with child(engine.timer, "scan_rows"):
-            if fwd:
-                length = sl_all[pat] + mgs + mm + el_all[pat] - 1
-                rows_parts.append(np.stack([pat, gostart, length], axis=1))
-            else:
-                spos = gostart - 1 - mgs - mm - sl_all[pat] + 1
-                length = el_all[pat] + mgs + mm + sl_all[pat] - 1
-                rows_parts.append(np.stack([pat, spos, length], axis=1))
+            if len(ids):
+                scans.append((fwd, np.where(fwd, r1u, r2u)[ids],
+                              (np.where(fwd, dis1, dis2)[ids] + 1).clip(
+                                  min=0),
+                              sl_all[ids], el_all[ids],
+                              (stok_all if fwd else tok_all)[ids], ids))
+        items = int(sum(s[2].sum() for s in scans))
+        kb.COUNTS["lookup1.items"] += items
+        on_device = bool(scans) and getattr(engine, "scan_rows_on_device",
+                                            False)
+        if on_device:
+            host_rows = (np.concatenate(rows_parts, axis=0) if rows_parts
+                         else np.empty((0, 3), np.int64))
+    cols = None
+    if on_device:
+        cols = engine.scan_rows(queries, scans, host_rows, len(sl_all))
+        kb.COUNTS["lookup1.device_items"] += items
+    else:
+        for fwd, lo, counts, sl, el, side, ids in scans:
+            rows_parts += _scan_hit_rows(engine, queries, fwd, lo, counts,
+                                         sl, el, side, ids, sl_all, el_all,
+                                         mgs)
 
     with child(engine.timer, "sort"):
-        if rows_parts:
-            rows = np.concatenate(rows_parts, axis=0)
-            rows = rows[np.lexsort((rows[:, 2], rows[:, 1], rows[:, 0]))]
-        else:
-            rows = np.empty((0, 3), dtype=np.int64)
-        out = GapOnSA(position=rows[:, 0].astype(np.int32),
-                      str_position=rows[:, 1].astype(np.int32),
-                      length=rows[:, 2].astype(np.int32),
-                      length2=np.zeros(len(rows), dtype=np.int32))
+        if cols is None:
+            cols = _sort_rows(rows_parts, len(sl_all))
+        out = GapOnSA(position=cols[0].astype(np.int32),
+                      str_position=cols[1].astype(np.int32),
+                      length=cols[2].astype(np.int32),
+                      length2=np.zeros(len(cols[0]), dtype=np.int32))
         _fill_salist(search.start_on_salist, search.end_on_salist,
                      out.position)
     return out
+
+
+def _scan_hit_rows(engine, queries, fwd, lo, counts, sl, el, side, ids,
+                   sl_all, el_all, mgs):
+    """The host route of one scan: A2's masks, their hits expanded and
+    each hit's SA word read -> its rows (pattern, start, length), as a list
+    of at most one array."""
+    mask = engine.scan_expanded(queries, fwd, lo, counts, sl, el, side)
+    with child(engine.timer, "scan_rows"):
+        ii, mm = _mask_hits(mask)
+        if len(ii):
+            pat, tx, pi = expand_hits(ii, counts, ids)
+    if not len(ii):
+        return []
+    gostart = engine.sa_values(lo[pi] + tx)
+    with child(engine.timer, "scan_rows"):
+        length = sl_all[pat] + mgs + mm + el_all[pat] - 1
+        spos = gostart if fwd else gostart - mgs - mm - sl_all[pat]
+        return [np.stack([pat, spos, length], axis=1)]
+
+
+def _sort_rows(rows_parts, n_patterns: int) -> tuple:
+    """The host route's rows (int64 [R, 3] parts: pattern, start, length)
+    sorted by (pattern, start, length) -> the three columns, by sorting
+    their packed keys (``RowKey``)."""
+    rows = (np.concatenate(rows_parts, axis=0) if rows_parts
+            else np.empty((0, 3), np.int64))
+    key = RowKey.fit(n_patterns, rows[:, 1].min(initial=0),
+                     rows[:, 1].max(initial=0), rows[:, 2].max(initial=0))
+    keys = key.pack(rows[:, 0], rows[:, 1], rows[:, 2])
+    keys.sort()
+    return key.unpack(keys)
 
 
 def _pcs_rows(hit, counts_s, reps, inv, seed_ids, pc, pci, sl_all, el_all):

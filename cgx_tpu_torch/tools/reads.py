@@ -20,6 +20,7 @@ other word and find the result unchanged.
 * ``gap_reads``: the fused gap check alone (A4, and lookup1's scans for
   the items with a candidate);
 * ``scan_reads``: lookup1's scans (A2, B3f/B3b, C1f/C1b);
+  ``scan_rows_reads``: A2m, A2's words and the keys it writes;
 * ``maxlex_reads``: A10 (``_accum_batch_range``);
 * ``maxlex_dense_reads``: A9 (``_accum_batch_dense``);
 * ``lcp_reads``: B1's passes (``_search_body`` and ``_bound_walk``), with
@@ -384,6 +385,18 @@ def scan_reads(refstr, rlp, lr_tar, gostart, sl, el, want, mrs: int,
         read = read & (pos >= 0)      # off the corpus start: no read
     window = _distinct([(_slots(refstr, pos), read)])
     return int(has.sum()), window, gap_words, gap_ok
+
+
+def scan_rows_reads(refstr, rlp, lr_tar, gostart, sl, el, want, mrs: int,
+                    mgs: int, fwd: bool) -> tuple:
+    """What kernel A2m needs for N items: A2's words (``scan_reads``; its
+    two passes read them twice, the bound counts them once) and the rows it
+    writes, one int64 key (2 words) each -> ``scan_reads``' four counts and
+    the rows (kept moves)."""
+    kept = lookup._scan_body(refstr, rlp, lr_tar, gostart, sl, el, want, mrs,
+                             mgs, fwd)
+    return (*scan_reads(refstr, rlp, lr_tar, gostart, sl, el, want, mrs, mgs,
+                        fwd), int(kept.sum()))
 
 
 MAXLEX_ARRAYS = ("rs", "re", "lt", "lnv1", "lnv2")

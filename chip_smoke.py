@@ -21,10 +21,11 @@ Phases, one line each on stdout:
    refinement's round form, B2s and B2t, in place of B2r; A4 on the
    shards' views in its build) (``RUNS``).
    Each run must launch its path's kernels and no other (launch counts
-   reset just before it, see ``RUNS``): A1 or B1's two passes, A4, A2
-   forward and backward (C1f and C1b with ``scan_cols``), A3, A5m (A5's
-   scan with lookup2's match; C1t with ``scan_cols``), A6, A7, A8 and A9
-   or A10 on the replicated index; B2r,
+   reset just before it, see ``RUNS``): A1 or B1's two passes, A4, A2m
+   and A2s (A2's scan with lookup1's rows as keys on the device, and
+   their sort there; C1f and C1b with ``scan_cols``),
+   A3, A5m (A5's scan with lookup2's match; C1t with ``scan_cols``), A6,
+   A7, A8 and A9 or A10 on the replicated index; B2r,
    B2g, B3f, B3b, B3p, B3t, B3c and A4, A7, A8 on shard views on the
    sharded one (MaxLex on the host there).  Its counters must equal the
    JAX package's and its grammar hash the golden in
@@ -56,7 +57,7 @@ Phases, one line each on stdout:
        for A3) and the prewarm nothing else;
        ``ready`` and each request's seconds and launches printed;
    3e. medium with ``query_batches=4`` (``run_pipeline_overlap``): the
-       golden hash and line count, A4, A1, A2f, A2b, A3, A5m, A6, A7 and A8
+       golden hash and line count, A4, A1, A2m, A3, A5m, A6, A7 and A8
        and no A9 or A10 (MaxLex on the host, on the worker thread);
    3f. profile -- ``cli.main([..., "--profile", DIR])`` on medium's
        files: the grammar files the golden hash, medium's path launched,
@@ -81,8 +82,9 @@ Phases, one line each on stdout:
        medium, fresh, over 2 with ``lcp_passes`` (B1 fanned): the golden
        hash and counters, each kernel launched at least as often as in
        the one-device run (3c's loaded run, 3's ``lcp_passes`` run; the
-       replicas take lookup2's host route, A5, where one device takes
-       A5m: the one run that launches A5), no A4
+       replicas take lookup1's and lookup2's host routes, A2f and A2b and
+       A5, where one device takes A2m and A5m: the one run that launches
+       A2 and A5), no A4
        where the index is loaded, and a peak within the one-device run's
        plus each further replica's own cached rows and 8 MiB; walls beside
        the one-device walls;
@@ -102,7 +104,7 @@ Phases, one line each on stdout:
        (``LAUNCH_WRAPPER``), which count as the in-process runs' do;
    3j. unsampled -- medium with ``is_sample`` off (every occurrence
        extracted, as ``--no-sample``): the sampled medium run's kernels
-       (A1, A4, A2f, A2b, A3, A5m, A6, A7, A8, A9) and no other, every
+       (A1, A4, A2m, A3, A5m, A6, A7, A8, A9) and no other, every
        query's lines equal to the port's plain path on the CPU and
        ``UNSAMPLED_REF_QUERIES``' to ``perfbench.reference``'s (the text
        turned into its arrays, ``tools/reference_text.py``), the files
@@ -132,7 +134,7 @@ Phases, one line each on stdout:
    milliseconds and words per second printed;
 7. kernels -- each kernel against its plain PyTorch version on the card, on
    the inputs of its largest launch in phases 3 to 6 (A2 and C1 once per
-   direction, B1 once per pass, A4, A7 and A8 also on a shard's views, as
+   direction, A2 on A2m's largest launch's items, B1 once per pass, A4, A7 and A8 also on a shard's views, as
    A4v, A7v and A8v, and A9 on the dense europarl tables as A9L), and
    every kernel that reads a shard's views (A4v,
    A7v, A8v, B3f, B3b, B3p, B3t, B3c) also on its largest launch on each
@@ -140,7 +142,9 @@ Phases, one line each on stdout:
    updates in place), the first (negative global offset) and the last (reads clamped to
    the global end) included, and A5m also with its write pass in ranges
    of 1, 7 and a third of its rows (``row_budget_ranges``, ranges that
-   start inside a warp): the outputs must be bit-equal (float32
+   start inside a warp), and A2m's route (``lookup.scan_rows``, its keys
+   sorted on the device by A2s) against A2 and the host route
+   (``route_rows``): the outputs must be bit-equal (float32
    compared by bit pattern); times of both, the time of one PyTorch call
    that computes the same function where there is one (P1, P2), the
    kernel's time by the device's own clock (``device_ms``: the timed calls
@@ -172,11 +176,14 @@ Phases, one line each on stdout:
    each once), and the time
    of one launch of A8 on one item (by the device's clock A8's own
    one-item chain, ``launch_floor``).  Then the warp and half-warp kernels
-   (A1, B2r, A2f, A2b, A3, A4, A4v, C1f, C1b, C1p, B3f, B3b, B3p, A6, B3c,
-   A5, A5m, C1t, B3t, A7, A7v, A8, A8v, A10, A9, B1p1, B1p2) against their
-   plain versions on synthetic edge inputs over europarl's index arrays
-   and tables (A5m also with its write pass in ranges of 1, 7 and a third
-   of the rows, as on its kernel row; A9 over medium's dense tables; B1
+   (A1, B2r, A2f, A2b, A2m, A2s, A3, A4, A4v, C1f, C1b, C1p, B3f, B3b,
+   B3p, A6, B3c, A5, A5m, C1t, B3t, A7, A7v, A8, A8v, A10, A9, B1p1, B1p2)
+   against their plain versions on synthetic edge inputs over europarl's
+   index arrays and tables (A2m on A2's edge items with pattern ids up to
+   2^20, its route as on its kernel row at 33 items and mrs 15; A2s on
+   1-13,288 unique keys of 1-63 bits; A5m also with its write pass in
+   ranges of 1, 7 and a third of the rows, as on its kernel row; A9 over
+   medium's dense tables; B1
    also over a small index of
    70-token sentences, for matches past 32 tokens; B2r also on 1 and 3
    shards; B2s and B2t at every step of the round form on the same lanes
@@ -227,6 +234,10 @@ KERNELS = {
            "cgx_tpu/search/precompute.py:38"),
     "A2f": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:337"),
     "A2b": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:337"),
+    "A2m": ("cgx_tpu_torch/csrc/scan.cu",
+            "none (the host rows, cgx_tpu/search/lookup.py:546-583)"),
+    "A2s": ("cgx_tpu_torch/csrc/sort.cu",
+            "none (the host lexsort, cgx_tpu/search/lookup.py:585-590)"),
     "A3": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:315"),
     "A5": ("cgx_tpu_torch/csrc/scan.cu", "cgx_tpu/search/lookup.py:662"),
     "A5m": ("cgx_tpu_torch/csrc/scan.cu",
@@ -269,11 +280,14 @@ KERNELS = {
 VIEW_ROWS = {"A4v": "A4", "A7v": "A7", "A8v": "A8"}
 # the kernels every replicated end-to-end run launches, besides its
 # pass-1/2 and MaxLex kernels
-PATH_KERNELS = ("A4", "A2f", "A2b", "A3", "A5m", "A6", "A7", "A8")
-# lookup2's host route (A5, then the match on the host), which of the
-# end-to-end runs only local DP's replicas take (``check_local_dp``): in
-# place of A5m on one device
-DP_ROUTE = {"A5m": "A5"}
+PATH_KERNELS = ("A4", "A2m", "A2s", "A3", "A5m", "A6", "A7", "A8")
+# lookup1's host route (A2 forward and backward, its hits expanded on the
+# host), which of the end-to-end runs only local DP's replicas take
+HOST_SCANS = ("A2f", "A2b")
+# the host routes of lookup1 and lookup2 (A5, then the match on the host),
+# which of the end-to-end runs only local DP's replicas take
+# (``check_local_dp``): in place of A2m and A5m on one device
+DP_ROUTE = {"A2m": HOST_SCANS, "A2s": (), "A5m": ("A5",)}
 SHARDED_KERNELS = ("B2r", "B2g", "B3f", "B3b", "B3p", "B3t", "B3c", "A4v",
                    "A7v", "A8v")
 # the sharded index on a device list: the refinement's round form (B2s,
@@ -301,32 +315,34 @@ OFF_PATH = ("C1p", "B4", "P1", "P2", "A9L")
 # must not)
 RUNS = (
     ("medium", False, 0, False, PATH_KERNELS + ("A1", "A9"),
-     ("A5", "B1p1", "B1p2") + SHARDED_KERNELS + ROUND + COLS_KERNELS
-     + OFF_PATH),
-    ("europarl", False, 0, False, PATH_KERNELS + ("A1", "A10"),
-     ("A5", "B1p1", "B1p2") + SHARDED_KERNELS + ROUND + COLS_KERNELS
-     + OFF_PATH),
-    ("europarl", False, 4, False, SHARDED_KERNELS,
-     ("A1", "A5", "A9", "A10", "B1p1", "B1p2") + ROUND + PATH_KERNELS
+     ("A5", "B1p1", "B1p2") + HOST_SCANS + SHARDED_KERNELS + ROUND
      + COLS_KERNELS + OFF_PATH),
+    ("europarl", False, 0, False, PATH_KERNELS + ("A1", "A10"),
+     ("A5", "B1p1", "B1p2") + HOST_SCANS + SHARDED_KERNELS + ROUND
+     + COLS_KERNELS + OFF_PATH),
+    ("europarl", False, 4, False, SHARDED_KERNELS,
+     ("A1", "A5", "A9", "A10", "B1p1", "B1p2") + HOST_SCANS + ROUND
+     + PATH_KERNELS + COLS_KERNELS + OFF_PATH),
     ("europarl", False, 0, True,
      ("A1", "A4", "A3", "A6", "A7", "A8", "A10") + COLS_KERNELS,
-     ("A2f", "A2b", "A5", "A5m", "B1p1", "B1p2") + SHARDED_KERNELS + ROUND
-     + OFF_PATH),
+     ("A2m", "A2s", "A5", "A5m", "B1p1", "B1p2") + HOST_SCANS
+     + SHARDED_KERNELS
+     + ROUND + OFF_PATH),
     ("medium", True, 0, False, PATH_KERNELS + ("B1p1", "B1p2", "A9"),
-     ("A1", "A5") + SHARDED_KERNELS + ROUND + COLS_KERNELS + OFF_PATH),
+     ("A1", "A5") + HOST_SCANS + SHARDED_KERNELS + ROUND + COLS_KERNELS
+     + OFF_PATH),
     # the index on a device list (the card four times), built fresh, so
     # that A4 runs on the shards' views too
     ("medium", False, CARD4, False, ROUND_KERNELS,
-     ("B2r",) + ("A1", "A5", "A9", "A10", "B1p1", "B1p2") + PATH_KERNELS
-     + COLS_KERNELS + OFF_PATH),
+     ("B2r",) + ("A1", "A5", "A9", "A10", "B1p1", "B1p2") + HOST_SCANS
+     + PATH_KERNELS + COLS_KERNELS + OFF_PATH),
 )
 
 # the runs over europarl's persisted index (saved by RUNS' europarl run):
 # (sa_shards, must launch); each must launch nothing else, so no A4 or A4v
 # (the precompute is loaded, not run)
 LOAD_RUNS = (
-    (0, ("A1", "A2f", "A2b", "A3", "A5m", "A6", "A7", "A8", "A10")),
+    (0, ("A1", "A2m", "A2s", "A3", "A5m", "A6", "A7", "A8", "A10")),
     (4, ("B2r", "B2g", "B3f", "B3b", "B3p", "B3t", "B3c", "A7v", "A8v")),
     # on a device list: the round form, no B2r
     (CARD4, ROUND + ("B2g", "B3f", "B3b", "B3p", "B3t", "B3c", "A7v",
@@ -340,7 +356,8 @@ OVERLAP_KERNELS = PATH_KERNELS + ("A1",)
 # by launch id
 PROFILE_GLOBALS = {
     "A1": "refine_warp_kernel", "A4": "gap_check_kernel",
-    "A2f": "scan_kernel", "A2b": "scan_kernel", "A3": "pcs_kernel",
+    "A2m": "scan_rows_kernel", "A2s": "sort_scatter_kernel",
+    "A3": "pcs_kernel",
     "A5m": "two_rows_kernel", "A6": "contig_kernel",
     "A7": "onegap_kernel",
     "A8": "twogap_kernel", "A9": "dense_quad_kernel",
@@ -376,6 +393,8 @@ WORK = {
     "A4": (1, 0, 1, 0),          # (+ the gap check's words)
     "A2f": (0, 2, 1, 300),       # SA word, gap-0 token (+ the window)
     "A2b": (0, 2, 1, 300),
+    "A2m": (0, 2, 1 / 32, 300),  # A2's, warp counts (+ 2 words a key kept)
+    "A2s": (2, 0, 2, 0),         # a key read and written once
     "A3": (0, 0, 1 / 32, 40),    # (+ pcs_reads: offs, pattab, rows, corpus)
     "A5": (0, 2, 1, 150),        # occurrence row (+ scan, gap check)
     "A5m": (0, 2, 1 / 32, 150),  # occurrence row, warp counts (+ scan, gap
@@ -403,7 +422,7 @@ for _v, _k in VIEW_ROWS.items():
     WORK[_v] = WORK[_k]
 # the rows whose words are counted from each launch's items (``data_reads``):
 # lookup1's scans, the gap check, A5's, A6's, A7's and A8's bodies
-SCAN_ROWS = ("A2f", "A2b", "C1f", "C1b", "B3f", "B3b")
+SCAN_ROWS = ("A2f", "A2b", "A2m", "C1f", "C1b", "B3f", "B3b")
 GAP_ROWS = ("A4", "A4v")
 TWO_ROWS = ("A5", "A5m", "C1t", "B3t")
 CONTIG_ROWS = ("A6", "B3c", "B4")
@@ -439,7 +458,7 @@ EDGE_MRS = (1, 2, 8, 15)
 EDGE_MSYM = (2, 3, 5)    # A6, B3c, A7, A7v
 # argument positions of the per-pattern table and count prefix (A3's:
 # pcs_reads)
-TABLE_ARGS = {"A2f": (4, 5), "A2b": (4, 5), "A5": (5, 6),
+TABLE_ARGS = {"A2f": (4, 5), "A2b": (4, 5), "A2m": (4, 5), "A5": (5, 6),
               "A5m": (5, 6, 10, 11, 12)}
 # A3's, B3p's and C1p's edge launches: item counts around a warp
 PCS_EDGE_ITEMS = (1, 15, 17, 31, 32, 33)
@@ -512,6 +531,13 @@ class Capture:
             (pcx, "gap_check"): (on_view("A4"), lambda a: a[2].shape[0]),
             (lookup, "scan"): (lambda a: "A2f" if a[9] else "A2b",
                                lambda a: a[6]),
+            # A2m's count pass takes A2's arguments: the main path's A2
+            # rows run on its items
+            (lookup, "scan_count"): (
+                lambda a: ("A2m", "A2f" if a[9] else "A2b"),
+                lambda a: a[6]),
+            (lookup, "sort_keys"): (lambda a: "A2s",
+                                    lambda a: a[0].shape[0]),
             (lookup, "pcs"): (lambda a: "A3", lambda a: a[4]),
             (lookup, "two"): (lambda a: "A5", lambda a: a[7]),
             (lookup, "two_rows"): (lambda a: "A5m", lambda a: a[7]),
@@ -559,17 +585,20 @@ class Capture:
             real = self.originals[site]
 
             def hook(*args, _real=real, _k=kernel_of, _n=count_of):
-                k, n = _k(args), _n(args)
+                ks, n = _k(args), _n(args)
+                ks = ks if isinstance(ks, tuple) else (ks,)
+                k = ks[0]
                 # the largest launch; of B2s's, a tree step that both
                 # applies tokens and reads (0 < g < T).  B2s updates its
                 # lanes in place and a later step B2t's, so theirs are kept
                 # as copies
                 rank = (n, k == "B2s" and 0 < args[10] < round_T(args))
-                if rank > self.ranks.get(k, (-1, False)):
-                    self.ranks[k] = rank
-                    self.calls[k] = (n, tuple(
-                        a.clone() if k in ROUND and hasattr(a, "clone")
-                        else a for a in args))
+                for kk in ks:
+                    if rank > self.ranks.get(kk, (-1, False)):
+                        self.ranks[kk] = rank
+                        self.calls[kk] = (n, tuple(
+                            a.clone() if k in ROUND and hasattr(a, "clone")
+                            else a for a in args))
                 if k == "B4":
                     self.dp_calls.append(args)
                 if isinstance(args[0], self.view_type):
@@ -1025,7 +1054,7 @@ def data_reads(k: str, n: int, args) -> tuple:
     from cgx_tpu_torch.tools import reads
     from cgx_tpu_torch.utils.views import take
     if k in SCAN_ROWS:
-        if k in ("A2f", "A2b"):
+        if k in ("A2f", "A2b", "A2m"):
             refstr, rlp, lr_tar, sa, pattab, offs, _, mrs, mgs, fwd = args
             f, tx = lookup._expand(pattab, offs, n)
             items = (take(sa, f[:, 0] + tx), f[:, 1], f[:, 2], f[:, 3:6])
@@ -1038,12 +1067,15 @@ def data_reads(k: str, n: int, args) -> tuple:
             fwd = k == "B3f"
             items = (gostart, sl, el,
                      lookup._scan_want(qtok, qpos, sl, fwd))
-        cand, window, gap, ok = reads.scan_reads(refstr, rlp, lr_tar, *items,
-                                                 mrs, mgs, fwd)
-        return (window + gap, cand * GAP_OPS + ok * FOLD_OPS,
-                {"candidate_items": cand, "candidate_share": cand / n,
-                 "window_words": window, "window_words_per_item": window / n,
-                 "gap_words": gap, "gap_first_test_items": ok})
+        cand, window, gap, ok, kept = reads.scan_rows_reads(
+            refstr, rlp, lr_tar, *items, mrs, mgs, fwd)
+        got = {"candidate_items": cand, "candidate_share": cand / n,
+               "window_words": window, "window_words_per_item": window / n,
+               "gap_words": gap, "gap_first_test_items": ok}
+        if k == "A2m":     # and the keys it writes, 2 words each
+            got.update(rows=kept, rows_per_item=kept / max(n, 1))
+            window += 2 * kept
+        return (window + gap, cand * GAP_OPS + ok * FOLD_OPS, got)
     if k in ONEGAP_ROWS:
         words, steps = reads.onegap_reads(*args)
         return (words, CONTIG_WORD_OPS * words + ONEGAP_STEP_OPS * steps,
@@ -1222,6 +1254,75 @@ def _a5m_ranges(what: str, args, device: str) -> dict:
     return ranges
 
 
+_A2M_KEYS = {}
+
+
+def _a2m_key(args):
+    """The key layout of A2m's route on one launch's items (A2's
+    arguments), as ``lookup.device_row_key`` fixes it: the launch's pattern
+    ids and its SA's words bound the fields (kept per launch, so that the
+    timed calls do not recompute it)."""
+    import numpy as np
+    from cgx_tpu_torch.search import lookup
+    sa, pattab, mrs = args[3], args[4], args[7]
+    at = (id(sa), id(pattab), mrs)
+    if at not in _A2M_KEYS:     # the tensors kept, so no id is reused
+        _A2M_KEYS[at] = (lookup.device_row_key(
+            int(pattab[:, 6].max()) + 1, int(sa.max()) + 1, mrs,
+            np.empty((0, 3), np.int64)), sa, pattab)
+    return _A2M_KEYS[at][0]
+
+
+def _a2m_kernel(*args):
+    """A2m's two passes on A2's arguments -> [the count pass's prefix,
+    every key of the write pass, (item, move) order]."""
+    import torch
+    from cgx_tpu_torch.search import lookup
+    woff = lookup.scan_count(*args)
+    keys = torch.empty(int(woff[-1]), dtype=torch.int64, device=woff.device)
+    lookup.scan_keys(*args, woff, _a2m_key(args), keys)
+    return [woff, keys]
+
+
+def _a2m_plain(*args):
+    """``_a2m_kernel``'s outputs from A2m's plain versions."""
+    import torch
+    from cgx_tpu_torch.search import lookup
+    c = lookup.scan_count_plain(*args)
+    woff = torch.cat([torch.zeros(1, dtype=torch.int64, device=c.device),
+                      torch.cumsum(c, 0, dtype=torch.int64)])
+    return [woff, lookup.scan_rows_plain(*args, _a2m_key(args))]
+
+
+def _a2m_route(what: str, args, device: str) -> int:
+    """A2m's route (``lookup.scan_rows``: both passes, its keys sorted and
+    unpacked on the device by A2s) on one launch's items, bit-equal to A2
+    and the host route (A2's masks, their hits expanded on the host, the SA
+    words read, the rows sorted by ``lookup._sort_rows``) -> its rows."""
+    import numpy as np
+    import torch
+    from cgx_tpu_torch.search import lookup
+    refstr, rlp, lr_tar, sa, pattab, offs, n, mrs, mgs, fwd = args
+    tab = pattab.cpu().numpy().astype(np.int64)
+    counts = np.diff(offs.cpu().numpy().astype(np.int64))
+    ii, mm = lookup._mask_hits(lookup.scan(*args).cpu().numpy())
+    pat, tx, pi = lookup.expand_hits(ii, counts, tab[:, 6])
+    rows = np.clip(tab[pi, 0] + tx, 0, sa.shape[0] - 1)
+    g = sa[torch.from_numpy(rows).to(sa.device)].cpu().numpy().astype(
+        np.int64)
+    sl, el = tab[pi, 1], tab[pi, 2]
+    start = g if fwd else g - mgs - mm - sl
+    want = torch.from_numpy(np.stack(lookup._sort_rows(
+        [np.stack([pat, start, sl + mgs + mm + el - 1], axis=1)],
+        int(tab[:, 6].max()) + 1)).astype(np.int32))
+    _bit_equal(f"A2m@{what},route",
+               lambda *a: torch.from_numpy(lookup.scan_rows(
+                   refstr, rlp, lr_tar, sa, [(pattab, offs, n, fwd)],
+                   np.empty(0, np.int64), _a2m_key(args), mrs, mgs)),
+               lambda *a: want, args, device)
+    return want.shape[1]
+
+
 def _step_outputs(step):
     """B2s's function (``step``: the kernel's wrapper or its plain version)
     as outputs: the part it writes and the lanes' state, ups and downs after
@@ -1249,6 +1350,10 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
              "A4": (pcx.gap_check, pcx.gap_check_plain),
              "A2f": (lookup.scan, lookup.scan_plain),
              "A2b": (lookup.scan, lookup.scan_plain),
+             "A2m": (_a2m_kernel, _a2m_plain),
+             # on a permutation of the keys: the kernel uses its input as
+             # scratch
+             "A2s": (lookup.sort_keys, lookup.sort_keys_plain),
              "A3": (lookup.pcs, lookup.pcs_plain),
              "A5": (lookup.two, lookup.two_plain),
              # the kernel's wrapper returns its rows on the host
@@ -1334,6 +1439,8 @@ def compare_kernels(capture: Capture, device: str, launches: dict,
             words, ops, extra = data_reads(k, n, args)
         if k == "A5m":    # the write pass in ranges, as the cells split it
             extra["row_budget_ranges"] = _a5m_ranges("main", args, device)
+        if k == "A2m":    # the route: its keys sorted on the device
+            extra["route_rows"] = _a2m_route("main", args, device)
         nbytes, ops = work(k, n, args, words, ops)
         # timed after the bound is counted: B2s's timed calls update its
         # kept lanes in place
@@ -2359,9 +2466,10 @@ def check_edges(capture: Capture):
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).cuda()
-    stats = {k: {"launches": 0} for k in ("A2f", "A2b", "A4", "A4v", "C1f",
-                                          "C1b", "B3f", "B3b", "A6", "B3c",
-                                          "A5", "A5m", "C1t", "B3t")}
+    stats = {k: {"launches": 0} for k in ("A2f", "A2b", "A2m", "A2s", "A4",
+                                          "A4v", "C1f", "C1b", "B3f", "B3b",
+                                          "A6", "B3c", "A5", "A5m", "C1t",
+                                          "B3t")}
     scans = ("A2f", "A2b", "C1f", "C1b", "B3f", "B3b")
 
     def compare(k, kernel, plain, args, what):
@@ -2381,6 +2489,10 @@ def check_edges(capture: Capture):
                 add(fam, (out[2 * r + 1] & 1).sum())
         elif k == "A5m":
             add("rows", out.shape[0])
+        elif k == "A2m":
+            add("rows", out[1].shape[0])
+        elif k == "A2s":
+            add("keys", out.shape[0])
         elif k in ("A5", "C1t", "B3t"):
             cand, gc = (out[0], out[1]) if k == "B3t" else (
                 out & 0xFFFF, (out >> 16) & 0xFFFF)
@@ -2416,12 +2528,20 @@ def check_edges(capture: Capture):
                         toks = [np.where(p0 - i < 0, -1,
                                          ref_h[np.clip(p0 - i, 0, None)])
                                 for i in range(3)]
-                    pattab = np.stack([lo, sl, el] + toks + [0 * lo] * 2,
-                                      axis=1)
+                    # column 6: A2m's pattern ids, up to 2^20
+                    pattab = np.stack([lo, sl, el] + toks
+                                      + [rng.integers(0, 1 << 20, D),
+                                         0 * lo], axis=1)
                     args = (refstr, rlp, lr_tar, dev(pos), dev(pattab),
                             dev(offs), n, mrs, mgs, fwd)
+                    what = f"n={n},mrs={mrs},r={r}"
                     masks = compare(k, lookup.scan, lookup.scan_plain, args,
-                                    f"n={n},mrs={mrs},r={r}")
+                                    what)
+                    compare("A2m", _a2m_kernel, _a2m_plain, args,
+                            f"{k},{what}")
+                    if n == EDGE_ITEMS[-1] and mrs == EDGE_MRS[-1]:
+                        stats["A2m"][f"route_rows_{k},r={r}"] = \
+                            _a2m_route(f"edge({k},{what})", args, "cuda")
                     # the items as columns: item j of pattern p (the last
                     # with offs[p] <= j) starts at pos[lo[p] + j - offs[p]],
                     # clamped as the SA read is
@@ -2431,6 +2551,17 @@ def check_edges(capture: Capture):
                     g_j = pos[np.clip(lo[p] + j - offs[p], 0, len(pos) - 1)]
                     a2_items.append((fwd, mrs, [g_j] + [pattab[p, c] for c in
                                                         range(1, 6)], masks))
+    # A2s on unique keys of 1 to 63 bits, tiles of 4,096 keys full and
+    # ragged (its input a scratch buffer: each call on a copy)
+    for n in (1, 255, 4095, 4096, 4097, 3 * 4096 + 1000):
+        for bits in (1, 8, 9, 31, 47, 63):
+            got = np.unique(rng.integers(0, 1 << bits, 2 * n, dtype=np.int64)
+                            if bits < 63 else rng.integers(
+                                0, np.iinfo(np.int64).max, 2 * n))[:n]
+            keys = torch.from_numpy(rng.permutation(got)).cuda()
+            compare("A2s", lambda k, b: lookup.sort_keys(k.clone(), b),
+                    lookup.sort_keys_plain, (keys, bits),
+                    f"n={len(got)},bits={bits}")
     # A4 on the whole arrays, A4v on the first and the last shard's views
     def first_last(k):
         got = [a for (sk, _), (_, a) in sorted(capture.shard_calls.items())
@@ -2656,6 +2787,8 @@ def check_edges(capture: Capture):
     silent = [f"{k}.{f}" for k, fams in (
         ("A6", ("ab", "Xab", "abX", "XabX")), ("A5", ("cand_items", "gc_items")))
         for f in fams if stats[k][f] == 0]
+    silent += [f"{k}.{f}" for k, f in (("A2m", "rows"), ("A2s", "keys"))
+               if stats[k].get(f, 0) == 0]
     # A5m's edges keep rows, and some warp keeps two or more, so that the
     # write ranges of 1 and 7 rows start inside a warp
     silent += [f"A5m.{f}" for f in ("rows", "ranges")
@@ -3187,7 +3320,8 @@ def check_local_dp(cap: Capture, golden: dict, index_dir: str, base: dict,
         [("medium", 2, True, "medium_lcp")]
     for size, n, lcp, key in runs:
         b_launch, b_peak, b_wall, b_cache = base[key]
-        expect = [DP_ROUTE.get(k, k) for k, v in b_launch.items() if v]
+        expect = [r for k, v in b_launch.items() if v
+                  for r in DP_ROUTE.get(k, (k,))]
         launches, res, peak, wall = run_e2e(
             size, device, cap, golden, expect, lcp, others(expect),
             index_dir=index_dir if key == "loaded" else None,

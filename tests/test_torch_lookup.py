@@ -6,9 +6,15 @@ plain version against ``_pcs_batch_exp`` (also on the layouts of its warp's
 item resolution: one pattern, runs of empty patterns, warps over more than
 32 patterns), the model of that resolution (``tools/reads.py``
 ``pcs_rounds``), and ``one_gap_lookup`` against the JAX package's
-``one_gap_lookup_tpu``, bit for bit."""
+``one_gap_lookup_tpu``, bit for bit.  lookup1's device route (kernel A2m's
+plain versions, every row sorted by one packed key) against its host route
+(A2, the hits expanded on the host) and the JAX package, on seeded subsets
+of the patterns at several span limits, on empty inputs, ``scan_rows`` on
+each part of its keys, the packed key against the lexsort, keys past 63
+bits refused, and the engines that keep the host route."""
 
 import copy
+import dataclasses
 import pathlib
 import sys
 
@@ -30,6 +36,10 @@ from cgx_tpu.utils.batching import bucket_size  # noqa: E402
 from cgx_tpu_torch.config import ExtractorConfig  # noqa: E402
 from cgx_tpu_torch.engine import ReplicatedEngine  # noqa: E402
 from cgx_tpu_torch.index import container as tic  # noqa: E402
+from cgx_tpu_torch.kernels import build as kb  # noqa: E402
+from cgx_tpu_torch.parallel import sharded as tshx  # noqa: E402
+from cgx_tpu_torch.parallel.localdp import LocalDPEngine  # noqa: E402
+from cgx_tpu_torch.parallel.sharded import ShardedEngine  # noqa: E402
 from cgx_tpu_torch.preproc import corpus as tcp  # noqa: E402
 from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
 from cgx_tpu_torch.search import enumerate_fast as tef  # noqa: E402
@@ -43,6 +53,13 @@ from cgx_tpu_torch.utils.views import OffsetView, take  # noqa: E402
 def _engine(w):
     """The replicated dispatch engine over the world's port index."""
     return ReplicatedEngine(w["tidx"], w["tcfg"])
+
+
+class _HostRouteEngine(ReplicatedEngine):
+    """The replicated engine with lookup1's scans on the host route (A2's
+    ``scan_expanded``, the hits expanded on the host, ``sa_values``): the
+    route of every engine but ``ReplicatedEngine`` without ``scan_cols``."""
+    scan_rows_on_device = False
 
 
 def _inputs(name, request):
@@ -78,8 +95,8 @@ def world(request):
         jef.fast_one_gap_enumeration(jqs, jp1, jcfg), jqs)
     tsrc, ttgt = tcp.load_source_corpus(f), tcp.load_target_corpus(e)
     tsa = tsab.build_index(tsrc.str_)
-    tidx = tic.build_index(tsrc, ttgt, tsa,
-                           tcp.load_alignment_fast(a, tsrc, ttgt),
+    tal = tcp.load_alignment_fast(a, tsrc, ttgt)
+    tidx = tic.build_index(tsrc, ttgt, tsa, tal,
                            tcp.load_lex_table(lex_t, tsrc.vocab, ttgt.vocab),
                            tcfg, "cpu")
     tqs = tcp.load_queries(q, tsrc.vocab)
@@ -90,7 +107,8 @@ def world(request):
         jcfg=jcfg, tcfg=tcfg, jsa=jsa, jidx=jidx, jqs=jqs, jp=(jp1, jp2),
         jsearch=jsearch, jpc=jpcx.precompute_tpu(jidx, jsrc, jsa, jcfg),
         tidx=tidx, tqs=tqs, tp=(tp1, tp2), tsearch=tsearch,
-        tpc=tpcx.precompute(ReplicatedEngine(tidx, tcfg), tsrc, tsa, tcfg))
+        tpc=tpcx.precompute(ReplicatedEngine(tidx, tcfg), tsrc, tsa, tcfg),
+        tsrc=tsrc, ttgt=ttgt, tsa=tsa, tal=tal)
 
 
 def _layout(rng, D, max_count):
@@ -398,17 +416,21 @@ def test_one_gap_lookup_equals_jax(world, monkeypatch):
     members."""
     w = world
     items = {"fwd": 0, "bwd": 0, "pcs": 0}
-    real_scan, real_pcs = tlk.scan, tlk.pcs
+    # A2 on the host route, A2m (its count pass) on the device route: both
+    # take A2's arguments
+    real = {name: getattr(tlk, name) for name in ("scan", "scan_count",
+                                                 "pcs")}
 
-    def scan(*args):
-        items["fwd" if args[-1] else "bwd"] += args[6]
-        return real_scan(*args)
-
-    def pcs(*args):
-        items["pcs"] += args[4]
-        return real_pcs(*args)
-    monkeypatch.setattr(tlk, "scan", scan)
-    monkeypatch.setattr(tlk, "pcs", pcs)
+    def counting(name):
+        def call(*args):
+            if name == "pcs":
+                items["pcs"] += args[4]
+            else:
+                items["fwd" if args[9] else "bwd"] += args[6]
+            return real[name](*args)
+        return call
+    for name in real:
+        monkeypatch.setattr(tlk, name, counting(name))
     js, ts = copy.deepcopy(w["jsearch"]), copy.deepcopy(w["tsearch"])
     want = jlk.one_gap_lookup_tpu(w["jidx"], np.asarray(w["jsa"].sa),
                                   w["jqs"], *w["jp"], js, w["jpc"], w["jcfg"])
@@ -432,31 +454,265 @@ def _identity_views(args, at):
             for i, a in enumerate(args)]
 
 
-@pytest.mark.parametrize("kernel", ["A2f", "A2b", "A3"])
+@pytest.mark.parametrize("kernel", ["A2f", "A2b", "A3", "A2m"])
 def test_plain_identity_views_change_nothing(world, kernel, monkeypatch):
-    """The plain versions of A2 (each direction) and A3, on the inputs of
+    """The plain versions of A2 (each direction, on the host route), A3 and
+    A2m (its count and write passes, on the device route), on the inputs of
     the lookup's own calls, give the same words when the corpus arrays come
     as explicit identity views: the views the sharded index reads through
     change nothing at offset 0."""
     w = world
     calls = {}
-    real_scan, real_pcs = tlk.scan, tlk.pcs
+    real = {name: getattr(tlk, name) for name in ("scan", "scan_count",
+                                                 "pcs")}
+    ids = {"scan": lambda a: "A2f" if a[-1] else "A2b",
+           "scan_count": lambda a: "A2m", "pcs": lambda a: "A3"}
 
-    def scan(*args):
-        calls["A2f" if args[-1] else "A2b"] = args
-        return real_scan(*args)
-
-    def pcs(*args):
-        calls["A3"] = args
-        return real_pcs(*args)
-    monkeypatch.setattr(tlk, "scan", scan)
-    monkeypatch.setattr(tlk, "pcs", pcs)
-    tlk.one_gap_lookup(_engine(w), w["tqs"], *w["tp"],
-                       copy.deepcopy(w["tsearch"]), w["tpc"], w["tcfg"])
+    def hooking(name):
+        def call(*args):
+            calls[ids[name](args)] = args
+            return real[name](*args)
+        return call
+    for name in real:
+        monkeypatch.setattr(tlk, name, hooking(name))
+    eng = (ReplicatedEngine if kernel == "A2m" else _HostRouteEngine)(
+        w["tidx"], w["tcfg"])
+    tlk.one_gap_lookup(eng, w["tqs"], *w["tp"], copy.deepcopy(w["tsearch"]),
+                       w["tpc"], w["tcfg"])
     args = calls[kernel]
-    plain, at = ((tlk.pcs_plain, (0,)) if kernel == "A3"
-                 else (tlk.scan_plain, (0, 1, 2)))
+    key = tlk.device_row_key(len(w["tsearch"].gap), w["tidx"].reflen,
+                             w["tcfg"].max_rule_span,
+                             np.empty((0, 3), np.int64))
+
+    def a2m_plain(*a):
+        return torch.cat([tlk.scan_count_plain(*a).long(),
+                          tlk.scan_rows_plain(*a, key)])
+    plain, at = {"A3": (tlk.pcs_plain, (0,)),
+                 "A2m": (a2m_plain, (0, 1, 2))}.get(
+                     kernel, (tlk.scan_plain, (0, 1, 2)))
     want = plain(*args)
     got = plain(*_identity_views(args, at))
     np.testing.assert_array_equal(got.numpy(), want.numpy())
     assert (want != 0).any()
+
+
+# ---------------------------------------------------------------------------
+# lookup1's rows on the device (kernel A2m) against the host route
+# ---------------------------------------------------------------------------
+
+def _subset(search, keep):
+    """The one-gap search of the patterns ``keep`` (indices), in order."""
+    D = len(search.gap)
+    return dataclasses.replace(search, **{
+        f.name: getattr(search, f.name)[keep].copy()
+        for f in dataclasses.fields(search)
+        if isinstance(getattr(search, f.name), np.ndarray)
+        and len(getattr(search, f.name)) == D})
+
+
+def _cfgs(w, mrs):
+    """Both packages' configurations at span limit ``mrs``."""
+    return [dataclasses.replace(c, max_rule_span=mrs,
+                                max_rule_span_pattern=min(
+                                    c.max_rule_span_pattern, mrs))
+            for c in (w["jcfg"], w["tcfg"])]
+
+
+def _lookup1(w, eng, search, cfg):
+    """``one_gap_lookup`` on a copy of ``search`` -> (GapOnSA, the copy,
+    the counters ``lookup1.items`` and ``lookup1.device_items`` grew by)."""
+    s = copy.deepcopy(search)
+    before = [kb.COUNTS[k] for k in ("lookup1.items", "lookup1.device_items")]
+    got = tlk.one_gap_lookup(eng, w["tqs"], *w["tp"], s, w["tpc"], cfg)
+    grew = [kb.COUNTS[k] - b for k, b in
+            zip(("lookup1.items", "lookup1.device_items"), before)]
+    return got, s, grew
+
+
+def _same_lookup(got, want, s_got, s_want):
+    for f in ("position", "str_position", "length", "length2"):
+        assert getattr(got, f).dtype == np.int32, f
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+    np.testing.assert_array_equal(s_got.start_on_salist,
+                                  s_want.start_on_salist)
+    np.testing.assert_array_equal(s_got.end_on_salist, s_want.end_on_salist)
+
+
+@pytest.mark.parametrize("mrs", [15, 7])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_a2m_route_equals_the_host_route(world, mrs, seed, monkeypatch):
+    """On a seeded random two thirds of the world's patterns, at the
+    default span limit and a narrower one: the replicated engine's device
+    route (A2m's plain versions on the CPU, the host-built rows' keys
+    uploaded, every key sorted by ``torch.sort``) gives the host route's
+    GapOnSA and row ranges and the JAX package's ``one_gap_lookup_tpu``'s;
+    forward and backward scans, precomputed references and A3's rows all
+    take part; ``lookup1.items`` counts A2's items on both routes,
+    ``lookup1.device_items`` only on the device route."""
+    w = world
+    jcfg, tcfg = _cfgs(w, mrs)
+    D = len(w["tsearch"].gap)
+    keep = np.sort(np.random.default_rng(seed).permutation(D)[:2 * D // 3])
+    js, ts = _subset(w["jsearch"], keep), _subset(w["tsearch"], keep)
+    want = jlk.one_gap_lookup_tpu(w["jidx"], np.asarray(w["jsa"].sa),
+                                  w["jqs"], *w["jp"], js, w["jpc"], jcfg)
+    dirs = set()
+    real = tlk.scan_rows
+
+    def scan_rows(*args, **kw):
+        dirs.update(t[3] for t in args[4])
+        return real(*args, **kw)
+    monkeypatch.setattr(tlk, "scan_rows", scan_rows)
+    got, s_dev, grew = _lookup1(w, ReplicatedEngine(w["tidx"], tcfg), ts,
+                                tcfg)
+    host, s_host, grew_host = _lookup1(
+        w, _HostRouteEngine(w["tidx"], tcfg), ts, tcfg)
+    _same_lookup(got, want, s_dev, js)
+    _same_lookup(host, want, s_host, js)
+    assert dirs == {True, False}
+    assert grew[0] == grew[1] == grew_host[0] > 0 and grew_host[1] == 0
+    assert (got.length == 0).any() and (got.length > 0).any()
+
+
+def _pc_ref_patterns(w):
+    """The patterns whose lookup1 rows are one precomputed reference."""
+    got = tlk.one_gap_lookup(_engine(w), w["tqs"], *w["tp"],
+                             copy.deepcopy(w["tsearch"]), w["tpc"], w["tcfg"])
+    return np.unique(got.position[got.length == 0])
+
+
+@pytest.mark.parametrize("case", ["no_patterns", "no_scan", "no_hits"])
+def test_a2m_route_on_empty_inputs(world, case):
+    """No pattern at all; only precomputed references (no scan); scans
+    whose span limit (2) keeps no move: both routes give the same GapOnSA
+    and row ranges, and the device route runs only where there is a
+    scan."""
+    w = world
+    tcfg = _cfgs(w, 2 if case == "no_hits" else 15)[1]
+    search = w["tsearch"]
+    if case == "no_patterns":
+        search = _subset(search, np.arange(0))
+    elif case == "no_scan":
+        search = _subset(search, _pc_ref_patterns(w))
+    got, s_dev, grew = _lookup1(w, ReplicatedEngine(w["tidx"], tcfg), search,
+                                tcfg)
+    want, s_host, _ = _lookup1(w, _HostRouteEngine(w["tidx"], tcfg), search,
+                               tcfg)
+    _same_lookup(got, want, s_dev, s_host)
+    assert (got.length > 0).sum() == 0
+    if case == "no_hits":
+        assert grew[0] == grew[1] > 0
+    else:
+        assert grew == [0, 0]
+    if case == "no_scan":
+        assert len(got.position) == len(search.gap) > 0
+
+
+def _scan_rows_args(w):
+    """``lookup.scan_rows``' arguments on the world's lookup1, as the
+    replicated engine builds them."""
+    args = []
+    real = tlk.scan_rows
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tlk, "scan_rows",
+                   lambda *a, **kw: args.append(a) or real(*a, **kw))
+        tlk.one_gap_lookup(_engine(w), w["tqs"], *w["tp"],
+                           copy.deepcopy(w["tsearch"]), w["tpc"], w["tcfg"])
+    return args[0]
+
+
+@pytest.mark.parametrize("part", ["host_keys", "forward", "backward",
+                                  "all"])
+def test_scan_rows_sorts_every_key_once(world, part, monkeypatch):
+    """``lookup.scan_rows`` on the world's scans, with only the host-built
+    keys, only the forward or the backward scan, or all of them: each
+    scan's write pass runs once over its whole count, every key goes
+    through one sort, and the columns are the plain keys (the host keys
+    and ``scan_rows_plain``'s) sorted and unpacked, as int32."""
+    w = world
+    args = list(_scan_rows_args(w))
+    scans = args[4]
+    assert {t[3] for t in scans} == {True, False} and len(args[5]) > 0
+    if part != "all":
+        args[4] = [t for t in scans if part != "host_keys"
+                   and t[3] == (part == "forward")]
+    key = args[6]
+    want = np.concatenate([args[5]] + [
+        tlk.scan_rows_plain(*args[:4], *t[:3], *args[7:9], t[3],
+                            key).numpy() for t in args[4]])
+    want = np.stack(key.unpack(np.sort(want)))
+    calls = {"scan_keys": [], "sort_keys": []}
+    for name in calls:
+        real = getattr(tlk, name)
+        monkeypatch.setattr(tlk, name, lambda *a, _n=name, _r=real: (
+            calls[_n].append(a) or _r(*a)))
+    got = tlk.scan_rows(*args)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    assert [a[-1].shape[0] for a in calls["scan_keys"]] == [
+        int(tlk.scan_count_plain(*args[:4], *t[:3], *args[7:9],
+                                 t[3]).sum()) for t in args[4]]
+    assert len(calls["sort_keys"]) == 1
+    assert calls["sort_keys"][0][0].shape[0] == got.shape[1]
+    assert (got.shape[1] > len(args[5])) == (part != "host_keys")
+
+
+def test_row_key_round_trip_order_and_widths():
+    """``RowKey``: pack and unpack round-trip (numpy and torch), sorting the
+    keys of unique rows gives the lexsort's order (negative starts and
+    starts past the corpus included), on the host route too
+    (``_sort_rows``), and a layout past 63 bits is refused, on either
+    route."""
+    rng = np.random.default_rng(9)
+    rows = np.unique(np.stack([rng.integers(0, 5000, 20000),
+                               rng.integers(-14, 1 << 30, 20000),
+                               rng.integers(0, 15, 20000)], axis=1), axis=0)
+    rows[:50, 1] = rng.integers(-14, 0, 50)
+    rows = np.unique(rows, axis=0)[rng.permutation(len(rows))]
+    key = tlk.RowKey.fit(5000, rows[:, 1].min(), rows[:, 1].max(), 14)
+    assert key.sh_len == 4 and key.bias == 14
+    keys = key.pack(rows[:, 0], rows[:, 1], rows[:, 2])
+    for back in (key.unpack(keys),
+                 [t.numpy() for t in key.unpack(torch.from_numpy(keys))]):
+        np.testing.assert_array_equal(np.stack(back, axis=1), rows)
+    order = np.lexsort((rows[:, 2], rows[:, 1], rows[:, 0]))
+    np.testing.assert_array_equal(np.sort(keys), keys[order])
+    np.testing.assert_array_equal(np.stack(tlk._sort_rows([rows], 5000)),
+                                  rows[order].T)
+    # widths: 31 + 32 + 4 bits do not fit, 20 + 32 + 4 do
+    with pytest.raises(ValueError, match="bits"):
+        tlk.RowKey.fit(2**31, -16, 2**31, 15)
+    with pytest.raises(ValueError, match="bits"):
+        tlk._sort_rows([rows], 2**31)
+    assert tlk.RowKey.fit(2**20, -16, 2**31, 15).bits == 56
+    with pytest.raises(ValueError, match="bits"):
+        tlk.device_row_key(2**40, 1000, 15, rows)
+
+
+@pytest.mark.parametrize("which", ["sharded", "localdp", "scan_cols"])
+def test_other_engines_keep_the_host_route(world, which):
+    """``ShardedEngine``, ``LocalDPEngine`` and ``scan_cols`` declare no
+    device rows: lookup1 runs A2's route (``scan_expanded``, the hits
+    expanded on the host) on them, never ``scan_rows``, counts their items
+    in ``lookup1.items`` and none in ``lookup1.device_items``, and gives the
+    replicated engine's GapOnSA and row ranges."""
+    w = world
+    cfg = w["tcfg"]
+    if which == "sharded":
+        eng = ShardedEngine(tshx.build_sharded_index(
+            w["tsrc"], w["ttgt"], w["tsa"], w["tal"], cfg, 3, "cpu"), cfg)
+    elif which == "localdp":
+        eng = LocalDPEngine(w["tidx"], w["tsa"].sa, cfg, n_devices=2)
+    else:
+        eng = ReplicatedEngine(w["tidx"], cfg, scan_cols=True,
+                               sa_host=w["tsa"].sa)
+    assert not getattr(eng, "scan_rows_on_device", False)
+    calls = []
+    real = eng.scan_expanded
+    eng.scan_expanded = lambda *a, **kw: calls.append(1) or real(*a, **kw)
+    eng.scan_rows = None          # any call would raise
+    got, s, grew = _lookup1(w, eng, w["tsearch"], cfg)
+    want, s_want, _ = _lookup1(w, _engine(w), w["tsearch"], cfg)
+    assert calls and grew[0] > 0 and grew[1] == 0
+    _same_lookup(got, want, s, s_want)

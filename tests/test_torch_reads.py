@@ -1,7 +1,8 @@
 """The words the kernels' bounds count (``cgx_tpu_torch.tools.reads``): for the
 fused gap check, A5's body, A6's, A7's and A8's bodies, A10's probes, the
 refinement (A1, B2r) and the verification (A3, B3p, C1p), the words each
-counter marks as needed decide the plain version's output. Redrawing every
+counter marks as needed decide the plain version's output (A2m's bound:
+A2's words and one key a row kept). Redrawing every
 other word of the index arrays (from the same array, so that the words stay
 plausible) changes no output, so the bounds, which count only the needed
 words, count all that the functions need; and the needed words are fewer
@@ -29,6 +30,7 @@ from cgx_tpu_torch.preproc import suffix_array as tsab  # noqa: E402
 from cgx_tpu_torch.search import lookup, passes  # noqa: E402
 from cgx_tpu_torch.tools import gather_probe as gp  # noqa: E402
 from cgx_tpu_torch.tools import reads  # noqa: E402
+from cgx_tpu_torch.utils.views import take  # noqa: E402
 
 
 @pytest.fixture(scope="module", params=["real", "hard"])
@@ -140,6 +142,39 @@ def test_two_need_decides_the_word(index):
             assert not need["refstr"][1][:, 1:].any()
         else:
             assert need["refstr"][1][:, 1:].any() and ok > 0
+
+
+@pytest.mark.parametrize("fwd", [True, False])
+def test_scan_rows_reads_count_a2m_keys(index, fwd):
+    """A2m's bound counts A2's words (``scan_reads``, unchanged) and one
+    key for each move it keeps: as many as its write pass writes
+    (``scan_rows_plain``) over the same items, which move the words of
+    their corpus windows so that moves match."""
+    rng = np.random.default_rng(21 if fwd else 22)
+    arrays = list(_arrays(index).values())
+    ref = index.refstr_padded.numpy()
+    D, reflen, mgs = 200, int(index.reflen), 1
+    counts = rng.integers(1, 12, D)
+    offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    n = int(offs[-1])
+    lo = rng.integers(0, reflen - 12, D)
+    sl, el = rng.integers(1, 4, D), rng.integers(1, 4, D)
+    g = index.sa.numpy()[lo].astype(np.int64)
+    p0 = g + sl + mgs if fwd else g - 1 - mgs
+    toks = [ref[np.clip(p0 + k if fwd else p0 - k, 0, len(ref) - 1)]
+            for k in range(3)]
+    pattab = torch.from_numpy(np.stack(
+        [lo, sl, el] + toks + [np.arange(D), 0 * lo], axis=1).astype(np.int32))
+    offs = torch.from_numpy(offs)
+    f, tx = lookup._expand(pattab, offs, n)
+    items = (take(index.sa, f[:, 0] + tx), f[:, 1], f[:, 2], f[:, 3:6])
+    for mrs in (15, 8):
+        key = lookup.device_row_key(D, reflen, mrs, np.empty((0, 3)))
+        kept = lookup.scan_rows_plain(*arrays, index.sa, pattab, offs, n,
+                                      mrs, mgs, fwd, key)
+        got = reads.scan_rows_reads(*arrays, *items, mrs, mgs, fwd)
+        assert got[:4] == reads.scan_reads(*arrays, *items, mrs, mgs, fwd)
+        assert got[4] == kept.shape[0] > 0
 
 
 @pytest.mark.parametrize("mrs,msym", [(15, 5), (8, 3), (2, 2)])
@@ -470,6 +505,7 @@ CSRC = pathlib.Path(__file__).parent.parent / "cgx_tpu_torch" / "csrc"
     ("sharded.cu", "kShardRowsLimit", shx.B2R_SHARED_BYTES),
     ("sharded.cu", "kTreeLevels", shx.TREE_LEVELS),
     ("sharded.cu", "kTreeNodes", shx.TREE_NODES),
+    ("sort.cu", "kTile", lookup.SORT_TILE),
     ("probe.cu", "kWin", gp.W),
     ("probe.cu", "kWarps", gp.WARPS),
     ("probe.cu", "kInFlight", gp.IN_FLIGHT),

@@ -31,8 +31,7 @@ from test_torch_launch_device import FakeCards  # noqa: E402
 CHILDREN = {
     "refsin": {"source", "target", "align", "lex"},
     "precompute": {"top", "scan", "rows", "sort", "engine.gap_check"},
-    "lookup1": {"route", "scan_rows", "sort", "engine.scan_expanded",
-                "engine.sa_values"},
+    "lookup1": {"route", "scan_rows", "sort", "engine.scan_rows"},
     "lookup2": {"items", "keys", "match", "sort", "engine.two_rows"},
     "extractkernel": {"occurrences", "rules", "engine.contig",
                       "engine.onegap", "engine.twogap"},
@@ -294,6 +293,7 @@ def test_lookups_count_their_rows_and_a_cpu_run_no_copy(toy_run):
     assert grew["lookup2.rows"] == res.counters["twogap_sa"] > 0
     assert grew["lookup2.items"] >= grew["lookup2.rows"]
     assert grew["lookup2.device_items"] == grew["lookup2.items"]
+    assert grew["lookup1.device_items"] == grew["lookup1.items"] > 0
     assert [grew.get(k, 0) for k in ("syncs", "h2d_bytes", "d2h_bytes")] \
         == [0, 0, 0]
     assert dict(kb.ITEMS) == items0            # no launch on the CPU
@@ -339,6 +339,44 @@ def test_extraction_counts_the_items_of_each_engine_call(
     d = res.timing.as_dict()
     for k, c in EXTRACT_ITEMS.items():
         assert d["count:" + c] == handed[k]
+
+
+# lookup1's children on each route: the replicated engine turns the scans'
+# hits into rows on the device (A2m), every other engine (here
+# ``scan_cols``) on the host (A2, then the SA words); ``pcs_rows`` and
+# ``engine.pcs_expanded`` (A3) are the same on both
+LOOKUP1_ROUTES = {
+    "device": ({}, CHILDREN["lookup1"]),
+    "host": ({"scan_cols": True},
+             {"route", "scan_rows", "sort", "engine.scan_expanded",
+              "engine.sa_values"}),
+}
+
+
+@pytest.mark.parametrize("route", sorted(LOOKUP1_ROUTES))
+def test_lookup1_children_on_each_route(toy_fixture, route):
+    """lookup1's child phases name its engine calls: ``engine.scan_rows``
+    on the device route, ``engine.scan_expanded`` and ``engine.sa_values``
+    on the host route; ``lookup1.items`` counts A2's items on both, and
+    ``lookup1.device_items`` all of them on the device route, none on the
+    host route."""
+    kw, kids = LOOKUP1_ROUTES[route]
+    d = pathlib.Path(toy_fixture)
+    args = [cp.read_lines(str(d / n)) for n in ("corpus.f", "corpus.e",
+                                                "corpus.a")]
+    counts0 = dict(kb.COUNTS)
+    res = tpl.run_pipeline(*args, cp.read_tokens(str(d / "lex.txt")),
+                           cp.read_lines(str(d / "query.f")),
+                           ExtractorConfig(), device="cpu", **kw)
+    got = {k.split("/", 1)[1] for k in res.timing.children
+           if k.startswith("lookup1/") and k.count("/") == 1}
+    assert got - {"pcs_rows", "engine.pcs_expanded"} == kids
+    grew = {k: v - counts0.get(k, 0) for k, v in kb.COUNTS.items()}
+    assert grew["lookup1.items"] > 0
+    assert grew.get("lookup1.device_items", 0) == (
+        grew["lookup1.items"] if route == "device" else 0)
+    d = res.timing.as_dict()
+    assert d["count:lookup1.items"] == grew["lookup1.items"]
 
 
 @pytest.mark.parametrize("route", sorted(LOOKUP2_ROUTES))
